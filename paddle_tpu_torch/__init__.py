@@ -1,0 +1,17 @@
+"""paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
+
+A second package beside the JAX reference. It imports torch and never jax
+or paddle_tpu. Entry points run on the CUDA device unless the caller
+passes ``device="cpu"``. Every Pallas kernel of the reference on the
+ported path is a CUDA kernel written by hand for Hopper (``csrc/``),
+built with nvcc at first use, with its plain PyTorch version beside it.
+
+This slice serves GPT: prefill and KV-cached greedy decode
+(``paddle_tpu_torch.text.models.gpt``).
+"""
+from .core.device import CPUPlace, CUDAPlace
+from .core.random import make_generator
+from .framework.io_utils import load, load_numpy_state_dict, save
+
+__all__ = ["CPUPlace", "CUDAPlace", "make_generator", "load",
+           "load_numpy_state_dict", "save"]

@@ -1,0 +1,23 @@
+"""layer_norm (port of paddle_tpu/nn/functional/norm.py).
+
+Same arithmetic as the reference: mean and population variance over the
+normalized axes, computed in x's dtype, then weight and bias."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["layer_norm"]
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    axes = tuple(range(x.dim() - len(tuple(normalized_shape)), x.dim()))
+    mean = x.mean(dim=axes, keepdim=True)
+    var = x.var(dim=axes, correction=0, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
