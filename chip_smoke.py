@@ -3,24 +3,34 @@
 
     python3 chip_smoke.py [--seed N]
 
-Phases, each printing one JSON line:
+Phases, each printing JSON lines:
 
 1. build: compile every CUDA source of the port with nvcc (one process per
    source, all at once) and report the time, the libraries and ptxas's
-   register/shared-memory lines.
+   register, shared-memory and spill lines.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   (flash attention B1: causal and not, head dim 64 and 128, bf16 and f32)
-   and time kernel, plain version and a library yardstick with CUDA events.
-3. serve: GPT-medium at full width (vocab 32000, hidden 1024, 24 layers,
+   and time kernel, plain version and a library yardstick with CUDA
+   events: flash attention B1 (causal and not, head dim 64 and 128, bf16
+   and f32), then its backward B2 (dK, dV) and B3 (dQ) at the training
+   shape (4 x 1024, 16 heads of 64, bf16, causal) and five more.
+3. reference: a small GPT on the card is held against the same model on
+   the host (whose math path the host tests hold against paddle_tpu):
+   greedy decode, and 3 AdamW training steps in f32.
+4. serve: GPT-medium at full width (vocab 32000, hidden 1024, 24 layers,
    16 heads, random weights from --seed) serves 4 x 512-token prompts and
    64 greedy KV-cached decode steps in bf16 through the port's entry point,
    with the launch counts reset just before and read just after. The
    kernel path is then compared with the math path (use_flash_attention
    off) in bf16 and, at full width, in f32, where the greedy tokens must
-   be identical. Before it, a small GPT on the card is held against the
-   same model on the host (whose math path the host tests hold against
-   paddle_tpu). The bf16 model is then profiled (torch.profiler) over one
+   be identical. The bf16 model is then profiled (torch.profiler) over one
    prefill and 16 decode steps: device time by kernel and busy share.
+5. train: GPT-medium at full width in bf16 with AdamW(multi_precision)
+   trains on bench.py's permutation stream, batch 4 x 1024, through
+   ``jit.to_static``: 4 warm-up steps, then 16 timed steps with the launch
+   counts reset just before and read just after (24 launches each of B1,
+   B2 and B3 per step). Then one bf16 step is profiled, and one f32 step
+   at full width holds the kernel path's loss and grads against the math
+   path's.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -35,11 +45,16 @@ import subprocess
 import sys
 import time
 
+import numpy as np
+
 # H100 SXM dense peaks (NVIDIA data sheet) for the roofline bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 512, 64
+# bench.py's GPT training lane: batch 4 x 1024, AdamW lr 1e-4, a 512-token
+# permutation stream, 4 warm-up steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 1024, 4, 16
 # max |O - plain O| and |LSE - plain LSE| allowed, kernel vs plain on the
 # card. bf16: the two round the same f32 value to bf16 and may land one ulp
 # apart (2^-7 relative; |O| < 2 for these inputs); f32: sums in another
@@ -51,6 +66,23 @@ KERNEL_TOL = {"bfloat16": (2e-2, 1e-3), "float32": (2e-5, 1e-4)}
 # into logits of magnitude ~3, where a bf16 ulp is 2^-6; f32 differs only
 # by summation order.
 LOGIT_TOL = {"bfloat16": 0.25, "float32": 1e-3}
+# B2/B3 against the plain backward, elementwise |kernel - plain| <= atol +
+# rtol * |plain|, as (rtol, atol). bf16: the two round the same f32 sums to
+# bf16 and may land one ulp apart (2^-7 relative); f32: sums in another
+# order over up to 1024 terms, with cancellation in dS. atol covers values
+# near zero.
+BWD_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (1e-4, 1e-4)}
+BWD_TOL_REASON = {
+    "bfloat16": "one bf16 ulp (2^-7 relative): both round the same f32 "
+                "sums to bf16",
+    "float32": "f32 sums in another order over up to 1024 terms, with "
+               "cancellation in dS"}
+# the f32 training step at full width, kernel path against math path:
+# loss relative gap, and each parameter's grad relative L2 gap (summation
+# order only, carried through 24 layers)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-4, 1e-3
+# a small GPT's 3 f32 AdamW steps, card (kernels) against host (math path)
+SMALL_LOSS_TOL, SMALL_GRAD_RTOL = 1e-4, 1e-4
 
 
 def emit(obj):
@@ -77,6 +109,22 @@ def flash_bound(b, s, h, d, dtype_name, causal):
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = 4 * b * s * h * d * elt + b * h * s * 4
     flops = 4 * b * h * s * s * d * (0.5 if causal else 1.0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def flash_bwd_bound(b, s, h, d, dtype_name, causal, kernel):
+    """Least time (ms) for B2's ("dkv") or B3's ("dq") work and what bounds
+    it: q, k, v, dO read once, LSE and D read once, the outputs written
+    once; B2 does 8*B*H*S^2*D flops and B3 6*B*H*S^2*D, halved when
+    causal."""
+    elt = 2 if dtype_name == "bfloat16" else 4
+    n = b * s * h * d
+    outputs, coef = (2, 8) if kernel == "dkv" else (1, 6)
+    nbytes = (4 + outputs) * n * elt + 2 * b * h * s * 4
+    flops = coef * b * h * s * s * d * (0.5 if causal else 1.0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
@@ -140,6 +188,95 @@ def phase_kernels(torch, seed):
         emit({"phase": "kernels", "kernel": fa.KERNEL_NAME, **row})
         assert err_o <= tol_o and err_l <= tol_l, row
         rows.append(row)
+    return rows
+
+
+def sdpa_bwd(torch, q, k, v, do, causal, scale):
+    """The library yardstick for the backward: PyTorch's own fused
+    attention (scaled_dot_product_attention), the gradient of a retained
+    graph for dq, dk and dv together. Returns its time (ms) and its grads
+    (B, S, H, D). Run here only; the port never calls it."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=scale)
+    g = do.transpose(1, 2)
+    grads = torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True)
+    ms = cuda_time_ms(torch, lambda: torch.autograd.grad(
+        out, (qt, kt, vt), g, retain_graph=True))
+    return ms, [t.transpose(1, 2) for t in grads]
+
+
+def phase_kernels_bwd(torch, seed):
+    """B2 and B3 against the plain backward on the card, each timed alone
+    (its launcher, on a precomputed D), beside the plain backward and the
+    library's backward (both compute dq, dk and dv together)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+    cases = [(4, 1024, 16, 64, torch.bfloat16, True),    # the training shape
+             (4, 512, 16, 64, torch.bfloat16, True),
+             (4, 512, 16, 64, torch.bfloat16, False),
+             (2, 1024, 16, 128, torch.bfloat16, True),
+             (4, 512, 16, 64, torch.float32, True),
+             (2, 512, 16, 128, torch.float32, False)]
+    rows = {"dkv": [], "dq": []}
+    for b, s, h, d, dtype, causal in cases:
+        dname = str(dtype).split(".")[-1]
+        q, k, v = qkv_views(torch, b, s, h, d, dtype, gen)
+        do = torch.randn((b, s, h, d), generator=gen, device="cuda",
+                         dtype=torch.float32).to(dtype)
+        scale = 1.0 / d ** 0.5
+        out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
+        torch.cuda.synchronize()
+        want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                causal, scale)
+        library_ms, lib = sdpa_bwd(torch, q, k, v, do, causal, scale)
+        rtol, atol = BWD_TOL[dname]
+        err, share_of_tol, info = {}, {}, {}
+        for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
+            assert torch.isfinite(g.float()).all(), name
+            diff = (g.float() - w.float()).abs()
+            err[name] = diff.max().item()
+            share_of_tol[name] = (diff / (atol + rtol * w.float().abs())
+                                  ).max().item()
+            # the kernel may agree with the plain version to the bit; the
+            # size of the values and the gap to the library's independent
+            # backward show the comparison is not empty
+            info[name] = {"max_abs_plain": w.float().abs().max().item(),
+                          "max_abs_gap_vs_library":
+                              (g.float() - x.float()).abs().max().item()}
+        del got, want, lib
+        delta = fa.bwd_delta(out, do)
+        ms = {"dkv": cuda_time_ms(torch, lambda: fa.launch_dkv(
+                  q, k, v, do, lse, delta, causal, scale), reps=20),
+              "dq": cuda_time_ms(torch, lambda: fa.launch_dq(
+                  q, k, v, do, lse, delta, causal, scale), reps=20)}
+        plain_ms = cuda_time_ms(
+            torch, lambda: fa.flash_attention_bwd_reference(
+                q, k, v, out, lse, do, causal, scale), reps=5, warmup=1)
+        for kernel, name, outs in (("dkv", fa.DKV_KERNEL, ("dk", "dv")),
+                                   ("dq", fa.DQ_KERNEL, ("dq",))):
+            bound_ms, bound_by = flash_bwd_bound(b, s, h, d, dname, causal,
+                                                 kernel)
+            row = {"shape": [b, s, h, d], "dtype": dname, "causal": causal,
+                   "max_abs_err": max(err[o] for o in outs),
+                   "max_abs_err_by_output": {o: err[o] for o in outs},
+                   "sanity_by_output": {o: info[o] for o in outs},
+                   "rtol": rtol, "atol": atol,
+                   "tol_reason": BWD_TOL_REASON[dname],
+                   "worst_share_of_tol": max(share_of_tol[o] for o in outs),
+                   "ms": ms[kernel], "plain_ms": plain_ms,
+                   "plain_scope": "dq, dk and dv together",
+                   "library_ms": library_ms,
+                   "library_scope": "SDPA backward, dq, dk and dv together",
+                   "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+                   "share_of_bound": bound_ms / ms[kernel]}
+            emit({"phase": "kernels", "kernel": name, **row})
+            rows[kernel].append(row)
+        assert max(share_of_tol.values()) <= 1.0, (dname, causal, err)
+        del out, lse, delta, q, k, v, do
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -279,24 +416,218 @@ def profile_windows(torch, model, ids, decode_steps=16):
             torch.cuda.synchronize()
             windows["decode"] = (prof, time.perf_counter() - t0)
     for name, (prof, wall_s) in windows.items():
-        kernels = []
-        for e in prof.key_averages():
-            if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-                continue
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = getattr(e, "self_cuda_time_total", 0)
-            if us > 0:
-                kernels.append((us, e.count, e.key))
-        kernels.sort(reverse=True)
-        device_us = sum(k[0] for k in kernels)
-        emit({"phase": "profile", "window": name,
-              "steps": 1 if name == "prefill" else decode_steps,
-              "wall_ms": wall_s * 1e3, "device_ms": device_us / 1e3,
-              "busy_share": device_us / 1e3 / (wall_s * 1e3),
-              "kernel_launches": sum(k[1] for k in kernels),
-              "top": [{"kernel": k[2][:90], "ms": k[0] / 1e3,
-                       "count": k[1]} for k in kernels[:12]]})
+        emit_profile(prof, wall_s, name,
+                     1 if name == "prefill" else decode_steps)
+
+
+def emit_profile(prof, wall_s, window, steps, top=12):
+    """Device time by kernel of a profiled window, and the busy share: the
+    summed kernel time over the host-clock wall time of the window."""
+    kernels = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append((us, e.count, e.key))
+    kernels.sort(reverse=True)
+    device_us = sum(k[0] for k in kernels)
+    emit({"phase": "profile", "window": window, "steps": steps,
+          "wall_ms": wall_s * 1e3, "device_ms": device_us / 1e3,
+          "busy_share": device_us / 1e3 / (wall_s * 1e3),
+          "kernel_launches": sum(k[1] for k in kernels),
+          "top": [{"kernel": k[2][:90], "ms": k[0] / 1e3,
+                   "count": k[1]} for k in kernels[:top]]})
+
+
+def bench_stream(seed, steps, batch, seq, sub=512):
+    """bench.py's learnable stream: a fixed random permutation over a
+    512-token sub-vocabulary drives next-token generation, x[t+1] =
+    perm[x[t]]. Returns int32 inputs and int64 labels, (steps, batch,
+    seq) each."""
+    rng = np.random.RandomState(seed)
+    perm = rng.permutation(sub)
+    ids = np.empty((steps, batch, seq + 1), np.int64)
+    ids[:, :, 0] = rng.randint(0, sub, (steps, batch))
+    for t in range(seq):
+        ids[:, :, t + 1] = perm[ids[:, :, t]]
+    return ids[:, :, :-1].astype("int32"), ids[:, :, 1:]
+
+
+def train_step_fn(model, opt):
+    """The training step as bench.py writes it, through the port."""
+    import paddle_tpu_torch as pt
+
+    @pt.jit.to_static
+    def step(x, y):
+        loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.float()
+    return step
+
+
+def loss_and_grads(model, x, y):
+    """Forward and backward of the training loss: (loss, {name: grad})."""
+    loss = model(x, labels=y)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def grad_gaps(torch, grads, ref):
+    """Each parameter's relative L2 gap, worst first (name, gap)."""
+    gaps = [(n, ((g.float().cpu() - ref[n].float().cpu()).norm()
+                 / ref[n].float().cpu().norm().clamp_min(1e-30)).item())
+            for n, g in grads.items()]
+    return sorted(gaps, key=lambda t: -t[1])
+
+
+def phase_reference_train(torch, seed):
+    """A small f32 GPT takes 3 AdamW steps on the card (kernel path, B1/B2/
+    B3 launched) and on the host (math path, which tests/test_torch_training
+    holds against paddle_tpu): losses within 1e-4, first-step grads within
+    1e-4 relative L2 (summation order only)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position_embeddings=512, dropout=0.0)
+    xs, ys = bench_stream(seed + 3, 3, 2, 256, sub=64)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = GPTForCausalLM(cfg, device=dev,
+                               generator=torch.Generator().manual_seed(seed))
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+        launch_counts.clear()
+        losses, first_grads = [], None
+        for x, y in zip(xs, ys):
+            x = torch.from_numpy(x).to(dev)
+            y = torch.from_numpy(y).to(dev)
+            if first_grads is None:
+                loss, first_grads = loss_and_grads(model, x, y)
+            loss = model(x, labels=y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        runs[dev] = (losses, first_grads,
+                     {n: launch_counts[n] for n in KERNEL_NAMES})
+    gaps = grad_gaps(torch, runs["cuda"][1], runs["cpu"][1])
+    loss_gap = max(abs(a - b) for a, b in zip(runs["cuda"][0],
+                                              runs["cpu"][0]))
+    # 4 training forwards (one for the grads, then 3 steps) of 2 layers
+    want = {n: 0 for n in KERNEL_NAMES}
+    emit({"phase": "reference", "config": "GPT v256 h128 L2 a2 d64 f32",
+          "train_batch": [2, 256], "adamw_steps": 3,
+          "losses_card": runs["cuda"][0], "losses_host": runs["cpu"][0],
+          "loss_max_abs_gap": loss_gap, "loss_tol": SMALL_LOSS_TOL,
+          "first_step_grad_rel_l2_worst": gaps[0],
+          "grad_rel_l2_tol": SMALL_GRAD_RTOL,
+          "card_launches": runs["cuda"][2]})
+    assert runs["cpu"][2] == want
+    assert all(c == 4 * cfg.num_layers for c in runs["cuda"][2].values())
+    assert loss_gap <= SMALL_LOSS_TOL and gaps[0][1] <= SMALL_GRAD_RTOL
+
+
+def phase_train(torch, seed):
+    """GPT-medium at full width trains in bf16 through the port's entry
+    points (bench.py's step); then a profiled step and the f32 check."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    from torch.profiler import ProfilerActivity, profile
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    total = TRAIN_WARMUP + TRAIN_STEPS + 1
+    xs, ys = bench_stream(seed, total, TRAIN_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    step = train_step_fn(model, opt)
+    losses = [step(xs[i], ys[i]) for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.clear()
+    per_step = []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        before = [launch_counts[n] for n in KERNEL_NAMES]
+        losses.append(step(xs[i], ys[i]))
+        per_step.append([launch_counts[n] - c
+                         for n, c in zip(KERNEL_NAMES, before)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {n: launch_counts[n] for n in KERNEL_NAMES}
+    peak = torch.cuda.max_memory_allocated()
+    losses = [loss.item() for loss in losses]
+    row = {"phase": "train", "dtype": "bfloat16",
+           "config": "GPT-medium v32000 h1024 L24 a16 d64",
+           "optimizer": "AdamW lr 1e-4 multi_precision (f32 masters)",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "warmup_steps": TRAIN_WARMUP,
+           "timed_steps": TRAIN_STEPS,
+           "step_ms": seconds / TRAIN_STEPS * 1e3,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / seconds,
+           "peak_mem_bytes": peak, "losses": losses,
+           "launches": launches,
+           "launches_per_step": dict(zip(KERNEL_NAMES, per_step[0]))}
+    emit(row)
+    assert all(c == [cfg.num_layers] * len(KERNEL_NAMES) for c in per_step), \
+        per_step
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        step(xs[-1], ys[-1])
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    emit_profile(prof, wall_s, "train_step", 1, top=16)
+    del model, opt, step, prof
+    torch.cuda.empty_cache()
+
+    # f32 at full width: one step's loss and grads, kernel path against the
+    # math path (use_flash_attention off), from the same weights and batch
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    launch_counts.clear()
+    k_loss, k_grads = loss_and_grads(model, xs[0], ys[0])
+    f32_launches = {n: launch_counts[n] for n in KERNEL_NAMES}
+    set_flash(model, False)
+    m_loss, m_grads = loss_and_grads(model, xs[0], ys[0])
+    gaps = grad_gaps(torch, k_grads, m_grads)
+    check = {"phase": "train_check", "dtype": "float32",
+             "config": "GPT-medium v32000 h1024 L24 a16 d64 (full depth)",
+             "batch": [TRAIN_BATCH, TRAIN_SEQ],
+             "loss_kernel_path": k_loss, "loss_math_path": m_loss,
+             "loss_rel_gap": abs(k_loss - m_loss) / abs(m_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL,
+             "grad_rel_l2_worst": gaps[:3],
+             "grad_rel_l2_median": gaps[len(gaps) // 2][1],
+             "grad_rel_l2_tol": TRAIN_GRAD_RTOL,
+             "kernel_path_launches": f32_launches,
+             "math_path_launches": {n: launch_counts[n] - f32_launches[n]
+                                    for n in KERNEL_NAMES}}
+    emit(check)
+    assert all(c == cfg.num_layers for c in f32_launches.values())
+    assert all(c == 0 for c in check["math_path_launches"].values())
+    assert check["loss_rel_gap"] <= TRAIN_LOSS_RTOL, check
+    assert gaps[0][1] <= TRAIN_GRAD_RTOL, check
+    del model, k_grads, m_grads
+    torch.cuda.empty_cache()
+    return row
 
 
 def main():
@@ -324,22 +655,45 @@ def main():
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
           "nvidia_smi": smi})
 
+    t0 = time.perf_counter()
     phase_build()
     rows = phase_kernels(torch, args.seed)
+    bwd_rows = phase_kernels_bwd(torch, args.seed)
     phase_reference(torch, args.seed)
+    phase_reference_train(torch, args.seed)
     serve = phase_serve(torch, args.seed)
+    train = phase_train(torch, args.seed)
 
-    main_row = rows[0]              # the prefill's shape: 4x512x16x64 bf16
-    emit({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    fwd = rows[0]              # the prefill's shape: 4x512x16x64 bf16
+    fwd_train = rows[2]        # the training shape: 4x1024x16x64 bf16
+    entries = [{
+        "name": fa.KERNEL_NAME, "route": "cuda",
         "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
         "replaces": "paddle_tpu/ops/pallas/flash_attention.py:114",
         "launches": serve["bfloat16"]["flash_launches"],
-        "max_abs_err": main_row["max_abs_err_o"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_us"] / 1e3,
-        "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]})
+        "launches_train": train["launches"][fa.KERNEL_NAME],
+        "max_abs_err": fwd["max_abs_err_o"],
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_us"] / 1e3, "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"], "shape": fwd["shape"],
+        "train_shape_ms": fwd_train["ms"]}]
+    for kernel, name, line in (("dkv", fa.DKV_KERNEL, 200),
+                               ("dq", fa.DQ_KERNEL, 247)):
+        row = bwd_rows[kernel][0]    # the training shape
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
+            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
+            "launches": train["launches"][name],
+            "launches_per_step": train["launches_per_step"][name],
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_us"] / 1e3,
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "plain_scope": row["plain_scope"],
+            "library_scope": row["library_scope"]})
+    emit({"kernels": entries})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,18 @@ passes ``device="cpu"``. Every Pallas kernel of the reference on the
 ported path is a CUDA kernel written by hand for Hopper (``csrc/``),
 built with nvcc at first use, with its plain PyTorch version beside it.
 
-This slice serves GPT: prefill and KV-cached greedy decode
-(``paddle_tpu_torch.text.models.gpt``).
+GPT serves (prefill and KV-cached greedy decode) and trains
+(``GPTForCausalLM(ids, labels=...)``, ``loss.backward()``, an ``optimizer``
+step) through ``paddle_tpu_torch.text.models.gpt``. Tensors are plain
+``torch.Tensor``s: there is no paddle Tensor facade, ``loss.backward()``
+is torch's, and ``no_grad`` is torch's.
 """
+from torch import no_grad
+
+from . import jit, optimizer
 from .core.device import CPUPlace, CUDAPlace
 from .core.random import make_generator
 from .framework.io_utils import load, load_numpy_state_dict, save
 
 __all__ = ["CPUPlace", "CUDAPlace", "make_generator", "load",
-           "load_numpy_state_dict", "save"]
+           "load_numpy_state_dict", "save", "jit", "optimizer", "no_grad"]

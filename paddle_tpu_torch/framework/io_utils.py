@@ -15,6 +15,8 @@ import pickle
 import numpy as np
 import torch
 
+from ..ops._param_guard import clear_degenerate_cache
+
 __all__ = ["save", "load", "load_numpy_state_dict", "tensor_from_numpy"]
 
 _PROTO = 4
@@ -75,7 +77,9 @@ def load_numpy_state_dict(module, arrays):
     """Copy ``arrays`` ({name: ndarray or tensor}) into ``module``'s
     parameters and buffers by name: no renaming, no transposes. Raises on
     a missing key, an extra key or a shape mismatch. Values are cast to
-    each parameter's dtype and device."""
+    each parameter's dtype and device. Each parameter forgets the
+    degenerate-weight guard's cached verdict (ops/_param_guard.py), as the
+    reference's set_value does."""
     own = module.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
@@ -91,4 +95,8 @@ def load_numpy_state_dict(module, arrays):
                              f"match the module's {tuple(dst.shape)}")
         with torch.no_grad():
             dst.copy_(src)
+    # state_dict() holds detached aliases; the cache lives on the
+    # parameters themselves
+    for param in module.parameters():
+        clear_degenerate_cache(param)
     return module

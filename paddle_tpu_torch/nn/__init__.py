@@ -1,4 +1,4 @@
-"""paddle.nn: the layers the serving slice uses."""
+"""paddle.nn: the layers the GPT serving and training slices use."""
 from . import functional, initializer
 from .layer import Dropout, Embedding, Layer, LayerList, LayerNorm, Linear
 

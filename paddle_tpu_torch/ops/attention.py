@@ -2,12 +2,18 @@
 
 Port of paddle_tpu/ops/attention.py. Two paths behind one entry point:
 the math path (logits, offset-aware causal mask, f32 softmax, optional
-mask and dropout) and flash attention (kernel B1, ops/cuda/), which the
-selection rule takes when the query lies on CUDA, there is no mask and no
-dropout, the sequence is at least 256 long and the kernel's shape contract
-holds. The reference's measured fusion policy is not ported: on CUDA the
-kernel is taken whenever the rule holds, as the reference's checked-in
-table keeps flash for every benched signature.
+mask and dropout) and flash attention (ops/cuda/), which the selection
+rule takes when the query lies on CUDA, there is no mask and no dropout,
+the sequence is at least 256 long and the kernel's shape contract holds.
+The reference's measured fusion policy is not ported: on CUDA the kernel
+is taken whenever the rule holds, as the reference's checked-in table
+keeps flash for every benched signature.
+
+When gradients are wanted, flash attention goes through
+``_FlashAttentionFn``, the counterpart of the reference's
+``_flash_attention_diff``: its forward runs B1 and saves (q, k, v, out,
+lse), its backward runs B2 and B3. Under no_grad/inference_mode the
+forward is called directly and saves nothing.
 """
 from __future__ import annotations
 
@@ -15,11 +21,36 @@ import math
 
 import torch
 
-from .cuda.flash_attention import flash_attention, supports
+from .cuda.flash_attention import (flash_attention, flash_attention_bwd,
+                                   flash_attention_fwd, supports)
 
 __all__ = ["scaled_dot_product_attention", "flash_selected"]
 
 NEG_BIG = -1e30
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Flash attention forward (B1) and backward (B2, B3); the FlashAttention-2
+    recompute scheme, so neither direction forms the S x S matrix in device
+    memory."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if dout.stride(-1) != 1:
+            # an expanded cotangent (e.g. of a sum) has stride 0 on D; the
+            # kernels read any batch/sequence/head strides but a unit D
+            dout = dout.contiguous()
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                         ctx.scale)
+        return dq, dk, dv, None, None
 
 
 def _math_attention(q, k, v, mask, scale, is_causal, dropout_p, generator):
@@ -68,7 +99,7 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  generator=None):
     """query/key/value: (B, S, H, D). ``use_kernel`` (the reference's
     ``use_pallas``): None selects by the rule above, False forces the math
-    path, True forces flash attention (which runs its plain version on a
+    path, True forces flash attention (which runs its plain versions on a
     CPU tensor)."""
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
@@ -81,6 +112,10 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "use_kernel=True is incompatible with attn_mask/dropout_p: the "
             "flash kernel computes plain (optionally causal) attention")
     if use_kernel:
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in (query, key, value)):
+            return _FlashAttentionFn.apply(query, key, value, is_causal,
+                                           scale)
         return flash_attention(query, key, value, causal=is_causal,
                                scale=scale)
     return _math_attention(query, key, value, attn_mask, scale, is_causal,

@@ -22,7 +22,7 @@ from pathlib import Path
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
-SOURCES = ("flash_attn_fwd",)
+SOURCES = ("flash_attn_fwd", "flash_attn_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -52,7 +52,8 @@ def library_path(name):
 def build(names=SOURCES):
     """Compile every stale source of ``names`` in parallel. Returns
     {name: {"path"}} plus, for each source compiled now, its "seconds"
-    and ptxas's register/shared-memory lines. Raises with nvcc's output
+    and ptxas's register, shared-memory and spill lines. Raises with
+    nvcc's output
     if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -82,7 +83,7 @@ def build(names=SOURCES):
         os.replace(tmp, out)
         info[name]["seconds"] = time.perf_counter() - t0
         info[name]["ptxas"] = [ln.strip() for ln in log.splitlines()
-                               if "ptxas info" in ln]
+                               if "ptxas info" in ln or "spill" in ln]
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return info

@@ -1,10 +1,13 @@
-"""Flash attention forward (kernel B1) on CUDA, and its plain version.
+"""Flash attention on CUDA: forward (kernel B1), backward (kernels B2 and
+B3), and their plain versions.
 
-Port of paddle_tpu/ops/pallas/flash_attention.py, forward only. The kernel
-is ``csrc/flash_attn_fwd.cu`` (its header says what bounds it on the H100
-and how its design answers that); this module builds it at first use,
-checks what it is given, allocates the outputs and launches it on the
-current stream.
+Port of paddle_tpu/ops/pallas/flash_attention.py. The kernels are
+``csrc/flash_attn_fwd.cu`` (B1) and ``csrc/flash_attn_bwd.cu`` (B2: dK and
+dV, B3: dQ); their headers say what bounds them on the H100 and how their
+designs answer that. This module builds them at first use, checks what
+they are given, allocates the outputs and launches them on the current
+stream. On a CPU tensor each wrapper runs the plain PyTorch version
+instead; on a CUDA tensor it launches or raises.
 
 Layout: inputs (B, S, H, D), paddle's convention, as in the reference.
 The kernel reads the batch, sequence and head strides it is given, so the
@@ -22,9 +25,15 @@ from . import launch_counts
 from ._build import library
 
 __all__ = ["supports", "flash_attention", "flash_attention_fwd",
-           "flash_attention_fwd_reference", "KERNEL_NAME"]
+           "flash_attention_fwd_reference", "flash_attention_bwd",
+           "flash_attention_bwd_reference", "launch_dkv", "launch_dq",
+           "bwd_delta", "KERNEL_NAME", "KERNEL_NAMES"]
 
 KERNEL_NAME = "flash_attn_fwd"
+DKV_KERNEL = "flash_attn_bwd_dkv"
+DQ_KERNEL = "flash_attn_bwd_dq"
+KERNEL_NAMES = (KERNEL_NAME, DKV_KERNEL, DQ_KERNEL)
+BWD_SOURCE = "flash_attn_bwd"
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # the constants of the reference kernel (_attn_fwd_kernel)
@@ -41,25 +50,67 @@ def supports(q_shape, k_shape):
             and d % 64 == 0 and s_q == s_k)
 
 
+def _math_dtype(t):
+    """The plain versions compute in f32, or in f64 for f64 inputs (which
+    only the host takes, for gradcheck)."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _scores(q, k, causal):
+    """q . K^T for (B, H, S, D) operands (q already scaled), masked with the
+    reference's -1e30 where a query precedes its key when causal."""
+    s = q @ k.transpose(-1, -2)
+    if causal:
+        s_q, s_k = s.shape[-2], s.shape[-1]
+        q_pos = torch.arange(s_q, device=q.device)[:, None]
+        k_pos = torch.arange(s_k, device=q.device)[None, :]
+        s = torch.where(q_pos >= k_pos, s, NEG_BIG)
+    return s
+
+
 def flash_attention_fwd_reference(q, k, v, causal=False, scale=1.0):
     """Plain PyTorch version of B1 in f32 math: (out, lse), out (B, S, H, D)
     in q's dtype, lse (B, H, S) f32. The whole score matrix is formed at
     once; the online softmax of the kernel gives the same values."""
-    s_q, s_k = q.shape[1], k.shape[1]
-    qf = q.float().transpose(1, 2) * scale              # (B, H, S, D)
-    kf = k.float().transpose(1, 2)
-    vf = v.float().transpose(1, 2)
-    s = qf @ kf.transpose(-1, -2)
-    if causal:
-        q_pos = torch.arange(s_q, device=q.device)[:, None]
-        k_pos = torch.arange(s_k, device=q.device)[None, :]
-        s = torch.where(q_pos >= k_pos, s, NEG_BIG)
+    dt = _math_dtype(q)
+    qf = q.to(dt).transpose(1, 2) * scale              # (B, H, S, D)
+    kf = k.to(dt).transpose(1, 2)
+    vf = v.to(dt).transpose(1, 2)
+    s = _scores(qf, kf, causal)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     l_safe = p.sum(dim=-1).clamp_min(L_FLOOR)
     out = (p @ vf) / l_safe[..., None]
     lse = m + torch.log(l_safe)
     return out.transpose(1, 2).to(q.dtype).contiguous(), lse
+
+
+def _delta(out, do):
+    """D = rowsum(dO * O) in f32 from the stored O in its own dtype (the
+    reference's line 301), as (B, H, S)."""
+    dt = _math_dtype(out)
+    return (do.to(dt) * out.to(dt)).sum(dim=-1).transpose(1, 2)
+
+
+def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
+                                  scale=1.0):
+    """Plain PyTorch version of B2 and B3 in f32 math: (dq, dk, dv), each
+    (B, S, H, D) contiguous in its input's dtype. The whole score matrix is
+    formed at once and the reference's formulas applied with its
+    constants: P = exp(S - LSE) with S = -1e30 where masked, dS =
+    P * (dO V^T - D), dK against q * scale, dQ scaled once at the end."""
+    dt = _math_dtype(q)
+    qf = q.to(dt).transpose(1, 2) * scale
+    kf = k.to(dt).transpose(1, 2)
+    vf = v.to(dt).transpose(1, 2)
+    dof = do.to(dt).transpose(1, 2)
+    p = torch.exp(_scores(qf, kf, causal) - lse.to(dt)[..., None])
+    dv = p.transpose(-1, -2) @ dof
+    ds = p * (dof @ vf.transpose(-1, -2) - _delta(out, do)[..., None])
+    dk = ds.transpose(-1, -2) @ qf
+    dq = (ds @ kf) * scale
+    return tuple(g.transpose(1, 2).to(t.dtype).contiguous()
+                 for g, t in ((dq, q), (dk, k), (dv, v)))
 
 
 def _check(q, k, v):
@@ -69,7 +120,9 @@ def _check(q, k, v):
             or q.shape[2:] != k.shape[2:]:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and "
                          f"v {tuple(v.shape)} do not form one attention")
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+    host_f64 = q.device.type == "cpu" and q.dtype == torch.float64
+    if not (q.dtype == k.dtype == v.dtype) \
+            or (q.dtype not in DTYPES and not host_f64):
         raise ValueError(f"flash attention takes float32 or bfloat16 inputs "
                          f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if not (q.device == k.device == v.device):
@@ -85,27 +138,65 @@ def _check(q, k, v):
         raise ValueError("batch * heads above 65535 (the grid's y limit)")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the head dim must have unit stride")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the CUDA flash-attention path is forward-only: its backward "
-            "kernels (B2 dK/dV, B3 dQ) come with the training slice; call "
-            "under torch.inference_mode()/no_grad or pass use_kernel=False")
+
+
+def _check_bwd(q, out, lse, do):
+    b, s, h, _ = q.shape
+    if out.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"out {tuple(out.shape)} and dout "
+                         f"{tuple(do.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    if tuple(lse.shape) != (b, h, s) or lse.dtype != _math_dtype(q):
+        raise ValueError(f"lse must be ({b}, {h}, {s}) {_math_dtype(q)}, "
+                         f"got {tuple(lse.shape)} {lse.dtype}")
+    if out.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"out and dout must be {q.dtype}, got "
+                         f"{out.dtype}/{do.dtype}")
+    if not (out.device == lse.device == do.device == q.device):
+        raise ValueError("q, out, lse and dout lie on different devices")
+    if do.stride(-1) != 1:
+        raise ValueError("dout's head dim must have unit stride")
+
+
+def _error_string(lib):
+    fn = lib.pt_cuda_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn
 
 
 @functools.lru_cache(maxsize=None)
 def _entry_points():
-    """(launcher, error-string) functions of the built library, typed:
-    every pointer and the stream as c_void_p, never a truncated int."""
+    """(launcher, error-string) functions of B1's library, typed: every
+    pointer and the stream as c_void_p, never a truncated int."""
     lib = library(KERNEL_NAME)
     fn = lib.pt_flash_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                    + [ctypes.c_float] + [ctypes.c_longlong] * 9
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    err_str = lib.pt_cuda_error_string
-    err_str.argtypes = [ctypes.c_int]
-    err_str.restype = ctypes.c_char_p
-    return fn, err_str
+    return fn, _error_string(lib)
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_entry_points():
+    """(B2 launcher, B3 launcher, error-string) of the backward library."""
+    lib = library(BWD_SOURCE)
+    tail = ([ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_longlong] * 12
+            + [ctypes.c_void_p])
+    dkv = lib.pt_flash_attn_bwd_dkv
+    dkv.argtypes = [ctypes.c_void_p] * 8 + tail
+    dkv.restype = ctypes.c_int
+    dq = lib.pt_flash_attn_bwd_dq
+    dq.argtypes = [ctypes.c_void_p] * 7 + tail
+    dq.restype = ctypes.c_int
+    return dkv, dq, _error_string(lib)
+
+
+def _raise_on(err, name, err_str):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{err_str(err).decode()} ({err})")
 
 
 def _launch(q, k, v, causal, scale):
@@ -119,23 +210,83 @@ def _launch(q, k, v, causal, scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  lse.data_ptr(), b, s, h, d, int(q.dtype == torch.bfloat16),
                  int(bool(causal)), float(scale), *strides, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attn_fwd launch failed: "
-                           f"{err_str(err).decode()} ({err})")
+    _raise_on(err, KERNEL_NAME, err_str)
     launch_counts[KERNEL_NAME] += 1
     return out, lse
+
+
+def _bwd_args(q, k, v, do, lse, delta, causal, scale):
+    if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
+        raise ValueError("the backward kernels take CUDA tensors")
+    b, s, h, d = q.shape
+    strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), delta.data_ptr()),
+            (b, s, h, d, int(q.dtype == torch.bfloat16), int(bool(causal)),
+             float(scale), *strides))
+
+
+def launch_dkv(q, k, v, do, lse, delta, causal, scale):
+    """B2 on checked CUDA inputs: (dk, dv). lse and delta are contiguous
+    (B, H, S) f32 (``bwd_delta`` makes delta)."""
+    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    fn, _, err_str = _bwd_entry_points()
+    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest, stream)
+    _raise_on(err, DKV_KERNEL, err_str)
+    launch_counts[DKV_KERNEL] += 1
+    return dk, dv
+
+
+def launch_dq(q, k, v, do, lse, delta, causal, scale):
+    """B3 on checked CUDA inputs: dq."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _, fn, err_str = _bwd_entry_points()
+    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, scale)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(*ptrs, dq.data_ptr(), *rest, stream)
+    _raise_on(err, DQ_KERNEL, err_str)
+    launch_counts[DQ_KERNEL] += 1
+    return dq
+
+
+def bwd_delta(out, do):
+    """The kernels' D operand: contiguous (B, H, S) f32."""
+    return _delta(out, do).contiguous()
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=1.0):
     """(out, lse): out (B, S, H, D) in q's dtype, lse (B, H, S) f32.
 
-    On a CUDA tensor this launches the kernel (or raises); on a CPU tensor
-    it runs the plain version. Forward only in this slice."""
+    On a CUDA tensor this launches B1 (or raises); on a CPU tensor it runs
+    the plain version."""
     _check(q, k, v)
     if q.device.type == "cuda":
         return _launch(q, k, v, causal, scale)
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal, scale)
+    raise ValueError(f"no flash-attention path for device {q.device}")
+
+
+def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=1.0):
+    """(dq, dk, dv), each contiguous (B, S, H, D) in the input dtype, from
+    the forward's inputs, its out and lse, and the output cotangent do.
+
+    On a CUDA tensor this launches B2 (dk, dv) and then B3 (dq), or
+    raises; on a CPU tensor it runs the plain version."""
+    _check(q, k, v)
+    _check_bwd(q, out, lse, do)
+    if q.device.type == "cuda":
+        lse, delta = lse.contiguous(), bwd_delta(out, do)
+        dk, dv = launch_dkv(q, k, v, do, lse, delta, causal, scale)
+        return launch_dq(q, k, v, do, lse, delta, causal, scale), dk, dv
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                             scale)
     raise ValueError(f"no flash-attention path for device {q.device}")
 
 

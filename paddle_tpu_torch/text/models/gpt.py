@@ -1,4 +1,5 @@
-"""GPT decoder for serving: prefill and KV-cached decode.
+"""GPT decoder: prefill and KV-cached decode for serving, and the
+causal-LM loss for training.
 
 Port of paddle_tpu/text/models/gpt.py. Same modules, parameter names and
 layouts (Linear weights are (in, out)), so a reference state dict loads
@@ -9,10 +10,12 @@ add happens inside the fused_residual_ln that consumes it.
 Construction takes an explicit ``device`` (default cuda:0; pass "cpu" for
 the host), ``dtype`` (default float32; the reference's ``bfloat16()`` cast
 is torch.nn.Module's own) and ``torch.Generator`` (initial weights are
-drawn from it). Forward only in this slice: tensor parallelism, recompute
-and the training loss come with later slices. ``use_flash_attention``,
-stored but unread in the reference, chooses here between the automatic
-selection (True) and the math path (False).
+drawn from it). ``GPTForCausalLM(ids, labels=...)`` returns the f32
+softmax cross-entropy that a training step differentiates; the fused ops
+and flash attention carry their own backwards. Tensor parallelism and
+recompute come with later slices. ``use_flash_attention``, stored but
+unread in the reference, chooses here between the automatic selection
+(True) and the math path (False).
 """
 from __future__ import annotations
 
@@ -21,10 +24,11 @@ import math
 import torch
 
 from ... import nn
+from ...nn import functional as F
 from ...nn import initializer as I
 from ...ops.attention import scaled_dot_product_attention
 from ...ops.fused_ffn import fused_ffn
-from ...ops.fused_residual_ln import fused_residual_ln
+from ...ops.fused_residual_ln import fuse_enabled, fused_residual_ln
 
 __all__ = ["GPTModel", "GPTForCausalLM", "GPTConfig"]
 
@@ -130,8 +134,19 @@ class GPTBlock(nn.Layer):
         """Carried-residual form: the stream entering this block is
         x + pending (pending = the previous block's MLP output, not yet
         added). Returns (stream, pending_mlp_out), plus the grown cache
-        when ``cache`` is given."""
+        when ``cache`` is given. PADDLE_TPU_FUSED_RESIDUAL_LN=0 runs the
+        plain residual + LayerNorm composition instead (pending is then
+        always None)."""
         has_cache = cache is not None
+        if not fuse_enabled():
+            if pending is not None:
+                x = x + pending
+            a = self.attn(self.ln1(x), cache=cache)
+            if has_cache:
+                a, cache = a
+            x = x + self.dropout(a)
+            x = x + self.mlp(self.ln2(x))
+            return (x, None, cache) if has_cache else (x, None)
         if pending is None:
             x1, h1 = x, self.ln1(x)
         else:
@@ -212,9 +227,17 @@ class GPTForCausalLM(nn.Layer):
         # the head is tied to the token embedding
         self.config = self.gpt.config
 
-    def forward(self, input_ids, caches=None):
-        """Logits (b, s, vocab); with ``caches`` returns (logits, caches)."""
+    def forward(self, input_ids, labels=None, caches=None):
+        """Logits (b, s, vocab); with ``caches`` returns (logits, caches);
+        with ``labels`` (b, s) returns the mean f32 softmax cross-entropy
+        of the logits against them."""
         if caches is not None:
             h, caches = self.gpt(input_ids, caches=caches)
             return torch.matmul(h, self.gpt.wte.weight.t()), caches
-        return torch.matmul(self.gpt(input_ids), self.gpt.wte.weight.t())
+        logits = torch.matmul(self.gpt(input_ids), self.gpt.wte.weight.t())
+        if labels is not None:
+            # f32 softmax-CE, as the reference computes it
+            return F.cross_entropy(
+                logits.reshape(-1, self.config.vocab_size).float(),
+                labels.reshape(-1))
+        return logits

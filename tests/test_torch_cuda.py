@@ -1,4 +1,4 @@
-"""The port's CUDA kernels and its GPT serving path on a card.
+"""The port's CUDA kernels and its GPT serving and training paths on a card.
 
 Marked ``cuda``: every test here needs an NVIDIA card and the CUDA
 toolkit, and skips without them. They import torch and the port only, so
@@ -8,7 +8,10 @@ they run where JAX is not installed:
 
 Tolerances, kernel against its plain version on the same inputs: bf16
 outputs may round one ulp apart (2e-2 for values below 2), f32 outputs
-differ by summation order (2e-5); LSE is f32 in both (1e-4).
+differ by summation order (2e-5); LSE is f32 in both (1e-4). The
+backward's grads are held elementwise to |err| <= atol + rtol * |plain|:
+bf16 one ulp (rtol 2^-7), f32 summation order over up to 1024 terms with
+cancellation in dS (rtol 1e-4); atol 1e-4 for values near zero.
 """
 import pytest
 import torch
@@ -20,6 +23,8 @@ from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+BWD_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-4}
+BWD_ATOL = 1e-4
 
 
 @pytest.fixture
@@ -56,11 +61,38 @@ def test_kernel_matches_plain(card, s, causal, d, dtype):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-def test_kernel_is_forward_only(card):
+def test_kernel_takes_grad_requiring_inputs(card):
     q, k, v = _qkv(1, 256, 2, 64, torch.float32, seed=0)
     q.requires_grad_(True)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_fwd(q, k, v)
+    before = launch_counts[fa.KERNEL_NAME]
+    out, _ = fa.flash_attention_fwd(q, k, v)
+    torch.cuda.synchronize()
+    assert launch_counts[fa.KERNEL_NAME] == before + 1
+    assert not out.requires_grad
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("s", [256, 512])
+def test_bwd_kernels_match_plain(card, s, causal, d, dtype):
+    q, k, v = _qkv(2, s, 4, d, dtype, seed=s + d + causal + 7)
+    g = torch.Generator(device="cuda").manual_seed(s + d)
+    do = torch.randn((2, s, 4, d), generator=g, device="cuda").to(dtype)
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    before = [launch_counts[n] for n in (fa.DKV_KERNEL, fa.DQ_KERNEL)]
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    assert [launch_counts[n] for n in (fa.DKV_KERNEL, fa.DQ_KERNEL)] == \
+        [c + 1 for c in before]
+    want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                            scale)
+    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.is_contiguous(), name
+        err = (a.float() - b.float()).abs()
+        bound = BWD_ATOL + BWD_RTOL[dtype] * b.float().abs()
+        assert bool((err <= bound).all()), (name, err.max().item())
 
 
 def _tiny(device, seed=0):
@@ -121,3 +153,47 @@ def test_gpt_medium_full_width_f32_greedy_tokens(card):
         m_logits, m_toks = _greedy(model, ids, 16)
     assert (k_logits - m_logits).abs().max().item() <= 1e-3
     assert torch.equal(k_toks, m_toks)
+
+
+def _train_grads(model, ids, labels):
+    loss = model(ids, labels=labels)
+    loss.backward()
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def test_gpt_training_step_kernel_path_matches_math_path(card):
+    """One f32 training step of a small GPT: loss and every parameter's
+    grad through B1/B2/B3 against the math path (summation order only),
+    then AdamW steps from the same weights stay together."""
+    import paddle_tpu_torch as pt
+    model = _tiny(card).train()
+    ids = torch.randint(0, 256, (2, 257),
+                        generator=torch.Generator().manual_seed(2)).to(card)
+    x, y = ids[:, :-1], ids[:, 1:]
+    launch_counts.clear()
+    k_loss, k_grads = _train_grads(model, x, y)
+    assert [launch_counts[n] for n in fa.KERNEL_NAMES] == [2, 2, 2]
+    _set_flash(model, False)
+    m_loss, m_grads = _train_grads(model, x, y)
+    assert sum(launch_counts[n] for n in fa.KERNEL_NAMES) == 6
+    assert abs(k_loss - m_loss) <= 1e-5 * abs(m_loss)
+    for name, g in k_grads.items():
+        rel = ((g - m_grads[name]).norm() / m_grads[name].norm()).item()
+        assert rel <= 1e-4, (name, rel)
+    losses = {}
+    for flash in (True, False):
+        model = _tiny(card).train()
+        _set_flash(model, flash)
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+        losses[flash] = []
+        for _ in range(3):
+            loss = model(x, labels=y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses[flash].append(loss.item())
+    assert max(abs(a - b) for a, b in zip(losses[True], losses[False])) \
+        <= 1e-4

@@ -1,0 +1,173 @@
+"""Flash attention backward (B2, B3) and its autograd Function in the
+PyTorch/CUDA port, against the JAX reference.
+
+The port's plain version of B2/B3 (what its wrapper runs on a CPU tensor)
+is held against paddle_tpu's Pallas backward run in interpret mode, for
+dq, dk and dv; the port's ``_FlashAttentionFn`` is held against
+``jax.vjp`` of the reference's ``_flash_attention_diff``, checked by
+gradcheck in float64, and fed the strided q/k/v views GPT hands it. The
+kernels themselves run in tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.ops.attention import _flash_attention_diff
+from paddle_tpu.ops.pallas import flash_attention as ref_fa
+from paddle_tpu_torch.ops import attention as port_attn
+from paddle_tpu_torch.ops.cuda import flash_attention as port_fa
+from paddle_tpu_torch.ops.cuda import launch_counts
+
+# The shapes here are tiny: one intra-op thread is enough, and it keeps
+# torch's spinning OpenMP pool from taking cores from the timing-sensitive
+# tests that other workers run beside these.
+torch.set_num_threads(1)
+
+SHAPE = (1, 256, 2)
+# f32: the tolerance of the reference's own backward parity test
+# (tests/test_tpu_native.py, TestFlashAttentionBackward)
+F32_TOL = dict(rtol=5e-4, atol=1e-5)
+# bf16: both sides read the same bf16 inputs, compute in f32 and round to
+# bf16 once; the f32 values differ by summation order only, so a result
+# may land one bf16 ulp away (2^-7 relative), and near zero by the f32
+# difference itself
+BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
+
+
+def _arrays(d, seed):
+    rng = np.random.RandomState(seed)
+    qkv = [(rng.randn(*SHAPE, d) * 0.3).astype("float32") for _ in range(3)]
+    do = rng.randn(*SHAPE, d).astype("float32")
+    return qkv, do
+
+
+def _counts():
+    return {name: launch_counts[name] for name in port_fa.KERNEL_NAMES}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_bwd_matches_pallas_interpret(causal, d, dtype):
+    (q, k, v), do = _arrays(d, seed=d + 2 * causal)
+    scale = 1.0 / np.sqrt(d)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jdt) for a in (q, k, v, do))
+    out, lse = ref_fa.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                          scale=scale, interpret=True)
+    want = ref_fa.flash_attention_bwd(jq, jk, jv, out, lse, jdo,
+                                      causal=causal, scale=scale,
+                                      interpret=True)
+    tdt = getattr(torch, dtype)
+
+    def port(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(tdt)
+    before = _counts()
+    got = port_fa.flash_attention_bwd(
+        port(jq), port(jk), port(jv), port(out),
+        torch.from_numpy(np.asarray(lse)), port(jdo), causal, scale)
+    assert _counts() == before           # the host runs the plain version
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == tdt and g.shape == (*SHAPE, d) \
+            and g.is_contiguous(), name
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w.astype(jnp.float32)),
+                                   err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_function_matches_jax_vjp_of_reference(causal):
+    """Forward and backward of the port's autograd Function against
+    jax.vjp of the reference's custom_vjp (B1 forward, B2/B3 backward, both
+    in interpret mode)."""
+    d = 64
+    (q, k, v), do = _arrays(d, seed=20 + causal)
+    scale = 1.0 / np.sqrt(d)
+    out_r, vjp = jax.vjp(
+        lambda a, b, c: _flash_attention_diff(a, b, c, causal, scale, True),
+        *(jnp.asarray(a) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+    before = _counts()
+    out = port_attn.scaled_dot_product_attention(
+        *ts, is_causal=causal, scale=scale, use_kernel=True)
+    out.backward(torch.from_numpy(do))
+    assert _counts() == before
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_r),
+                               rtol=2e-5, atol=2e-6)
+    for t, w, name in zip(ts, want, "qkv"):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w),
+                                   err_msg=f"grad wrt {name}", **F32_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_function_gradcheck_float64(causal):
+    """The plain versions compute in f64 for f64 host inputs, so torch's
+    gradcheck can hold the backward formulas against finite differences
+    of the forward (fast mode: random projections of the Jacobian)."""
+    rng = np.random.RandomState(3 + causal)
+    ts = [torch.from_numpy(rng.randn(1, 128, 1, 64) * 0.5)
+          .requires_grad_(True) for _ in range(3)]
+
+    def fn(q, k, v):
+        return port_attn._FlashAttentionFn.apply(q, k, v, causal, 0.125)
+    assert torch.autograd.gradcheck(fn, ts, fast_mode=True)
+
+
+def test_function_grads_through_strided_views():
+    """q/k/v sliced out of a fused (b, s, 3, h, d) projection, as
+    GPTAttention hands them over, give the same grads as copies; the qkv
+    gradient is the three grads stacked."""
+    rng = np.random.RandomState(6)
+    base = torch.from_numpy(rng.randn(2, 256, 3, 2, 64).astype("float32"))
+    g = torch.from_numpy(rng.randn(2, 256, 2, 64).astype("float32"))
+    qkv = base.clone().requires_grad_(True)
+    q, k, v = qkv.unbind(dim=2)
+    assert q.stride(1) == 3 * 2 * 64
+    port_attn.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                           use_kernel=True).backward(g)
+    copies = [t.detach().clone().requires_grad_(True)
+              for t in base.unbind(dim=2)]
+    port_attn.scaled_dot_product_attention(*copies, is_causal=True,
+                                           use_kernel=True).backward(g)
+    assert torch.equal(qkv.grad, torch.stack([c.grad for c in copies], 2))
+
+
+def test_function_takes_an_expanded_cotangent():
+    """The cotangent of a sum has stride 0 everywhere; the Function hands
+    the backward a contiguous copy, and the grads match the math path's."""
+    (q, k, v), _ = _arrays(64, seed=8)
+    grads = []
+    for use_kernel in (True, False):
+        ts = [torch.from_numpy(a).requires_grad_(True) for a in (q, k, v)]
+        port_attn.scaled_dot_product_attention(
+            *ts, is_causal=True, use_kernel=use_kernel).sum().backward()
+        grads.append([t.grad for t in ts])
+    for a, b in zip(*grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def _z(shape, dtype=torch.float32):
+    return torch.zeros(shape, dtype=dtype)
+
+
+@pytest.mark.parametrize("out,lse,do,match", [
+    (_z((1, 256, 2, 64)), _z((1, 2, 256)), _z((1, 128, 2, 64)), "shape"),
+    (_z((1, 256, 2, 64)), _z((1, 256, 2)), _z((1, 256, 2, 64)), "lse"),
+    (_z((1, 256, 2, 64)), _z((1, 2, 256), torch.bfloat16),
+     _z((1, 256, 2, 64)), "lse"),
+    (_z((1, 256, 2, 64), torch.bfloat16), _z((1, 2, 256)),
+     _z((1, 256, 2, 64)), "must be"),
+    (_z((1, 256, 2, 64)), _z((1, 2, 256)), _z((1, 256, 2, 128))[..., ::2],
+     "unit stride"),
+])
+def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(out, lse, do,
+                                                          match):
+    q = _z((1, 256, 2, 64))
+    with pytest.raises(ValueError, match=match):
+        port_fa.flash_attention_bwd(q, q, q, out, lse, do)
