@@ -9,10 +9,15 @@ Phases, each printing JSON lines:
    source, all at once) and report the time, the libraries and ptxas's
    register, shared-memory and spill lines.
 2. kernels: hold each kernel against its plain PyTorch version on the card
-   and time kernel, plain version and a library yardstick with CUDA
-   events: flash attention B1 (causal and not, head dim 64 and 128, bf16
-   and f32), then its backward B2 (dK, dV) and B3 (dQ) at the training
-   shape (4 x 1024, 16 heads of 64, bf16, causal) and five more.
+   and time kernel, plain version and a library yardstick: flash attention
+   B1 (causal and not, head dim 64 and 128, bf16 and f32), then its
+   backward B2 (dK, dV) and B3 (dQ) at the training shape (4 x 1024, 16
+   heads of 64, bf16, causal) and five more. bf16 B1 and B2 run their
+   tensor-core variants, f32 their CUDA-core (SIMT) ones; each row names
+   the variant that ran. "ms" is device time (the kernels' summed duration
+   under torch.profiler, per call); "wall_ms" is CUDA-event time over
+   back-to-back calls, which includes the host's launch cost where the
+   host is slower than the kernel.
 3. reference: a small GPT on the card is held against the same model on
    the host (whose math path the host tests hold against paddle_tpu):
    greedy decode, and 3 AdamW training steps in f32.
@@ -28,9 +33,11 @@ Phases, each printing JSON lines:
    trains on bench.py's permutation stream, batch 4 x 1024, through
    ``jit.to_static``: 4 warm-up steps, then 16 timed steps with the launch
    counts reset just before and read just after (24 launches each of B1,
-   B2 and B3 per step). Then one bf16 step is profiled, and one f32 step
-   at full width holds the kernel path's loss and grads against the math
-   path's.
+   B2 and B3 per step, B1 and B2 on the tensor cores). Then one bf16 step
+   is profiled; one f32 step at full width holds the kernel path's loss
+   and grads against the math path's (the SIMT variants), and the same
+   weights cast to bf16 hold the tensor-core path's grads against the f32
+   math path's, no further from it than twice the bf16 math path.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -41,6 +48,7 @@ printed. It needs a CUDA card and the repository checkout it lies in.
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -56,9 +64,9 @@ PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 512, 64
 # permutation stream, 4 warm-up steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 1024, 4, 16
 # max |O - plain O| and |LSE - plain LSE| allowed, kernel vs plain on the
-# card. bf16: the two round the same f32 value to bf16 and may land one ulp
-# apart (2^-7 relative; |O| < 2 for these inputs); f32: sums in another
-# order over at most 1024 terms.
+# card. bf16 (tensor cores, also held to the relative-L2 rule below): P is
+# rounded to bf16 before P.V and O to bf16, a few bf16 ulps at |O| < 2;
+# LSE is f32 in both; f32: sums in another order over at most 1024 terms.
 KERNEL_TOL = {"bfloat16": (2e-2, 1e-3), "float32": (2e-5, 1e-4)}
 # max |logits| gap between the kernel path and the math path at full width:
 # bf16 runs round the attention output differently (the math path rounds
@@ -66,17 +74,30 @@ KERNEL_TOL = {"bfloat16": (2e-2, 1e-3), "float32": (2e-5, 1e-4)}
 # into logits of magnitude ~3, where a bf16 ulp is 2^-6; f32 differs only
 # by summation order.
 LOGIT_TOL = {"bfloat16": 0.25, "float32": 1e-3}
-# B2/B3 against the plain backward, elementwise |kernel - plain| <= atol +
-# rtol * |plain|, as (rtol, atol). bf16: the two round the same f32 sums to
-# bf16 and may land one ulp apart (2^-7 relative); f32: sums in another
-# order over up to 1024 terms, with cancellation in dS. atol covers values
-# near zero.
+# B3 (both dtypes) and f32 B2 against the plain backward, elementwise
+# |kernel - plain| <= atol + rtol * |plain|, as (rtol, atol). bf16 (dQ): the
+# two round the same f32 sums to bf16 and may land one ulp apart (2^-7
+# relative); f32: sums in another order over up to 1024 terms, with
+# cancellation in dS. atol covers values near zero.
 BWD_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (1e-4, 1e-4)}
 BWD_TOL_REASON = {
     "bfloat16": "one bf16 ulp (2^-7 relative): both round the same f32 "
                 "sums to bf16",
     "float32": "f32 sums in another order over up to 1024 terms, with "
                "cancellation in dS"}
+# the tensor-core outputs (bf16 O of B1, dK and dV of B2) against the f32
+# plain version: relative L2 gap <= TC_REL_L2, and <= TC_SDPA_FACTOR x the
+# library's own relative L2 gap to the same plain version + TC_SDPA_SLACK.
+# An elementwise bound is not sound once P and dS round before the product:
+# sums with cancellation land near zero.
+TC_REL_L2, TC_SDPA_FACTOR, TC_SDPA_SLACK = 2 ** -7, 2.0, 2 ** -10
+TC_TOL_REASON = ("P and dS are rounded to bf16 as mma operands (unit "
+                 "roundoff 2^-9 per term) and the output to bf16 (2^-9 "
+                 "relative); the library rounds at the same places, so the "
+                 "kernel is held to no worse than twice its gap")
+# bf16 training step at full width: each grad's (and the loss's) relative
+# gap to the f32 math path, kernel path <= factor x bf16 math path + slack
+BF16_GRAD_FACTOR, BF16_GRAD_SLACK = 2.0, 1e-3
 # the f32 training step at full width, kernel path against math path:
 # loss relative gap, and each parameter's grad relative L2 gap (summation
 # order only, carried through 24 layers)
@@ -101,6 +122,55 @@ def cuda_time_ms(torch, fn, reps=50, warmup=5):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_times(prof):
+    """(us, count, name) of each device kernel in a profile, longest
+    first."""
+    kernels = []
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            kernels.append((us, e.count, e.key))
+    return sorted(kernels, reverse=True)
+
+
+def device_ms(torch, fn, reps=20, warmup=3):
+    """Device time of one call of ``fn``: the summed duration of the
+    kernels it launches (torch.profiler), averaged over ``reps`` calls. It
+    leaves out the host's launch cost, which CUDA events over
+    back-to-back calls (cuda_time_ms) include when the host is the
+    slower side."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(k[0] for k in kernel_times(prof)) / 1e3 / reps
+
+
+def rel_l2(a, b):
+    """||a - b|| / ||b|| in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def tc_gate(got, want, library):
+    """The tensor-core tolerance rule for one output: its relative L2 gap
+    to the plain version, the library's gap, the bound, and whether it
+    holds."""
+    gap, lib_gap = rel_l2(got, want), rel_l2(library, want)
+    bound = min(TC_REL_L2, TC_SDPA_FACTOR * lib_gap + TC_SDPA_SLACK)
+    return {"rel_l2": gap, "library_rel_l2": lib_gap, "bound": bound,
+            "ok": gap <= bound}
 
 
 def flash_bound(b, s, h, d, dtype_name, causal):
@@ -146,8 +216,20 @@ def qkv_views(torch, b, s, h, d, dtype, gen):
     return qkv.unbind(dim=2)
 
 
+def launched_variant(fa, launch_counts, kernel, fn):
+    """Run ``fn`` and return the variant counter of ``kernel`` that it
+    advanced by one (it must advance exactly one)."""
+    keys = [f"{kernel}.{v}" for v in (fa.TC, fa.SIMT)]
+    before = [launch_counts[k] for k in keys]
+    result = fn()
+    moved = [k for k, c in zip(keys, before) if launch_counts[k] == c + 1]
+    assert len(moved) == 1, (kernel, moved)
+    return moved[0].split(".", 1)[1], result
+
+
 def phase_kernels(torch, seed):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
     gen = torch.Generator(device="cuda").manual_seed(seed)
     cases = [(4, 512, 16, 64, torch.bfloat16, True),
              (4, 512, 16, 64, torch.bfloat16, False),
@@ -162,7 +244,10 @@ def phase_kernels(torch, seed):
         dname = str(dtype).split(".")[-1]
         q, k, v = qkv_views(torch, b, s, h, d, dtype, gen)
         scale = 1.0 / d ** 0.5
-        out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+        kind, (out, lse) = launched_variant(
+            fa, launch_counts, fa.KERNEL_NAME,
+            lambda: fa.flash_attention_fwd(q, k, v, causal, scale))
+        assert kind == fa.variant(dtype), (kind, dname)
         torch.cuda.synchronize()
         ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
                                                             scale)
@@ -170,23 +255,41 @@ def phase_kernels(torch, seed):
         err_l = (lse - ref_lse).abs().max().item()
         assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
         tol_o, tol_l = KERNEL_TOL[dname]
-        ms = cuda_time_ms(torch, lambda: fa.flash_attention_fwd(
-            q, k, v, causal, scale))
-        plain_ms = cuda_time_ms(torch, lambda: fa.flash_attention_fwd_reference(
-            q, k, v, causal, scale), reps=10, warmup=2)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_time_ms(
-            torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal, scale=scale))
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, scale=scale)
+        gate = None
+        if kind == fa.TC:
+            gate = tc_gate(out, ref_out, sdpa().transpose(1, 2))
+
+        def kernel():
+            return fa.flash_attention_fwd(q, k, v, causal, scale)
+
+        def plain():
+            return fa.flash_attention_fwd_reference(q, k, v, causal, scale)
+        ms = device_ms(torch, kernel)
+        library_ms = device_ms(torch, sdpa)
         bound_ms, bound_by = flash_bound(b, s, h, d, dname, causal)
         row = {"shape": [b, s, h, d], "dtype": dname, "causal": causal,
+               "variant": kind,
                "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
-               "tol_o": tol_o, "tol_lse": tol_l, "ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "tol_o": tol_o, "tol_lse": tol_l,
+               "rel_l2_o": gate and gate["rel_l2"],
+               "sdpa_rel_l2_o": gate and gate["library_rel_l2"],
+               "rel_l2_bound": gate and gate["bound"],
+               "tol_reason": TC_TOL_REASON if gate else None,
+               "ms": ms, "wall_ms": cuda_time_ms(torch, kernel),
+               "plain_ms": device_ms(torch, plain, reps=5, warmup=1),
+               "library_ms": library_ms,
+               "library_wall_ms": cuda_time_ms(torch, sdpa),
                "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-               "share_of_bound": bound_ms / ms}
+               "share_of_bound": bound_ms / ms,
+               "factor_vs_library": ms / library_ms}
         emit({"phase": "kernels", "kernel": fa.KERNEL_NAME, **row})
         assert err_o <= tol_o and err_l <= tol_l, row
+        assert gate is None or gate["ok"], row
         rows.append(row)
     return rows
 
@@ -194,24 +297,30 @@ def phase_kernels(torch, seed):
 def sdpa_bwd(torch, q, k, v, do, causal, scale):
     """The library yardstick for the backward: PyTorch's own fused
     attention (scaled_dot_product_attention), the gradient of a retained
-    graph for dq, dk and dv together. Returns its time (ms) and its grads
-    (B, S, H, D). Run here only; the port never calls it."""
+    graph for dq, dk and dv together. Returns its device time and its
+    CUDA-event time (ms) and its grads (B, S, H, D). Run here only; the
+    port never calls it."""
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     out = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, scale=scale)
     g = do.transpose(1, 2)
-    grads = torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True)
-    ms = cuda_time_ms(torch, lambda: torch.autograd.grad(
-        out, (qt, kt, vt), g, retain_graph=True))
-    return ms, [t.transpose(1, 2) for t in grads]
+
+    def grad():
+        return torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True)
+    grads = grad()
+    return (device_ms(torch, grad), cuda_time_ms(torch, grad),
+            [t.transpose(1, 2) for t in grads])
 
 
 def phase_kernels_bwd(torch, seed):
     """B2 and B3 against the plain backward on the card, each timed alone
     (its launcher, on a precomputed D), beside the plain backward and the
-    library's backward (both compute dq, dk and dv together)."""
+    library's backward (both compute dq, dk and dv together). bf16 dK and
+    dV (the tensor-core B2) are held to the relative-L2 rule, dQ and every
+    f32 grad elementwise."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
     cases = [(4, 1024, 16, 64, torch.bfloat16, True),    # the training shape
              (4, 512, 16, 64, torch.bfloat16, True),
@@ -227,54 +336,76 @@ def phase_kernels_bwd(torch, seed):
                          dtype=torch.float32).to(dtype)
         scale = 1.0 / d ** 0.5
         out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
-        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
+        kind, got = launched_variant(
+            fa, launch_counts, fa.DKV_KERNEL,
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
+                                           scale))
+        assert kind == fa.variant(dtype), (kind, dname)
         torch.cuda.synchronize()
         want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
                                                 causal, scale)
-        library_ms, lib = sdpa_bwd(torch, q, k, v, do, causal, scale)
+        library_ms, library_wall_ms, lib = sdpa_bwd(torch, q, k, v, do,
+                                                    causal, scale)
         rtol, atol = BWD_TOL[dname]
-        err, share_of_tol, info = {}, {}, {}
+        err, share_of_tol, info, gates = {}, {}, {}, {}
         for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
             assert torch.isfinite(g.float()).all(), name
             diff = (g.float() - w.float()).abs()
             err[name] = diff.max().item()
-            share_of_tol[name] = (diff / (atol + rtol * w.float().abs())
-                                  ).max().item()
             # the kernel may agree with the plain version to the bit; the
             # size of the values and the gap to the library's independent
             # backward show the comparison is not empty
             info[name] = {"max_abs_plain": w.float().abs().max().item(),
                           "max_abs_gap_vs_library":
                               (g.float() - x.float()).abs().max().item()}
+            if kind == fa.TC and name != "dq":
+                gates[name] = tc_gate(g, w, x)
+            else:
+                share_of_tol[name] = (diff / (atol + rtol * w.float().abs())
+                                      ).max().item()
         del got, want, lib
         delta = fa.bwd_delta(out, do)
-        ms = {"dkv": cuda_time_ms(torch, lambda: fa.launch_dkv(
-                  q, k, v, do, lse, delta, causal, scale), reps=20),
-              "dq": cuda_time_ms(torch, lambda: fa.launch_dq(
-                  q, k, v, do, lse, delta, causal, scale), reps=20)}
-        plain_ms = cuda_time_ms(
-            torch, lambda: fa.flash_attention_bwd_reference(
-                q, k, v, out, lse, do, causal, scale), reps=5, warmup=1)
+
+        def dkv():
+            return fa.launch_dkv(q, k, v, do, lse, delta, causal, scale)
+
+        def dq():
+            return fa.launch_dq(q, k, v, do, lse, delta, causal, scale)
+        times = {"dkv": (device_ms(torch, dkv), cuda_time_ms(torch, dkv)),
+                 "dq": (device_ms(torch, dq), cuda_time_ms(torch, dq))}
+        plain_ms = device_ms(torch, lambda: fa.flash_attention_bwd_reference(
+            q, k, v, out, lse, do, causal, scale), reps=3, warmup=1)
         for kernel, name, outs in (("dkv", fa.DKV_KERNEL, ("dk", "dv")),
                                    ("dq", fa.DQ_KERNEL, ("dq",))):
             bound_ms, bound_by = flash_bwd_bound(b, s, h, d, dname, causal,
                                                  kernel)
+            ms, wall_ms = times[kernel]
+            elementwise = [o for o in outs if o in share_of_tol]
             row = {"shape": [b, s, h, d], "dtype": dname, "causal": causal,
+                   "variant": kind if kernel == "dkv" else "simt",
                    "max_abs_err": max(err[o] for o in outs),
                    "max_abs_err_by_output": {o: err[o] for o in outs},
                    "sanity_by_output": {o: info[o] for o in outs},
-                   "rtol": rtol, "atol": atol,
-                   "tol_reason": BWD_TOL_REASON[dname],
-                   "worst_share_of_tol": max(share_of_tol[o] for o in outs),
-                   "ms": ms[kernel], "plain_ms": plain_ms,
+                   "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
                    "plain_scope": "dq, dk and dv together",
                    "library_ms": library_ms,
+                   "library_wall_ms": library_wall_ms,
                    "library_scope": "SDPA backward, dq, dk and dv together",
                    "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-                   "share_of_bound": bound_ms / ms[kernel]}
+                   "share_of_bound": bound_ms / ms,
+                   "factor_vs_library": ms / library_ms}
+            if elementwise:
+                row.update(rtol=rtol, atol=atol,
+                           tol_reason=BWD_TOL_REASON[dname],
+                           worst_share_of_tol=max(share_of_tol[o]
+                                                  for o in elementwise))
+            else:
+                row.update(rel_l2_by_output={o: gates[o] for o in outs},
+                           tol_reason=TC_TOL_REASON)
             emit({"phase": "kernels", "kernel": name, **row})
             rows[kernel].append(row)
         assert max(share_of_tol.values()) <= 1.0, (dname, causal, err)
+        assert all(gt["ok"] for gt in gates.values()), (dname, causal, gates)
         del out, lse, delta, q, k, v, do
         torch.cuda.empty_cache()
     return rows
@@ -331,7 +462,8 @@ def phase_reference(torch, seed):
 
 def phase_serve(torch, seed):
     from paddle_tpu_torch.ops.cuda import launch_counts
-    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAME
+    from paddle_tpu_torch.ops.cuda.flash_attention import (KERNEL_NAME,
+                                                           variant_counter)
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
     cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
@@ -353,8 +485,11 @@ def phase_serve(torch, seed):
             toks, logits, ttft, decode_s = greedy(torch, model, ids,
                                                   DECODE_STEPS)
             launches = launch_counts[KERNEL_NAME]
+            variant = variant_counter(KERNEL_NAME, dtype)
+            variant_launches = launch_counts[variant]
             peak = torch.cuda.max_memory_allocated()
             assert launches == cfg.num_layers, (launches, cfg.num_layers)
+            assert variant_launches == launches, (variant, dict(launch_counts))
             assert toks.shape == (PROMPTS, DECODE_STEPS + 1)
             assert logits.shape == (PROMPTS, PROMPT_LEN, cfg.vocab_size)
             assert torch.isfinite(logits.float()).all()
@@ -376,6 +511,8 @@ def phase_serve(torch, seed):
                "tpot_ms": decode_s / DECODE_STEPS * 1e3,
                "decode_tokens_per_s": PROMPTS * DECODE_STEPS / decode_s,
                "peak_mem_bytes": peak, "flash_launches": launches,
+               "flash_variant": variant,
+               "flash_variant_launches": variant_launches,
                "prefill_forwards": 1, "math_path_ttft_ms": m_ttft * 1e3,
                "math_path_tpot_ms": m_decode_s / DECODE_STEPS * 1e3,
                "logits_max_abs_gap_vs_math": gap,
@@ -422,22 +559,18 @@ def profile_windows(torch, model, ids, decode_steps=16):
 
 def emit_profile(prof, wall_s, window, steps, top=12):
     """Device time by kernel of a profiled window, and the busy share: the
-    summed kernel time over the host-clock wall time of the window."""
-    kernels = []
-    for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
-            continue
-        us = getattr(e, "self_device_time_total", None)
-        if us is None:
-            us = getattr(e, "self_cuda_time_total", 0)
-        if us > 0:
-            kernels.append((us, e.count, e.key))
-    kernels.sort(reverse=True)
+    summed kernel time over the host-clock wall time of the window. The
+    port's flash kernels are listed by name whatever their rank."""
+    kernels = kernel_times(prof)
     device_us = sum(k[0] for k in kernels)
     emit({"phase": "profile", "window": window, "steps": steps,
           "wall_ms": wall_s * 1e3, "device_ms": device_us / 1e3,
           "busy_share": device_us / 1e3 / (wall_s * 1e3),
           "kernel_launches": sum(k[1] for k in kernels),
+          "flash_kernels": {m.group(0): {"ms": k[0] / 1e3, "count": k[1]}
+                            for k in kernels
+                            for m in [re.search(r"flash_\w+<[^>]*>", k[2])]
+                            if m},
           "top": [{"kernel": k[2][:90], "ms": k[0] / 1e3,
                    "count": k[1]} for k in kernels[:top]]})
 
@@ -541,9 +674,14 @@ def phase_train(torch, seed):
     points (bench.py's step); then a profiled step and the f32 check."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
     from torch.profiler import ProfilerActivity, profile
+    # the counters of B1's and B2's variants, then B3's
+    variants = {dt: [fa.variant_counter(n, dt)
+                     for n in (fa.KERNEL_NAME, fa.DKV_KERNEL)]
+                for dt in (torch.bfloat16, torch.float32)}
     cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     total = TRAIN_WARMUP + TRAIN_STEPS + 1
@@ -568,7 +706,9 @@ def phase_train(torch, seed):
                          for n, c in zip(KERNEL_NAMES, before)])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {n: launch_counts[n] for n in KERNEL_NAMES}
+    launches = {n: launch_counts[n]
+                for n in (*KERNEL_NAMES, *variants[torch.bfloat16],
+                          *variants[torch.float32])}
     peak = torch.cuda.max_memory_allocated()
     losses = [loss.item() for loss in losses]
     row = {"phase": "train", "dtype": "bfloat16",
@@ -584,6 +724,10 @@ def phase_train(torch, seed):
     emit(row)
     assert all(c == [cfg.num_layers] * len(KERNEL_NAMES) for c in per_step), \
         per_step
+    # B1 and B2 ran their tensor-core variants, every launch
+    assert all(launches[n] == cfg.num_layers * TRAIN_STEPS
+               for n in variants[torch.bfloat16]), launches
+    assert all(launches[n] == 0 for n in variants[torch.float32]), launches
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -605,6 +749,9 @@ def phase_train(torch, seed):
     launch_counts.clear()
     k_loss, k_grads = loss_and_grads(model, xs[0], ys[0])
     f32_launches = {n: launch_counts[n] for n in KERNEL_NAMES}
+    f32_variants = {n: launch_counts[n]
+                    for n in (*variants[torch.float32],
+                              *variants[torch.bfloat16])}
     set_flash(model, False)
     m_loss, m_grads = loss_and_grads(model, xs[0], ys[0])
     gaps = grad_gaps(torch, k_grads, m_grads)
@@ -618,16 +765,128 @@ def phase_train(torch, seed):
              "grad_rel_l2_median": gaps[len(gaps) // 2][1],
              "grad_rel_l2_tol": TRAIN_GRAD_RTOL,
              "kernel_path_launches": f32_launches,
+             "kernel_path_variant_launches": f32_variants,
              "math_path_launches": {n: launch_counts[n] - f32_launches[n]
                                     for n in KERNEL_NAMES}}
     emit(check)
     assert all(c == cfg.num_layers for c in f32_launches.values())
+    assert all(f32_variants[n] == cfg.num_layers
+               for n in variants[torch.float32]), f32_variants
+    assert all(f32_variants[n] == 0 for n in variants[torch.bfloat16])
     assert all(c == 0 for c in check["math_path_launches"].values())
     assert check["loss_rel_gap"] <= TRAIN_LOSS_RTOL, check
     assert gaps[0][1] <= TRAIN_GRAD_RTOL, check
-    del model, k_grads, m_grads
+    row["f32_launches"] = f32_variants
+    del k_grads
+    bf16_check(torch, model, xs[0], ys[0], m_loss, m_grads, variants)
+    del model, m_grads
     torch.cuda.empty_cache()
     return row
+
+
+def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
+    """One bf16 step at full width from the f32 check's weights cast to
+    bf16, on the kernel path (tensor-core B1 and B2, SIMT B3) and on the
+    math path. The f32 math path's loss and grads are the truth: the
+    kernel path's relative gap to it must be no more than BF16_GRAD_FACTOR
+    times the bf16 math path's + BF16_GRAD_SLACK, for the loss and for
+    every parameter's grad (relative L2)."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    model.to(torch.bfloat16)
+    set_flash(model, True)
+    launch_counts.clear()
+    k_loss, k_grads = loss_and_grads(model, x, y)
+    k_launches = dict(launch_counts)
+    set_flash(model, False)
+    launch_counts.clear()
+    m_loss, m_grads = loss_and_grads(model, x, y)
+    m_launches = sum(launch_counts[n] for n in KERNEL_NAMES)
+    k_gap = dict(grad_gaps(torch, k_grads, f32_grads))
+    m_gap = dict(grad_gaps(torch, m_grads, f32_grads))
+    share = {n: k_gap[n] / (BF16_GRAD_FACTOR * m_gap[n] + BF16_GRAD_SLACK)
+             for n in k_gap}
+    worst = sorted(share, key=lambda n: -share[n])[:3]
+    loss_gap = {"kernel": abs(k_loss - f32_loss) / abs(f32_loss),
+                "math": abs(m_loss - f32_loss) / abs(f32_loss)}
+    check = {"phase": "train_check", "dtype": "bfloat16",
+             "config": "GPT-medium v32000 h1024 L24 a16 d64 (full depth)",
+             "batch": list(x.shape), "truth": "f32 math path",
+             "loss_kernel_path": k_loss, "loss_math_path": m_loss,
+             "loss_f32": f32_loss, "loss_rel_gap": loss_gap,
+             "rule": f"kernel gap <= {BF16_GRAD_FACTOR} x bf16 math-path "
+                     f"gap + {BF16_GRAD_SLACK}",
+             "worst_params": [{"param": n, "kernel_rel_l2": k_gap[n],
+                               "math_rel_l2": m_gap[n],
+                               "share_of_bound": share[n]} for n in worst],
+             "kernel_rel_l2_median": sorted(k_gap.values())[len(k_gap) // 2],
+             "math_rel_l2_median": sorted(m_gap.values())[len(m_gap) // 2],
+             "kernel_path_launches": k_launches,
+             "math_path_launches": m_launches}
+    emit(check)
+    n_layers = model.config.num_layers
+    assert all(k_launches.get(n, 0) == n_layers
+               for n in (*KERNEL_NAMES, *variants[torch.bfloat16])), k_launches
+    assert m_launches == 0
+    assert loss_gap["kernel"] <= (BF16_GRAD_FACTOR * loss_gap["math"]
+                                  + BF16_GRAD_SLACK), check
+    assert share[worst[0]] <= 1.0, check
+    del k_grads, m_grads
+
+
+def kernel_entries(fa, rows, bwd_rows, serve, train):
+    """The kernels line: each kernel variant at the shape of the main path
+    that runs it, with its launches on that path. bf16 (tensor cores):
+    B1 at the prefill shape (and its training-shape time), B2 at the
+    training shape; f32 (SIMT): the f32 correctness runs at full width,
+    timed at (4, 512, 16, 64) causal."""
+    src = "paddle_tpu_torch/csrc/"
+    ref = "paddle_tpu/ops/pallas/flash_attention.py:"
+    keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
+            "bound_by", "shape", "dtype", "causal", "variant",
+            "share_of_bound", "factor_vs_library")
+
+    def entry(name, source, line, row, launches, err, **extra):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": ref + str(line), "launches": launches,
+                "max_abs_err": err, "bound_ms": row["bound_us"] / 1e3,
+                **{k: row[k] for k in keys}, **extra}
+    fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
+    dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
+    tc, simt = fa.TC, fa.SIMT
+    scope = {"plain_scope": dkv_tc["plain_scope"],
+             "library_scope": dkv_tc["library_scope"]}
+    return [
+        entry(f"{fa.KERNEL_NAME}.{tc}", "flash_attn_fwd_tc.cu", 114, fwd_tc,
+              serve["bfloat16"]["flash_variant_launches"],
+              fwd_tc["max_abs_err_o"], rel_l2=fwd_tc["rel_l2_o"],
+              main_path="bf16 prefill (serve)",
+              launches_train=train["launches"][f"{fa.KERNEL_NAME}.{tc}"],
+              train_shape_ms=fwd_train["ms"],
+              train_shape_library_ms=fwd_train["library_ms"]),
+        entry(f"{fa.KERNEL_NAME}.{simt}", "flash_attn_fwd.cu", 114, fwd_simt,
+              serve["float32"]["flash_variant_launches"],
+              fwd_simt["max_abs_err_o"],
+              main_path="f32 prefill (serve, correctness run)"),
+        entry(f"{fa.DKV_KERNEL}.{tc}", "flash_attn_dkv_tc.cu", 200, dkv_tc,
+              train["launches"][f"{fa.DKV_KERNEL}.{tc}"],
+              dkv_tc["max_abs_err"],
+              rel_l2={o: g["rel_l2"]
+                      for o, g in dkv_tc["rel_l2_by_output"].items()},
+              main_path="bf16 training step (train)",
+              launches_per_step=train["launches_per_step"][fa.DKV_KERNEL],
+              **scope),
+        entry(f"{fa.DKV_KERNEL}.{simt}", "flash_attn_bwd.cu", 200, dkv_simt,
+              train["f32_launches"][f"{fa.DKV_KERNEL}.{simt}"],
+              dkv_simt["max_abs_err"],
+              main_path="f32 training step (train_check, correctness run)",
+              **scope),
+        entry(fa.DQ_KERNEL, "flash_attn_bwd.cu", 247, bwd_rows["dq"][0],
+              train["launches"][fa.DQ_KERNEL],
+              bwd_rows["dq"][0]["max_abs_err"],
+              main_path="training step (train)",
+              launches_per_step=train["launches_per_step"][fa.DQ_KERNEL],
+              **scope)]
 
 
 def main():
@@ -665,33 +924,7 @@ def main():
     train = phase_train(torch, args.seed)
 
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    fwd = rows[0]              # the prefill's shape: 4x512x16x64 bf16
-    fwd_train = rows[2]        # the training shape: 4x1024x16x64 bf16
-    entries = [{
-        "name": fa.KERNEL_NAME, "route": "cuda",
-        "source": "paddle_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:114",
-        "launches": serve["bfloat16"]["flash_launches"],
-        "launches_train": train["launches"][fa.KERNEL_NAME],
-        "max_abs_err": fwd["max_abs_err_o"],
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_us"] / 1e3, "bound_by": fwd["bound_by"],
-        "library_ms": fwd["library_ms"], "shape": fwd["shape"],
-        "train_shape_ms": fwd_train["ms"]}]
-    for kernel, name, line in (("dkv", fa.DKV_KERNEL, 200),
-                               ("dq", fa.DQ_KERNEL, 247)):
-        row = bwd_rows[kernel][0]    # the training shape
-        entries.append({
-            "name": name, "route": "cuda",
-            "source": "paddle_tpu_torch/csrc/flash_attn_bwd.cu",
-            "replaces": f"paddle_tpu/ops/pallas/flash_attention.py:{line}",
-            "launches": train["launches"][name],
-            "launches_per_step": train["launches_per_step"][name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_us"] / 1e3,
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"], "plain_scope": row["plain_scope"],
-            "library_scope": row["library_scope"]})
+    entries = kernel_entries(fa, rows, bwd_rows, serve, train)
     emit({"kernels": entries})
     emit({"phase": "done", "seconds": time.perf_counter() - t0})
     print(smi, flush=True)

@@ -1,5 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): kernels B2 (dK, dV) and
-// B3 (dQ) of the port.
+// Flash-attention backward for Hopper (sm_90a): kernel B2 (dK, dV) of the
+// port for f32 inputs, and kernel B3 (dQ) for f32 and bf16 inputs. bf16 B2
+// runs on the tensor cores (flash_attn_dkv_tc.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_attn_bwd_dkv_kernel
 // (B2) and ::_attn_bwd_dq_kernel (B3), both launched by _flash_bwd_bh
@@ -50,9 +51,14 @@
 // Both working sets are above the 48 KB static limit, so the launchers
 // raise the dynamic shared-memory limit first and return any launch error.
 //
-// This first version uses CUDA-core FMAs fed from shared memory; it is
-// correct and simple, not fast (shared-memory loads bound it). Tensor-core
-// tiles (mma.sync, then wgmma) with TMA staging are the route to the bound.
+// These kernels use CUDA-core FMAs fed from shared memory; they are correct
+// and simple, not fast (shared-memory loads bound them). B2 keeps this form
+// for f32 only: TF32 tensor cores keep only about three decimal digits and
+// would break the f32 correctness gates that rest on it (grads within 1e-3
+// relative L2 in chip_smoke.py's train_check, 1e-4 elementwise against the
+// plain version); f32 is the port's correctness dtype, and bf16, its hot
+// path, takes the tensor-core B2. B3 is redesigned the same way next
+// (ROADMAP B5).
 //
 // Inputs are (B, S, H, D) with any batch, sequence and head strides and a
 // unit stride on D: the strided q/k/v views GPTAttention slices out of its
@@ -388,41 +394,32 @@ Strides make_strides(const long long* s) {
 // Common arguments: q, k, v, dout (B, S, H, D) with element strides (batch,
 // seq, head) given for each, in that order, and unit stride on D; lse and
 // delta contiguous (B, H, S) f32; outputs contiguous (B, S, H, D) in the
-// input dtype. is_bf16 selects bf16 (1) or f32 (0). Each returns the
-// cudaError_t of its launch (0 on success) and does not synchronise.
+// input dtype. Each returns the cudaError_t of its launch (0 on success)
+// and does not synchronise.
 
-// B2: dk and dv.
+// B2 (f32 only; bf16 takes pt_flash_attn_bwd_dkv_tc): dk and dv.
 extern "C" int pt_flash_attn_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-    int H, int D, int is_bf16, int causal, float scale, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long o_sb, long long o_ss, long long o_sh, void* stream) {
+    int H, int D, int causal, float scale, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, void* stream) {
   if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   const Strides st = make_strides(s);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64)
-      return (int)launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk,
-                                                dv, B, S, H, scale, causal, st, cs);
-    if (D == 128)
-      return (int)launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dk,
-                                                 dv, B, S, H, scale, causal, st, cs);
-  } else {
-    if (D == 64)
-      return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                        H, scale, causal, st, cs);
-    if (D == 128)
-      return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B,
-                                         S, H, scale, causal, st, cs);
-  }
+  if (D == 64)
+    return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                      H, scale, causal, st, cs);
+  if (D == 128)
+    return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B,
+                                       S, H, scale, causal, st, cs);
   return (int)cudaErrorInvalidValue;
 }
 
-// B3: dq.
+// B3: dq. is_bf16 selects bf16 (1) or f32 (0).
 extern "C" int pt_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int S, int H, int D,

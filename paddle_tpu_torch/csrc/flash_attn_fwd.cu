@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a): kernel B1 of the port.
+// Flash-attention forward for Hopper (sm_90a), f32: kernel B1 of the port
+// for f32 inputs (bf16 inputs take the tensor-core kernel in
+// flash_attn_fwd_tc.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_attn_fwd_kernel
 // (launched by _flash_fwd_bh through pl.pallas_call). Same function: for
@@ -7,42 +9,43 @@
 //     causal: S = -1e30 where q_pos < k_pos, and the key loop stops at the
 //             diagonal tile
 //     m, l, acc rescaled by exp(m_prev - m_new) per tile
-//     O = acc / max(l, 1e-30)         (stored in q's dtype)
+//     O = acc / max(l, 1e-30)         (stored as f32)
 //     LSE = m + log(max(l, 1e-30))    (stored as (B, H, S) f32)
 // with the reference's constants (m0 = -1e30, masked score -1e30, l floor
 // 1e-30) and the scale applied to q in f32 before the product.
 //
 // What bounds it on the H100: one pass over q, k, v, o reads and writes
 // 4*B*S*H*D elements, while the products take 4*B*H*S^2*D flops (half that
-// when causal). At the GPT-medium prefill (B=4, H=16, S=512, D=64, bf16,
-// causal) that is 16.9 MB (5.0 us at 3.35 TB/s) against 2.1 GFLOP (2.2 us at
-// 989 TFLOP/s): memory bound at about 5 us per launch.
+// when causal). In f32 at the GPT-medium prefill (B=4, H=16, S=512, D=64,
+// causal) that is 33.7 MB (10.1 us at 3.35 TB/s) against 2.1 GFLOP (32.1 us
+// at the 67 TFLOP/s of f32 outside the tensor cores): bound by operations.
+//
+// Why f32 stays on CUDA-core FMAs: TF32 tensor cores keep only about three
+// decimal digits and would break the f32 correctness gates that rest on this
+// kernel (kernel vs plain O within 2e-5, greedy tokens identical to the math
+// path at full width, grads within 1e-3 relative L2 in chip_smoke.py's
+// train_check). f32 is the port's correctness dtype; bf16, its hot path,
+// runs on the tensor cores.
 //
 // Design. The TPU kernel runs one (BH, q-tile) grid step at a time and holds
 // whole K/V rows in VMEM; here every (q-tile, b*h) pair is its own thread
 // block, and blocks run in parallel on the 132 SMs, so S/64 * B*H blocks
 // (512 at the prefill shape) fill the card without any cross-block state.
-// A block stages its 64-row Q tile (pre-scaled, f32) once and streams 64-row
-// K and V tiles through shared memory; S and the softmax never leave the SM.
+// A block stages its 64-row Q tile (pre-scaled) once and streams 64-row K
+// and V tiles through shared memory; S and the softmax never leave the SM.
 // Four threads own one query row: each computes 16 of the 64 scores of a
 // tile, the row max and row sum are combined with two warp shuffles, and the
 // row's probabilities go through a padded shared-memory row to the P.V
 // product, where each thread keeps D/4 f32 accumulators in registers. Tiles
-// are kept in f32 in shared memory (padded rows: no bank conflicts), so
-// bf16 inputs are read as bf16 once and every product accumulates in f32;
-// f32 inputs run in plain f32 FMA (no TF32). The working set (66 KB at D=64,
-// 115 KB at D=128) is above the 48 KB static limit, so the launcher raises
-// the dynamic shared-memory limit first and returns any launch error.
-//
-// This first version uses CUDA-core FMAs; it is correct and simple, not
-// fast. Tensor-core tiles (mma.sync / wgmma) and TMA staging are the route
-// to the memory bound.
+// are padded rows (no bank conflicts) and every product is a plain f32 FMA.
+// The working set (66 KB at D=64, 115 KB at D=128) is above the 48 KB static
+// limit, so the launcher raises the dynamic shared-memory limit first and
+// returns any launch error.
 //
 // Inputs are (B, S, H, D) with any batch, sequence and head strides and a
 // unit stride on D, so the strided q/k/v views that GPTAttention slices
 // out of its fused qkv projection are read in place, with no copy.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -57,20 +60,6 @@ constexpr float L_FLOOR = 1e-30f;
 
 static_assert(TPR == 4, "the row reductions below shuffle over 4 lanes");
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int D>
 struct Layout {
   static constexpr int QK_STRIDE = D + 1;   // padded Q/K rows
@@ -83,10 +72,10 @@ struct Layout {
       sizeof(float) * (size_t)(Q_FLOATS + K_FLOATS + V_FLOATS + P_FLOATS);
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, int H, float scale,
                  int causal, long long q_sb, long long q_ss, long long q_sh,
                  long long k_sb, long long k_ss, long long k_sh,
@@ -108,15 +97,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int q_pos = q0 + r;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
 
   for (int idx = tid; idx < BQ * D; idx += THREADS) {
     const int row = idx / D;
     const int col = idx % D;
     Qs[row * L::QK_STRIDE + col] =
-        to_f32(qb[(long long)(q0 + row) * q_ss + col]) * scale;
+        qb[(long long)(q0 + row) * q_ss + col] * scale;
   }
 
   float m = NEG_BIG;
@@ -138,8 +127,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int row = idx / D;
       const int col = idx % D;
       const long long kr = (long long)(k0 + row);
-      Ks[row * L::QK_STRIDE + col] = to_f32(kb[kr * k_ss + col]);
-      Vs[row * D + col] = to_f32(vb[kr * v_ss + col]);
+      Ks[row * L::QK_STRIDE + col] = kb[kr * k_ss + col];
+      Vs[row * D + col] = vb[kr * v_ss + col];
     }
     __syncthreads();
 
@@ -190,25 +179,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const float l_safe = fmaxf(l, L_FLOOR);
-  T* o_row = o + ((long long)(b * S + q_pos) * H + h) * D;
+  float* o_row = o + ((long long)(b * S + q_pos) * H + h) * D;
 #pragma unroll
-  for (int e = 0; e < DPT; ++e) o_row[j + TPR * e] = from_f32<T>(acc[e] / l_safe);
+  for (int e = 0; e < DPT; ++e) o_row[j + TPR * e] = acc[e] / l_safe;
   if (j == 0) lse[(long long)bh * S + q_pos] = m + logf(l_safe);
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int H, float scale, int causal,
                    const long long* st, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, D>;
+  auto kernel = flash_fwd_kernel<D>;
   const size_t smem = Layout<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / BQ, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse),
       S, H, scale, causal, st[0], st[1], st[2], st[3], st[4], st[5], st[6],
       st[7], st[8]);
   return cudaGetLastError();
@@ -216,13 +206,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, k, v: (B, S, H, D) with element strides (batch, seq, head) given for
-// each and unit stride on D; o: contiguous (B, S, H, D) in the input dtype;
-// lse: contiguous (B, H, S) f32. is_bf16 selects bf16 (1) or f32 (0).
-// Returns the cudaError_t of the launch (0 on success). Does not synchronise.
+// q, k, v: (B, S, H, D) f32 with element strides (batch, seq, head) given
+// for each and unit stride on D; o: contiguous (B, S, H, D) f32; lse:
+// contiguous (B, H, S) f32. Returns the cudaError_t of the launch (0 on
+// success). Does not synchronise.
 extern "C" int pt_flash_attn_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int S, int H, int D, int is_bf16, int causal, float scale, long long q_sb,
+    int S, int H, int D, int causal, float scale, long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     void* stream) {
@@ -231,23 +221,11 @@ extern "C" int pt_flash_attn_fwd(
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    if (D == 64)
-      err = launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
-    else if (D == 128)
-      err = launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
-    else
-      err = cudaErrorInvalidValue;
-  } else {
-    if (D == 64)
-      err = launch<float, 64>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
-    else if (D == 128)
-      err = launch<float, 128>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
-    else
-      err = cudaErrorInvalidValue;
-  }
-  return (int)err;
+  if (D == 64)
+    return (int)launch<64>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
+  if (D == 128)
+    return (int)launch<128>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* pt_cuda_error_string(int err) {

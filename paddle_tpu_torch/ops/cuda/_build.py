@@ -4,9 +4,10 @@ Each ``csrc/*.cu`` file has a plain ``extern "C"`` interface. It is
 compiled by ``nvcc`` for ``sm_90a`` into ``paddle_tpu_torch/_build/`` at
 first use (the directory is git-ignored) and loaded with ``ctypes``; no
 PyTorch header is compiled, so a build takes seconds. The library name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded. ``build()`` starts one ``nvcc`` per
-stale source, all at once, and waits for them together.
+carries a hash of the source, of every shared header (``csrc/*.cuh``) and
+of the flags, so an edited source or header is rebuilt and a stale library
+is never loaded. ``build()`` starts one ``nvcc`` per stale source, all at
+once, and waits for them together.
 """
 from __future__ import annotations
 
@@ -22,7 +23,9 @@ from pathlib import Path
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
-SOURCES = ("flash_attn_fwd", "flash_attn_bwd")
+# B1 (f32 SIMT, bf16 tensor cores), B3 with f32 B2, bf16 B2
+SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_bwd",
+           "flash_attn_dkv_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600
@@ -43,10 +46,14 @@ def _nvcc():
 
 
 def library_path(name):
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where csrc/<name>.cu's library lives: the name carries a hash of the
+    source, of every csrc/*.cuh (any of which it may include) and of the
+    flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names=SOURCES):

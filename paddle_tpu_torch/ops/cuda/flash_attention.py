@@ -1,18 +1,25 @@
 """Flash attention on CUDA: forward (kernel B1), backward (kernels B2 and
 B3), and their plain versions.
 
-Port of paddle_tpu/ops/pallas/flash_attention.py. The kernels are
-``csrc/flash_attn_fwd.cu`` (B1) and ``csrc/flash_attn_bwd.cu`` (B2: dK and
-dV, B3: dQ); their headers say what bounds them on the H100 and how their
-designs answer that. This module builds them at first use, checks what
-they are given, allocates the outputs and launches them on the current
-stream. On a CPU tensor each wrapper runs the plain PyTorch version
-instead; on a CUDA tensor it launches or raises.
+Port of paddle_tpu/ops/pallas/flash_attention.py. B1 and B2 have two
+variants each, chosen by dtype (``variant``): bf16 runs on the tensor cores
+(``csrc/flash_attn_fwd_tc.cu``, ``csrc/flash_attn_dkv_tc.cu``: mma.sync,
+ldmatrix, cp.async), f32 on CUDA-core FMAs (``csrc/flash_attn_fwd.cu``,
+``csrc/flash_attn_bwd.cu``), where TF32 would break the f32 correctness
+gates. B3 (dQ, ``csrc/flash_attn_bwd.cu``) has one variant for both. The
+kernels' headers say what bounds them on the H100 and how their designs
+answer that. This module builds them at first use, checks what they are
+given, allocates the outputs and launches them on the current stream. On
+a CPU tensor each wrapper runs the plain PyTorch version instead; on a
+CUDA tensor it launches or raises.
 
 Layout: inputs (B, S, H, D), paddle's convention, as in the reference.
-The kernel reads the batch, sequence and head strides it is given, so the
-strided q/k/v views that GPTAttention slices out of its fused qkv
-projection go in without a copy; D must have unit stride.
+The kernels read the batch, sequence and head strides they are given, so
+the strided q/k/v views that GPTAttention slices out of its fused qkv
+projection go in without a copy; D must have unit stride. The tensor-core
+kernels copy rows 16 bytes at a time, so their bf16 operands also need a
+16-byte-aligned base and strides that are multiples of 8 elements; an
+operand that breaks this is copied first (``tc_operand``).
 """
 from __future__ import annotations
 
@@ -27,13 +34,24 @@ from ._build import library
 __all__ = ["supports", "flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "launch_dkv", "launch_dq",
-           "bwd_delta", "KERNEL_NAME", "KERNEL_NAMES"]
+           "bwd_delta", "variant", "variant_counter", "tc_operand",
+           "KERNEL_NAME", "KERNEL_NAMES"]
 
 KERNEL_NAME = "flash_attn_fwd"
 DKV_KERNEL = "flash_attn_bwd_dkv"
 DQ_KERNEL = "flash_attn_bwd_dq"
 KERNEL_NAMES = (KERNEL_NAME, DKV_KERNEL, DQ_KERNEL)
-BWD_SOURCE = "flash_attn_bwd"
+# the variants of B1 and B2: bf16 on the tensor cores, f32 on CUDA cores
+TC, SIMT = "tc_bf16", "simt_f32"
+# (source in csrc/, C entry point) of each kernel variant
+_ENTRY = {(KERNEL_NAME, TC): ("flash_attn_fwd_tc", "pt_flash_attn_fwd_tc"),
+          (KERNEL_NAME, SIMT): ("flash_attn_fwd", "pt_flash_attn_fwd"),
+          (DKV_KERNEL, TC): ("flash_attn_dkv_tc", "pt_flash_attn_bwd_dkv_tc"),
+          (DKV_KERNEL, SIMT): ("flash_attn_bwd", "pt_flash_attn_bwd_dkv"),
+          (DQ_KERNEL, None): ("flash_attn_bwd", "pt_flash_attn_bwd_dq")}
+# (pointers, ints before the scale, strides after it) of each kernel's
+# entry points; the strides are (batch, seq, head) of q, k, v (and dout)
+_ARITY = {KERNEL_NAME: (5, 5, 9), DKV_KERNEL: (8, 5, 12), DQ_KERNEL: (7, 6, 12)}
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # the constants of the reference kernel (_attn_fwd_kernel)
@@ -158,39 +176,55 @@ def _check_bwd(q, out, lse, do):
         raise ValueError("dout's head dim must have unit stride")
 
 
-def _error_string(lib):
-    fn = lib.pt_cuda_error_string
-    fn.argtypes = [ctypes.c_int]
-    fn.restype = ctypes.c_char_p
-    return fn
+def variant(dtype):
+    """The variant of B1 and B2 that a CUDA tensor of ``dtype`` launches:
+    the tensor-core kernel for bf16, the CUDA-core one for f32."""
+    return TC if dtype == torch.bfloat16 else SIMT
+
+
+def variant_counter(kernel, dtype):
+    """The ``launch_counts`` key of ``kernel``'s variant for ``dtype``."""
+    return f"{kernel}.{variant(dtype)}"
+
+
+def _tc_ready(t):
+    """Whether the tensor-core kernels can read ``t`` as it lies: cp.async
+    copies 16 bytes, so the base must be 16-byte aligned and every stride
+    but the last a whole number of 16-byte chunks."""
+    per_chunk = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0
+            and all(st % per_chunk == 0 for st in t.stride()[:-1]))
+
+
+def tc_operand(t):
+    """``t`` itself where the tensor-core kernels can read it, else a fresh
+    contiguous copy (``contiguous()`` would keep a contiguous but
+    misaligned view as it is)."""
+    return t if _tc_ready(t) else t.clone(memory_format=torch.contiguous_format)
+
+
+def _count(kernel, kind):
+    launch_counts[kernel] += 1
+    if kind is not None:
+        launch_counts[f"{kernel}.{kind}"] += 1
 
 
 @functools.lru_cache(maxsize=None)
-def _entry_points():
-    """(launcher, error-string) functions of B1's library, typed: every
-    pointer and the stream as c_void_p, never a truncated int."""
-    lib = library(KERNEL_NAME)
-    fn = lib.pt_flash_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_longlong] * 9
+def _entry_point(kernel, kind):
+    """(launcher, error-string) of one kernel variant, typed: every pointer
+    and the stream as c_void_p, never a truncated int."""
+    source, symbol = _ENTRY[kernel, kind]
+    lib = library(source)
+    n_ptrs, n_ints, n_strides = _ARITY[kernel]
+    fn = getattr(lib, symbol)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                   + [ctypes.c_float] + [ctypes.c_longlong] * n_strides
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    return fn, _error_string(lib)
-
-
-@functools.lru_cache(maxsize=None)
-def _bwd_entry_points():
-    """(B2 launcher, B3 launcher, error-string) of the backward library."""
-    lib = library(BWD_SOURCE)
-    tail = ([ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_longlong] * 12
-            + [ctypes.c_void_p])
-    dkv = lib.pt_flash_attn_bwd_dkv
-    dkv.argtypes = [ctypes.c_void_p] * 8 + tail
-    dkv.restype = ctypes.c_int
-    dq = lib.pt_flash_attn_bwd_dq
-    dq.argtypes = [ctypes.c_void_p] * 7 + tail
-    dq.restype = ctypes.c_int
-    return dkv, dq, _error_string(lib)
+    err_str = lib.pt_cuda_error_string
+    err_str.argtypes = [ctypes.c_int]
+    err_str.restype = ctypes.c_char_p
+    return fn, err_str
 
 
 def _raise_on(err, name, err_str):
@@ -201,56 +235,60 @@ def _raise_on(err, name, err_str):
 
 def _launch(q, k, v, causal, scale):
     b, s, h, d = q.shape
+    kind = variant(q.dtype)
+    if kind == TC:
+        q, k, v = (tc_operand(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    fn, err_str = _entry_points()
+    fn, err_str = _entry_point(KERNEL_NAME, kind)
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, s, h, d, int(q.dtype == torch.bfloat16),
-                 int(bool(causal)), float(scale), *strides, stream)
+                 lse.data_ptr(), b, s, h, d, int(bool(causal)), float(scale),
+                 *strides, stream)
     _raise_on(err, KERNEL_NAME, err_str)
-    launch_counts[KERNEL_NAME] += 1
+    _count(KERNEL_NAME, kind)
     return out, lse
 
 
-def _bwd_args(q, k, v, do, lse, delta, causal, scale):
+def _bwd_launch(kernel, kind, q, k, v, do, lse, delta, outs, flags, scale):
+    """Launch a backward kernel on checked CUDA inputs, writing ``outs``;
+    ``flags`` are the ints after (B, S, H, D)."""
     if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
         raise ValueError("the backward kernels take CUDA tensors")
     b, s, h, d = q.shape
+    fn, err_str = _entry_point(kernel, kind)
     strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
-    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr()),
-            (b, s, h, d, int(q.dtype == torch.bfloat16), int(bool(causal)),
-             float(scale), *strides))
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in outs), b, s, h, d, *flags,
+                 float(scale), *strides, stream)
+    _raise_on(err, kernel, err_str)
+    _count(kernel, kind)
 
 
 def launch_dkv(q, k, v, do, lse, delta, causal, scale):
     """B2 on checked CUDA inputs: (dk, dv). lse and delta are contiguous
     (B, H, S) f32 (``bwd_delta`` makes delta)."""
+    kind = variant(q.dtype)
+    if kind == TC:
+        q, k, v, do, lse, delta = (tc_operand(t)
+                                   for t in (q, k, v, do, lse, delta))
     dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
               for _ in range(2))
-    fn, _, err_str = _bwd_entry_points()
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(), *rest, stream)
-    _raise_on(err, DKV_KERNEL, err_str)
-    launch_counts[DKV_KERNEL] += 1
+    _bwd_launch(DKV_KERNEL, kind, q, k, v, do, lse, delta, (dk, dv),
+                (int(bool(causal)),), scale)
     return dk, dv
 
 
 def launch_dq(q, k, v, do, lse, delta, causal, scale):
     """B3 on checked CUDA inputs: dq."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _, fn, err_str = _bwd_entry_points()
-    ptrs, rest = _bwd_args(q, k, v, do, lse, delta, causal, scale)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(*ptrs, dq.data_ptr(), *rest, stream)
-    _raise_on(err, DQ_KERNEL, err_str)
-    launch_counts[DQ_KERNEL] += 1
+    _bwd_launch(DQ_KERNEL, None, q, k, v, do, lse, delta, (dq,),
+                (int(q.dtype == torch.bfloat16), int(bool(causal))), scale)
     return dq
 
 

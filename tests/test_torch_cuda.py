@@ -6,12 +6,19 @@ they run where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances, kernel against its plain version on the same inputs: bf16
-outputs may round one ulp apart (2e-2 for values below 2), f32 outputs
-differ by summation order (2e-5); LSE is f32 in both (1e-4). The
-backward's grads are held elementwise to |err| <= atol + rtol * |plain|:
+Tolerances, kernel against its plain version on the same inputs. bf16 B1
+and B2 run on the tensor cores, where P and dS are rounded to bf16 as mma
+operands (unit roundoff 2^-9 per term) and the outputs to bf16: their O,
+dK and dV are held to a relative L2 gap of at most 2^-7 and at most twice
+the gap of PyTorch's own attention (which rounds at the same places) plus
+2^-10; an elementwise bound is not sound there, since sums with
+cancellation land near zero. B1's bf16 O also keeps a max-abs bound of
+2e-2 (values below 2). f32 outputs (the CUDA-core variants) differ by
+summation order only (O 2e-5); LSE is f32 in both (1e-4). dQ (B3) and
+every f32 grad are held elementwise to |err| <= atol + rtol * |plain|:
 bf16 one ulp (rtol 2^-7), f32 summation order over up to 1024 terms with
-cancellation in dS (rtol 1e-4); atol 1e-4 for values near zero.
+cancellation in dS (rtol 1e-4); atol 1e-4 for values near zero. Each
+test also checks which variant ran (``launch_counts``).
 """
 import pytest
 import torch
@@ -25,6 +32,7 @@ pytestmark = pytest.mark.cuda
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 BWD_RTOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-4}
 BWD_ATOL = 1e-4
+TC_REL_L2, TC_SDPA_FACTOR, TC_SDPA_SLACK = 2 ** -7, 2.0, 2 ** -10
 
 
 @pytest.fixture
@@ -43,6 +51,36 @@ def _qkv(b, s, h, d, dtype, seed):
     return qkv.to(dtype).unbind(dim=2)
 
 
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def _assert_tc_close(got, want, library, name):
+    """The tensor-core rule: relative L2 gap to the plain version within
+    2^-7 and within twice the library's own gap + 2^-10."""
+    gap, lib_gap = _rel_l2(got, want), _rel_l2(library, want)
+    assert gap <= TC_REL_L2, (name, gap)
+    assert gap <= TC_SDPA_FACTOR * lib_gap + TC_SDPA_SLACK, \
+        (name, gap, lib_gap)
+
+
+def _sdpa(q, k, v, causal, scale, do=None):
+    """PyTorch's own attention on (B, S, H, D) inputs: its output, or with
+    ``do`` its (dq, dk, dv)."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(do is not None)
+                  for t in (q, k, v))
+    out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, scale=scale)
+    if do is None:
+        return out.transpose(1, 2)
+    grads = torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    return [g.transpose(1, 2) for g in grads]
+
+
+def _variant_counts(kernel):
+    return {v: launch_counts[f"{kernel}.{v}"] for v in (fa.TC, fa.SIMT)}
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
@@ -51,14 +89,19 @@ def test_kernel_matches_plain(card, s, causal, d, dtype):
     q, k, v = _qkv(2, s, 4, d, dtype, seed=s + d + causal)
     scale = d ** -0.5
     before = launch_counts[fa.KERNEL_NAME]
+    variants = _variant_counts(fa.KERNEL_NAME)
     out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
     assert launch_counts[fa.KERNEL_NAME] == before + 1
+    variants[fa.variant(dtype)] += 1
+    assert _variant_counts(fa.KERNEL_NAME) == variants
     ref_out, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
                                                         scale)
     assert out.dtype == dtype and out.is_contiguous()
     assert (out.float() - ref_out.float()).abs().max().item() <= TOL[dtype]
     assert (lse - ref_lse).abs().max().item() <= 1e-4
+    if dtype == torch.bfloat16:
+        _assert_tc_close(out, ref_out, _sdpa(q, k, v, causal, scale), "o")
 
 
 def test_kernel_takes_grad_requiring_inputs(card):
@@ -82,17 +125,53 @@ def test_bwd_kernels_match_plain(card, s, causal, d, dtype):
     scale = d ** -0.5
     out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
     before = [launch_counts[n] for n in (fa.DKV_KERNEL, fa.DQ_KERNEL)]
+    variants = _variant_counts(fa.DKV_KERNEL)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal, scale)
     torch.cuda.synchronize()
     assert [launch_counts[n] for n in (fa.DKV_KERNEL, fa.DQ_KERNEL)] == \
         [c + 1 for c in before]
+    variants[fa.variant(dtype)] += 1
+    assert _variant_counts(fa.DKV_KERNEL) == variants
     want = fa.flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
                                             scale)
-    for a, b, name in zip(got, want, ("dq", "dk", "dv")):
+    library = _sdpa(q, k, v, causal, scale, do)
+    for a, b, lib, name in zip(got, want, library, ("dq", "dk", "dv")):
         assert a.dtype == dtype and a.is_contiguous(), name
+        if dtype == torch.bfloat16 and name != "dq":
+            _assert_tc_close(a, b, lib, name)
+            continue
         err = (a.float() - b.float()).abs()
         bound = BWD_ATOL + BWD_RTOL[dtype] * b.float().abs()
         assert bool((err <= bound).all()), (name, err.max().item())
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_misaligned_bf16_inputs_match_aligned(card, causal):
+    """A bf16 view 2 bytes past its allocation cannot be read 16 bytes at
+    a time: the wrapper copies it, and forward and backward equal those of
+    an aligned copy of the same values, on the tensor-core variants."""
+    b, s, h, d = 2, 256, 4, 64
+    g = torch.Generator(device="cuda").manual_seed(11 + causal)
+    flat = torch.randn(4 * b * s * h * d + 1, generator=g,
+                       device="cuda").to(torch.bfloat16)
+    q, k, v, do = flat[1:].view(4, b, s, h, d).unbind(0)
+    assert all(t.data_ptr() % 16 != 0 for t in (q, k, v, do))
+    aligned = [t.clone() for t in (q, k, v, do)]
+    assert all(t.data_ptr() % 16 == 0 for t in aligned)
+    scale = d ** -0.5
+    fwd = _variant_counts(fa.KERNEL_NAME)[fa.TC]
+    dkv = _variant_counts(fa.DKV_KERNEL)[fa.TC]
+    results = []
+    for qq, kk, vv, dd in ((q, k, v, do), aligned):
+        out, lse = fa.flash_attention_fwd(qq, kk, vv, causal, scale)
+        grads = fa.flash_attention_bwd(qq, kk, vv, out, lse, dd, causal,
+                                       scale)
+        results.append((out, lse, *grads))
+    torch.cuda.synchronize()
+    assert _variant_counts(fa.KERNEL_NAME)[fa.TC] == fwd + 2
+    assert _variant_counts(fa.DKV_KERNEL)[fa.TC] == dkv + 2
+    for x, y in zip(*results):
+        assert torch.equal(x, y)
 
 
 def _tiny(device, seed=0):
@@ -175,6 +254,9 @@ def test_gpt_training_step_kernel_path_matches_math_path(card):
     launch_counts.clear()
     k_loss, k_grads = _train_grads(model, x, y)
     assert [launch_counts[n] for n in fa.KERNEL_NAMES] == [2, 2, 2]
+    # f32 runs the CUDA-core variants of B1 and B2
+    assert [launch_counts[fa.variant_counter(n, torch.float32)]
+            for n in (fa.KERNEL_NAME, fa.DKV_KERNEL)] == [2, 2]
     _set_flash(model, False)
     m_loss, m_grads = _train_grads(model, x, y)
     assert sum(launch_counts[n] for n in fa.KERNEL_NAMES) == 6

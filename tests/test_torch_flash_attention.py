@@ -2,8 +2,11 @@
 
 The port's plain version of B1 (what its wrapper runs on a CPU tensor)
 is held against paddle_tpu's Pallas forward run in interpret mode, for O
-and LSE. The wrapper's checks and the attention selection rule are pure
-logic and run here; the kernel itself runs in tests/test_torch_cuda.py.
+and LSE. So is an emulation of the bf16 tensor-core kernel's rounding
+points, under the relative-L2 bound the card holds that kernel to. The
+wrapper's checks, its choice of kernel variant, its alignment rule and
+the attention selection rule are pure logic and run here; the kernels
+themselves run in tests/test_torch_cuda.py.
 """
 import numpy as np
 import pytest
@@ -68,6 +71,106 @@ def test_plain_b1_matches_pallas_interpret_bf16(causal):
     np.testing.assert_allclose(out.float().numpy(), ref_out, rtol=1e-2,
                                atol=1e-2)
     np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+# the card's bound on the tensor-core outputs' relative L2 gap
+TC_REL_L2 = 2 ** -7
+
+
+def _rel_l2(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _tc_fwd_emulated(q, k, v, causal, scale, block_k=64):
+    """What the bf16 tensor-core B1 computes, rounding where it rounds:
+    S in f32 from the bf16 q and k, the scale applied to S in f32, an
+    online softmax over 64-key tiles whose P is rounded to bf16 before
+    P . V (l sums the f32 P), O rounded to bf16. (B, S, H, D) in, (out
+    bf16, lse f32 (B, H, S)) out."""
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    s_len = qf.shape[2]
+    m = torch.full(qf.shape[:3], -1e30)
+    l = torch.zeros(qf.shape[:3])
+    acc = torch.zeros(qf.shape)
+    q_pos = torch.arange(s_len)[:, None]
+    for k0 in range(0, s_len, block_k):
+        ks, vs = kf[:, :, k0:k0 + block_k], vf[:, :, k0:k0 + block_k]
+        s = (qf @ ks.transpose(-1, -2)) * scale
+        if causal:
+            k_pos = torch.arange(k0, k0 + block_k)[None, :]
+            s = torch.where(q_pos >= k_pos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + p.to(torch.bfloat16).float() @ vs
+        m = m_new
+    l_safe = l.clamp_min(1e-30)
+    out = (acc / l_safe[..., None]).transpose(1, 2).to(torch.bfloat16)
+    return out, m + torch.log(l_safe)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_rounding_emulation_within_bound_of_pallas_bf16(causal, d):
+    """The tensor-core kernel's rounding points cost less than the bound
+    the card holds it to: the emulation's O is within relative L2 2^-7 of
+    the Pallas forward on the same bf16 inputs (and not equal to it: the
+    rounding is there), its LSE within f32 noise."""
+    arrs = _qkv((2, 256, 2, d), seed=30 + d + causal)
+    scale = 1.0 / np.sqrt(d)
+    ref_out, ref_lse = _ref(arrs, causal, scale, dtype=jnp.bfloat16)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in arrs)
+    out, lse = _tc_fwd_emulated(q, k, v, causal, scale)
+    gap = _rel_l2(out.float().numpy(), ref_out)
+    assert 0.0 < gap <= TC_REL_L2, gap
+    np.testing.assert_allclose(lse.numpy(), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+def test_variant_is_a_function_of_dtype():
+    """bf16 takes the tensor-core kernels, f32 the CUDA-core ones; each
+    variant has its own launch counter beside the kernel's."""
+    assert port_fa.variant(torch.bfloat16) == port_fa.TC == "tc_bf16"
+    assert port_fa.variant(torch.float32) == port_fa.SIMT == "simt_f32"
+    for name in (port_fa.KERNEL_NAME, port_fa.DKV_KERNEL):
+        assert port_fa.variant_counter(name, torch.bfloat16) == \
+            f"{name}.tc_bf16"
+        assert port_fa.variant_counter(name, torch.float32) == \
+            f"{name}.simt_f32"
+
+
+def test_tc_operand_copies_a_misaligned_view():
+    """A bf16 view whose base is 2 bytes past an allocation cannot be read
+    16 bytes at a time: it is copied to a fresh contiguous tensor with the
+    same values (``contiguous()`` would return it as it is)."""
+    base = torch.arange(2 * 256 * 2 * 64 + 1, dtype=torch.float32)
+    x = base.to(torch.bfloat16)[1:].view(2, 256, 2, 64)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    assert x.contiguous().data_ptr() == x.data_ptr()
+    y = port_fa.tc_operand(x)
+    assert y.data_ptr() != x.data_ptr() and y.data_ptr() % 16 == 0
+    assert y.is_contiguous() and torch.equal(y, x)
+
+
+def test_tc_operand_copies_strides_off_the_16_byte_grid():
+    """A view with a sequence stride of 388 elements puts rows off 16-byte
+    boundaries even where the base is aligned."""
+    x = torch.zeros((2, 256, 388), dtype=torch.bfloat16)
+    v = x[:, :, :128].unflatten(-1, (2, 64))
+    assert v.data_ptr() % 16 == 0 and v.stride(1) % 8 != 0
+    assert port_fa.tc_operand(v).data_ptr() != v.data_ptr()
+
+
+def test_tc_operand_keeps_the_gpt_qkv_views():
+    """GPTAttention's q, k, v are views of its fused (b, s, 3, h, d)
+    projection at offsets 0, h*d and 2*h*d with strides that are multiples
+    of 8: all three are read in place, as is a contiguous f32 LSE."""
+    qkv = torch.zeros((2, 256, 3, 16, 64), dtype=torch.bfloat16)
+    for t in qkv.unbind(dim=2):
+        assert port_fa.tc_operand(t) is t
+    lse = torch.zeros((2, 16, 256))
+    assert port_fa.tc_operand(lse) is lse
 
 
 def test_plain_b1_reads_strided_views():

@@ -5,8 +5,10 @@ The port's plain version of B2/B3 (what its wrapper runs on a CPU tensor)
 is held against paddle_tpu's Pallas backward run in interpret mode, for
 dq, dk and dv; the port's ``_FlashAttentionFn`` is held against
 ``jax.vjp`` of the reference's ``_flash_attention_diff``, checked by
-gradcheck in float64, and fed the strided q/k/v views GPT hands it. The
-kernels themselves run in tests/test_torch_cuda.py.
+gradcheck in float64, and fed the strided q/k/v views GPT hands it. An
+emulation of the bf16 tensor-core B2's rounding points is held against the
+Pallas backward under the relative-L2 bound the card holds that kernel to.
+The kernels themselves run in tests/test_torch_cuda.py.
 """
 import numpy as np
 import pytest
@@ -35,6 +37,8 @@ F32_TOL = dict(rtol=5e-4, atol=1e-5)
 # may land one bf16 ulp away (2^-7 relative), and near zero by the f32
 # difference itself
 BF16_TOL = dict(rtol=2 ** -7, atol=1e-4)
+# the card's bound on the tensor-core outputs' relative L2 gap
+TC_REL_L2 = 2 ** -7
 
 
 def _arrays(d, seed):
@@ -77,6 +81,58 @@ def test_plain_bwd_matches_pallas_interpret(causal, d, dtype):
         np.testing.assert_allclose(g.float().numpy(),
                                    np.asarray(w.astype(jnp.float32)),
                                    err_msg=name, **tol)
+
+
+def _tc_dkv_emulated(q, k, v, out, lse, do, causal, scale):
+    """What the bf16 tensor-core B2 computes, rounding where it rounds:
+    S^T in f32 from the bf16 k and q, the scale applied to S^T in f32, P^T
+    = exp(S^T - LSE) rounded to bf16 before P^T . dO, dS^T = P^T * (dP^T -
+    Dl) in f32 rounded to bf16 before dS^T . q, dK scaled once at the end,
+    dK and dV rounded to bf16. (B, S, H, D) in and out."""
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    s = (qf @ kf.transpose(-1, -2)) * scale
+    if causal:
+        n = s.shape[-1]
+        keep = torch.arange(n)[:, None] >= torch.arange(n)[None, :]
+        s = torch.where(keep, s, -1e30)
+    p = torch.exp(s - lse[..., None])
+    dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ dof
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dk = (ds.to(torch.bfloat16).float().transpose(-1, -2) @ qf) * scale
+    return tuple(g.transpose(1, 2).to(torch.bfloat16) for g in (dk, dv))
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_rounding_emulation_within_bound_of_pallas_bf16(causal, d):
+    """The tensor-core B2's rounding points cost less than the bound the
+    card holds it to: the emulation's dK and dV are within relative L2
+    2^-7 of the Pallas backward on the same bf16 inputs (and differ from
+    it: the rounding is there)."""
+    rng = np.random.RandomState(40 + d + causal)
+    q, k, v = ((rng.randn(2, 256, 2, d) * 0.3).astype("float32")
+               for _ in range(3))
+    do = rng.randn(2, 256, 2, d).astype("float32")
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)
+                       for a in (q, k, v, do))
+    out, lse = ref_fa.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                          scale=scale, interpret=True)
+    _, want_dk, want_dv = ref_fa.flash_attention_bwd(
+        jq, jk, jv, out, lse, jdo, causal=causal, scale=scale,
+        interpret=True)
+
+    def port(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+    got = _tc_dkv_emulated(port(jq), port(jk), port(jv), port(out),
+                           torch.from_numpy(np.array(lse)), port(jdo),
+                           causal, scale)
+    for g, w, name in zip(got, (want_dk, want_dv), ("dk", "dv")):
+        w = np.asarray(w.astype(jnp.float32), np.float64)
+        gap = np.linalg.norm(g.double().numpy() - w) / np.linalg.norm(w)
+        assert 0.0 < gap <= TC_REL_L2, (name, gap)
 
 
 @pytest.mark.parametrize("causal", [False, True])
