@@ -12,12 +12,17 @@ Phases, each printing JSON lines:
    and time kernel, plain version and a library yardstick: flash attention
    B1 (causal and not, head dim 64 and 128, bf16 and f32), then its
    backward B2 (dK, dV) and B3 (dQ) at the training shape (4 x 1024, 16
-   heads of 64, bf16, causal) and five more. bf16 B1 and B2 run their
-   tensor-core variants, f32 their CUDA-core (SIMT) ones; each row names
-   the variant that ran. "ms" is device time (the kernels' summed duration
-   under torch.profiler, per call); "wall_ms" is CUDA-event time over
-   back-to-back calls, which includes the host's launch cost where the
-   host is slower than the kernel.
+   heads of 64, bf16, causal) and five more. bf16 runs the tensor-core
+   variants, f32 the CUDA-core (SIMT) ones; each row names the variant
+   that ran. At the bf16 causal shapes the wrapper's whole backward
+   (bwd_delta, B2 and B3) is also timed against the library's backward,
+   with bwd_delta's own share. "ms" is device time (the kernels' summed
+   duration under torch.profiler, per call; a profile that lost kernels
+   is taken again, and after three such tries the time comes from CUDA
+   events around calls queued behind a spin kernel, with a
+   timing_fallback line); "wall_ms" is CUDA-event time over back-to-back
+   calls, which includes the host's launch cost where the host is slower
+   than the kernel.
 3. reference: a small GPT on the card is held against the same model on
    the host (whose math path the host tests hold against paddle_tpu):
    greedy decode, and 3 AdamW training steps in f32.
@@ -33,11 +38,12 @@ Phases, each printing JSON lines:
    trains on bench.py's permutation stream, batch 4 x 1024, through
    ``jit.to_static``: 4 warm-up steps, then 16 timed steps with the launch
    counts reset just before and read just after (24 launches each of B1,
-   B2 and B3 per step, B1 and B2 on the tensor cores). Then one bf16 step
-   is profiled; one f32 step at full width holds the kernel path's loss
-   and grads against the math path's (the SIMT variants), and the same
-   weights cast to bf16 hold the tensor-core path's grads against the f32
-   math path's, no further from it than twice the bf16 math path.
+   B2 and B3 per step, all on the tensor cores). Then one bf16 step is
+   profiled, bwd_delta's kernels summed apart; one f32 step at full width
+   holds the kernel path's loss and grads against the math path's (the
+   SIMT variants), and the same weights cast to bf16 hold the tensor-core
+   path's grads against the f32 math path's, no further from it than twice
+   the bf16 math path.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -74,20 +80,16 @@ KERNEL_TOL = {"bfloat16": (2e-2, 1e-3), "float32": (2e-5, 1e-4)}
 # into logits of magnitude ~3, where a bf16 ulp is 2^-6; f32 differs only
 # by summation order.
 LOGIT_TOL = {"bfloat16": 0.25, "float32": 1e-3}
-# B3 (both dtypes) and f32 B2 against the plain backward, elementwise
-# |kernel - plain| <= atol + rtol * |plain|, as (rtol, atol). bf16 (dQ): the
-# two round the same f32 sums to bf16 and may land one ulp apart (2^-7
-# relative); f32: sums in another order over up to 1024 terms, with
-# cancellation in dS. atol covers values near zero.
-BWD_TOL = {"bfloat16": (2 ** -7, 1e-4), "float32": (1e-4, 1e-4)}
-BWD_TOL_REASON = {
-    "bfloat16": "one bf16 ulp (2^-7 relative): both round the same f32 "
-                "sums to bf16",
-    "float32": "f32 sums in another order over up to 1024 terms, with "
-               "cancellation in dS"}
-# the tensor-core outputs (bf16 O of B1, dK and dV of B2) against the f32
-# plain version: relative L2 gap <= TC_REL_L2, and <= TC_SDPA_FACTOR x the
-# library's own relative L2 gap to the same plain version + TC_SDPA_SLACK.
+# the f32 backward (the SIMT B2 and B3) against the plain backward,
+# elementwise |kernel - plain| <= atol + rtol * |plain|; atol covers values
+# near zero
+BWD_RTOL, BWD_ATOL = 1e-4, 1e-4
+BWD_TOL_REASON = ("f32 sums in another order over up to 1024 terms, with "
+                  "cancellation in dS")
+# the tensor-core outputs (bf16 O of B1, dK and dV of B2, dQ of B3) against
+# the f32 plain version: relative L2 gap <= TC_REL_L2, and <= TC_SDPA_FACTOR
+# x the library's own relative L2 gap to the same plain version +
+# TC_SDPA_SLACK.
 # An elementwise bound is not sound once P and dS round before the product:
 # sums with cancellation land near zero.
 TC_REL_L2, TC_SDPA_FACTOR, TC_SDPA_SLACK = 2 ** -7, 2.0, 2 ** -10
@@ -126,10 +128,11 @@ def cuda_time_ms(torch, fn, reps=50, warmup=5):
 
 def kernel_times(prof):
     """(us, count, name) of each device kernel in a profile, longest
-    first."""
+    first (ranges marked by record_function are not kernels)."""
     kernels = []
     for e in prof.key_averages():
-        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+        if not str(getattr(e, "device_type", "")).endswith("CUDA") \
+                or getattr(e, "is_user_annotation", False):
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -139,22 +142,84 @@ def kernel_times(prof):
     return sorted(kernels, reverse=True)
 
 
-def device_ms(torch, fn, reps=20, warmup=3):
-    """Device time of one call of ``fn``: the summed duration of the
-    kernels it launches (torch.profiler), averaged over ``reps`` calls. It
-    leaves out the host's launch cost, which CUDA events over
-    back-to-back calls (cuda_time_ms) include when the host is the
-    slower side."""
+# how each device time was taken: a profile that recorded every call's
+# kernels, a profile retried after it recorded none or only some of them,
+# or queued CUDA events after every try failed (queued_event_ms)
+TIMING = {"profiler": 0, "profiler_retries": 0, "queued_events": []}
+# a spin of 2^27 clock cycles holds the stream ~70 ms at the H100's
+# 1.98 GHz boost clock while the host queues the timed calls
+SPIN_CYCLES = 1 << 27
+
+
+def queued_event_ms(torch, fn, reps=20, warmup=3):
+    """Device time (ms) of one call of ``fn`` from CUDA events, for when
+    the profiler records no kernels: a spin kernel (torch.cuda._sleep)
+    holds the stream while the host queues all ``reps`` calls, so the
+    events bracket back-to-back device work and not the host's launch
+    cost. If the spin ended before the host had queued them all, the spin
+    is doubled and the calls timed again (up to 4 times). Returns the
+    time and whether the queue held."""
+    for _ in range(warmup):
+        fn()
+    spin = SPIN_CYCLES
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            break
+        spin *= 2
+    return start.elapsed_time(end) / reps, held
+
+
+def device_profile(torch, fn, reps=20, warmup=3, tries=3):
+    """Device time (ms) and kernel launches of one call of ``fn``: the
+    summed duration and number of the kernels it launches
+    (torch.profiler), averaged over ``reps`` calls. The time leaves out
+    the host's launch cost, which CUDA events over back-to-back calls
+    (cuda_time_ms) include when the host is the slower side.
+
+    ``fn`` launches the same kernels on every call, so a profile whose
+    launch count is zero or not a multiple of ``reps`` lost kernels: it is
+    taken again, up to ``tries`` times, and then the time comes from
+    queued CUDA events (queued_event_ms) with the launches unknown (None).
+    Every time returned is above zero."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-    return sum(k[0] for k in kernel_times(prof)) / 1e3 / reps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = kernel_times(prof)
+        launches = sum(k[1] for k in kernels)
+        if launches and launches % reps == 0:
+            TIMING["profiler"] += 1
+            TIMING["profiler_retries"] += attempt
+            return sum(k[0] for k in kernels) / 1e3 / reps, launches / reps
+    ms, held = queued_event_ms(torch, fn, reps, warmup=0)
+    record = {"fn": getattr(fn, "__qualname__", repr(fn)),
+              "profiled_launches_last_try": launches, "reps": reps,
+              "ms": ms, "queue_held": held}
+    TIMING["queued_events"].append(record)
+    emit({"phase": "timing_fallback", **record})
+    assert ms > 0, record
+    return ms, None
+
+
+def device_ms(torch, fn, reps=20, warmup=3):
+    """Device time of one call of ``fn`` (device_profile)."""
+    return device_profile(torch, fn, reps, warmup)[0]
 
 
 def rel_l2(a, b):
@@ -185,15 +250,20 @@ def flash_bound(b, s, h, d, dtype_name, causal):
                                  "operations")
 
 
+# (B, S, H, D) inputs, outputs, flops / (B*H*S^2*D) and (B, H, S) f32
+# vectors read of B2, B3 and the wrapper's whole backward (which reads O in
+# place of D and does B2's and B3's products)
+BWD_WORK = {"dkv": (4, 2, 8, 2), "dq": (4, 1, 6, 2), "whole": (5, 3, 14, 1)}
+
+
 def flash_bwd_bound(b, s, h, d, dtype_name, causal, kernel):
-    """Least time (ms) for B2's ("dkv") or B3's ("dq") work and what bounds
-    it: q, k, v, dO read once, LSE and D read once, the outputs written
-    once; B2 does 8*B*H*S^2*D flops and B3 6*B*H*S^2*D, halved when
-    causal."""
+    """Least time (ms) for B2's ("dkv"), B3's ("dq") or the whole
+    backward's ("whole") work and what bounds it: each input read once,
+    each output written once (BWD_WORK); the flops halved when causal."""
     elt = 2 if dtype_name == "bfloat16" else 4
     n = b * s * h * d
-    outputs, coef = (2, 8) if kernel == "dkv" else (1, 6)
-    nbytes = (4 + outputs) * n * elt + 2 * b * h * s * 4
+    inputs, outputs, coef, vectors = BWD_WORK[kernel]
+    nbytes = (inputs + outputs) * n * elt + vectors * b * h * s * 4
     flops = coef * b * h * s * s * d * (0.5 if causal else 1.0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -216,15 +286,17 @@ def qkv_views(torch, b, s, h, d, dtype, gen):
     return qkv.unbind(dim=2)
 
 
-def launched_variant(fa, launch_counts, kernel, fn):
-    """Run ``fn`` and return the variant counter of ``kernel`` that it
-    advanced by one (it must advance exactly one)."""
-    keys = [f"{kernel}.{v}" for v in (fa.TC, fa.SIMT)]
+def launched_variant(fa, launch_counts, kernels, fn):
+    """Run ``fn`` and return the variant that it launched once for each
+    of ``kernels``: each must advance exactly one of its variant counters
+    by one, and all the same variant."""
+    keys = [f"{k}.{v}" for k in kernels for v in (fa.TC, fa.SIMT)]
     before = [launch_counts[k] for k in keys]
     result = fn()
     moved = [k for k, c in zip(keys, before) if launch_counts[k] == c + 1]
-    assert len(moved) == 1, (kernel, moved)
-    return moved[0].split(".", 1)[1], result
+    kinds = {k.split(".", 1)[1] for k in moved}
+    assert len(moved) == len(kernels) and len(kinds) == 1, (kernels, moved)
+    return kinds.pop(), result
 
 
 def phase_kernels(torch, seed):
@@ -245,7 +317,7 @@ def phase_kernels(torch, seed):
         q, k, v = qkv_views(torch, b, s, h, d, dtype, gen)
         scale = 1.0 / d ** 0.5
         kind, (out, lse) = launched_variant(
-            fa, launch_counts, fa.KERNEL_NAME,
+            fa, launch_counts, (fa.KERNEL_NAME,),
             lambda: fa.flash_attention_fwd(q, k, v, causal, scale))
         assert kind == fa.variant(dtype), (kind, dname)
         torch.cuda.synchronize()
@@ -316,9 +388,11 @@ def sdpa_bwd(torch, q, k, v, do, causal, scale):
 def phase_kernels_bwd(torch, seed):
     """B2 and B3 against the plain backward on the card, each timed alone
     (its launcher, on a precomputed D), beside the plain backward and the
-    library's backward (both compute dq, dk and dv together). bf16 dK and
-    dV (the tensor-core B2) are held to the relative-L2 rule, dQ and every
-    f32 grad elementwise."""
+    library's backward (both compute dq, dk and dv together). bf16 grads
+    (the tensor-core B2 and B3) are held to the relative-L2 rule, f32
+    grads elementwise. At the bf16 causal shapes the wrapper's whole
+    backward is timed against the library's backward, and bwd_delta (D =
+    rowsum(dO * O)) alone beside it."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import launch_counts
     gen = torch.Generator(device="cuda").manual_seed(seed + 2)
@@ -337,7 +411,7 @@ def phase_kernels_bwd(torch, seed):
         scale = 1.0 / d ** 0.5
         out, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
         kind, got = launched_variant(
-            fa, launch_counts, fa.DKV_KERNEL,
+            fa, launch_counts, (fa.DKV_KERNEL, fa.DQ_KERNEL),
             lambda: fa.flash_attention_bwd(q, k, v, out, lse, do, causal,
                                            scale))
         assert kind == fa.variant(dtype), (kind, dname)
@@ -346,7 +420,6 @@ def phase_kernels_bwd(torch, seed):
                                                 causal, scale)
         library_ms, library_wall_ms, lib = sdpa_bwd(torch, q, k, v, do,
                                                     causal, scale)
-        rtol, atol = BWD_TOL[dname]
         err, share_of_tol, info, gates = {}, {}, {}, {}
         for name, g, w, x in zip(("dq", "dk", "dv"), got, want, lib):
             assert torch.isfinite(g.float()).all(), name
@@ -358,11 +431,12 @@ def phase_kernels_bwd(torch, seed):
             info[name] = {"max_abs_plain": w.float().abs().max().item(),
                           "max_abs_gap_vs_library":
                               (g.float() - x.float()).abs().max().item()}
-            if kind == fa.TC and name != "dq":
+            if kind == fa.TC:
                 gates[name] = tc_gate(g, w, x)
             else:
-                share_of_tol[name] = (diff / (atol + rtol * w.float().abs())
-                                      ).max().item()
+                share_of_tol[name] = (
+                    diff / (BWD_ATOL + BWD_RTOL * w.float().abs())
+                ).max().item()
         del got, want, lib
         delta = fa.bwd_delta(out, do)
 
@@ -371,22 +445,30 @@ def phase_kernels_bwd(torch, seed):
 
         def dq():
             return fa.launch_dq(q, k, v, do, lse, delta, causal, scale)
-        times = {"dkv": (device_ms(torch, dkv), cuda_time_ms(torch, dkv)),
-                 "dq": (device_ms(torch, dq), cuda_time_ms(torch, dq))}
+        # the queued-event time is device_profile's fallback, measured here
+        # on every run so that it stays checked against the profiler
+        times = {"dkv": (device_ms(torch, dkv), cuda_time_ms(torch, dkv),
+                         queued_event_ms(torch, dkv)[0]),
+                 "dq": (device_ms(torch, dq), cuda_time_ms(torch, dq),
+                        queued_event_ms(torch, dq)[0])}
         plain_ms = device_ms(torch, lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal, scale), reps=3, warmup=1)
+        if kind == fa.TC and causal:
+            whole_backward(torch, fa, (q, k, v, out, lse, do), causal, scale,
+                           kind, library_ms)
         for kernel, name, outs in (("dkv", fa.DKV_KERNEL, ("dk", "dv")),
                                    ("dq", fa.DQ_KERNEL, ("dq",))):
             bound_ms, bound_by = flash_bwd_bound(b, s, h, d, dname, causal,
                                                  kernel)
-            ms, wall_ms = times[kernel]
+            ms, wall_ms, queued_ms = times[kernel]
             elementwise = [o for o in outs if o in share_of_tol]
             row = {"shape": [b, s, h, d], "dtype": dname, "causal": causal,
-                   "variant": kind if kernel == "dkv" else "simt",
+                   "variant": kind,
                    "max_abs_err": max(err[o] for o in outs),
                    "max_abs_err_by_output": {o: err[o] for o in outs},
                    "sanity_by_output": {o: info[o] for o in outs},
-                   "ms": ms, "wall_ms": wall_ms, "plain_ms": plain_ms,
+                   "ms": ms, "wall_ms": wall_ms,
+                   "queued_event_ms": queued_ms, "plain_ms": plain_ms,
                    "plain_scope": "dq, dk and dv together",
                    "library_ms": library_ms,
                    "library_wall_ms": library_wall_ms,
@@ -395,8 +477,8 @@ def phase_kernels_bwd(torch, seed):
                    "share_of_bound": bound_ms / ms,
                    "factor_vs_library": ms / library_ms}
             if elementwise:
-                row.update(rtol=rtol, atol=atol,
-                           tol_reason=BWD_TOL_REASON[dname],
+                row.update(rtol=BWD_RTOL, atol=BWD_ATOL,
+                           tol_reason=BWD_TOL_REASON,
                            worst_share_of_tol=max(share_of_tol[o]
                                                   for o in elementwise))
             else:
@@ -404,11 +486,38 @@ def phase_kernels_bwd(torch, seed):
                            tol_reason=TC_TOL_REASON)
             emit({"phase": "kernels", "kernel": name, **row})
             rows[kernel].append(row)
-        assert max(share_of_tol.values()) <= 1.0, (dname, causal, err)
+        assert max(share_of_tol.values(), default=0.0) <= 1.0, \
+            (dname, causal, err)
         assert all(gt["ok"] for gt in gates.values()), (dname, causal, gates)
         del out, lse, delta, q, k, v, do
         torch.cuda.empty_cache()
     return rows
+
+
+def whole_backward(torch, fa, inputs, causal, scale, kind, library_ms):
+    """The wrapper's whole backward (bwd_delta, B2 and B3) against the
+    library's backward, both as device time, and bwd_delta alone: its
+    device time and kernel launches per call."""
+    q, k, v, out, lse, do = inputs
+    b, s, h, d = q.shape
+    dname = str(q.dtype).split(".")[-1]
+    ms, launches = device_profile(torch, lambda: fa.flash_attention_bwd(
+        q, k, v, out, lse, do, causal, scale))
+    delta_ms, delta_launches = device_profile(
+        torch, lambda: fa.bwd_delta(out, do))
+    bound_ms, bound_by = flash_bwd_bound(b, s, h, d, dname, causal, "whole")
+    emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+          "scope": "the wrapper's whole backward: bwd_delta, B2, B3",
+          "shape": [b, s, h, d], "dtype": dname, "causal": causal,
+          "variant": kind, "ms": ms, "launches_per_call": launches,
+          "library_ms": library_ms,
+          "library_scope": "SDPA backward, dq, dk and dv together",
+          "factor_vs_library": ms / library_ms,
+          "bwd_delta_ms": delta_ms,
+          "bwd_delta_launches_per_call": delta_launches,
+          "bwd_delta_share": delta_ms / ms,
+          "bound_us": bound_ms * 1e3, "bound_by": bound_by,
+          "share_of_bound": bound_ms / ms})
 
 
 def greedy(torch, model, ids, steps):
@@ -557,7 +666,7 @@ def profile_windows(torch, model, ids, decode_steps=16):
                      1 if name == "prefill" else decode_steps)
 
 
-def emit_profile(prof, wall_s, window, steps, top=12):
+def emit_profile(prof, wall_s, window, steps, top=12, **extra):
     """Device time by kernel of a profiled window, and the busy share: the
     summed kernel time over the host-clock wall time of the window. The
     port's flash kernels are listed by name whatever their rank."""
@@ -572,7 +681,19 @@ def emit_profile(prof, wall_s, window, steps, top=12):
                             for m in [re.search(r"flash_\w+<[^>]*>", k[2])]
                             if m},
           "top": [{"kernel": k[2][:90], "ms": k[0] / 1e3,
-                   "count": k[1]} for k in kernels[:top]]})
+                   "count": k[1]} for k in kernels[:top]], **extra})
+
+
+def annotated_kernels(prof, name):
+    """(device ms, kernel launches, calls) of the kernels launched under
+    the host ranges called ``name`` (torch.profiler.record_function) in a
+    profile."""
+    def launches(e):
+        return len(e.kernels) + sum(launches(c) for c in e.cpu_children)
+    ranges = [e for e in prof.events() if e.name == name
+              and str(e.device_type).endswith("CPU")]
+    return (sum(e.device_time_total for e in ranges) / 1e3,
+            sum(launches(e) for e in ranges), len(ranges))
 
 
 def bench_stream(seed, steps, batch, seq, sub=512):
@@ -677,10 +798,9 @@ def phase_train(torch, seed):
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
-    from torch.profiler import ProfilerActivity, profile
-    # the counters of B1's and B2's variants, then B3's
-    variants = {dt: [fa.variant_counter(n, dt)
-                     for n in (fa.KERNEL_NAME, fa.DKV_KERNEL)]
+    from torch.profiler import ProfilerActivity, profile, record_function
+    # the counters of each kernel's variant for each dtype
+    variants = {dt: [fa.variant_counter(n, dt) for n in KERNEL_NAMES]
                 for dt in (torch.bfloat16, torch.float32)}
     cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
@@ -724,20 +844,34 @@ def phase_train(torch, seed):
     emit(row)
     assert all(c == [cfg.num_layers] * len(KERNEL_NAMES) for c in per_step), \
         per_step
-    # B1 and B2 ran their tensor-core variants, every launch
+    # B1, B2 and B3 ran their tensor-core variants, every launch
     assert all(launches[n] == cfg.num_layers * TRAIN_STEPS
                for n in variants[torch.bfloat16]), launches
     assert all(launches[n] == 0 for n in variants[torch.float32]), launches
     assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
 
+    # bwd_delta's kernels are generic elementwise and reduction kernels:
+    # a host range around each call tells them apart in the profile
+    def annotated_delta(out, do):
+        with record_function("flash_bwd_delta"):
+            return plain_delta(out, do)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        step(xs[-1], ys[-1])
+    plain_delta, fa.bwd_delta = fa.bwd_delta, annotated_delta
+    try:
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    emit_profile(prof, wall_s, "train_step", 1, top=16)
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            step(xs[-1], ys[-1])
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        fa.bwd_delta = plain_delta
+    delta_ms, delta_launches, delta_calls = annotated_kernels(
+        prof, "flash_bwd_delta")
+    emit_profile(prof, wall_s, "train_step", 1, top=16,
+                 bwd_delta={"ms": delta_ms, "launches": delta_launches,
+                            "calls": delta_calls})
+    assert delta_calls == cfg.num_layers, delta_calls
     del model, opt, step, prof
     torch.cuda.empty_cache()
 
@@ -786,8 +920,8 @@ def phase_train(torch, seed):
 
 def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
     """One bf16 step at full width from the f32 check's weights cast to
-    bf16, on the kernel path (tensor-core B1 and B2, SIMT B3) and on the
-    math path. The f32 math path's loss and grads are the truth: the
+    bf16, on the kernel path (tensor-core B1, B2 and B3) and on the math
+    path. The f32 math path's loss and grads are the truth: the
     kernel path's relative gap to it must be no more than BF16_GRAD_FACTOR
     times the bf16 math path's + BF16_GRAD_SLACK, for the loss and for
     every parameter's grad (relative L2)."""
@@ -837,8 +971,8 @@ def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
 def kernel_entries(fa, rows, bwd_rows, serve, train):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
-    B1 at the prefill shape (and its training-shape time), B2 at the
-    training shape; f32 (SIMT): the f32 correctness runs at full width,
+    B1 at the prefill shape (and its training-shape time), B2 and B3 at
+    the training shape; f32 (SIMT): the f32 correctness runs at full width,
     timed at (4, 512, 16, 64) causal."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
@@ -853,6 +987,7 @@ def kernel_entries(fa, rows, bwd_rows, serve, train):
                 **{k: row[k] for k in keys}, **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
+    dq_tc, dq_simt = bwd_rows["dq"][0], bwd_rows["dq"][4]
     tc, simt = fa.TC, fa.SIMT
     scope = {"plain_scope": dkv_tc["plain_scope"],
              "library_scope": dkv_tc["library_scope"]}
@@ -881,11 +1016,18 @@ def kernel_entries(fa, rows, bwd_rows, serve, train):
               dkv_simt["max_abs_err"],
               main_path="f32 training step (train_check, correctness run)",
               **scope),
-        entry(fa.DQ_KERNEL, "flash_attn_bwd.cu", 247, bwd_rows["dq"][0],
-              train["launches"][fa.DQ_KERNEL],
-              bwd_rows["dq"][0]["max_abs_err"],
-              main_path="training step (train)",
+        entry(f"{fa.DQ_KERNEL}.{tc}", "flash_attn_dq_tc.cu", 247, dq_tc,
+              train["launches"][f"{fa.DQ_KERNEL}.{tc}"],
+              dq_tc["max_abs_err"],
+              rel_l2={o: g["rel_l2"]
+                      for o, g in dq_tc["rel_l2_by_output"].items()},
+              main_path="bf16 training step (train)",
               launches_per_step=train["launches_per_step"][fa.DQ_KERNEL],
+              **scope),
+        entry(f"{fa.DQ_KERNEL}.{simt}", "flash_attn_bwd.cu", 247, dq_simt,
+              train["f32_launches"][f"{fa.DQ_KERNEL}.{simt}"],
+              dq_simt["max_abs_err"],
+              main_path="f32 training step (train_check, correctness run)",
               **scope)]
 
 
@@ -926,7 +1068,8 @@ def main():
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     entries = kernel_entries(fa, rows, bwd_rows, serve, train)
     emit({"kernels": entries})
-    emit({"phase": "done", "seconds": time.perf_counter() - t0})
+    emit({"phase": "done", "seconds": time.perf_counter() - t0,
+          "timing": TIMING})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

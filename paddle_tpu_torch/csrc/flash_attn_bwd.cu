@@ -1,6 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a): kernel B2 (dK, dV) of the
-// port for f32 inputs, and kernel B3 (dQ) for f32 and bf16 inputs. bf16 B2
-// runs on the tensor cores (flash_attn_dkv_tc.cu).
+// Flash-attention backward for Hopper (sm_90a), f32: kernels B2 (dK, dV) and
+// B3 (dQ) of the port for f32 inputs (bf16 inputs take the tensor-core
+// kernels in flash_attn_dkv_tc.cu and flash_attn_dq_tc.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_attn_bwd_dkv_kernel
 // (B2) and ::_attn_bwd_dq_kernel (B3), both launched by _flash_bwd_bh
@@ -23,17 +23,16 @@
 // What bounds them on the H100: B2 does 8*B*H*S^2*D flops and B3
 // 6*B*H*S^2*D (half that when causal), against reads of q, k, v, dO
 // (4*B*S*H*D elements), LSE and Dl, and writes of dK, dV (B2) or dQ (B3).
-// At the GPT-medium training shape (B=4, S=1024, H=16, D=64, bf16, causal)
-// B2 is 17.2 GFLOP (17.4 us at 989 TFLOP/s) against 50.9 MB (15.2 us at
-// 3.35 TB/s), and B3 12.9 GFLOP (13.0 us) against 42.5 MB (12.7 us): both
-// bound by operations, just.
+// In f32 at (B=4, S=512, H=16, D=64, causal) B2 is 4.3 GFLOP (64.1 us at the
+// 67 TFLOP/s of f32 outside the tensor cores) against 50.6 MB (15.1 us at
+// 3.35 TB/s), and B3 3.2 GFLOP (48.1 us) against 42.2 MB (12.6 us): both
+// bound by operations.
 //
 // Design. Each (tile, b*h) pair is its own block of 256 threads; at the
 // training shape that is 16 * 64 = 1024 blocks per kernel, enough for the
 // 132 SMs with no cross-block state. Tiles are 64 x 64 (BQ = BK = 64) and
-// are kept in f32 in shared memory with padded rows (no bank conflicts):
-// bf16 inputs are read as bf16 once and every product accumulates in f32;
-// f32 inputs run in plain f32 FMA (no TF32). Four threads own one tile row:
+// are kept in f32 in shared memory with padded rows (no bank conflicts),
+// and every product is a plain f32 FMA (no TF32). Four threads own one row:
 // in the score phase each computes 16 of the 64 entries of S and dP for
 // its row, as B1 does.
 //   B2 keeps its key tile's K and V in shared memory and its dK and dV
@@ -52,20 +51,18 @@
 // raise the dynamic shared-memory limit first and return any launch error.
 //
 // These kernels use CUDA-core FMAs fed from shared memory; they are correct
-// and simple, not fast (shared-memory loads bound them). B2 keeps this form
-// for f32 only: TF32 tensor cores keep only about three decimal digits and
-// would break the f32 correctness gates that rest on it (grads within 1e-3
+// and simple, not fast (shared-memory loads bound them). They keep this form
+// for f32: TF32 tensor cores keep only about three decimal digits and would
+// break the f32 correctness gates that rest on them (grads within 1e-3
 // relative L2 in chip_smoke.py's train_check, 1e-4 elementwise against the
 // plain version); f32 is the port's correctness dtype, and bf16, its hot
-// path, takes the tensor-core B2. B3 is redesigned the same way next
-// (ROADMAP B5).
+// path, takes the tensor-core B2 and B3.
 //
 // Inputs are (B, S, H, D) with any batch, sequence and head strides and a
 // unit stride on D: the strided q/k/v views GPTAttention slices out of its
 // fused qkv projection are read in place. dQ, dK and dV are written
-// contiguous (B, S, H, D) in the input dtype.
+// contiguous (B, S, H, D) f32.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -80,20 +77,6 @@ constexpr float NEG_BIG = -1e30f;
 static_assert(BQ == BK, "B2's phase 2 maps key rows onto the query-row "
                         "thread layout of phase 1");
 static_assert(THREADS == BK * TPR, "four threads per key row in B2");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // element strides (batch, seq, head) of q, k, v and dO
 struct Strides {
@@ -115,14 +98,14 @@ struct Layout {
 
 // rows [row0, row0 + 64) of a (S, D) slice with sequence stride `ss` into a
 // padded f32 tile, times `mul` (q * scale in f32, as the reference forms it)
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long ss,
-                                      int row0, float mul) {
+template <int D>
+__device__ __forceinline__ void stage(float* dst, const float* src,
+                                      long long ss, int row0, float mul) {
   for (int idx = threadIdx.x; idx < 64 * D; idx += THREADS) {
     const int row = idx / D;
     const int col = idx % D;
     dst[row * Layout<D>::STR + col] =
-        to_f32(src[(long long)(row0 + row) * ss + col]) * mul;
+        src[(long long)(row0 + row) * ss + col] * mul;
   }
 }
 
@@ -153,14 +136,16 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int H, float scale, int causal,
-                     Strides st) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int H, float scale,
+                     int causal, Strides st) {
   using L = Layout<D>;
   constexpr int STR = L::STR;
   constexpr int PSTR = L::PSTR;
@@ -183,15 +168,15 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh % H;
   const int k0 = blockIdx.x * BK;
 
-  const T* qb = q + b * st.q[0] + h * st.q[2];
-  const T* kb = k + b * st.k[0] + h * st.k[2];
-  const T* vb = v + b * st.v[0] + h * st.v[2];
-  const T* ob = dout + b * st.o[0] + h * st.o[2];
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
+  const float* ob = dout + b * st.o[0] + h * st.o[2];
   const float* lse_bh = lse + (long long)bh * S;
   const float* dl_bh = delta + (long long)bh * S;
 
-  stage<T, D>(Ks, kb, st.k[1], k0, 1.f);
-  stage<T, D>(Vs, vb, st.v[1], k0, 1.f);
+  stage<D>(Ks, kb, st.k[1], k0, 1.f);
+  stage<D>(Vs, vb, st.v[1], k0, 1.f);
 
   float dk_acc[DPT];
   float dv_acc[DPT];
@@ -208,8 +193,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = start_qb; t < n_qb; ++t) {
     const int q0 = t * BQ;
     __syncthreads();  // the previous tile's reads of Q, dO, P, dS are done
-    stage<T, D>(Qs, qb, st.q[1], q0, scale);
-    stage<T, D>(dOs, ob, st.o[1], q0, 1.f);
+    stage<D>(Qs, qb, st.q[1], q0, scale);
+    stage<D>(dOs, ob, st.o[1], q0, 1.f);
     if (tid < BQ) {
       Ls[tid] = lse_bh[q0 + tid];
       Dls[tid] = dl_bh[q0 + tid];
@@ -250,18 +235,20 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long out_row = ((long long)(b * S + k0 + r) * H + h) * D;
 #pragma unroll
   for (int e = 0; e < DPT; ++e) {
-    dk[out_row + j + TPR * e] = from_f32<T>(dk_acc[e]);
-    dv[out_row + j + TPR * e] = from_f32<T>(dv_acc[e]);
+    dk[out_row + j + TPR * e] = dk_acc[e];
+    dv[out_row + j + TPR * e] = dv_acc[e];
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int S,
-                    int H, float scale, int causal, Strides st) {
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int S, int H, float scale, int causal, Strides st) {
   using L = Layout<D>;
   constexpr int STR = L::STR;
   constexpr int PSTR = L::PSTR;
@@ -282,13 +269,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = blockIdx.x * BQ;
   const int q_pos = q0 + r;
 
-  const T* qb = q + b * st.q[0] + h * st.q[2];
-  const T* kb = k + b * st.k[0] + h * st.k[2];
-  const T* vb = v + b * st.v[0] + h * st.v[2];
-  const T* ob = dout + b * st.o[0] + h * st.o[2];
+  const float* qb = q + b * st.q[0] + h * st.q[2];
+  const float* kb = k + b * st.k[0] + h * st.k[2];
+  const float* vb = v + b * st.v[0] + h * st.v[2];
+  const float* ob = dout + b * st.o[0] + h * st.o[2];
 
-  stage<T, D>(Qs, qb, st.q[1], q0, scale);
-  stage<T, D>(dOs, ob, st.o[1], q0, 1.f);
+  stage<D>(Qs, qb, st.q[1], q0, scale);
+  stage<D>(dOs, ob, st.o[1], q0, 1.f);
   const float l_row = lse[(long long)bh * S + q_pos];
   const float d_row = delta[(long long)bh * S + q_pos];
 
@@ -303,8 +290,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = 0; t < last_kb; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's K reads are done; Q is staged
-    stage<T, D>(Ks, kb, st.k[1], k0, 1.f);
-    stage<T, D>(Vs, vb, st.v[1], k0, 1.f);
+    stage<D>(Ks, kb, st.k[1], k0, 1.f);
+    stage<D>(Vs, vb, st.v[1], k0, 1.f);
     __syncthreads();
 
     float s[COLS];
@@ -329,47 +316,48 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // dS was formed against q * scale, so the q cotangent carries the scale
-  T* dq_row = dq + ((long long)(b * S + q_pos) * H + h) * D;
+  float* dq_row = dq + ((long long)(b * S + q_pos) * H + h) * D;
 #pragma unroll
   for (int e = 0; e < DPT; ++e)
-    dq_row[j + TPR * e] = from_f32<T>(dq_acc[e] * scale);
+    dq_row[j + TPR * e] = dq_acc[e] * scale;
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int S, int H, float scale,
                        int causal, const Strides& st, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<D>;
   const size_t smem = Layout<D>::DKV_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / BK, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, H, scale, causal, st);
+      static_cast<float*>(dk), static_cast<float*>(dv), S, H, scale, causal,
+      st);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int S, int H, float scale, int causal,
                       const Strides& st, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<D>;
   const size_t smem = Layout<D>::DQ_BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / BQ, B * H);
   kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, H, scale, causal, st);
+      static_cast<float*>(dq), S, H, scale, causal, st);
   return cudaGetLastError();
 }
 
@@ -393,9 +381,9 @@ Strides make_strides(const long long* s) {
 
 // Common arguments: q, k, v, dout (B, S, H, D) with element strides (batch,
 // seq, head) given for each, in that order, and unit stride on D; lse and
-// delta contiguous (B, H, S) f32; outputs contiguous (B, S, H, D) in the
-// input dtype. Each returns the cudaError_t of its launch (0 on success)
-// and does not synchronise.
+// delta contiguous (B, H, S) f32; outputs contiguous (B, S, H, D) f32.
+// Each returns the cudaError_t of its launch (0 on success) and does not
+// synchronise.
 
 // B2 (f32 only; bf16 takes pt_flash_attn_bwd_dkv_tc): dk and dv.
 extern "C" int pt_flash_attn_bwd_dkv(
@@ -411,42 +399,33 @@ extern "C" int pt_flash_attn_bwd_dkv(
   const Strides st = make_strides(s);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B, S,
-                                      H, scale, causal, st, cs);
+    return (int)launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                               scale, causal, st, cs);
   if (D == 128)
-    return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, B,
-                                       S, H, scale, causal, st, cs);
+    return (int)launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                scale, causal, st, cs);
   return (int)cudaErrorInvalidValue;
 }
 
-// B3: dq. is_bf16 selects bf16 (1) or f32 (0).
+// B3 (f32 only; bf16 takes pt_flash_attn_bwd_dq_tc): dq.
 extern "C" int pt_flash_attn_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int S, int H, int D,
-    int is_bf16, int causal, float scale, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, void* stream) {
+    int causal, float scale, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+    long long o_sh, void* stream) {
   if (bad_shape(B, S, H)) return (int)cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
   const Strides st = make_strides(s);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    if (D == 64)
-      return (int)launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq, B,
-                                               S, H, scale, causal, st, cs);
-    if (D == 128)
-      return (int)launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta, dq,
-                                                B, S, H, scale, causal, st, cs);
-  } else {
-    if (D == 64)
-      return (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, S, H,
-                                       scale, causal, st, cs);
-    if (D == 128)
-      return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, S, H,
-                                        scale, causal, st, cs);
-  }
+  if (D == 64)
+    return (int)launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
+                              causal, st, cs);
+  if (D == 128)
+    return (int)launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
+                               causal, st, cs);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,8 +1,8 @@
 // Building blocks of the port's bf16 tensor-core kernels (flash_attn_fwd_tc.cu,
-// flash_attn_dkv_tc.cu): 16-byte cp.async copies into XOR-swizzled shared
-// tiles, ldmatrix fragment loads, and the m16n8k16 bf16 mma.sync with f32
-// accumulators. Plain inline PTX; the instructions date from sm_80 and run on
-// sm_90a.
+// flash_attn_dkv_tc.cu, flash_attn_dq_tc.cu): 16-byte cp.async copies into
+// XOR-swizzled shared tiles, ldmatrix fragment loads, and the m16n8k16 bf16
+// mma.sync with f32 accumulators. Plain inline PTX; the instructions date
+// from sm_80 and run on sm_90a.
 //
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + t, g = lane / 4, t = lane % 4):
 //   A (16 x 16, row major), 4 registers of 2 bf16: a[0] = (row g, cols 2t..2t+1),

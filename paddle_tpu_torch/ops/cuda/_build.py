@@ -23,9 +23,9 @@ from pathlib import Path
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_ROOT / "csrc"
 BUILD_DIR = PACKAGE_ROOT / "_build"
-# B1 (f32 SIMT, bf16 tensor cores), B3 with f32 B2, bf16 B2
+# B1 (f32 SIMT, bf16 tensor cores), f32 B2 and B3 (SIMT), bf16 B2, bf16 B3
 SOURCES = ("flash_attn_fwd", "flash_attn_fwd_tc", "flash_attn_bwd",
-           "flash_attn_dkv_tc")
+           "flash_attn_dkv_tc", "flash_attn_dq_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 BUILD_TIMEOUT_S = 600

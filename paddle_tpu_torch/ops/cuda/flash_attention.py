@@ -1,17 +1,17 @@
 """Flash attention on CUDA: forward (kernel B1), backward (kernels B2 and
 B3), and their plain versions.
 
-Port of paddle_tpu/ops/pallas/flash_attention.py. B1 and B2 have two
-variants each, chosen by dtype (``variant``): bf16 runs on the tensor cores
-(``csrc/flash_attn_fwd_tc.cu``, ``csrc/flash_attn_dkv_tc.cu``: mma.sync,
-ldmatrix, cp.async), f32 on CUDA-core FMAs (``csrc/flash_attn_fwd.cu``,
-``csrc/flash_attn_bwd.cu``), where TF32 would break the f32 correctness
-gates. B3 (dQ, ``csrc/flash_attn_bwd.cu``) has one variant for both. The
-kernels' headers say what bounds them on the H100 and how their designs
-answer that. This module builds them at first use, checks what they are
-given, allocates the outputs and launches them on the current stream. On
-a CPU tensor each wrapper runs the plain PyTorch version instead; on a
-CUDA tensor it launches or raises.
+Port of paddle_tpu/ops/pallas/flash_attention.py. Each kernel has two
+variants, chosen by dtype (``variant``): bf16 runs on the tensor cores
+(``csrc/flash_attn_fwd_tc.cu``, ``csrc/flash_attn_dkv_tc.cu``,
+``csrc/flash_attn_dq_tc.cu``: mma.sync, ldmatrix, cp.async), f32 on
+CUDA-core FMAs (``csrc/flash_attn_fwd.cu``, ``csrc/flash_attn_bwd.cu``),
+where TF32 would break the f32 correctness gates. The kernels' headers say
+what bounds them on the H100 and how their designs answer that. This
+module builds them at first use, checks what they are given, allocates
+the outputs and launches them on the current stream. On a CPU tensor each
+wrapper runs the plain PyTorch version instead; on a CUDA tensor it
+launches or raises.
 
 Layout: inputs (B, S, H, D), paddle's convention, as in the reference.
 The kernels read the batch, sequence and head strides they are given, so
@@ -41,17 +41,18 @@ KERNEL_NAME = "flash_attn_fwd"
 DKV_KERNEL = "flash_attn_bwd_dkv"
 DQ_KERNEL = "flash_attn_bwd_dq"
 KERNEL_NAMES = (KERNEL_NAME, DKV_KERNEL, DQ_KERNEL)
-# the variants of B1 and B2: bf16 on the tensor cores, f32 on CUDA cores
+# the variants of each kernel: bf16 on the tensor cores, f32 on CUDA cores
 TC, SIMT = "tc_bf16", "simt_f32"
 # (source in csrc/, C entry point) of each kernel variant
 _ENTRY = {(KERNEL_NAME, TC): ("flash_attn_fwd_tc", "pt_flash_attn_fwd_tc"),
           (KERNEL_NAME, SIMT): ("flash_attn_fwd", "pt_flash_attn_fwd"),
           (DKV_KERNEL, TC): ("flash_attn_dkv_tc", "pt_flash_attn_bwd_dkv_tc"),
           (DKV_KERNEL, SIMT): ("flash_attn_bwd", "pt_flash_attn_bwd_dkv"),
-          (DQ_KERNEL, None): ("flash_attn_bwd", "pt_flash_attn_bwd_dq")}
+          (DQ_KERNEL, TC): ("flash_attn_dq_tc", "pt_flash_attn_bwd_dq_tc"),
+          (DQ_KERNEL, SIMT): ("flash_attn_bwd", "pt_flash_attn_bwd_dq")}
 # (pointers, ints before the scale, strides after it) of each kernel's
 # entry points; the strides are (batch, seq, head) of q, k, v (and dout)
-_ARITY = {KERNEL_NAME: (5, 5, 9), DKV_KERNEL: (8, 5, 12), DQ_KERNEL: (7, 6, 12)}
+_ARITY = {KERNEL_NAME: (5, 5, 9), DKV_KERNEL: (8, 5, 12), DQ_KERNEL: (7, 5, 12)}
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # the constants of the reference kernel (_attn_fwd_kernel)
@@ -177,7 +178,7 @@ def _check_bwd(q, out, lse, do):
 
 
 def variant(dtype):
-    """The variant of B1 and B2 that a CUDA tensor of ``dtype`` launches:
+    """The variant of each kernel that a CUDA tensor of ``dtype`` launches:
     the tensor-core kernel for bf16, the CUDA-core one for f32."""
     return TC if dtype == torch.bfloat16 else SIMT
 
@@ -205,8 +206,7 @@ def tc_operand(t):
 
 def _count(kernel, kind):
     launch_counts[kernel] += 1
-    if kind is not None:
-        launch_counts[f"{kernel}.{kind}"] += 1
+    launch_counts[f"{kernel}.{kind}"] += 1
 
 
 @functools.lru_cache(maxsize=None)
@@ -252,11 +252,18 @@ def _launch(q, k, v, causal, scale):
     return out, lse
 
 
-def _bwd_launch(kernel, kind, q, k, v, do, lse, delta, outs, flags, scale):
-    """Launch a backward kernel on checked CUDA inputs, writing ``outs``;
-    ``flags`` are the ints after (B, S, H, D)."""
+def _bwd_launch(kernel, q, k, v, do, lse, delta, n_out, causal, scale):
+    """Launch a backward kernel's variant for q's dtype on checked CUDA
+    inputs; returns its ``n_out`` outputs, each (B, S, H, D) in q's
+    dtype."""
     if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
         raise ValueError("the backward kernels take CUDA tensors")
+    kind = variant(q.dtype)
+    if kind == TC:
+        q, k, v, do, lse, delta = (tc_operand(t)
+                                   for t in (q, k, v, do, lse, delta))
+    outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
+            for _ in range(n_out)]
     b, s, h, d = q.shape
     fn, err_str = _entry_point(kernel, kind)
     strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
@@ -264,31 +271,24 @@ def _bwd_launch(kernel, kind, q, k, v, do, lse, delta, outs, flags, scale):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
-                 *(t.data_ptr() for t in outs), b, s, h, d, *flags,
-                 float(scale), *strides, stream)
+                 *(t.data_ptr() for t in outs), b, s, h, d,
+                 int(bool(causal)), float(scale), *strides, stream)
     _raise_on(err, kernel, err_str)
     _count(kernel, kind)
+    return outs
 
 
 def launch_dkv(q, k, v, do, lse, delta, causal, scale):
     """B2 on checked CUDA inputs: (dk, dv). lse and delta are contiguous
     (B, H, S) f32 (``bwd_delta`` makes delta)."""
-    kind = variant(q.dtype)
-    if kind == TC:
-        q, k, v, do, lse, delta = (tc_operand(t)
-                                   for t in (q, k, v, do, lse, delta))
-    dk, dv = (torch.empty(q.shape, dtype=q.dtype, device=q.device)
-              for _ in range(2))
-    _bwd_launch(DKV_KERNEL, kind, q, k, v, do, lse, delta, (dk, dv),
-                (int(bool(causal)),), scale)
+    dk, dv = _bwd_launch(DKV_KERNEL, q, k, v, do, lse, delta, 2, causal,
+                         scale)
     return dk, dv
 
 
 def launch_dq(q, k, v, do, lse, delta, causal, scale):
-    """B3 on checked CUDA inputs: dq."""
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch(DQ_KERNEL, None, q, k, v, do, lse, delta, (dq,),
-                (int(q.dtype == torch.bfloat16), int(bool(causal))), scale)
+    """B3 on checked CUDA inputs: dq. lse and delta as for launch_dkv."""
+    dq, = _bwd_launch(DQ_KERNEL, q, k, v, do, lse, delta, 1, causal, scale)
     return dq
 
 

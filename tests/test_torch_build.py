@@ -61,3 +61,21 @@ def test_every_source_and_its_headers_lie_in_csrc():
         text = (_build.CSRC / f"{name}.cu").read_text()
         for inc in re.findall(r'#include "([^"]+)"', text):
             assert inc in headers, (name, inc)
+
+
+def test_entry_points_match_their_c_signatures():
+    """Each kernel variant's C entry point takes what the wrapper's typed
+    ctypes signature passes: the pointers, then the ints, the scale, the
+    strides and the stream (ctypes would pass a mismatch on silently)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    for (kernel, kind), (source, symbol) in fa._ENTRY.items():
+        assert source in _build.SOURCES, (kernel, kind)
+        text = (_build.CSRC / f"{source}.cu").read_text()
+        m = re.search(r'extern "C" int ' + symbol + r"\((.*?)\)\s*\{", text,
+                      re.S)
+        assert m, (source, symbol)
+        types = [p.strip().rsplit(" ", 1)[0] for p in m.group(1).split(",")]
+        types = ["void*" if t.endswith("void*") else t for t in types]
+        n_ptrs, n_ints, n_strides = fa._ARITY[kernel]
+        assert types == (["void*"] * n_ptrs + ["int"] * n_ints + ["float"]
+                         + ["long long"] * n_strides + ["void*"]), symbol

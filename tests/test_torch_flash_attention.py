@@ -129,11 +129,17 @@ def test_tc_rounding_emulation_within_bound_of_pallas_bf16(causal, d):
 
 
 def test_variant_is_a_function_of_dtype():
-    """bf16 takes the tensor-core kernels, f32 the CUDA-core ones; each
-    variant has its own launch counter beside the kernel's."""
+    """bf16 takes the tensor-core kernels, f32 the CUDA-core ones, for all
+    three kernels; each variant has its own launch counter beside the
+    kernel's and its own entry point."""
     assert port_fa.variant(torch.bfloat16) == port_fa.TC == "tc_bf16"
     assert port_fa.variant(torch.float32) == port_fa.SIMT == "simt_f32"
-    for name in (port_fa.KERNEL_NAME, port_fa.DKV_KERNEL):
+    assert port_fa.KERNEL_NAMES == (port_fa.KERNEL_NAME, port_fa.DKV_KERNEL,
+                                    port_fa.DQ_KERNEL)
+    entries = {port_fa._ENTRY[name, kind] for name in port_fa.KERNEL_NAMES
+               for kind in (port_fa.TC, port_fa.SIMT)}
+    assert len(entries) == 6
+    for name in port_fa.KERNEL_NAMES:
         assert port_fa.variant_counter(name, torch.bfloat16) == \
             f"{name}.tc_bf16"
         assert port_fa.variant_counter(name, torch.float32) == \

@@ -5,9 +5,10 @@ The port's plain version of B2/B3 (what its wrapper runs on a CPU tensor)
 is held against paddle_tpu's Pallas backward run in interpret mode, for
 dq, dk and dv; the port's ``_FlashAttentionFn`` is held against
 ``jax.vjp`` of the reference's ``_flash_attention_diff``, checked by
-gradcheck in float64, and fed the strided q/k/v views GPT hands it. An
-emulation of the bf16 tensor-core B2's rounding points is held against the
-Pallas backward under the relative-L2 bound the card holds that kernel to.
+gradcheck in float64, and fed the strided q/k/v views GPT hands it.
+Emulations of the bf16 tensor-core B2's and B3's rounding points are held
+against the Pallas backward under the relative-L2 bound the card holds
+those kernels to.
 The kernels themselves run in tests/test_torch_cuda.py.
 """
 import numpy as np
@@ -83,6 +84,18 @@ def test_plain_bwd_matches_pallas_interpret(causal, d, dtype):
                                    err_msg=name, **tol)
 
 
+def _scores_f32(q, k, causal, scale):
+    """The tensor-core kernels' S: f32 products of the bf16 q and k, the
+    scale applied in f32, -1e30 where a query precedes its key when
+    causal. (B, H, S, S) from (B, H, S, D) f32 views of bf16 values."""
+    s = (q @ k.transpose(-1, -2)) * scale
+    if causal:
+        n = s.shape[-1]
+        keep = torch.arange(n)[:, None] >= torch.arange(n)[None, :]
+        s = torch.where(keep, s, -1e30)
+    return s
+
+
 def _tc_dkv_emulated(q, k, v, out, lse, do, causal, scale):
     """What the bf16 tensor-core B2 computes, rounding where it rounds:
     S^T in f32 from the bf16 k and q, the scale applied to S^T in f32, P^T
@@ -90,17 +103,59 @@ def _tc_dkv_emulated(q, k, v, out, lse, do, causal, scale):
     Dl) in f32 rounded to bf16 before dS^T . q, dK scaled once at the end,
     dK and dV rounded to bf16. (B, S, H, D) in and out."""
     qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
-    s = (qf @ kf.transpose(-1, -2)) * scale
-    if causal:
-        n = s.shape[-1]
-        keep = torch.arange(n)[:, None] >= torch.arange(n)[None, :]
-        s = torch.where(keep, s, -1e30)
-    p = torch.exp(s - lse[..., None])
+    p = torch.exp(_scores_f32(qf, kf, causal, scale) - lse[..., None])
     dv = p.to(torch.bfloat16).float().transpose(-1, -2) @ dof
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
     ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
     dk = (ds.to(torch.bfloat16).float().transpose(-1, -2) @ qf) * scale
     return tuple(g.transpose(1, 2).to(torch.bfloat16) for g in (dk, dv))
+
+
+def _tc_dq_emulated(q, k, v, out, lse, do, causal, scale):
+    """What the bf16 tensor-core B3 computes, rounding where it rounds: S
+    in f32 from the bf16 q and k, the scale applied to S in f32, P =
+    exp(S - LSE) and dS = P * (dP - Dl) in f32, dS rounded to bf16 before
+    dS . K, dQ scaled once at the end and rounded to bf16. (B, S, H, D) in
+    and out."""
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    p = torch.exp(_scores_f32(qf, kf, causal, scale) - lse[..., None])
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    ds = p * (dof @ vf.transpose(-1, -2) - delta[..., None])
+    dq = (ds.to(torch.bfloat16).float() @ kf) * scale
+    return dq.transpose(1, 2).to(torch.bfloat16)
+
+
+def _pallas_bf16_bwd(d, causal, seed):
+    """bf16 inputs (B, S, H, D) = (2, 256, 2, d) made from ``seed``, and
+    the Pallas forward and backward on them (interpret mode): (port
+    inputs (q, k, v, out, lse, do) as torch tensors, Pallas (dq, dk, dv)
+    as f64 numpy arrays)."""
+    rng = np.random.RandomState(seed)
+    q, k, v = ((rng.randn(2, 256, 2, d) * 0.3).astype("float32")
+               for _ in range(3))
+    do = rng.randn(2, 256, 2, d).astype("float32")
+    scale = 1.0 / np.sqrt(d)
+    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)
+                       for a in (q, k, v, do))
+    out, lse = ref_fa.flash_attention_fwd(jq, jk, jv, causal=causal,
+                                          scale=scale, interpret=True)
+    want = ref_fa.flash_attention_bwd(jq, jk, jv, out, lse, jdo,
+                                      causal=causal, scale=scale,
+                                      interpret=True)
+
+    def port(a):
+        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
+            torch.bfloat16)
+    inputs = (port(jq), port(jk), port(jv), port(out),
+              torch.from_numpy(np.array(lse)), port(jdo))
+    return inputs, [np.asarray(w.astype(jnp.float32), np.float64)
+                    for w in want]
+
+
+def _assert_within_tc_bound(got, want, names):
+    for g, w, name in zip(got, want, names):
+        gap = np.linalg.norm(g.double().numpy() - w) / np.linalg.norm(w)
+        assert 0.0 < gap <= TC_REL_L2, (name, gap)
 
 
 @pytest.mark.parametrize("d", [64, 128])
@@ -110,29 +165,22 @@ def test_tc_rounding_emulation_within_bound_of_pallas_bf16(causal, d):
     card holds it to: the emulation's dK and dV are within relative L2
     2^-7 of the Pallas backward on the same bf16 inputs (and differ from
     it: the rounding is there)."""
-    rng = np.random.RandomState(40 + d + causal)
-    q, k, v = ((rng.randn(2, 256, 2, d) * 0.3).astype("float32")
-               for _ in range(3))
-    do = rng.randn(2, 256, 2, d).astype("float32")
-    scale = 1.0 / np.sqrt(d)
-    jq, jk, jv, jdo = (jnp.asarray(a).astype(jnp.bfloat16)
-                       for a in (q, k, v, do))
-    out, lse = ref_fa.flash_attention_fwd(jq, jk, jv, causal=causal,
-                                          scale=scale, interpret=True)
-    _, want_dk, want_dv = ref_fa.flash_attention_bwd(
-        jq, jk, jv, out, lse, jdo, causal=causal, scale=scale,
-        interpret=True)
+    inputs, (_, want_dk, want_dv) = _pallas_bf16_bwd(d, causal,
+                                                     seed=40 + d + causal)
+    got = _tc_dkv_emulated(*inputs, causal, 1.0 / np.sqrt(d))
+    _assert_within_tc_bound(got, (want_dk, want_dv), ("dk", "dv"))
 
-    def port(a):
-        return torch.from_numpy(np.array(a.astype(jnp.float32))).to(
-            torch.bfloat16)
-    got = _tc_dkv_emulated(port(jq), port(jk), port(jv), port(out),
-                           torch.from_numpy(np.array(lse)), port(jdo),
-                           causal, scale)
-    for g, w, name in zip(got, (want_dk, want_dv), ("dk", "dv")):
-        w = np.asarray(w.astype(jnp.float32), np.float64)
-        gap = np.linalg.norm(g.double().numpy() - w) / np.linalg.norm(w)
-        assert 0.0 < gap <= TC_REL_L2, (name, gap)
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_dq_rounding_emulation_within_bound_of_pallas_bf16(causal, d):
+    """The same for the tensor-core B3: the emulation's dQ is within
+    relative L2 2^-7 of the Pallas backward's bf16 dq, and differs from
+    it."""
+    inputs, (want_dq, _, _) = _pallas_bf16_bwd(d, causal,
+                                               seed=50 + d + causal)
+    got = _tc_dq_emulated(*inputs, causal, 1.0 / np.sqrt(d))
+    _assert_within_tc_bound((got,), (want_dq,), ("dq",))
 
 
 @pytest.mark.parametrize("causal", [False, True])
