@@ -36,14 +36,28 @@ Phases, each printing JSON lines:
    prefill and 16 decode steps: device time by kernel and busy share.
 5. train: GPT-medium at full width in bf16 with AdamW(multi_precision)
    trains on bench.py's permutation stream, batch 4 x 1024, through
-   ``jit.to_static``: 4 warm-up steps, then 16 timed steps with the launch
-   counts reset just before and read just after (24 launches each of B1,
-   B2 and B3 per step, all on the tensor cores). Then one bf16 step is
-   profiled, bwd_delta's kernels summed apart; one f32 step at full width
-   holds the kernel path's loss and grads against the math path's (the
-   SIMT variants), and the same weights cast to bf16 hold the tensor-core
-   path's grads against the f32 math path's, no further from it than twice
-   the bf16 math path.
+   ``jit.to_static`` on the eager path (FLAGS_compiled_step=0): 4 warm-up
+   steps, then 16 timed steps with the launch counts reset just before
+   and read just after (24 launches each of B1, B2 and B3 per step, all
+   on the tensor cores). Then one bf16 step is profiled, bwd_delta's
+   kernels summed apart; one f32 step at full width holds the kernel
+   path's loss and grads against the math path's (the SIMT variants), and
+   the same weights cast to bf16 hold the tensor-core path's grads against
+   the f32 math path's, no further from it than twice the bf16 math path.
+6. compiled_train: the same cell with the step captured as one CUDA graph
+   (``CompiledTrainStep`` over ``to_static``), the same weights and
+   batches: 1 compile in the 4 warm-up steps, 0 compiles and 16 cache
+   hits in the 16 timed steps, the loss curve within 2e-2 of the eager
+   run's step by step, step time, tokens/s and peak memory beside the
+   eager run's, and one replayed step profiled (one graph launch; B1, B2
+   and B3 24 times each, counted by kernel name, since a replay does not
+   pass through the wrappers' Python counts).
+7. amp_train: GPT-medium with f32 parameters under auto_cast(bf16),
+   recompute, AdamW + ClipGradByGlobalNorm(1.0) + LinearWarmup, captured
+   and driven through run_steps (K = 4, three executions, the scheduler
+   stepping between them): the lr read back at each step equals the
+   scheduler's, the last execution's mean loss is below the first's; the
+   second execution is profiled (B1 48 times a step, B2 and B3 24).
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -672,16 +686,18 @@ def emit_profile(prof, wall_s, window, steps, top=12, **extra):
     port's flash kernels are listed by name whatever their rank."""
     kernels = kernel_times(prof)
     device_us = sum(k[0] for k in kernels)
-    emit({"phase": "profile", "window": window, "steps": steps,
-          "wall_ms": wall_s * 1e3, "device_ms": device_us / 1e3,
-          "busy_share": device_us / 1e3 / (wall_s * 1e3),
-          "kernel_launches": sum(k[1] for k in kernels),
-          "flash_kernels": {m.group(0): {"ms": k[0] / 1e3, "count": k[1]}
-                            for k in kernels
-                            for m in [re.search(r"flash_\w+<[^>]*>", k[2])]
-                            if m},
-          "top": [{"kernel": k[2][:90], "ms": k[0] / 1e3,
-                   "count": k[1]} for k in kernels[:top]], **extra})
+    row = {"phase": "profile", "window": window, "steps": steps,
+           "wall_ms": wall_s * 1e3, "device_ms": device_us / 1e3,
+           "busy_share": device_us / 1e3 / (wall_s * 1e3),
+           "kernel_launches": sum(k[1] for k in kernels),
+           "flash_kernels": {m.group(0): {"ms": k[0] / 1e3, "count": k[1]}
+                             for k in kernels
+                             for m in [re.search(r"flash_\w+<[^>]*>", k[2])]
+                             if m},
+           "top": [{"kernel": k[2][:90], "ms": k[0] / 1e3,
+                    "count": k[1]} for k in kernels[:top]], **extra}
+    emit(row)
+    return row
 
 
 def annotated_kernels(prof, name):
@@ -813,6 +829,9 @@ def phase_train(torch, seed):
     opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
                              parameters=model.parameters())
     step = train_step_fn(model, opt)
+    # the eager path: every call runs the Python body (the compiled_train
+    # phase captures the same step)
+    pt.set_flags({"FLAGS_compiled_step": False})
     losses = [step(xs[i], ys[i]) for i in range(TRAIN_WARMUP)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -866,11 +885,13 @@ def phase_train(torch, seed):
             wall_s = time.perf_counter() - t0
     finally:
         fa.bwd_delta = plain_delta
+        pt.set_flags({"FLAGS_compiled_step": True})
     delta_ms, delta_launches, delta_calls = annotated_kernels(
         prof, "flash_bwd_delta")
-    emit_profile(prof, wall_s, "train_step", 1, top=16,
-                 bwd_delta={"ms": delta_ms, "launches": delta_launches,
-                            "calls": delta_calls})
+    row["profile"] = emit_profile(
+        prof, wall_s, "train_step", 1, top=16,
+        bwd_delta={"ms": delta_ms, "launches": delta_launches,
+                   "calls": delta_calls})
     assert delta_calls == cfg.num_layers, delta_calls
     del model, opt, step, prof
     torch.cuda.empty_cache()
@@ -968,12 +989,235 @@ def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
     del k_grads, m_grads
 
 
-def kernel_entries(fa, rows, bwd_rows, serve, train):
+# the tensor-core kernels of a step, by the names of their __global__
+# functions: a replayed graph launches them without passing through the
+# wrappers, whose Python counts therefore do not move
+TC_KERNEL_NAMES = {"flash_attn_fwd": "flash_fwd_tc_kernel",
+                   "flash_attn_bwd_dkv": "flash_bwd_dkv_tc_kernel",
+                   "flash_attn_bwd_dq": "flash_bwd_dq_tc_kernel"}
+# eager and captured bf16 loss curves, step by step (the same kernels on
+# the same batches; bf16 rounding differs between two runs only where the
+# order of reductions does)
+CURVE_RTOL = 2e-2
+
+
+def profiled(torch, fn, steps):
+    """Profile ``fn`` (which runs ``steps`` training steps): the profile,
+    its host-clock wall seconds, its result, and per step the kernels'
+    device ms, kernel launches, host graph launches and B1/B2/B3 launches
+    counted by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    kernels = kernel_times(prof)
+    graph_launches = sum(1 for e in prof.events()
+                         if e.name.startswith("cudaGraphLaunch"))
+    per_step = {
+        "device_ms": sum(k[0] for k in kernels) / 1e3 / steps,
+        "kernel_launches": sum(k[1] for k in kernels) / steps,
+        "graph_launches": graph_launches / steps,
+        "flash_launches": {n: sum(k[1] for k in kernels if tc in k[2])
+                           / steps for n, tc in TC_KERNEL_NAMES.items()}}
+    return prof, wall_s, out, per_step
+
+
+def phase_compiled_train(torch, seed, eager):
+    """The train phase's cell with its step captured: GPT-medium bf16,
+    AdamW(multi_precision), the same weights and batches, the step under
+    ``jit.to_static`` wrapped in ``CompiledTrainStep``, so that it becomes
+    one CUDA graph (jit/to_static.py). 4 warm-up steps (a discovery pass,
+    the capture and its replay, two replays), then 16 timed replays, held
+    against the train phase's eager run (``eager``): compile counters, the
+    loss curves step by step, step time, tokens/s, peak memory; then one
+    replayed step profiled (device time, busy share, graph launches,
+    kernels per replay and B1/B2/B3 by kernel name)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    total = TRAIN_WARMUP + TRAIN_STEPS + 1
+    xs, ys = bench_stream(seed, total, TRAIN_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    step = CompiledTrainStep(train_step_fn(model, opt), label="gpt_medium")
+    reset_compile_stats()
+    t0 = time.perf_counter()
+    losses = [step(xs[i], ys[i]) for i in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    warm = compile_stats()
+    reset_compile_stats()
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP, TRAIN_WARMUP + TRAIN_STEPS):
+        losses.append(step(xs[i], ys[i]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = compile_stats()
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.memory_reserved()
+    losses = [loss.item() for loss in losses]
+    _, wall_s, _, prof = profiled(torch, lambda: step(xs[-1], ys[-1]), 1)
+    step_ms = seconds / TRAIN_STEPS * 1e3
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
+    row = {"phase": "compiled_train", "dtype": "bfloat16",
+           "config": "GPT-medium v32000 h1024 L24 a16 d64",
+           "optimizer": "AdamW lr 1e-4 multi_precision (f32 masters)",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "warmup_steps": TRAIN_WARMUP,
+           "timed_steps": TRAIN_STEPS,
+           "compile_stats_warmup": warm, "compile_stats_timed": timed,
+           "warmup_s": warmup_s,
+           "step_ms": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / seconds,
+           "eager_step_ms": eager["step_ms"],
+           "eager_tokens_per_s": eager["tokens_per_s"],
+           "speedup_vs_eager": eager["step_ms"] / step_ms,
+           "peak_mem_bytes": peak, "reserved_bytes_end": reserved,
+           "eager_peak_mem_bytes": eager["peak_mem_bytes"],
+           "replay_profile": {**prof, "wall_ms": wall_s * 1e3,
+                              "busy_share": prof["device_ms"]
+                              / (wall_s * 1e3)},
+           "unprofiled_busy_share": prof["device_ms"] / step_ms,
+           "eager_profile": {k: eager["profile"][k] for k in (
+               "device_ms", "wall_ms", "busy_share", "kernel_launches")},
+           "losses": losses, "eager_losses": eager["losses"],
+           "curve_rel_gap_max": max(gaps), "curve_rtol": CURVE_RTOL}
+    emit(row)
+    n = cfg.num_layers
+    assert warm == {"compiles": 1, "cache_hits": 2,
+                    "retrace_warnings": 0}, warm
+    assert timed == {"compiles": 0, "cache_hits": TRAIN_STEPS,
+                     "retrace_warnings": 0}, timed
+    assert prof["flash_launches"] == {k: n for k in TC_KERNEL_NAMES}, prof
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert max(gaps) <= CURVE_RTOL, gaps
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_amp_train(torch, seed):
+    """bench.py's GPT lane with BENCH_DTYPE=amp and BENCH_GPT_RECOMPUTE=1,
+    a global-norm clip and a warm-up schedule: GPT-medium with f32
+    parameters, the forward under ``amp.auto_cast(dtype="bfloat16")``,
+    ``recompute=True``, AdamW + ClipGradByGlobalNorm(1.0) + LinearWarmup,
+    the step captured and driven through ``run_steps`` with K = 4, three
+    times (12 steps; single-batch losses spike early in training, so the
+    gate compares the mean loss of the last execution with the first's);
+    the scheduler steps between executions. The step returns the lr tensor
+    beside the loss, so each step's lr is read back. The first execution
+    holds the discovery pass and the capture, the second is profiled (B1
+    runs 48 times a step, the forward and its rerun in the backward; B2 and
+    B3 24), the third is timed unprofiled."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    k_steps, executions = 4, 3
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0,
+                    recompute=True)
+    xs, ys = bench_stream(seed, k_steps * executions, TRAIN_BATCH,
+                          TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.float32,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    sched = pt.optimizer.lr.LinearWarmup(learning_rate=1e-4, warmup_steps=2,
+                                         start_lr=5e-5, end_lr=1e-4)
+    opt = pt.optimizer.AdamW(learning_rate=sched,
+                             parameters=model.parameters(),
+                             grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+
+    def train_step(x, y):
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.float(), opt._learning_rate
+    step = CompiledTrainStep(pt.jit.to_static(train_step),
+                             label="gpt_medium_amp")
+    reset_compile_stats()
+    losses, lrs, want_lrs, stats, times, prof = [], [], [], [], [], None
+    for e in range(executions):
+        sl = slice(e * k_steps, (e + 1) * k_steps)
+        want_lrs += [float(np.float32(sched()))] * k_steps
+
+        def run():
+            return step.run_steps(xs[sl], ys[sl])
+        if e == 1:
+            _, wall_s, out, prof = profiled(torch, run, k_steps)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        times.append(wall_s / k_steps * 1e3)
+        stats.append(compile_stats())
+        reset_compile_stats()
+        losses += out[0].tolist()
+        lrs += out[1].tolist()
+        sched.step()
+    peak = torch.cuda.max_memory_allocated()
+    row = {"phase": "amp_train",
+           "config": "GPT-medium v32000 h1024 L24 a16 d64, f32 params, "
+                     "auto_cast bf16 (O1), recompute",
+           "optimizer": "AdamW + ClipGradByGlobalNorm(1.0) + LinearWarmup "
+                        "(5e-5 -> 1e-4 over 2 executions)",
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "k_steps": k_steps,
+           "executions": executions, "compile_stats": stats,
+           "step_ms_by_execution": times,
+           "step_ms": times[2],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / times[2] * 1e3,
+           "replay_profile": {**prof, "busy_share": prof["device_ms"]
+                              / times[1]},
+           "peak_mem_bytes": peak,
+           "losses": losses, "lrs": lrs, "scheduler_lrs": want_lrs,
+           "mean_loss_by_execution": [float(np.mean(losses[i:i + k_steps]))
+                                      for i in range(0, len(losses),
+                                                     k_steps)]}
+    emit(row)
+    n = cfg.num_layers
+    assert stats[0]["compiles"] == 1 and all(st == {
+        "compiles": 0, "cache_hits": k_steps, "retrace_warnings": 0}
+        for st in stats[1:]), stats
+    assert prof["flash_launches"] == {"flash_attn_fwd": 2 * n,
+                                      "flash_attn_bwd_dkv": n,
+                                      "flash_attn_bwd_dq": n}, prof
+    assert lrs == want_lrs, (lrs, want_lrs)
+    means = row["mean_loss_by_execution"]
+    assert all(np.isfinite(losses)) and means[-1] < means[0], losses
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
-    the training shape; f32 (SIMT): the f32 correctness runs at full width,
-    timed at (4, 512, 16, 64) causal."""
+    the training shape, each with its launches per replayed step of the
+    captured step (compiled_train) and of the amp + recompute step
+    (amp_train), counted by kernel name; f32 (SIMT): the f32 correctness
+    runs at full width, timed at (4, 512, 16, 64) causal."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -991,6 +1235,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train):
     tc, simt = fa.TC, fa.SIMT
     scope = {"plain_scope": dkv_tc["plain_scope"],
              "library_scope": dkv_tc["library_scope"]}
+
+    def captured(name):
+        return {"launches_per_replay_compiled_train":
+                    compiled["replay_profile"]["flash_launches"][name],
+                "launches_per_step_amp_train":
+                    amp["replay_profile"]["flash_launches"][name]}
     return [
         entry(f"{fa.KERNEL_NAME}.{tc}", "flash_attn_fwd_tc.cu", 114, fwd_tc,
               serve["bfloat16"]["flash_variant_launches"],
@@ -998,7 +1248,8 @@ def kernel_entries(fa, rows, bwd_rows, serve, train):
               main_path="bf16 prefill (serve)",
               launches_train=train["launches"][f"{fa.KERNEL_NAME}.{tc}"],
               train_shape_ms=fwd_train["ms"],
-              train_shape_library_ms=fwd_train["library_ms"]),
+              train_shape_library_ms=fwd_train["library_ms"],
+              **captured(fa.KERNEL_NAME)),
         entry(f"{fa.KERNEL_NAME}.{simt}", "flash_attn_fwd.cu", 114, fwd_simt,
               serve["float32"]["flash_variant_launches"],
               fwd_simt["max_abs_err_o"],
@@ -1010,7 +1261,7 @@ def kernel_entries(fa, rows, bwd_rows, serve, train):
                       for o, g in dkv_tc["rel_l2_by_output"].items()},
               main_path="bf16 training step (train)",
               launches_per_step=train["launches_per_step"][fa.DKV_KERNEL],
-              **scope),
+              **captured(fa.DKV_KERNEL), **scope),
         entry(f"{fa.DKV_KERNEL}.{simt}", "flash_attn_bwd.cu", 200, dkv_simt,
               train["f32_launches"][f"{fa.DKV_KERNEL}.{simt}"],
               dkv_simt["max_abs_err"],
@@ -1023,7 +1274,7 @@ def kernel_entries(fa, rows, bwd_rows, serve, train):
                       for o, g in dq_tc["rel_l2_by_output"].items()},
               main_path="bf16 training step (train)",
               launches_per_step=train["launches_per_step"][fa.DQ_KERNEL],
-              **scope),
+              **captured(fa.DQ_KERNEL), **scope),
         entry(f"{fa.DQ_KERNEL}.{simt}", "flash_attn_bwd.cu", 247, dq_simt,
               train["f32_launches"][f"{fa.DQ_KERNEL}.{simt}"],
               dq_simt["max_abs_err"],
@@ -1064,9 +1315,11 @@ def main():
     phase_reference_train(torch, args.seed)
     serve = phase_serve(torch, args.seed)
     train = phase_train(torch, args.seed)
+    compiled = phase_compiled_train(torch, args.seed, train)
+    amp = phase_amp_train(torch, args.seed)
 
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    entries = kernel_entries(fa, rows, bwd_rows, serve, train)
+    entries = kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp)
     emit({"kernels": entries})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})

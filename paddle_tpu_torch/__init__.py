@@ -8,16 +8,21 @@ built with nvcc at first use, with its plain PyTorch version beside it.
 
 GPT serves (prefill and KV-cached greedy decode) and trains
 (``GPTForCausalLM(ids, labels=...)``, ``loss.backward()``, an ``optimizer``
-step) through ``paddle_tpu_torch.text.models.gpt``. Tensors are plain
-``torch.Tensor``s: there is no paddle Tensor facade, ``loss.backward()``
-is torch's, and ``no_grad`` is torch's.
+step) through ``paddle_tpu_torch.text.models.gpt``; a step under
+``jit.to_static`` is captured as one CUDA graph, with ``amp``, learning-
+rate schedulers (``optimizer.lr``), grad clipping (``nn.ClipGradBy*``) and
+recompute around it. Tensors are plain ``torch.Tensor``s: there is no
+paddle Tensor facade, ``loss.backward()`` is torch's, and ``no_grad`` is
+torch's.
 """
 from torch import no_grad
 
-from . import jit, optimizer
+from . import amp, distributed, jit, nn, optimizer
 from .core.device import CPUPlace, CUDAPlace
 from .core.random import make_generator
+from .framework.flags import get_flags, set_flags
 from .framework.io_utils import load, load_numpy_state_dict, save
 
 __all__ = ["CPUPlace", "CUDAPlace", "make_generator", "load",
-           "load_numpy_state_dict", "save", "jit", "optimizer", "no_grad"]
+           "load_numpy_state_dict", "save", "amp", "distributed", "jit",
+           "nn", "optimizer", "no_grad", "get_flags", "set_flags"]

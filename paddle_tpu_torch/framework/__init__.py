@@ -1,1 +1,1 @@
-"""Serialization."""
+"""Serialization (io_utils) and global flags (flags)."""

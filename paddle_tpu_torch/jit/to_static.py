@@ -1,21 +1,54 @@
-"""paddle.jit.to_static (port of paddle_tpu/jit/to_static.py's surface).
+"""paddle.jit.to_static (port of paddle_tpu/jit/to_static.py): a program
+cache whose programs, on the card, are CUDA graphs of the whole call.
 
-The decorator keeps paddle's call surface: it takes a function or a Layer
-(whose forward it wraps), accepts ``input_spec`` and ``build_strategy``,
-and binds per instance when it decorates a method. The wrapped function
-runs eagerly, as written: PyTorch needs no trace to run a step, and each
-call executes the Python body with its kernels launched on the current
-stream. Capturing the whole step as a CUDA graph, the counterpart of the
-reference's compiled programs (``jit/compiled_step.py``), comes with a
-later slice (ROADMAP A2).
+The reference runs one eager discovery pass per input signature, then
+compiles the function into one XLA program and runs that on every later
+call. Here a program is a ``torch.cuda.CUDAGraph``:
+
+- Key: ``_sig_of(args)``, ``_sig_of(kwargs)``, grad mode and the
+  degenerate-weight guard's generation (ops/_param_guard.py); a tensor's
+  signature is its shape, dtype and device.
+- Discovery: the first ``_discovery_passes()`` calls of a key (1, or 2
+  under PADDLE_TPU_TWO_PASS_DISCOVERY=1) run the Python body eagerly, on
+  the side stream the capture uses. They create what a step creates once
+  (optimizer accumulators and masters, the guard's verdicts, the kernel
+  libraries, cuBLAS's handles) and note the explicit random generators
+  the step draws from (core/random.py).
+- Build: on CUDA inputs the next call copies its tensor arguments into
+  static buffers and captures the body as a graph, in one memory pool
+  shared by the function's programs and with those generators
+  registered, then replays it once, so that N calls make N updates as
+  eagerly. Every later call copies its arguments into the static buffers
+  and replays. A capture that fails (a host sync, a copy from the host, a
+  draw from a CPU generator) raises, naming the function: nothing falls
+  back to eager.
+- Outputs: copies of the graph's output tensors, which the next replay
+  overwrites. They carry no autograd history: capture a whole step
+  (forward, backward, update), not a forward whose caller differentiates
+  its outputs.
+- CPU inputs (the host tests): keys, stages and counters are the same,
+  and a built program runs the Python body; there are no CPU graphs.
+
+A program holds the addresses of what its body touched: parameters,
+optimizer state, the lr tensor, a GradScaler's state. Updating those in
+place (optimizer steps, ``set_state_dict``, ``set_lr``, a scheduler,
+``load_numpy_state_dict``) is seen by the next replay; replacing them
+(``Module.to``, a new optimizer) needs a new function.
+``FLAGS_compiled_step=0`` or ``enable_to_static(False)`` runs every call
+eagerly, the debug and parity oracle.
 """
 from __future__ import annotations
 
 import functools
+import os
 
 import torch
 
-__all__ = ["to_static", "StaticFunction", "InputSpec"]
+from ..core.random import collect_generators
+from ..framework.flags import get_flag
+from ..ops import _param_guard
+
+__all__ = ["to_static", "StaticFunction", "InputSpec", "enable_to_static"]
 
 
 class InputSpec:
@@ -27,22 +60,270 @@ class InputSpec:
         self.name = name
 
 
+def _sig_of(value):
+    if isinstance(value, torch.Tensor):
+        return ("T", tuple(value.shape), str(value.dtype), str(value.device))
+    if isinstance(value, (list, tuple)):
+        return (type(value).__name__, tuple(_sig_of(v) for v in value))
+    if isinstance(value, dict):
+        return ("dict", tuple(sorted((k, _sig_of(v))
+                                     for k, v in value.items())))
+    return ("py", value if isinstance(value, (int, float, str, bool,
+                                              type(None)))
+            else str(type(value)))
+
+
+def _sig_of_step(value):
+    """The signature of one step of a ``run_steps`` argument: a tensor's
+    drops the leading steps axis."""
+    if isinstance(value, torch.Tensor):
+        return ("T", tuple(value.shape[1:]), str(value.dtype),
+                str(value.device))
+    if isinstance(value, (list, tuple)):
+        return (type(value).__name__, tuple(_sig_of_step(v) for v in value))
+    if isinstance(value, dict):
+        return ("dict", tuple(sorted((k, _sig_of_step(v))
+                                     for k, v in value.items())))
+    return _sig_of(value)
+
+
+def _flatten_tensors(obj, out):
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _flatten_tensors(v, out)
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            _flatten_tensors(obj[k], out)
+    return out
+
+
+def _replace_tensors(obj, leaves):
+    """``obj`` with its tensors, in ``_flatten_tensors`` order, replaced by
+    the next items of the iterator ``leaves``."""
+    if isinstance(obj, torch.Tensor):
+        return next(leaves)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_replace_tensors(v, leaves) for v in obj)
+    if isinstance(obj, dict):
+        new = {k: _replace_tensors(obj[k], leaves) for k in sorted(obj)}
+        return {k: new[k] for k in obj}
+    return obj
+
+
+def _discovery_passes():
+    """1 (default), or 2 under PADDLE_TPU_TWO_PASS_DISCOVERY=1."""
+    return 2 if os.environ.get("PADDLE_TPU_TWO_PASS_DISCOVERY") == "1" else 1
+
+
+def _cuda_device(leaves):
+    return next((t.device for t in leaves if t.is_cuda), None)
+
+
+class _Program:
+    __slots__ = ("stage", "built", "hits", "generators", "graph",
+                 "static_in", "static_out")
+
+    def __init__(self):
+        self.stage = 0          # discovery passes run
+        self.built = False      # captured (CUDA) or past discovery (CPU)
+        self.hits = 0           # calls that found the program built
+        self.generators = set()
+        self.graph = None
+        self.static_in = None   # the static copies of the tensor arguments
+        self.static_out = None  # the graph's outputs
+
+
 class StaticFunction:
-    """A function decorated by ``to_static``; calling it runs the function."""
+    """A function decorated by ``to_static``: a cache of programs, one per
+    input signature (module docstring)."""
+
+    # the global switch (the reference's ProgramTranslator.enable)
+    _default_enabled = True
 
     def __init__(self, fn, input_spec=None, build_strategy=None):
         functools.update_wrapper(self, fn)
         self._fn = fn
         self._input_spec = input_spec
+        self._programs = {}
+        self._enabled = True
+        self._pool = None     # the graph memory pool of all programs
+        self._stream = None   # the side stream of discovery and capture
 
     def __get__(self, instance, owner):
         if instance is None:
             return self
-        return StaticFunction(self._fn.__get__(instance, owner),
-                              self._input_spec)
+        # one bound function, with its own programs, per instance: programs
+        # hold the instance's parameters
+        cache_name = f"__static_fn_{id(self)}"
+        bound = instance.__dict__.get(cache_name)
+        if bound is None:
+            bound = StaticFunction(self._fn.__get__(instance, owner),
+                                   self._input_spec)
+            bound._enabled = self._enabled
+            instance.__dict__[cache_name] = bound
+        return bound
+
+    @property
+    def programs(self):
+        return self._programs
+
+    def _active(self):
+        return (self._enabled and StaticFunction._default_enabled
+                and bool(get_flag("FLAGS_compiled_step", True)))
+
+    def _key(self, args_sig, kwargs_sig):
+        return (args_sig, kwargs_sig, torch.is_grad_enabled(),
+                _param_guard.generation())
 
     def __call__(self, *args, **kwargs):
-        return self._fn(*args, **kwargs)
+        if not self._active():
+            return self._fn(*args, **kwargs)
+        return self._call(self._key(_sig_of(args), _sig_of(kwargs)), args,
+                          kwargs)
+
+    def _call(self, key, args, kwargs):
+        """One call under ``key``, its outputs copied out of a graph's
+        static buffers (the next replay overwrites those)."""
+        out, static = self._step(key, args, kwargs)
+        if static:
+            out = _replace_tensors(out, iter([
+                t.clone() for t in _flatten_tensors(out, [])]))
+        return out
+
+    def _step(self, key, args, kwargs):
+        """One call of the program under ``key``: a discovery pass, a build
+        and replay, or a replay. Returns (outputs, whether they are the
+        graph's static buffers)."""
+        prog = self._programs.get(key)
+        if prog is None or prog.stage < _discovery_passes():
+            return self._discover(key, prog, args, kwargs), False
+        leaves = _flatten_tensors((args, kwargs), [])
+        if prog.built:
+            prog.hits += 1
+        else:
+            self._build(prog, args, kwargs, leaves)
+        if prog.graph is None:
+            return self._fn(*args, **kwargs), False
+        for dst, src in zip(prog.static_in, leaves):
+            dst.copy_(src)
+        prog.graph.replay()
+        return prog.static_out, True
+
+    def _side_stream(self, device):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+    def _discover(self, key, prog, args, kwargs):
+        prog = prog or _Program()
+        device = _cuda_device(_flatten_tensors((args, kwargs), []))
+        with collect_generators(prog.generators):
+            if device is None:
+                out = self._fn(*args, **kwargs)
+            else:
+                side = self._side_stream(device)
+                current = torch.cuda.current_stream(device)
+                side.wait_stream(current)
+                with torch.cuda.stream(side):
+                    out = self._fn(*args, **kwargs)
+                current.wait_stream(side)
+                for t in _flatten_tensors(out, []):
+                    if t.is_cuda:
+                        t.record_stream(current)
+        prog.stage += 1
+        self._cache_program(key, prog)
+        return out
+
+    def _build(self, prog, args, kwargs, leaves):
+        device = _cuda_device(leaves)
+        if device is None:
+            prog.built = True
+            return
+        name = getattr(self._fn, "__qualname__", repr(self._fn))
+        graph = torch.cuda.CUDAGraph()
+        for gen in prog.generators:
+            if gen.device.type != "cuda" or \
+                    gen is torch.cuda.default_generators[gen.device.index or 0]:
+                continue
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    f"to_static: {name} draws from an explicit CUDA "
+                    f"generator, which this torch cannot register with a "
+                    f"CUDA graph; use the default generator")
+            graph.register_generator_state(gen)
+        static_in = [t.detach().clone() for t in leaves]
+        s_args, s_kwargs = _replace_tensors((args, kwargs), iter(static_in))
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(
+                    graph, pool=self._pool, stream=self._side_stream(device)):
+                out = self._fn(*s_args, **s_kwargs)
+        except Exception as err:
+            raise RuntimeError(
+                f"to_static: capturing {name} as a CUDA graph failed: a "
+                f"captured step may not sync with the host, copy from the "
+                f"host or draw from a CPU generator ({type(err).__name__}: "
+                f"{err})") from err
+        # a failed capture leaves the program unbuilt: the next call
+        # captures again (and raises again), it never runs eagerly
+        prog.built = True
+        prog.graph = graph
+        prog.static_in = static_in
+        prog.static_out = _replace_tensors(out, iter([
+            t.detach() for t in _flatten_tensors(out, [])]))
+
+    def _cache_program(self, key, prog):
+        """Insert under the FLAGS_max_cached_programs bound, evicting the
+        oldest program (its signature builds anew on its next call)."""
+        self._programs[key] = prog
+        cap = int(get_flag("FLAGS_max_cached_programs", 64) or 0)
+        if cap > 0:
+            while len(self._programs) > cap:
+                oldest = next(iter(self._programs))
+                if oldest == key:
+                    break
+                del self._programs[oldest]
+
+    def run_steps(self, *args, **kwargs):
+        """K steps: every tensor argument carries a leading axis of the same
+        length K, and step i gets slice i (Python values stay fixed). The
+        steps go through the same programs as single calls, so once built
+        each is one replay with its slice copied into the static buffers.
+        Returns the outputs stacked on a leading K axis (no autograd
+        history)."""
+        leaves = _flatten_tensors((args, kwargs), [])
+        if not leaves:
+            raise ValueError("run_steps needs at least one tensor argument "
+                             "with a leading steps axis")
+        ks = {t.shape[0] if t.dim() else None for t in leaves}
+        if len(ks) != 1 or None in ks:
+            raise ValueError(
+                f"run_steps: all tensor args must share the same leading "
+                f"steps-axis length; got lengths {sorted(map(str, ks))}")
+        k = ks.pop()
+        if k == 0:
+            raise ValueError("run_steps: leading steps axis is empty (K=0)")
+        active = self._active()
+        key = self._key(_sig_of_step(args), _sig_of_step(kwargs))
+        tree, stacked = None, None
+        for i in range(k):
+            a_i, kw_i = _replace_tensors((args, kwargs),
+                                         iter([t[i] for t in leaves]))
+            if active:
+                out, _ = self._step(key, a_i, kw_i)
+            else:
+                out = self._fn(*a_i, **kw_i)
+            outs = _flatten_tensors(out, [])
+            if stacked is None:
+                tree = out
+                stacked = [torch.empty((k, *t.shape), dtype=t.dtype,
+                                       device=t.device) for t in outs]
+            for dst, src in zip(stacked, outs):
+                dst[i].copy_(src.detach())
+        return _replace_tensors(tree, iter(stacked))
 
 
 def to_static(function=None, input_spec=None, build_strategy=None,
@@ -61,3 +342,9 @@ def to_static(function=None, input_spec=None, build_strategy=None,
     if function is not None:
         return decorate(function)
     return decorate
+
+
+def enable_to_static(enable=True):
+    """paddle.jit.enable_to_static: False runs every to_static function
+    eagerly."""
+    StaticFunction._default_enabled = bool(enable)

@@ -6,10 +6,15 @@ soft labels, ``ignore_index``, class ``weight``, reductions, and
 over log_softmax and gather rather than torch.nn.functional.cross_entropy,
 which differs at the edge: here the ``mean`` of hard labels divides by
 max(#valid, 1), so a batch whose labels are all ignored gives 0, not NaN.
+The count of valid labels stays a device tensor (no host sync, so a
+captured step can compute it). Under ``amp.auto_cast`` the inputs are
+promoted to float32 (black list).
 """
 from __future__ import annotations
 
 import torch
+
+from ...amp.auto_cast import amp_cast
 
 __all__ = ["cross_entropy"]
 
@@ -25,6 +30,7 @@ def _reduce(v, reduction):
 def cross_entropy(input, label, weight=None, ignore_index=-100,  # noqa: A002
                   reduction="mean", soft_label=False, axis=-1,
                   use_softmax=True, name=None):
+    input, label, weight = amp_cast("cross_entropy", input, label, weight)
     if use_softmax:
         logp = torch.log_softmax(input, dim=axis)
     else:

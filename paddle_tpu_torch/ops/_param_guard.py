@@ -10,7 +10,12 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["degenerate_below_tol", "clear_degenerate_cache"]
+__all__ = ["degenerate_below_tol", "clear_degenerate_cache", "generation"]
+
+# bumped whenever a cached verdict is dropped: a step captured as a CUDA
+# graph took its branches from the verdicts of its time, and to_static keys
+# its programs by this number, so a changed verdict builds a new program
+_generation = [0]
 
 
 def degenerate_below_tol(param, tol):
@@ -35,4 +40,10 @@ def degenerate_below_tol(param, tol):
 
 def clear_degenerate_cache(param):
     """Forget the guard's verdict on ``param`` (its values were replaced)."""
-    param.__dict__.pop("_degen_cache", None)
+    if param.__dict__.pop("_degen_cache", None) is not None:
+        _generation[0] += 1
+
+
+def generation():
+    """How many cached verdicts have been dropped so far."""
+    return _generation[0]

@@ -14,6 +14,10 @@ When gradients are wanted, flash attention goes through
 ``_flash_attention_diff``: its forward runs B1 and saves (q, k, v, out,
 lse), its backward runs B2 and B3. Under no_grad/inference_mode the
 forward is called directly and saves nothing.
+
+Under ``amp.auto_cast`` the inputs are cast as the reference casts its
+ops ``flash_attention`` (the kernel path) and ``sdpa`` (the math path),
+both white-listed: to bf16 at O1, so the tensor-core kernels run.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import math
 
 import torch
 
+from ..amp.auto_cast import amp_cast
+from ..core.random import uniform
 from .cuda.flash_attention import (flash_attention, flash_attention_bwd,
                                    flash_attention_fwd, supports)
 
@@ -72,9 +78,7 @@ def _math_attention(q, k, v, mask, scale, is_causal, dropout_p, generator):
             logits = logits + mask
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
     if dropout_p > 0.0:
-        dev = generator.device if generator is not None else probs.device
-        keep = (torch.rand(probs.shape, generator=generator, device=dev)
-                < 1.0 - dropout_p).to(probs.device)
+        keep = uniform(probs.shape, generator, probs.device) < 1.0 - dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             0.0).to(probs.dtype)
     out = torch.einsum("bhqk,bhkd->bhqd", probs, v)
@@ -112,11 +116,14 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "use_kernel=True is incompatible with attn_mask/dropout_p: the "
             "flash kernel computes plain (optionally causal) attention")
     if use_kernel:
+        query, key, value = amp_cast("flash_attention", query, key, value)
         if torch.is_grad_enabled() and any(
                 t.requires_grad for t in (query, key, value)):
             return _FlashAttentionFn.apply(query, key, value, is_causal,
                                            scale)
         return flash_attention(query, key, value, causal=is_causal,
                                scale=scale)
+    query, key, value, attn_mask = amp_cast("sdpa", query, key, value,
+                                            attn_mask)
     return _math_attention(query, key, value, attn_mask, scale, is_causal,
                            dropout_p, generator)

@@ -7,13 +7,16 @@ reference leaves them to XLA outside any kernel. The backward is a
 torch.autograd.Function that saves (x, w1, w2, h), h the pre-activation,
 and recomputes a = act(h) instead of saving it (a is the widest tensor of
 the block). The activation derivatives are the exact ones of the
-reference's ``_act_fns``.
+reference's ``_act_fns``. The reference lists the op in neither amp list,
+so under ``amp.auto_cast`` only O2 casts its inputs (to the low dtype).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ..amp.auto_cast import amp_cast
 
 __all__ = ["fused_ffn"]
 
@@ -76,6 +79,7 @@ def fused_ffn(x, w1, b1, w2, b2, activation="gelu"):
     Function above runs; otherwise the same forward runs plainly."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unsupported activation {activation!r}")
+    x, w1, b1, w2, b2 = amp_cast("fused_ffn", x, w1, b1, w2, b2)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, w1, b1, w2, b2)):
         return _FusedFFNFn.apply(x, w1, b1, w2, b2, activation)

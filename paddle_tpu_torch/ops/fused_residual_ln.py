@@ -15,6 +15,10 @@ dw and db are in the weight's dtype. A weight with a channel inside the
 1e-6 band (checked once per parameter, ``_param_guard``) runs plain
 autograd through the identical forward instead. ``fuse_enabled()`` is the
 reference's PADDLE_TPU_FUSED_RESIDUAL_LN escape hatch, read by GPTBlock.
+Under ``amp.auto_cast`` the op is black-listed like layer_norm: its
+inputs are promoted to float32, and the residual stream z it returns
+keeps x's dtype from before the promotion, as the reference's
+``stream_dtype`` does.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import os
 
 import torch
 
+from ..amp.auto_cast import amp_cast
 from ._param_guard import degenerate_below_tol
 
 __all__ = ["fused_residual_ln", "fuse_enabled"]
@@ -86,8 +91,17 @@ def fused_residual_ln(x, y, weight, bias, epsilon=1e-5,
     degenerate weight) it runs the same forward under plain autograd."""
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, y, weight, bias))
-    if wants_grad and not degenerate_below_tol(weight, _W_TOL):
-        return _FusedResidualLNFn.apply(x, y, weight, bias, epsilon,
+    # the guard's verdict is cached on the parameter itself, so it is asked
+    # before the amp cast makes a new tensor of it
+    fused = wants_grad and not degenerate_below_tol(weight, _W_TOL)
+    stream_dtype = x.dtype
+    x, y, weight, bias = amp_cast("fused_residual_ln", x, y, weight, bias)
+    if fused:
+        outs = _FusedResidualLNFn.apply(x, y, weight, bias, epsilon,
                                         return_residual)
-    z, out, _ = _fwd_impl(x, y, weight, bias, epsilon)
-    return (z, out) if return_residual else out
+    else:
+        z, out, _ = _fwd_impl(x, y, weight, bias, epsilon)
+        outs = (z, out) if return_residual else out
+    if return_residual:
+        return outs[0].to(stream_dtype), outs[1]
+    return outs

@@ -1,4 +1,5 @@
-"""paddle.optimizer: SGD, Momentum, Adam and AdamW.
+"""paddle.optimizer: SGD, Momentum, Adam and AdamW, and the schedulers in
+``optimizer.lr``.
 
 Port of paddle_tpu/optimizer/__init__.py with the reference's update rules
 (operators/optimizers/*_op.h): Adam's bias correction folded into the
@@ -14,9 +15,10 @@ from __future__ import annotations
 
 import torch
 
+from . import lr
 from .optimizer import Optimizer
 
-__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "lr"]
 
 
 class SGD(Optimizer):

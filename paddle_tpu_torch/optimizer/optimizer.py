@@ -1,25 +1,35 @@
 """Optimizer base (port of paddle_tpu/optimizer/optimizer.py).
 
 The learning rate is an f32 0-d tensor on the parameters' device
-(``get_lr``/``set_lr``), so a captured step (a CUDA graph, in a later
-slice) reads the current value. Per-parameter accumulators are created
-lazily (``_get_accumulator``), keyed by the parameter. With
-``multi_precision`` a bf16/f16 parameter gets an f32 master weight and f32
-moments; the update runs on the master and the parameter is rewritten
-from it. ``step()`` updates the parameters in place under no_grad, so the
-model keeps its Parameter objects.
+(``get_lr``/``set_lr``); an ``LRScheduler`` passed as ``learning_rate``
+writes it in place, so a step captured as a CUDA graph reads the current
+value at each replay. Per-parameter accumulators are created lazily
+(``_get_accumulator``), keyed by the parameter. With ``multi_precision`` a
+bf16/f16 parameter gets an f32 master weight and f32 moments; the update
+runs on the master and the parameter is rewritten from it. ``step()``
+clips the grads (``grad_clip``, nn/clip.py), folds in the L2
+``weight_decay`` and updates the parameters in place under no_grad, so
+the model keeps its Parameter objects.
 
-Not on the slice's path, and raising NotImplementedError until a later
-slice brings them (ROADMAP A2): learning-rate schedulers
-(``optimizer/lr.py``), ``grad_clip`` (``nn/clip.py``), sparse gradients
-and ``state_dict``/``set_state_dict``. Parameter groups, per-parameter
-regularizers and ``minimize`` are not ported yet either.
+``state_dict`` uses the reference's keys (``{name}__{accumulator}``, name
+the parameter's ``name`` or ``param_{i}`` by its place in the list, and
+``LR_Scheduler``), so either package reads the other's optimizer
+checkpoints; ``set_state_dict`` copies into existing tensors in place,
+keeping the addresses a captured step holds. Sparse gradients raise
+NotImplementedError until a later slice brings them (ROADMAP A2);
+parameter groups, per-parameter regularizers and ``minimize`` are not
+ported yet either.
 """
 from __future__ import annotations
 
 from collections import defaultdict
 
+import numpy as np
 import torch
+
+from ..framework.io_utils import tensor_from_numpy
+from ..nn.clip import ClipGradBase
+from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
@@ -32,24 +42,37 @@ class Optimizer:
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                f"learning-rate schedulers (optimizer/lr.py): {_LATER}")
-        if grad_clip is not None:
-            raise NotImplementedError(f"grad_clip (nn/clip.py): {_LATER}")
+        self._lr_scheduler = None
+        if isinstance(learning_rate, LRScheduler):
+            self._lr_scheduler = learning_rate
+            lr0 = float(learning_rate())
+        elif isinstance(learning_rate, (int, float)):
+            lr0 = float(learning_rate)
+        else:
+            raise TypeError(f"learning_rate must be a number or an "
+                            f"LRScheduler, got {type(learning_rate)}")
+        if grad_clip is not None and not isinstance(grad_clip, ClipGradBase):
+            raise TypeError(f"grad_clip must be a ClipGradBy* instance, got "
+                            f"{type(grad_clip)}")
         params = list(parameters) if parameters is not None else None
         self._parameter_list = params
         device = params[0].device if params else torch.device("cpu")
-        self._learning_rate = torch.tensor(float(learning_rate),
-                                           dtype=torch.float32, device=device)
+        self._learning_rate = torch.tensor(lr0, dtype=torch.float32,
+                                           device=device)
+        if self._lr_scheduler is not None:
+            self._lr_scheduler._bind(self._learning_rate)
         self._weight_decay = weight_decay
+        self._grad_clip = grad_clip
         self._accumulators = defaultdict(dict)  # name -> {id(param): tensor}
+        self._acc_inits = {}                    # name -> initial value
 
     # -- lr ----------------------------------------------------------------
     def set_lr(self, value):
         self._learning_rate.fill_(float(value))
 
     def get_lr(self):
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler())
         return float(self._learning_rate)
 
     @property
@@ -69,10 +92,12 @@ class Optimizer:
         if mw is None:
             mw = p.detach().to(torch.float32, copy=True)
             accs[id(p)] = mw
+            self._acc_inits["master_weight"] = 0.0
         return mw
 
     def _get_accumulator(self, name, param, init=0.0, dtype=None,
                          shape=None):
+        self._acc_inits[name] = init
         accs = self._accumulators[name]
         acc = accs.get(id(param))
         if acc is None:
@@ -110,12 +135,14 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
-        for p, g in self._apply_decay(self._collect_params_grads()):
-            if g is None:
-                continue
-            if g.is_sparse:
-                raise NotImplementedError(f"sparse gradients: {_LATER}")
-            self._apply_update(p, g)
+        pairs = self._collect_params_grads()
+        if any(g is not None and g.is_sparse for _, g in pairs):
+            raise NotImplementedError(f"sparse gradients: {_LATER}")
+        if self._grad_clip is not None:
+            pairs = self._grad_clip(pairs)
+        for p, g in self._apply_decay(pairs):
+            if g is not None:
+                self._apply_update(p, g)
 
     def _apply_update(self, param, grad):
         raise NotImplementedError
@@ -137,8 +164,51 @@ class Optimizer:
             else:
                 p.grad = None
 
-    def state_dict(self):
-        raise NotImplementedError(f"optimizer state_dict: {_LATER}")
+    clear_gradients = clear_grad
 
+    # -- state dict -------------------------------------------------------------
+    def _param_names(self):
+        return [getattr(p, "name", None) or f"param_{i}"
+                for i, p in enumerate(self._parameter_list or [])]
+
+    def state_dict(self):
+        """{"{param}__{accumulator}": tensor, ..., "LR_Scheduler": dict}:
+        the live tensors, as the reference returns its own."""
+        by_id = {id(p): n for p, n in zip(self._parameter_list or [],
+                                          self._param_names())}
+        sd = {f"{by_id.get(pid, pid)}__{acc_name}": t
+              for acc_name, accs in self._accumulators.items()
+              for pid, t in accs.items()}
+        if self._lr_scheduler is not None:
+            sd["LR_Scheduler"] = self._lr_scheduler.state_dict()
+        return sd
+
+    @torch.no_grad()
     def set_state_dict(self, state_dict):
-        raise NotImplementedError(f"optimizer set_state_dict: {_LATER}")
+        """Load tensors or arrays by the reference's keys: into existing
+        accumulators in place, or as new ones on the parameter's device
+        with the stored dtype. Unknown parameters are skipped."""
+        by_name = dict(zip(self._param_names(), self._parameter_list or []))
+        for key, val in state_dict.items():
+            if key == "LR_Scheduler":
+                if self._lr_scheduler is not None:
+                    self._lr_scheduler.set_state_dict(val)
+                continue
+            if "__" not in key:
+                continue
+            pname, acc_name = key.rsplit("__", 1)
+            p = by_name.get(pname)
+            if p is None:
+                continue
+            if not isinstance(val, torch.Tensor):
+                val = tensor_from_numpy(np.asarray(val))
+            accs = self._accumulators[acc_name]
+            acc = accs.get(id(p))
+            if acc is None:
+                accs[id(p)] = val.to(p.device, copy=True)
+                self._acc_inits.setdefault(acc_name, 0.0)
+            else:
+                # paddle stores a 0-d accumulator as shape [1]
+                acc.copy_(val.reshape(acc.shape))
+
+    set_dict = set_state_dict

@@ -12,10 +12,14 @@ the host), ``dtype`` (default float32; the reference's ``bfloat16()`` cast
 is torch.nn.Module's own) and ``torch.Generator`` (initial weights are
 drawn from it). ``GPTForCausalLM(ids, labels=...)`` returns the f32
 softmax cross-entropy that a training step differentiates; the fused ops
-and flash attention carry their own backwards. Tensor parallelism and
-recompute come with later slices. ``use_flash_attention``, stored but
-unread in the reference, chooses here between the automatic selection
-(True) and the math path (False).
+and flash attention carry their own backwards. ``recompute=True``
+reruns each block's forward in the backward when training
+(distributed/fleet/utils.py), as the reference does. Tensor parallelism
+comes with a later slice. ``use_flash_attention``, stored but unread in
+the reference, chooses here between the automatic selection (True) and
+the math path (False). The head is ``F.linear`` against the tied token
+embedding, as in the reference, so ``amp.auto_cast`` casts it as a
+``linear``.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import math
 import torch
 
 from ... import nn
+from ...distributed.fleet.utils import recompute
 from ...nn import functional as F
 from ...nn import initializer as I
 from ...ops.attention import scaled_dot_product_attention
@@ -203,8 +208,11 @@ class GPTModel(nn.Layer):
         x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
         pending = None
         new_caches = []
+        remat = caches is None and self.config.recompute and self.training
         for i, block in enumerate(self.h):
-            if caches is None:
+            if remat:
+                x, pending = recompute(block, x, pending)
+            elif caches is None:
                 x, pending = block(x, pending)
             else:
                 x, pending, c = block(x, pending, cache=caches[i])
@@ -233,8 +241,8 @@ class GPTForCausalLM(nn.Layer):
         of the logits against them."""
         if caches is not None:
             h, caches = self.gpt(input_ids, caches=caches)
-            return torch.matmul(h, self.gpt.wte.weight.t()), caches
-        logits = torch.matmul(self.gpt(input_ids), self.gpt.wte.weight.t())
+            return F.linear(h, self.gpt.wte.weight.t()), caches
+        logits = F.linear(self.gpt(input_ids), self.gpt.wte.weight.t())
         if labels is not None:
             # f32 softmax-CE, as the reference computes it
             return F.cross_entropy(

@@ -277,3 +277,210 @@ def test_gpt_training_step_kernel_path_matches_math_path(card):
             losses[flash].append(loss.item())
     assert max(abs(a - b) for a, b in zip(losses[True], losses[False])) \
         <= 1e-4
+
+
+# -- the compiled step: to_static as a CUDA graph -----------------------------
+
+def _adamw_step(model, opt, scaler=None):
+    import paddle_tpu_torch as pt
+
+    @pt.jit.to_static
+    def step(x, y):
+        loss = model(x, labels=y)
+        if scaler is None:
+            loss.backward()
+            opt.step()
+        else:
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+        opt.clear_grad()
+        return loss.float()
+    return step
+
+
+def _stream_batches(card, n, seed=3):
+    ids = torch.randint(0, 256, (n, 2, 257),
+                        generator=torch.Generator().manual_seed(seed))
+    return ids[:, :, :-1].to(card), ids[:, :, 1:].to(card)
+
+
+def test_captured_steps_match_eager_steps(card):
+    """A small f32 GPT, 3 steps through to_static (a discovery pass, the
+    capture and its replay, a replay) against 3 eager steps from the same
+    weights: the same kernels in the same order, so losses and parameters
+    agree to 1e-6 relative (expected: equal)."""
+    import paddle_tpu_torch as pt
+    xs, ys = _stream_batches(card, 3)
+    runs = {}
+    for compiled in (False, True):
+        pt.set_flags({"FLAGS_compiled_step": compiled})
+        try:
+            model = _tiny(card).train()
+            opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                     parameters=model.parameters())
+            step = _adamw_step(model, opt)
+            launch_counts.clear()
+            losses = [step(xs[i], ys[i]) for i in range(3)]
+            runs[compiled] = (torch.stack(losses).cpu(),
+                              [p.detach().clone() for p in model.parameters()],
+                              step)
+        finally:
+            pt.set_flags({"FLAGS_compiled_step": True})
+    (e_loss, e_params, _), (c_loss, c_params, step) = runs[False], runs[True]
+    prog, = step.programs.values()
+    assert prog.graph is not None and prog.built and prog.hits == 1
+    torch.testing.assert_close(c_loss, e_loss, rtol=1e-6, atol=0)
+    for a, b in zip(c_params, e_params):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    # a returned loss is a copy: the next replay does not overwrite it
+    assert c_loss[1] != c_loss[2]
+
+
+def test_run_steps_replays_the_graph(card):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    xs, ys = _stream_batches(card, 4, seed=5)
+    outs = []
+    for k_steps in (True, False):
+        model = _tiny(card).train()
+        opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+        step = CompiledTrainStep(_adamw_step(model, opt))
+        reset_compile_stats()
+        if k_steps:
+            outs.append(step.run_steps(xs, ys).cpu())
+            assert compile_stats()["compiles"] == 1
+            assert compile_stats()["cache_hits"] == 2
+        else:
+            outs.append(torch.stack([step(xs[i], ys[i])
+                                     for i in range(4)]).cpu())
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-6, atol=0)
+
+
+def test_dropout_under_capture_draws_new_masks(card):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+    x = torch.ones(64, 256, device=card)
+    gens = [None, torch.Generator(device=card).manual_seed(1)]
+    for gen in gens:
+        if gen is not None and not hasattr(torch.cuda.CUDAGraph,
+                                           "register_generator_state"):
+            continue
+        fn = pt.jit.to_static(lambda t, g=gen: F.dropout(t, 0.1,
+                                                         generator=g))
+        outs = [fn(x) for _ in range(4)]
+        prog, = fn.programs.values()
+        assert prog.graph is not None
+        for o in outs:
+            zeros = (o == 0).float().mean().item()
+            assert 0.05 < zeros < 0.15, zeros
+        # the capture's replay and the next replays: new masks each time
+        assert not torch.equal(outs[1], outs[2])
+        assert not torch.equal(outs[2], outs[3])
+
+
+def test_dropout_from_a_cpu_generator_refuses_capture(card):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.nn import functional as F
+    gen = torch.Generator().manual_seed(0)
+    fn = pt.jit.to_static(lambda t: F.dropout(t, 0.1, generator=gen))
+    x = torch.ones(8, 8, device=card)
+    fn(x)                                       # discovery: eager
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        fn(x)
+
+
+def test_grad_scaler_skips_an_inf_step_under_capture(card):
+    """The scaler's decisions are device selects: a captured step whose
+    grads are not finite leaves every parameter and accumulator as it
+    was and halves the scale."""
+    import paddle_tpu_torch as pt
+    model = _tiny(card).train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                             parameters=model.parameters())
+    scaler = pt.amp.GradScaler(init_loss_scaling=2.0 ** 10)
+    step = _adamw_step(model, opt, scaler)
+    xs, ys = _stream_batches(card, 4, seed=7)
+    for i in range(3):
+        step(xs[i], ys[i])
+    assert step.programs[next(iter(step.programs))].graph is not None
+    before = [p.detach().clone() for p in model.parameters()]
+    accs = [t.clone() for by in opt._accumulators.values()
+            for t in by.values()]
+    scale = float(scaler._scale)
+    # an inf in the embedding makes every grad downstream of it non-finite
+    with torch.no_grad():
+        model.gpt.wte.weight[ys[3][0, 0]] = float("inf")
+        before[0] = model.gpt.wte.weight.detach().clone()
+    step(xs[3], ys[3])
+    assert bool(scaler._found_inf) and float(scaler._scale) == scale / 2
+    for a, b in zip(model.parameters(), before):
+        assert torch.equal(a.detach(), b)
+    for a, b in zip([t for by in opt._accumulators.values()
+                     for t in by.values()], accs):
+        assert torch.equal(a, b)
+
+
+def test_capture_that_syncs_with_the_host_raises(card):
+    import paddle_tpu_torch as pt
+
+    @pt.jit.to_static
+    def step(x):
+        y = x * 2
+        if y.sum().item() > 0:          # a host sync: cannot be captured
+            y = y + 1
+        return y
+    x = torch.ones(4, device=card)
+    assert torch.equal(step(x), torch.full((4,), 3.0, device=card))
+    for _ in range(2):         # and again: a failed capture never runs eagerly
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            step(x)
+    # the device is still usable
+    assert torch.equal(x + 1, torch.full((4,), 2.0, device=card))
+
+
+def test_amp_recompute_step_captures_and_relaunches_b1(card):
+    """bf16 autocast with recompute through to_static: B1 runs twice per
+    layer in the graph (forward and rerun), the tensor-core variants run,
+    and the captured losses equal the eager ones."""
+    import paddle_tpu_torch as pt
+    xs, ys = _stream_batches(card, 3, seed=9)
+    losses = {}
+    for compiled in (False, True):
+        pt.set_flags({"FLAGS_compiled_step": compiled})
+        try:
+            cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                            num_heads=2, max_position_embeddings=512,
+                            dropout=0.0, recompute=True)
+            model = GPTForCausalLM(
+                cfg, device=card,
+                generator=torch.Generator().manual_seed(0)).train()
+            opt = pt.optimizer.AdamW(
+                learning_rate=1e-3, parameters=model.parameters(),
+                grad_clip=pt.nn.ClipGradByGlobalNorm(1.0))
+
+            @pt.jit.to_static
+            def step(x, y):
+                with pt.amp.auto_cast(dtype="bfloat16"):
+                    loss = model(x, labels=y)
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+            launch_counts.clear()
+            losses[compiled] = torch.stack(
+                [step(xs[i], ys[i]) for i in range(3)]).cpu()
+            # eager: 3 steps; captured: discovery + capture (the replay
+            # launches nothing from Python) + nothing
+            n = 3 if not compiled else 2
+            assert launch_counts[fa.variant_counter(
+                fa.KERNEL_NAME, torch.bfloat16)] == 2 * 2 * n
+            assert launch_counts[fa.variant_counter(
+                fa.DQ_KERNEL, torch.bfloat16)] == 2 * n
+        finally:
+            pt.set_flags({"FLAGS_compiled_step": True})
+    torch.testing.assert_close(losses[True], losses[False], rtol=1e-6,
+                               atol=0)

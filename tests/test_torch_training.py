@@ -244,7 +244,11 @@ def test_optimizer_steps_match_reference(key, dtype):
         ref_params.append(p)
     ref_opt = _opt_class(paddle, key)(parameters=ref_params, **kw)
     tdt = getattr(torch, dtype)
-    port_params = [torch.nn.Parameter(torch.from_numpy(a).to(tdt))
+    # a copy of its own for the port: jnp.asarray may alias a numpy
+    # buffer (zero-copy when it happens to be 64-byte aligned), and the
+    # port updates its parameters in place while JAX's asynchronous
+    # dispatch may not yet have read the reference's
+    port_params = [torch.nn.Parameter(torch.tensor(a, dtype=tdt))
                    for a in inits]
     port_opt = _opt_class(pt, key)(parameters=port_params, **kw)
     for step_grads in grads:
@@ -283,10 +287,16 @@ def test_optimizer_lr_and_clear_grad():
     assert torch.equal(p.grad, torch.zeros(3))
     opt.clear_grad()
     assert p.grad is None
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(TypeError, match="LRScheduler"):
         pt.optimizer.SGD(learning_rate=object(), parameters=[p])
+    with pytest.raises(TypeError, match="grad_clip"):
+        pt.optimizer.SGD(parameters=[p], grad_clip=1.0)
+    # still to come (ROADMAP A2): AdamW's lr_ratio and sparse grads
     with pytest.raises(NotImplementedError, match="later slice"):
-        opt.state_dict()
+        pt.optimizer.AdamW(parameters=[p], lr_ratio=lambda q: 1.0)
+    p.grad = torch.ones(3).to_sparse()
+    with pytest.raises(NotImplementedError, match="later slice"):
+        opt.step()
 
 
 # -- (e) the slice on a tiny GPT -------------------------------------------
@@ -415,3 +425,153 @@ def test_to_static_keeps_the_call_surface():
     assert layer(torch.zeros(1, 2)).shape == (1, 2)
     assert port_fa.KERNEL_NAMES == ("flash_attn_fwd", "flash_attn_bwd_dkv",
                                     "flash_attn_bwd_dq")
+
+
+# -- (f) recompute, and recompute under amp ----------------------------------
+
+def _grads_of(model, x, y, amp=False):
+    model.zero_grad(set_to_none=True)
+    with pt.amp.auto_cast(enable=amp):
+        loss = model(x, labels=y)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.clone()
+                                  for n, p in model.named_parameters()}
+
+
+def _port_gpt(arrays, recompute):
+    model = GPTForCausalLM(GPTConfig(**CFG, recompute=recompute),
+                           device="cpu")
+    return pt.load_numpy_state_dict(model, arrays)
+
+
+@pytest.mark.parametrize("path", ["math", "flash"])
+def test_recompute_grads_match_plain_and_reference(reference_run, path,
+                                                   monkeypatch):
+    """recompute=True reruns each block in the backward: the port's grads
+    equal its own without recompute (1e-6) and the reference's recompute
+    grads (1e-5 relative L2); on the flash path B1 runs twice per layer
+    (the forward and its rerun)."""
+    arrays, _ = reference_run
+    calls = []
+    if path == "flash":
+        real = port_attn._FlashAttentionFn.apply
+        monkeypatch.setattr(port_attn, "_kernel_available", lambda t: True)
+        monkeypatch.setattr(port_attn._FlashAttentionFn, "apply",
+                            lambda *a: calls.append(1) or real(*a))
+    xs, ys = _stream()
+    x, y = torch.from_numpy(xs[0]), torch.from_numpy(ys[0])
+    loss_p, plain = _grads_of(_port_gpt(arrays, False), x, y)
+    n_plain = len(calls)
+    loss_r, remat = _grads_of(_port_gpt(arrays, True), x, y)
+    if path == "flash":
+        assert n_plain == CFG["num_layers"]
+        assert len(calls) - n_plain == 2 * CFG["num_layers"]
+    assert loss_r == loss_p
+    for name, g in plain.items():
+        np.testing.assert_allclose(remat[name].numpy(), g.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+    if path == "flash":
+        return
+    paddle.seed(0)
+    ref = RefGPT(RefConfig(**CFG, recompute=True))
+    ref.set_state_dict({k: paddle.to_tensor(v) for k, v in arrays.items()})
+    loss_ref = ref(paddle.to_tensor(xs[0]), labels=paddle.to_tensor(ys[0]))
+    loss_ref.backward()
+    np.testing.assert_allclose(loss_r, float(loss_ref), rtol=1e-5)
+    for name, p in ref.named_parameters():
+        want = np.asarray(p.grad._val)
+        gap = np.linalg.norm(remat[name].numpy() - want) / np.linalg.norm(
+            want)
+        assert gap <= 1e-5, (name, gap)
+
+
+def test_recompute_under_auto_cast_keeps_the_casts(reference_run):
+    """The rerun happens inside loss.backward(), outside the auto_cast
+    block: recompute restores the amp state of the forward, so the rerun
+    computes in bf16 as the forward did and the grads are the ones without
+    recompute."""
+    arrays, _ = reference_run
+    xs, ys = _stream()
+    x, y = torch.from_numpy(xs[0]), torch.from_numpy(ys[0])
+    loss_p, plain = _grads_of(_port_gpt(arrays, False), x, y, amp=True)
+    loss_r, remat = _grads_of(_port_gpt(arrays, True), x, y, amp=True)
+    loss_32, _ = _grads_of(_port_gpt(arrays, False), x, y)
+    assert loss_r == loss_p != loss_32
+    for name, g in plain.items():
+        np.testing.assert_allclose(remat[name].numpy(), g.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+def test_recompute_replays_the_dropout_masks():
+    """A block with dropout draws the same masks in the rerun as in the
+    forward (its generator's state is saved and restored)."""
+    cfg = dict(CFG, dropout=0.1)
+    grads = []
+    for recompute in (False, True):
+        model = GPTForCausalLM(GPTConfig(**cfg, recompute=recompute),
+                               device="cpu", generator=pt.make_generator(3))
+        xs, ys = _stream()
+        grads.append(_grads_of(model, torch.from_numpy(xs[0][:, :64]),
+                               torch.from_numpy(ys[0][:, :64])))
+    assert grads[0][0] == grads[1][0]
+    for name, g in grads[0][1].items():
+        np.testing.assert_allclose(grads[1][1][name].numpy(), g.numpy(),
+                                   rtol=1e-6, atol=1e-7, err_msg=name)
+
+
+# -- (g) optimizer state_dict ---------------------------------------------------
+
+def test_optimizer_state_dict_matches_reference(tmp_path):
+    """2 AdamW multi-precision steps on bf16 parameters with the same grads:
+    the reference's keys, and values equal to 1e-6; each package loads the
+    other's checkpoint (the .pdparams pickle), the port in place."""
+    rng = np.random.RandomState(8)
+    shapes = [(6, 4), (4,), (3, 2)]
+    inits = [rng.randn(*s).astype("float32") for s in shapes]
+    grads = [[rng.randn(*s).astype("float32") for s in shapes]
+             for _ in range(2)]
+    ref_params = []
+    for a in inits:
+        p = paddle.create_parameter(list(a.shape), "bfloat16")
+        p.set_value(np.asarray(jnp.asarray(a).astype(jnp.bfloat16)))
+        ref_params.append(p)
+    kw = dict(learning_rate=0.01, weight_decay=0.1, multi_precision=True)
+    ref_opt = paddle.optimizer.AdamW(parameters=ref_params, **kw)
+    port_params = [torch.nn.Parameter(torch.tensor(a).to(torch.bfloat16))
+                   for a in inits]
+    port_opt = pt.optimizer.AdamW(parameters=port_params, **kw)
+    for step_grads in grads:
+        for rp, pp, g in zip(ref_params, port_params, step_grads):
+            rp.grad = RefTensor(jnp.asarray(g).astype(jnp.bfloat16),
+                                stop_gradient=True)
+            pp.grad = torch.tensor(g).to(torch.bfloat16)
+        ref_opt.step()
+        port_opt.step()
+    want = ref_opt.state_dict()
+    got = port_opt.state_dict()
+    assert sorted(got) == sorted(want)
+    assert {k.rsplit("__", 1)[1] for k in got} == {
+        "master_weight", "moment1", "moment2", "beta1_pow", "beta2_pow"}
+    for k in want:
+        np.testing.assert_allclose(got[k].float().numpy(),
+                                   np.asarray(want[k]._val, np.float32),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+    # the port reads the reference's checkpoint, into its own tensors
+    paddle.save(want, str(tmp_path / "ref.pdopt"))
+    fresh = pt.optimizer.AdamW(parameters=port_params, **kw)
+    for _ in range(2):    # build the accumulators first: loading is in place
+        for pp, g in zip(port_params, grads[0]):
+            pp.grad = torch.tensor(g).to(torch.bfloat16)
+        fresh.step()
+    held = {k: id(v) for k, v in fresh.state_dict().items()}
+    fresh.set_state_dict(pt.load(str(tmp_path / "ref.pdopt")))
+    assert {k: id(v) for k, v in fresh.state_dict().items()} == held
+    for k, v in fresh.state_dict().items():
+        np.testing.assert_array_equal(v.numpy(), got[k].numpy(), err_msg=k)
+    # and the reference reads the port's
+    pt.save(got, str(tmp_path / "port.pdopt"))
+    ref2 = paddle.optimizer.AdamW(parameters=ref_params, **kw)
+    ref2.set_state_dict(paddle.load(str(tmp_path / "port.pdopt")))
+    for k, v in ref2.state_dict().items():
+        np.testing.assert_array_equal(np.asarray(v._val), got[k].numpy(),
+                                      err_msg=k)
