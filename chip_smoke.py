@@ -12,10 +12,12 @@ Phases, each printing JSON lines:
    and time kernel, plain version and a library yardstick: flash attention
    B1 (causal and not, head dim 64 and 128, bf16 and f32), then its
    backward B2 (dK, dV) and B3 (dQ) at the training shape (4 x 1024, 16
-   heads of 64, bf16, causal) and five more. bf16 runs the tensor-core
+   heads of 64, bf16, causal) and five more; last B1, B2 and B3 at BERT's
+   shape (8 x 512, 12 heads of 64, bf16, non-causal, q, k and v three
+   contiguous tensors). bf16 runs the tensor-core
    variants, f32 the CUDA-core (SIMT) ones; each row names the variant
-   that ran. At the bf16 causal shapes the wrapper's whole backward
-   (bwd_delta, B2 and B3) is also timed against the library's backward,
+   that ran. At the bf16 causal shapes and at BERT's the wrapper's whole
+   backward (bwd_delta, B2 and B3) is also timed against the library's,
    with bwd_delta's own share. "ms" is device time (the kernels' summed
    duration under torch.profiler, per call; a profile that lost kernels
    is taken again, and after three such tries the time comes from CUDA
@@ -58,6 +60,26 @@ Phases, each printing JSON lines:
    stepping between them): the lr read back at each step equals the
    scheduler's, the last execution's mean loss is below the first's; the
    second execution is profiled (B1 48 times a step, B2 and B3 24).
+8. to_static_grad: the captured step's repaired faults on BERT-base in
+   f32 at 4 x 256 (B1, B2 and B3 in its graphs): a forward-only ``to_static(model)`` under an outer
+   backward gives eager's grads on its calls 1-3 (its forward and backward
+   captured as two graphs), differentiating a self-backward step's output
+   raises the reference's error, and an optimizer built on host
+   parameters, the model then moved to the card, reads its scheduler's lr
+   at every replay.
+9. bert_train, ernie_train: bench.py's BERT lane (bench_bert): BERT-base
+   (then ERNIE-base) with dropout 0 in bf16, AdamW(1e-4,
+   multi_precision), the parity-label stream at 16 x 128, the step
+   captured and driven through run_steps with 64 steps an execution, 512
+   (256) recorded steps, once for each of three weight draws (seeds
+   --seed, +1, +2) on the one data stream; the median of their last-32
+   means below bench's chance floor 0.62; each run 1 compile in the
+   warm-up, 0 timed, and a replay profiled.
+10. bert_flash: BERT-base at 8 x 512 with no mask, where attention takes
+   B1, B2 and B3 non-causal: one f32 step (kernel path against math
+   path), the same weights in bf16 against the f32 truth, eval logits and
+   latencies of both paths, and a captured bf16 step on each path (B1, B2
+   and B3 12 times each per replay, by kernel name).
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -66,6 +88,7 @@ Any failed check raises, so the exit code is not 0 and no ok line is
 printed. It needs a CUDA card and the repository checkout it lies in.
 """
 import argparse
+import gc
 import json
 import os
 import re
@@ -83,6 +106,34 @@ PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 512, 64
 # bench.py's GPT training lane: batch 4 x 1024, AdamW lr 1e-4, a 512-token
 # permutation stream, 4 warm-up steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 1024, 4, 16
+# bench.py's BERT lane (bench_bert): batch 16 x 128, run_steps with 64
+# steps per execution, 2 warm-up executions; its chance-floor gate: the
+# mean loss of the last 32 recorded steps below 0.62 (ln 2 = 0.693 is
+# chance), judged on at least 512 recorded steps for BERT and 256 for
+# ERNIE (bench.py:1241-1242)
+CLS_BATCH, CLS_SEQ, CLS_SPE, CLS_FLOOR, CLS_WINDOW = 16, 128, 64, 0.62, 32
+CLS_STEPS = {"bert": 512, "ernie": 256}
+# the floor is judged on the median of the last-32 means of this many
+# weight draws (seeds --seed, --seed + 1, ...) on the one data stream: one
+# fine-tuning run from one draw can stay at chance, as ERNIE-base from
+# seed 0 does (PERF.md section 6)
+CLS_WEIGHT_DRAWS = 3
+# BERT-base on the flash kernels: (batch, seq, heads, head dim) at s = 512,
+# where the selection rule takes B1, B2 and B3 (non-causal)
+BERT_FLASH_SHAPE = (8, 512, 12, 64)
+BERT_FLASH_REPLAYS = 16
+# eval-mode f32 logits, kernel path against math path (summation order)
+BERT_LOGIT_TOL = 1e-3
+# forward-only to_static under an outer backward against eager, f32
+OUTER_GRAD_RTOL = 1e-5
+# the key projections' bias grads are zero in exact arithmetic; each
+# path's must stay below this share of its weight grad's norm, by dtype
+# (bf16 rounds dK before the bias sums it over every key). Sound readings
+# at BERT-base 8 x 512: f32 1.3e-7 (math) and 5.1e-7 (kernel); bf16
+# 9.5e-5 (math) and 1.7e-4 (kernel). A bf16 backward that took D from the
+# bf16 O read 1.6e-3 (PERF.md section 6).
+KEY_BIAS = "self_attn.k_proj.bias"
+KEY_BIAS_TOL = {"float32": 1e-5, "bfloat16": 5e-4}
 # max |O - plain O| and |LSE - plain LSE| allowed, kernel vs plain on the
 # card. bf16 (tensor cores, also held to the relative-L2 rule below): P is
 # rounded to bf16 before P.V and O to bf16, a few bf16 ulps at |O| < 2;
@@ -252,11 +303,15 @@ def tc_gate(got, want, library):
             "ok": gap <= bound}
 
 
-def flash_bound(b, s, h, d, dtype_name, causal):
+def flash_bound(b, s, h, d, dtype_name, causal, f32_out=False):
     """Least time (ms) for B1's work and what bounds it: q, k, v read once,
-    O and LSE written once; 4*B*H*S^2*D flops, halved when causal."""
+    O and LSE written once (and O in f32 too with ``f32_out``, as the
+    training path asks of the tensor-core B1); 4*B*H*S^2*D flops, halved
+    when causal."""
     elt = 2 if dtype_name == "bfloat16" else 4
     nbytes = 4 * b * s * h * d * elt + b * h * s * 4
+    if f32_out:
+        nbytes += 4 * b * s * h * d
     flops = 4 * b * h * s * s * d * (0.5 if causal else 1.0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -294,7 +349,12 @@ def phase_build():
 
 
 def qkv_views(torch, b, s, h, d, dtype, gen):
-    """q, k, v as the strided views GPTAttention hands the kernel."""
+    """q, k, v as the model hands them to the kernel: at BERT's shape three
+    contiguous tensors (MultiHeadAttention's separate projections), else
+    the strided views of one fused projection (GPTAttention)."""
+    if (b, s, h, d) == BERT_FLASH_SHAPE:
+        return [torch.randn((b, s, h, d), generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype) for _ in range(3)]
     qkv = torch.randn((b, s, 3, h, d), generator=gen, device="cuda",
                       dtype=torch.float32).to(dtype)
     return qkv.unbind(dim=2)
@@ -324,7 +384,8 @@ def phase_kernels(torch, seed):
              (2, 1024, 16, 128, torch.bfloat16, True),
              (2, 1024, 16, 128, torch.bfloat16, False),
              (4, 512, 16, 64, torch.float32, True),
-             (2, 512, 16, 128, torch.float32, False)]
+             (2, 512, 16, 128, torch.float32, False),
+             (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
     for b, s, h, d, dtype, causal in cases:
         dname = str(dtype).split(".")[-1]
@@ -358,6 +419,24 @@ def phase_kernels(torch, seed):
         ms = device_ms(torch, kernel)
         library_ms = device_ms(torch, sdpa)
         bound_ms, bound_by = flash_bound(b, s, h, d, dname, causal)
+        f32_out = {}
+        if kind == fa.TC:
+            # the training path's launch: O also written unrounded in f32,
+            # which must round to the same bf16 O
+            out_g, lse_g, out32 = fa.flash_attention_fwd_for_grad(
+                q, k, v, causal, scale)
+            f32_bound, f32_bound_by = flash_bound(b, s, h, d, dname, causal,
+                                                  f32_out=True)
+            f32_out = {
+                "ms_with_f32_out": device_ms(
+                    torch, lambda: fa.flash_attention_fwd_for_grad(
+                        q, k, v, causal, scale)),
+                "bound_us_with_f32_out": f32_bound * 1e3,
+                "bound_by_with_f32_out": f32_bound_by,
+                "f32_out_rounds_to_out": bool(
+                    torch.equal(out_g, out) and torch.equal(lse_g, lse)
+                    and torch.equal(out32.to(dtype), out))}
+            del out_g, lse_g, out32
         row = {"shape": [b, s, h, d], "dtype": dname, "causal": causal,
                "variant": kind,
                "max_abs_err_o": err_o, "max_abs_err_lse": err_l,
@@ -372,9 +451,10 @@ def phase_kernels(torch, seed):
                "library_wall_ms": cuda_time_ms(torch, sdpa),
                "bound_us": bound_ms * 1e3, "bound_by": bound_by,
                "share_of_bound": bound_ms / ms,
-               "factor_vs_library": ms / library_ms}
+               "factor_vs_library": ms / library_ms, **f32_out}
         emit({"phase": "kernels", "kernel": fa.KERNEL_NAME, **row})
         assert err_o <= tol_o and err_l <= tol_l, row
+        assert not f32_out or f32_out["f32_out_rounds_to_out"], row
         assert gate is None or gate["ok"], row
         rows.append(row)
     return rows
@@ -415,8 +495,9 @@ def phase_kernels_bwd(torch, seed):
              (4, 512, 16, 64, torch.bfloat16, False),
              (2, 1024, 16, 128, torch.bfloat16, True),
              (4, 512, 16, 64, torch.float32, True),
-             (2, 512, 16, 128, torch.float32, False)]
-    rows = {"dkv": [], "dq": []}
+             (2, 512, 16, 128, torch.float32, False),
+             (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
+    rows = {"dkv": [], "dq": [], "whole": []}
     for b, s, h, d, dtype, causal in cases:
         dname = str(dtype).split(".")[-1]
         q, k, v = qkv_views(torch, b, s, h, d, dtype, gen)
@@ -467,9 +548,10 @@ def phase_kernels_bwd(torch, seed):
                         queued_event_ms(torch, dq)[0])}
         plain_ms = device_ms(torch, lambda: fa.flash_attention_bwd_reference(
             q, k, v, out, lse, do, causal, scale), reps=3, warmup=1)
-        if kind == fa.TC and causal:
-            whole_backward(torch, fa, (q, k, v, out, lse, do), causal, scale,
-                           kind, library_ms)
+        if kind == fa.TC and (causal or (b, s, h, d) == BERT_FLASH_SHAPE):
+            rows["whole"].append(whole_backward(
+                torch, fa, (q, k, v, out, lse, do), causal, scale, kind,
+                library_ms))
         for kernel, name, outs in (("dkv", fa.DKV_KERNEL, ("dk", "dv")),
                                    ("dq", fa.DQ_KERNEL, ("dq",))):
             bound_ms, bound_by = flash_bwd_bound(b, s, h, d, dname, causal,
@@ -520,7 +602,7 @@ def whole_backward(torch, fa, inputs, causal, scale, kind, library_ms):
     delta_ms, delta_launches = device_profile(
         torch, lambda: fa.bwd_delta(out, do))
     bound_ms, bound_by = flash_bwd_bound(b, s, h, d, dname, causal, "whole")
-    emit({"phase": "kernels", "kernel": "flash_attention_bwd",
+    row = {"phase": "kernels", "kernel": "flash_attention_bwd",
           "scope": "the wrapper's whole backward: bwd_delta, B2, B3",
           "shape": [b, s, h, d], "dtype": dname, "causal": causal,
           "variant": kind, "ms": ms, "launches_per_call": launches,
@@ -531,7 +613,9 @@ def whole_backward(torch, fa, inputs, causal, scale, kind, library_ms):
           "bwd_delta_launches_per_call": delta_launches,
           "bwd_delta_share": delta_ms / ms,
           "bound_us": bound_ms * 1e3, "bound_by": bound_by,
-          "share_of_bound": bound_ms / ms})
+          "share_of_bound": bound_ms / ms}
+    emit(row)
+    return row
 
 
 def greedy(torch, model, ids, steps):
@@ -939,33 +1023,39 @@ def phase_train(torch, seed):
     return row
 
 
-def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
+def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants,
+               path=set_flash, n_layers=None,
+               config="GPT-medium v32000 h1024 L24 a16 d64 (full depth)",
+               gaps=grad_gaps, zero_share=None):
     """One bf16 step at full width from the f32 check's weights cast to
     bf16, on the kernel path (tensor-core B1, B2 and B3) and on the math
     path. The f32 math path's loss and grads are the truth: the
     kernel path's relative gap to it must be no more than BF16_GRAD_FACTOR
     times the bf16 math path's + BF16_GRAD_SLACK, for the loss and for
-    every parameter's grad (relative L2)."""
+    every parameter's grad (relative L2, as ``gaps`` measures it).
+    ``path(model, on)`` switches the model between the two paths;
+    ``zero_share(grads)``, where given, holds the grads that ``gaps``
+    leaves out (KEY_BIAS_TOL in bf16)."""
     from paddle_tpu_torch.ops.cuda import launch_counts
     from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
     model.to(torch.bfloat16)
-    set_flash(model, True)
+    path(model, True)
     launch_counts.clear()
     k_loss, k_grads = loss_and_grads(model, x, y)
     k_launches = dict(launch_counts)
-    set_flash(model, False)
+    path(model, False)
     launch_counts.clear()
     m_loss, m_grads = loss_and_grads(model, x, y)
     m_launches = sum(launch_counts[n] for n in KERNEL_NAMES)
-    k_gap = dict(grad_gaps(torch, k_grads, f32_grads))
-    m_gap = dict(grad_gaps(torch, m_grads, f32_grads))
+    k_gap = dict(gaps(torch, k_grads, f32_grads))
+    m_gap = dict(gaps(torch, m_grads, f32_grads))
     share = {n: k_gap[n] / (BF16_GRAD_FACTOR * m_gap[n] + BF16_GRAD_SLACK)
              for n in k_gap}
     worst = sorted(share, key=lambda n: -share[n])[:3]
     loss_gap = {"kernel": abs(k_loss - f32_loss) / abs(f32_loss),
                 "math": abs(m_loss - f32_loss) / abs(f32_loss)}
     check = {"phase": "train_check", "dtype": "bfloat16",
-             "config": "GPT-medium v32000 h1024 L24 a16 d64 (full depth)",
+             "config": config,
              "batch": list(x.shape), "truth": "f32 math path",
              "loss_kernel_path": k_loss, "loss_math_path": m_loss,
              "loss_f32": f32_loss, "loss_rel_gap": loss_gap,
@@ -978,8 +1068,15 @@ def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
              "math_rel_l2_median": sorted(m_gap.values())[len(m_gap) // 2],
              "kernel_path_launches": k_launches,
              "math_path_launches": m_launches}
+    if zero_share is not None:
+        check["key_bias_share"] = {"kernel": zero_share(k_grads),
+                                   "math": zero_share(m_grads),
+                                   "tol": KEY_BIAS_TOL["bfloat16"]}
     emit(check)
-    n_layers = model.config.num_layers
+    n_layers = n_layers or model.config.num_layers
+    if zero_share is not None:
+        assert all(check["key_bias_share"][p][1] <= KEY_BIAS_TOL["bfloat16"]
+                   for p in ("kernel", "math")), check
     assert all(k_launches.get(n, 0) == n_layers
                for n in (*KERNEL_NAMES, *variants[torch.bfloat16])), k_launches
     assert m_launches == 0
@@ -987,6 +1084,7 @@ def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants):
                                   + BF16_GRAD_SLACK), check
     assert share[worst[0]] <= 1.0, check
     del k_grads, m_grads
+    return check
 
 
 # the tensor-core kernels of a step, by the names of their __global__
@@ -1001,28 +1099,37 @@ TC_KERNEL_NAMES = {"flash_attn_fwd": "flash_fwd_tc_kernel",
 CURVE_RTOL = 2e-2
 
 
-def profiled(torch, fn, steps):
+def profiled(torch, fn, steps, expect=None, tries=3):
     """Profile ``fn`` (which runs ``steps`` training steps): the profile,
     its host-clock wall seconds, its result, and per step the kernels'
     device ms, kernel launches, host graph launches and B1/B2/B3 launches
-    counted by kernel name."""
+    counted by kernel name.
+
+    A replayed graph launches the same kernels every time, so a profile
+    whose B1/B2/B3 counts fall short of ``expect`` ({kernel: launches per
+    step}) lost records: ``fn`` then runs again under a new profile, up to
+    ``tries`` times, and ``profile_tries`` says how many it took."""
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
+    for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    kernels = kernel_times(prof)
-    graph_launches = sum(1 for e in prof.events()
-                         if e.name.startswith("cudaGraphLaunch"))
-    per_step = {
-        "device_ms": sum(k[0] for k in kernels) / 1e3 / steps,
-        "kernel_launches": sum(k[1] for k in kernels) / steps,
-        "graph_launches": graph_launches / steps,
-        "flash_launches": {n: sum(k[1] for k in kernels if tc in k[2])
-                           / steps for n, tc in TC_KERNEL_NAMES.items()}}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        kernels = kernel_times(prof)
+        graph_launches = sum(1 for e in prof.events()
+                             if e.name.startswith("cudaGraphLaunch"))
+        per_step = {
+            "device_ms": sum(k[0] for k in kernels) / 1e3 / steps,
+            "kernel_launches": sum(k[1] for k in kernels) / steps,
+            "graph_launches": graph_launches / steps,
+            "flash_launches": {n: sum(k[1] for k in kernels if tc in k[2])
+                               / steps for n, tc in TC_KERNEL_NAMES.items()},
+            "profile_tries": attempt}
+        if expect is None or per_step["flash_launches"] == expect:
+            break
     return prof, wall_s, out, per_step
 
 
@@ -1070,7 +1177,9 @@ def phase_compiled_train(torch, seed, eager):
     peak = torch.cuda.max_memory_allocated()
     reserved = torch.cuda.memory_reserved()
     losses = [loss.item() for loss in losses]
-    _, wall_s, _, prof = profiled(torch, lambda: step(xs[-1], ys[-1]), 1)
+    _, wall_s, _, prof = profiled(torch, lambda: step(xs[-1], ys[-1]), 1,
+                                  expect={k: cfg.num_layers
+                                          for k in TC_KERNEL_NAMES})
     step_ms = seconds / TRAIN_STEPS * 1e3
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
     row = {"phase": "compiled_train", "dtype": "bfloat16",
@@ -1163,7 +1272,11 @@ def phase_amp_train(torch, seed):
         def run():
             return step.run_steps(xs[sl], ys[sl])
         if e == 1:
-            _, wall_s, out, prof = profiled(torch, run, k_steps)
+            _, wall_s, out, prof = profiled(
+                torch, run, k_steps,
+                expect={"flash_attn_fwd": 2 * cfg.num_layers,
+                        "flash_attn_bwd_dkv": cfg.num_layers,
+                        "flash_attn_bwd_dq": cfg.num_layers})
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1196,9 +1309,11 @@ def phase_amp_train(torch, seed):
                                                      k_steps)]}
     emit(row)
     n = cfg.num_layers
+    # the profiled execution runs once more for each profile retaken
+    runs = [1, prof["profile_tries"], 1]
     assert stats[0]["compiles"] == 1 and all(st == {
-        "compiles": 0, "cache_hits": k_steps, "retrace_warnings": 0}
-        for st in stats[1:]), stats
+        "compiles": 0, "cache_hits": k_steps * r, "retrace_warnings": 0}
+        for st, r in zip(stats[1:], runs[1:])), stats
     assert prof["flash_launches"] == {"flash_attn_fwd": 2 * n,
                                       "flash_attn_bwd_dkv": n,
                                       "flash_attn_bwd_dq": n}, prof
@@ -1210,14 +1325,434 @@ def phase_amp_train(torch, seed):
     return row
 
 
-def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp):
+def cls_stream(seed, stacks, spe, batch, seq, vocab):
+    """bench.py's parity-label stream (bench_bert's data): random ids,
+    except that positions 0-7 carry tokens of a 16-token sub-vocabulary
+    whose parity is the label, so the label is learnable from any of
+    eight embeddings. One (ids, labels) pair of (spe, batch, seq) int64
+    and (spe, batch) int64 per execution, drawn in bench's order from
+    RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(stacks):
+        ids = rng.randint(0, vocab, (spe, batch, seq))
+        labels = rng.randint(0, 2, (spe, batch)).astype("int64")
+        ids[:, :, :8] = (2 * rng.randint(0, 8, (spe, batch, 8))
+                         + labels[..., None])
+        out.append((ids.astype("int64"), labels))
+    return out
+
+
+def bert_grad_gaps(torch, grads, ref):
+    """grad_gaps for an encoder with separate key projections, without the
+    key projections' biases: their grad is zero in exact arithmetic (the
+    softmax over the keys ignores a shift common to one query's logits),
+    so a relative gap there compares rounding noise with rounding noise.
+    ``key_bias_share`` holds them instead."""
+    keep = {n: g for n, g in grads.items() if not n.endswith(KEY_BIAS)}
+    return grad_gaps(torch, keep, ref)
+
+
+def key_bias_share(grads):
+    """(name, share) of the key-projection bias whose grad norm is the
+    largest share of its projection weight's grad norm: zero in exact
+    arithmetic, a small share of it in floating point."""
+    shares = [(n, (grads[n].float().norm() / grads[
+        n[:-len("bias")] + "weight"].float().norm().clamp_min(1e-30)).item())
+        for n in grads if n.endswith(KEY_BIAS)]
+    return max(shares, key=lambda t: t[1])
+
+
+def set_bert_flash(model, on):
+    for layer in model.bert.encoder.layers:
+        layer.self_attn.use_flash_attention = on
+
+
+def bert_model(torch, cfg, seed, device="cuda", arch="bert"):
+    """A sequence classifier (2 classes) with random weights from the
+    seed, drawn on the host so that every device gets the same ones."""
+    from paddle_tpu_torch.text.models import (BertForSequenceClassification,
+                                              ErnieForSequenceClassification)
+    cls = (ErnieForSequenceClassification if arch == "ernie"
+           else BertForSequenceClassification)
+    return cls(cfg, num_classes=2, device=device,
+               generator=torch.Generator().manual_seed(seed))
+
+
+def phase_to_static_grad(torch, seed):
+    """The repaired faults of the captured step, on the card, with
+    BERT-base in f32 at 4 x 256 (so B1, B2 and B3 run, SIMT, in its
+    graphs, 12 layers' activations saved between them): a forward-only ``to_static(model)`` under an outer backward, called 3
+    times (discovery, the capture of forward and backward, a replay), gives
+    eager's grads; a train step that runs its own backward refuses to be
+    differentiated; an optimizer built on host parameters, then the model
+    moved to the card, reads its LinearWarmup scheduler's lr at every
+    replay."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0
+    (xs, ys), = cls_stream(seed + 7, 1, 5, 4, 256, cfg.vocab_size)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    eager = bert_model(torch, cfg, seed).train()
+    static = pt.jit.to_static(bert_model(torch, cfg, seed).train())
+    worst, zero_grads = [], []
+    for i in range(3):
+        want_loss, want = loss_and_grads(eager, xs[i], ys[i])
+        got_loss, got = loss_and_grads(static, xs[i], ys[i])
+        gaps = bert_grad_gaps(torch, got, want)
+        worst.append({"call": i + 1, "loss": got_loss,
+                      "eager_loss": want_loss, "worst": gaps[0],
+                      "key_bias_share": key_bias_share(got)})
+        zero_grads += [(i + 1, n) for n, g in got.items()
+                       if not n.endswith(KEY_BIAS) and not g.any()]
+    prog, = static.forward.programs.values()
+    graphed = prog.graph is not None and prog.bwd_graph is not None
+
+    model = bert_model(torch, cfg, seed).train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                             parameters=model.parameters())
+    step = train_step_fn(model, opt)
+    refused, message = [], None
+    for i in range(3):
+        loss = step(xs[i], ys[i])
+        try:
+            (2.0 * loss).backward()
+            refused.append(False)
+        except RuntimeError as err:
+            message = str(err)
+            refused.append("runs its own backward" in message)
+
+    host = bert_model(torch, cfg, seed, device="cpu").train()
+    sched = pt.optimizer.lr.LinearWarmup(learning_rate=1e-4, warmup_steps=3,
+                                         start_lr=2e-5, end_lr=1e-4)
+    opt = pt.optimizer.AdamW(learning_rate=sched,
+                             parameters=host.parameters())
+    host.to("cuda")
+    lr_device_before = str(opt._learning_rate.device)
+
+    @pt.jit.to_static
+    def lr_step(x, y):
+        loss = host(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.float(), opt._learning_rate * 1.0
+    lrs, want_lrs = [], []
+    for i in range(5):
+        want_lrs.append(float(np.float32(sched())))
+        lrs.append(lr_step(xs[i], ys[i])[1].item())
+        sched.step()
+    lr_prog, = lr_step.programs.values()
+    row = {"phase": "to_static_grad",
+           "config": "BERT-base v30522 h768 L12 a12 d64 f32, batch 4 x 256",
+           "forward_only": {"calls": worst, "rel_l2_tol": OUTER_GRAD_RTOL,
+                            "zero_grads": zero_grads,
+                            "forward_and_backward_captured": graphed},
+           "self_backward_step_refused": refused,
+           "refusal": message,
+           "lr": {"device_at_build": lr_device_before,
+                  "device_after": str(opt._learning_rate.device),
+                  "read_back": lrs, "scheduler": want_lrs,
+                  "captured": lr_prog.graph is not None}}
+    emit(row)
+    assert all(w["worst"][1] <= OUTER_GRAD_RTOL
+               and w["key_bias_share"][1] <= KEY_BIAS_TOL["float32"]
+               for w in worst), \
+        worst
+    assert not zero_grads and graphed, row
+    assert refused == [True] * 3, (refused, message)
+    assert lrs == want_lrs and lr_prog.graph is not None, row
+    assert lr_device_before == "cpu" and opt._learning_rate.is_cuda
+    del eager, static, model, host, opt, step, lr_step
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_cls_train(torch, seed, arch):
+    """bench.py's BERT (or ERNIE) lane: the base model (12 layers, hidden
+    768, 12 heads) with dropout 0 in bf16, AdamW(1e-4, multi_precision),
+    the parity-label stream at 16 x 128 from ``seed``, the step under
+    ``to_static`` returning the f32 loss, driven by ``run_steps`` with 64
+    steps an execution: 2 warm-up executions, then timed ones up to
+    bench's recorded budget (512 steps for BERT, 256 for ERNIE). At s =
+    128 attention takes the math path with no mask, as bench's. It runs
+    once for each of CLS_WEIGHT_DRAWS weight seeds (``seed``, ``seed`` +
+    1, ...) on the same batches; each run's replayed step is profiled.
+    Gates: each run one compile in the warm-up, none timed, finite
+    losses; the median of the runs' last-32 means below bench's chance
+    floor 0.62."""
+    from paddle_tpu_torch.text.models import BertConfig, ErnieConfig
+    cfg = ErnieConfig() if arch == "ernie" else BertConfig.base()
+    cfg.dropout = 0.0
+    n_exec = CLS_STEPS[arch] // CLS_SPE
+    stacks = [tuple(torch.from_numpy(a).cuda() for a in st)
+              for st in cls_stream(seed, n_exec, CLS_SPE, CLS_BATCH, CLS_SEQ,
+                                   cfg.vocab_size)]
+    rows = [cls_run(torch, arch, cfg, stacks, seed, w)
+            for w in range(seed, seed + CLS_WEIGHT_DRAWS)]
+    means = [r[f"last{CLS_WINDOW}_mean"] for r in rows]
+    median = float(np.median(means))
+    emit({"phase": f"{arch}_floor", "data_seed": seed,
+          "weight_seeds": [r["weight_seed"] for r in rows],
+          f"last{CLS_WINDOW}_means": means, "median": median,
+          "chance_floor": CLS_FLOOR})
+    assert median < CLS_FLOOR, means
+    del stacks
+    torch.cuda.empty_cache()
+    return rows
+
+
+def cls_run(torch, arch, cfg, stacks, seed, weight_seed):
+    """One run of the BERT (or ERNIE) lane from the weights of
+    ``weight_seed`` on ``stacks`` (one (ids, labels) pair an execution),
+    with its per-run gates; its row carries the last-32 mean."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    steps = CLS_STEPS[arch]
+    n_exec = len(stacks)
+    # an earlier model in a reference cycle (to_static(layer) binds the
+    # layer's forward to a program that holds the layer) keeps its device
+    # memory until the cycle collector runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = bert_model(torch, cfg, weight_seed, arch=arch)
+    model.bfloat16()
+    model.train()
+    build_s = time.perf_counter() - t0
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    step = CompiledTrainStep(train_step_fn(model, opt), label=f"{arch}_base")
+    launch_counts.clear()
+    reset_compile_stats()
+    curve = []
+    t0 = time.perf_counter()
+    for e in range(2):
+        curve.append(step.run_steps(*stacks[e]))
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    warm = compile_stats()
+    reset_compile_stats()
+    t0 = time.perf_counter()
+    for e in range(2, n_exec):
+        curve.append(step.run_steps(*stacks[e]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = compile_stats()
+    flash = {n: launch_counts[n] for n in KERNEL_NAMES}
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.cat(curve).tolist()
+    timed_steps = (n_exec - 2) * CLS_SPE
+    step_ms = seconds / timed_steps * 1e3
+    x, y = stacks[-1][0][-1], stacks[-1][1][-1]
+    trace, wall_s, _, prof = profiled(torch, lambda: step(x, y), 1)
+    emit_profile(trace, wall_s, f"{arch}_train_replay", 1, top=10)
+    last = float(np.mean(losses[-CLS_WINDOW:]))
+    name = "ERNIE-base v18000" if arch == "ernie" else "BERT-base v30522"
+    row = {"phase": f"{arch}_train", "dtype": "bfloat16",
+           "config": f"{name} h768 L12 a12 d64, 2 classes, dropout 0",
+           "optimizer": "AdamW lr 1e-4 multi_precision (f32 masters)",
+           "data_seed": seed, "weight_seed": weight_seed,
+           "batch": [CLS_BATCH, CLS_SEQ], "steps_per_execution": CLS_SPE,
+           "executions": n_exec, "recorded_steps": len(losses),
+           "timed_steps": timed_steps, "model_build_s": build_s,
+           "compile_stats_warmup": warm, "compile_stats_timed": timed,
+           "warmup_s": warmup_s, "step_ms": step_ms,
+           "tokens_per_s": CLS_BATCH * CLS_SEQ * timed_steps / seconds,
+           "replay_profile": {**prof, "wall_ms": wall_s * 1e3,
+                              "busy_share": prof["device_ms"]
+                              / (wall_s * 1e3)},
+           "unprofiled_busy_share": prof["device_ms"] / step_ms,
+           "peak_mem_bytes": peak, "flash_launches": flash,
+           "attention_path": "math (s = 128 < 256)",
+           "loss_first": losses[0], "loss_every_16th": losses[::16],
+           f"last{CLS_WINDOW}_mean": last, "chance_floor": CLS_FLOOR}
+    emit(row)
+    assert warm["compiles"] == 1 and timed == {
+        "compiles": 0, "cache_hits": timed_steps, "retrace_warnings": 0}, \
+        (warm, timed)
+    assert len(losses) == steps and all(np.isfinite(losses)), losses
+    assert all(c == 0 for c in flash.values()), flash
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_bert_flash(torch, seed):
+    """BERT-base at 8 x 512, dropout 0, no mask, where attention takes B1,
+    B2 and B3 non-causal: (a) one f32 training step, kernel path (the SIMT
+    variants) against the math path; (b) the same weights in bf16, the
+    tensor-core kernel path against the f32 truth, no further from it than
+    twice the bf16 math path; (c) eval-mode f32 logits of a few batches,
+    kernel path against math path, and each path's latency in f32 and
+    bf16; (d) a captured bf16 training step, 16 timed replays on each
+    path, one replay of each profiled (B1, B2 and B3 counted by kernel
+    name: 12 each on the kernel path)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import CompiledTrainStep
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0
+    b, s = BERT_FLASH_SHAPE[:2]
+    n = cfg.num_layers
+    variants = {dt: [fa.variant_counter(k, dt) for k in KERNEL_NAMES]
+                for dt in (torch.bfloat16, torch.float32)}
+    warmup = 3
+    (xs, ys), = cls_stream(seed + 5, 1, warmup + BERT_FLASH_REPLAYS + 1, b,
+                           s, cfg.vocab_size)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    config = f"BERT-base v30522 h768 L12 a12 d64, batch {b} x {s}"
+    torch.cuda.empty_cache()
+
+    # (a) f32, kernel path against math path
+    model = bert_model(torch, cfg, seed).train()
+    launch_counts.clear()
+    k_loss, k_grads = loss_and_grads(model, xs[0], ys[0])
+    f32_launches = {k: launch_counts[k]
+                    for k in (*variants[torch.float32],
+                              *variants[torch.bfloat16])}
+    set_bert_flash(model, False)
+    launch_counts.clear()
+    m_loss, m_grads = loss_and_grads(model, xs[0], ys[0])
+    m_launches = sum(launch_counts[k] for k in KERNEL_NAMES)
+    gaps = bert_grad_gaps(torch, k_grads, m_grads)
+    check = {"phase": "bert_flash", "part": "f32 step", "config": config,
+             "loss_kernel_path": k_loss, "loss_math_path": m_loss,
+             "loss_rel_gap": abs(k_loss - m_loss) / abs(m_loss),
+             "loss_rtol": TRAIN_LOSS_RTOL, "grad_rel_l2_worst": gaps[:3],
+             "grad_rel_l2_median": gaps[len(gaps) // 2][1],
+             "grad_rel_l2_tol": TRAIN_GRAD_RTOL,
+             "kernel_path_variant_launches": f32_launches,
+             "math_path_launches": m_launches,
+             "key_bias_share": {"kernel": key_bias_share(k_grads),
+                                "math": key_bias_share(m_grads),
+                                "tol": KEY_BIAS_TOL["float32"]}}
+    emit(check)
+    assert all(check["key_bias_share"][p][1] <= KEY_BIAS_TOL["float32"]
+               for p in ("kernel", "math")), check
+    assert all(f32_launches[k] == n for k in variants[torch.float32])
+    assert all(f32_launches[k] == 0 for k in variants[torch.bfloat16])
+    assert m_launches == 0
+    assert check["loss_rel_gap"] <= TRAIN_LOSS_RTOL, check
+    assert gaps[0][1] <= TRAIN_GRAD_RTOL, check
+    del k_grads
+
+    # (c) eval-mode logits and latency, f32 and then bf16
+    def infer(on):
+        """The logits of 4 batches and their host-clock ms per batch."""
+        set_bert_flash(model, on)
+        with torch.inference_mode():
+            model(xs[1])                                # warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = [model(xs[i]) for i in range(1, 5)]
+            torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / 4 * 1e3
+    model.eval()
+    infer_row = {"phase": "bert_flash", "part": "inference",
+                 "config": config, "batches": 4, "logits_tol": BERT_LOGIT_TOL}
+    k_logits, infer_row["f32_kernel_ms"] = infer(True)
+    m_logits, infer_row["f32_math_ms"] = infer(False)
+    infer_row["f32_logits_max_abs_gap"] = max(
+        (a - c).abs().max().item() for a, c in zip(k_logits, m_logits))
+
+    # (b) the same weights in bf16 against the f32 truth
+    model.train()
+    bf16 = bf16_check(torch, model, xs[0], ys[0], m_loss, m_grads, variants,
+                      path=set_bert_flash, n_layers=n,
+                      config=config + " (bert_flash)", gaps=bert_grad_gaps,
+                      zero_share=key_bias_share)
+    model.eval()
+    k_logits, infer_row["bf16_kernel_ms"] = infer(True)
+    m_logits, infer_row["bf16_math_ms"] = infer(False)
+    infer_row["bf16_logits_max_abs_gap"] = max(
+        (a.float() - c.float()).abs().max().item()
+        for a, c in zip(k_logits, m_logits))
+    emit(infer_row)
+    assert infer_row["f32_logits_max_abs_gap"] <= BERT_LOGIT_TOL, infer_row
+    del model, m_grads, k_logits, m_logits
+    torch.cuda.empty_cache()
+
+    # (d) the captured bf16 step on each path, from the same weights
+    steps = {}
+    for on in (True, False):
+        model = bert_model(torch, cfg, seed)
+        model.bfloat16()
+        model.train()
+        set_bert_flash(model, on)
+        opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                                 parameters=model.parameters())
+        step = CompiledTrainStep(train_step_fn(model, opt),
+                                 label=f"bert_flash_{on}")
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts.clear()
+        losses = [step(xs[i], ys[i]) for i in range(warmup)]
+        capture_launches = {k: launch_counts[k]
+                            for k in variants[torch.bfloat16]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(warmup, warmup + BERT_FLASH_REPLAYS):
+            losses.append(step(xs[i], ys[i]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        i = warmup + BERT_FLASH_REPLAYS
+        trace, wall_s, _, prof = profiled(
+            torch, lambda: step(xs[i], ys[i]), 1,
+            expect={k: n if on else 0 for k in TC_KERNEL_NAMES})
+        emit_profile(trace, wall_s, "bert_flash_replay_"
+                     + ("kernel_path" if on else "math_path"), 1, top=8)
+        step_ms = seconds / BERT_FLASH_REPLAYS * 1e3
+        steps[on] = {"step_ms": step_ms,
+                     "tokens_per_s": b * s * BERT_FLASH_REPLAYS / seconds,
+                     "capture_launches": capture_launches,
+                     "replay_profile": {**prof, "wall_ms": wall_s * 1e3},
+                     "unprofiled_busy_share": prof["device_ms"] / step_ms,
+                     "peak_mem_bytes": peak,
+                     "losses": [loss.item() for loss in losses]}
+        del model, opt, step
+        torch.cuda.empty_cache()
+    kernel, math = steps[True], steps[False]
+    row = {"phase": "bert_flash", "part": "captured bf16 step",
+           "config": config, "replays_timed": BERT_FLASH_REPLAYS,
+           "kernel_path": kernel, "math_path": math,
+           "speedup_vs_math": math["step_ms"] / kernel["step_ms"]}
+    emit(row)
+    per_replay = kernel["replay_profile"]["flash_launches"]
+    assert per_replay == {k: n for k in TC_KERNEL_NAMES}, per_replay
+    assert all(c == 0 for c in
+               math["replay_profile"]["flash_launches"].values()), math
+    # the capture passes through the wrappers once: discovery + capture
+    assert all(c == 2 * n for c in kernel["capture_launches"].values())
+    for path in (kernel, math):
+        assert all(np.isfinite(path["losses"])), path["losses"]
+    return {"f32": check, "bf16": bf16, "inference": infer_row,
+            "captured": row,
+            "launches": {k: bf16["kernel_path_launches"].get(k, 0)
+                         for k in variants[torch.bfloat16]}}
+
+
+def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
     the training shape, each with its launches per replayed step of the
     captured step (compiled_train) and of the amp + recompute step
     (amp_train), counted by kernel name; f32 (SIMT): the f32 correctness
-    runs at full width, timed at (4, 512, 16, 64) causal."""
+    runs at full width, timed at (4, 512, 16, 64) causal; then B1, B2 and
+    B3 tc_bf16 again, non-causal at BERT's shape (8, 512, 12, 64), with
+    their launches in a bf16 BERT-base step (bert_flash) and per replay
+    of its captured step."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -1248,6 +1783,7 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp):
               main_path="bf16 prefill (serve)",
               launches_train=train["launches"][f"{fa.KERNEL_NAME}.{tc}"],
               train_shape_ms=fwd_train["ms"],
+              train_shape_ms_with_f32_out=fwd_train["ms_with_f32_out"],
               train_shape_library_ms=fwd_train["library_ms"],
               **captured(fa.KERNEL_NAME)),
         entry(f"{fa.KERNEL_NAME}.{simt}", "flash_attn_fwd.cu", 114, fwd_simt,
@@ -1279,7 +1815,47 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp):
               train["f32_launches"][f"{fa.DQ_KERNEL}.{simt}"],
               dq_simt["max_abs_err"],
               main_path="f32 training step (train_check, correctness run)",
-              **scope)]
+              **scope),
+        *bert_entries(fa, entry, rows[-1], bwd_rows, bert, scope)]
+
+
+def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 at BERT's shape,
+    non-causal."""
+    replay = bert["captured"]["kernel_path"]["replay_profile"]
+    tc = fa.TC
+
+    def one(kernel, source, line, row, err, **extra):
+        return entry(f"{kernel}.{tc}.bert", source, line, row,
+                     bert["launches"][f"{kernel}.{tc}"], err,
+                     main_path="BERT-base bf16 training step at 8 x 512, "
+                               "non-causal (bert_flash)",
+                     launches_per_replay_bert_flash=replay[
+                         "flash_launches"][kernel], **extra)
+    dkv, dq = bwd_rows["dkv"][-1], bwd_rows["dq"][-1]
+    whole = bwd_rows["whole"][-1]
+    return [
+        # the training step's B1 also writes O in f32: its time and bound
+        one(fa.KERNEL_NAME, "flash_attn_fwd_tc.cu", 114, fwd,
+            fwd["max_abs_err_o"], rel_l2=fwd["rel_l2_o"],
+            ms=fwd["ms_with_f32_out"],
+            bound_ms=fwd["bound_us_with_f32_out"] / 1e3,
+            bound_by=fwd["bound_by_with_f32_out"],
+            share_of_bound=fwd["bound_us_with_f32_out"] / 1e3
+            / fwd["ms_with_f32_out"],
+            factor_vs_library=fwd["ms_with_f32_out"] / fwd["library_ms"],
+            ms_without_f32_out=fwd["ms"]),
+        one(fa.DKV_KERNEL, "flash_attn_dkv_tc.cu", 200, dkv,
+            dkv["max_abs_err"],
+            rel_l2={o: g["rel_l2"]
+                    for o, g in dkv["rel_l2_by_output"].items()},
+            whole_backward_ms=whole["ms"],
+            whole_backward_bound_ms=whole["bound_us"] / 1e3, **scope),
+        one(fa.DQ_KERNEL, "flash_attn_dq_tc.cu", 247, dq, dq["max_abs_err"],
+            rel_l2={o: g["rel_l2"]
+                    for o, g in dq["rel_l2_by_output"].items()},
+            whole_backward_ms=whole["ms"],
+            whole_backward_bound_ms=whole["bound_us"] / 1e3, **scope)]
 
 
 def main():
@@ -1317,9 +1893,14 @@ def main():
     train = phase_train(torch, args.seed)
     compiled = phase_compiled_train(torch, args.seed, train)
     amp = phase_amp_train(torch, args.seed)
+    phase_to_static_grad(torch, args.seed)
+    phase_cls_train(torch, args.seed, "bert")
+    phase_cls_train(torch, args.seed, "ernie")
+    bert = phase_bert_flash(torch, args.seed)
 
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    entries = kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp)
+    entries = kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp,
+                             bert)
     emit({"kernels": entries})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})

@@ -8,7 +8,8 @@
 //     causal: S = -1e30 where q_pos < k_pos, and the key loop stops at the
 //             diagonal tile
 //     m, l, O rescaled by exp(m_prev - m_new) per tile
-//     O = acc / max(l, 1e-30)          (stored as bf16)
+//     O = acc / max(l, 1e-30)          (stored as bf16, and on request
+//                                       also as f32)
 //     LSE = m + log(max(l, 1e-30))     (stored as (B, H, S) f32)
 // with the reference's constants (m0 = -1e30, masked score -1e30, l floor
 // 1e-30).
@@ -18,7 +19,8 @@
 // 4*B*H*S^2*D flops (half that when causal). At the GPT-medium prefill (B=4,
 // H=16, S=512, D=64, causal) that is 16.9 MB (5.05 us at 3.35 TB/s) against
 // 2.1 GFLOP (2.2 us at 989 TFLOP/s); at the training shape (S=1024) 33.8 MB
-// (10.09 us) against 8.6 GFLOP (8.7 us): bound by bytes at both.
+// (10.09 us) against 8.6 GFLOP (8.7 us): bound by bytes at both. The
+// training path's launch also writes O in f32, 4 more bytes per element.
 //
 // Design (FlashAttention-2 on mma.sync). A block owns 64 query rows of one
 // (batch, head) and runs 4 warps, 16 rows each; grid (S/64, B*H). When
@@ -43,6 +45,11 @@
 // mma operand (relative 2^-9 per term) while l sums the f32 P, and the scale
 // is applied to the f32 S instead of to q. O's relative L2 gap to the f32
 // plain version stays within 2^-7 (chip_smoke.py, tests/test_torch_cuda.py).
+// When a backward follows, the wrapper passes o32 and the kernel also stores
+// O unrounded: the backward's D = rowsum(dO . O) then reads the f32 O, where
+// the reference reads its bf16 O, whose rounding would enter every dS of a
+// row with one sign (the sum of a row of dS, zero in exact arithmetic, is
+// what the key projection's bias and the mean key carry into dK and dQ).
 //
 // f32 inputs keep the SIMT kernel: TF32 tensor cores would keep only about
 // three decimal digits and break the f32 correctness gates that rest on B1
@@ -86,7 +93,8 @@ template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
-                    float* __restrict__ lse, int S, int H, float scale,
+                    float* __restrict__ o32, float* __restrict__ lse, int S,
+                    int H, float scale,
                     int causal, long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh) {
@@ -226,20 +234,25 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const float l_safe = fmaxf(l, L_FLOOR);
     const int row = q0 + row_w + g + r * 8;
-    bf16* o_row = o + ((long long)(b * S + row) * H + h) * D;
+    const long long o_off = ((long long)(b * S + row) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(o_row + j * 8 + 2 * tq) =
-          __floats2bfloat162_rn(acc[j][2 * r] / l_safe,
-                                acc[j][2 * r + 1] / l_safe);
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = acc[j][2 * r] / l_safe;
+      const float x1 = acc[j][2 * r + 1] / l_safe;
+      *reinterpret_cast<__nv_bfloat162*>(o + o_off + j * 8 + 2 * tq) =
+          __floats2bfloat162_rn(x0, x1);
+      if (o32 != nullptr)
+        *reinterpret_cast<float2*>(o32 + o_off + j * 8 + 2 * tq) =
+            make_float2(x0, x1);
+    }
     if (tq == 0) lse[(long long)bh * S + row] = m_run[r] + logf(l_safe);
   }
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int B, int S, int H, float scale, int causal,
-                   const long long* st, cudaStream_t stream) {
+                   void* o32, void* lse, int B, int S, int H, float scale,
+                   int causal, const long long* st, cudaStream_t stream) {
   auto kernel = flash_fwd_tc_kernel<D>;
   const size_t smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -249,7 +262,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), S, H, scale, causal, st[0], st[1], st[2],
+      static_cast<float*>(o32), static_cast<float*>(lse), S, H, scale,
+      causal, st[0], st[1], st[2],
       st[3], st[4], st[5], st[6], st[7], st[8]);
   return cudaGetLastError();
 }
@@ -258,11 +272,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 
 // q, k, v: (B, S, H, D) bf16 with element strides (batch, seq, head) given
 // for each, multiples of 8, unit stride on D and 16-byte-aligned bases; o:
-// contiguous (B, S, H, D) bf16; lse: contiguous (B, H, S) f32. Returns the
-// cudaError_t of the launch (0 on success). Does not synchronise.
+// contiguous (B, S, H, D) bf16; o32: null, or contiguous (B, S, H, D) f32
+// for O unrounded; lse: contiguous (B, H, S) f32. Returns the cudaError_t of
+// the launch (0 on success). Does not synchronise.
 extern "C" int pt_flash_attn_fwd_tc(
-    const void* q, const void* k, const void* v, void* o, void* lse, int B,
-    int S, int H, int D, int causal, float scale, long long q_sb,
+    const void* q, const void* k, const void* v, void* o, void* o32,
+    void* lse, int B, int S, int H, int D, int causal, float scale,
+    long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     void* stream) {
@@ -272,15 +288,17 @@ extern "C" int pt_flash_attn_fwd_tc(
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   for (long long x : st)
     if (x % 8 != 0) return (int)cudaErrorMisalignedAddress;
-  const void* ptrs[5] = {q, k, v, o, lse};
+  const void* ptrs[6] = {q, k, v, o, lse, o32};
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return (int)launch<64>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
+    return (int)launch<64>(q, k, v, o, o32, lse, B, S, H, scale, causal, st,
+                           s);
   if (D == 128)
-    return (int)launch<128>(q, k, v, o, lse, B, S, H, scale, causal, st, s);
+    return (int)launch<128>(q, k, v, o, o32, lse, B, S, H, scale, causal, st,
+                            s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,9 +1,10 @@
 """Layer: paddle's base layer as a thin torch.nn.Module.
 
-Port of paddle_tpu/nn/layer/layers.py, only what GPT needs: a module that
-knows the device (default cuda:0), dtype (default float32) and generator
-its parameters are created with, and ``create_parameter``. Everything else (state_dict, eval, bfloat16,
-named parameters) is torch.nn.Module's own; parameter names follow the
+Port of paddle_tpu/nn/layer/layers.py, only what GPT and BERT need: a
+module that knows the device (default cuda:0), dtype (default float32)
+and generator its parameters are created with, ``create_parameter`` and
+``sublayers``. Everything else (state_dict, eval, bfloat16, named
+parameters) is torch.nn.Module's own; parameter names follow the
 attribute names, as in the reference, so state dicts cross unchanged.
 """
 from __future__ import annotations
@@ -43,3 +44,9 @@ class Layer(torch.nn.Module):
         value = init(shape, convert_dtype(dtype) or self._dtype,
                      self._device, self._generator)
         return torch.nn.Parameter(value)
+
+    def sublayers(self, include_self=False):
+        """Every sublayer, each once, depth first with a layer before its
+        children (the reference's order, which is Module.modules')."""
+        layers = list(self.modules())
+        return layers if include_self else layers[1:]

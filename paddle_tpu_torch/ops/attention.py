@@ -28,7 +28,7 @@ import torch
 from ..amp.auto_cast import amp_cast
 from ..core.random import uniform
 from .cuda.flash_attention import (flash_attention, flash_attention_bwd,
-                                   flash_attention_fwd, supports)
+                                   flash_attention_fwd_for_grad, supports)
 
 __all__ = ["scaled_dot_product_attention", "flash_selected"]
 
@@ -38,12 +38,14 @@ NEG_BIG = -1e30
 class _FlashAttentionFn(torch.autograd.Function):
     """Flash attention forward (B1) and backward (B2, B3); the FlashAttention-2
     recompute scheme, so neither direction forms the S x S matrix in device
-    memory."""
+    memory. The backward's D = rowsum(dO * O) reads the unrounded f32 O that
+    B1 writes beside a bf16 O (the reference reads its bf16 O): O's rounding
+    would otherwise enter a whole row of dS with one sign."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+        out, lse, out32 = flash_attention_fwd_for_grad(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out32, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 

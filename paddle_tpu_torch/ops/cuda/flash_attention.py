@@ -32,6 +32,7 @@ from . import launch_counts
 from ._build import library
 
 __all__ = ["supports", "flash_attention", "flash_attention_fwd",
+           "flash_attention_fwd_for_grad",
            "flash_attention_fwd_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "launch_dkv", "launch_dq",
            "bwd_delta", "variant", "variant_counter", "tc_operand",
@@ -51,8 +52,11 @@ _ENTRY = {(KERNEL_NAME, TC): ("flash_attn_fwd_tc", "pt_flash_attn_fwd_tc"),
           (DQ_KERNEL, TC): ("flash_attn_dq_tc", "pt_flash_attn_bwd_dq_tc"),
           (DQ_KERNEL, SIMT): ("flash_attn_bwd", "pt_flash_attn_bwd_dq")}
 # (pointers, ints before the scale, strides after it) of each kernel's
-# entry points; the strides are (batch, seq, head) of q, k, v (and dout)
-_ARITY = {KERNEL_NAME: (5, 5, 9), DKV_KERNEL: (8, 5, 12), DQ_KERNEL: (7, 5, 12)}
+# entry points, by kernel or by (kernel, variant) where the variants differ
+# (the tensor-core B1 also takes its f32 O's pointer); the strides are
+# (batch, seq, head) of q, k, v (and dout)
+_ARITY = {KERNEL_NAME: (5, 5, 9), (KERNEL_NAME, TC): (6, 5, 9),
+          DKV_KERNEL: (8, 5, 12), DQ_KERNEL: (7, 5, 12)}
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # the constants of the reference kernel (_attn_fwd_kernel)
@@ -91,6 +95,12 @@ def flash_attention_fwd_reference(q, k, v, causal=False, scale=1.0):
     """Plain PyTorch version of B1 in f32 math: (out, lse), out (B, S, H, D)
     in q's dtype, lse (B, H, S) f32. The whole score matrix is formed at
     once; the online softmax of the kernel gives the same values."""
+    out, lse = _fwd_plain(q, k, v, causal, scale)
+    return out.to(q.dtype), lse
+
+
+def _fwd_plain(q, k, v, causal, scale):
+    """B1's plain version with out left in the math dtype (unrounded)."""
     dt = _math_dtype(q)
     qf = q.to(dt).transpose(1, 2) * scale              # (B, H, S, D)
     kf = k.to(dt).transpose(1, 2)
@@ -101,12 +111,14 @@ def flash_attention_fwd_reference(q, k, v, causal=False, scale=1.0):
     l_safe = p.sum(dim=-1).clamp_min(L_FLOOR)
     out = (p @ vf) / l_safe[..., None]
     lse = m + torch.log(l_safe)
-    return out.transpose(1, 2).to(q.dtype).contiguous(), lse
+    return out.transpose(1, 2).contiguous(), lse
 
 
 def _delta(out, do):
-    """D = rowsum(dO * O) in f32 from the stored O in its own dtype (the
-    reference's line 301), as (B, H, S)."""
+    """D = rowsum(dO * O) in f32 from the stored O (the reference's line
+    301), as (B, H, S). The reference stores O in the inputs' dtype; the
+    port's autograd Function hands in the unrounded O
+    (``flash_attention_fwd_for_grad``)."""
     dt = _math_dtype(out)
     return (do.to(dt) * out.to(dt)).sum(dim=-1).transpose(1, 2)
 
@@ -168,9 +180,9 @@ def _check_bwd(q, out, lse, do):
     if tuple(lse.shape) != (b, h, s) or lse.dtype != _math_dtype(q):
         raise ValueError(f"lse must be ({b}, {h}, {s}) {_math_dtype(q)}, "
                          f"got {tuple(lse.shape)} {lse.dtype}")
-    if out.dtype != q.dtype or do.dtype != q.dtype:
-        raise ValueError(f"out and dout must be {q.dtype}, got "
-                         f"{out.dtype}/{do.dtype}")
+    if out.dtype not in (q.dtype, _math_dtype(q)) or do.dtype != q.dtype:
+        raise ValueError(f"out must be {q.dtype} or {_math_dtype(q)} and "
+                         f"dout {q.dtype}, got {out.dtype}/{do.dtype}")
     if not (out.device == lse.device == do.device == q.device):
         raise ValueError("q, out, lse and dout lie on different devices")
     if do.stride(-1) != 1:
@@ -215,7 +227,7 @@ def _entry_point(kernel, kind):
     and the stream as c_void_p, never a truncated int."""
     source, symbol = _ENTRY[kernel, kind]
     lib = library(source)
-    n_ptrs, n_ints, n_strides = _ARITY[kernel]
+    n_ptrs, n_ints, n_strides = _ARITY.get((kernel, kind), _ARITY[kernel])
     fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
                    + [ctypes.c_float] + [ctypes.c_longlong] * n_strides
@@ -233,23 +245,33 @@ def _raise_on(err, name, err_str):
                            f"{err_str(err).decode()} ({err})")
 
 
-def _launch(q, k, v, causal, scale):
+def _launch(q, k, v, causal, scale, keep_f32=False):
+    """B1 on checked CUDA inputs: (out, lse, out32), out32 the f32 O when
+    ``keep_f32`` (the tensor-core variant writes it beside the bf16 O, the
+    SIMT variant's O is f32 already), else None."""
     b, s, h, d = q.shape
     kind = variant(q.dtype)
     if kind == TC:
         q, k, v = (tc_operand(t) for t in (q, k, v))
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    out32 = None
+    if keep_f32:
+        out32 = out if kind == SIMT else torch.empty(
+            (b, s, h, d), dtype=torch.float32, device=q.device)
+    # the tensor-core entry point takes the f32 O's pointer, null for none
+    extra = [] if kind == SIMT else [
+        None if out32 is None else out32.data_ptr()]
     fn, err_str = _entry_point(KERNEL_NAME, kind)
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 lse.data_ptr(), b, s, h, d, int(bool(causal)), float(scale),
-                 *strides, stream)
+                 *extra, lse.data_ptr(), b, s, h, d, int(bool(causal)),
+                 float(scale), *strides, stream)
     _raise_on(err, KERNEL_NAME, err_str)
     _count(KERNEL_NAME, kind)
-    return out, lse
+    return out, lse, out32
 
 
 def _bwd_launch(kernel, q, k, v, do, lse, delta, n_out, causal, scale):
@@ -304,9 +326,23 @@ def flash_attention_fwd(q, k, v, causal=False, scale=1.0):
     the plain version."""
     _check(q, k, v)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, scale)
+        return _launch(q, k, v, causal, scale)[:2]
     if q.device.type == "cpu":
         return flash_attention_fwd_reference(q, k, v, causal, scale)
+    raise ValueError(f"no flash-attention path for device {q.device}")
+
+
+def flash_attention_fwd_for_grad(q, k, v, causal=False, scale=1.0):
+    """(out, lse, out_unrounded): flash_attention_fwd's outputs and O in
+    the math dtype (f32), for the backward's D = rowsum(dO * O). For bf16
+    inputs B1 writes it beside the bf16 O in the same launch; for f32
+    inputs it is out itself. On a CPU tensor the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cuda":
+        return _launch(q, k, v, causal, scale, keep_f32=True)
+    if q.device.type == "cpu":
+        out, lse = _fwd_plain(q, k, v, causal, scale)
+        return out.to(q.dtype), lse, out
     raise ValueError(f"no flash-attention path for device {q.device}")
 
 

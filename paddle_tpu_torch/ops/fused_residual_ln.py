@@ -14,7 +14,9 @@ Both residual inputs receive dz (plus the incoming dz when z is returned);
 dw and db are in the weight's dtype. A weight with a channel inside the
 1e-6 band (checked once per parameter, ``_param_guard``) runs plain
 autograd through the identical forward instead. ``fuse_enabled()`` is the
-reference's PADDLE_TPU_FUSED_RESIDUAL_LN escape hatch, read by GPTBlock.
+reference's PADDLE_TPU_FUSED_RESIDUAL_LN escape hatch, read by GPTBlock
+and by ``post_residual_ln``, the post-LN residual write of the
+transformer layers (nn/layer/transformer.py).
 Under ``amp.auto_cast`` the op is black-listed like layer_norm: its
 inputs are promoted to float32, and the residual stream z it returns
 keeps x's dtype from before the promotion, as the reference's
@@ -29,15 +31,26 @@ import torch
 from ..amp.auto_cast import amp_cast
 from ._param_guard import degenerate_below_tol
 
-__all__ = ["fused_residual_ln", "fuse_enabled"]
+__all__ = ["fused_residual_ln", "fuse_enabled", "post_residual_ln"]
 
 _W_TOL = 1e-6
 
 
 def fuse_enabled():
     """PADDLE_TPU_FUSED_RESIDUAL_LN=0 routes the op's hot-path wirings
-    (GPTBlock) through the plain residual + LayerNorm composition."""
+    (GPTBlock, the post-LN transformer layers) through the plain residual
+    + LayerNorm composition."""
     return os.environ.get("PADDLE_TPU_FUSED_RESIDUAL_LN", "1") == "1"
+
+
+def post_residual_ln(residual, sub, norm):
+    """Post-LN residual write: ``norm(residual + sub)`` through the fused
+    op, or the plain composition when the norm has no affine parameters
+    or the fusion is off (``fuse_enabled``)."""
+    if norm.weight is None or norm.bias is None or not fuse_enabled():
+        return norm(residual + sub)
+    return fused_residual_ln(residual, sub, norm.weight, norm.bias,
+                             epsilon=norm._epsilon)
 
 
 def _fwd_impl(x, y, w, b, eps):

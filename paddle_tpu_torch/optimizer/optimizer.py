@@ -3,7 +3,11 @@
 The learning rate is an f32 0-d tensor on the parameters' device
 (``get_lr``/``set_lr``); an ``LRScheduler`` passed as ``learning_rate``
 writes it in place, so a step captured as a CUDA graph reads the current
-value at each replay. Per-parameter accumulators are created lazily
+value at each replay. Parameters moved after construction
+(``model.to("cuda")`` keeps the Parameter objects) take the lr tensor
+with them at the next ``step()``, which rebinds the scheduler; the first
+step of a captured function runs in its discovery pass, before the
+capture, so the graph reads the moved tensor. Per-parameter accumulators are created lazily
 (``_get_accumulator``), keyed by the parameter. With ``multi_precision`` a
 bf16/f16 parameter gets an f32 master weight and f32 moments; the update
 runs on the master and the parameter is rewritten from it. ``step()``
@@ -79,6 +83,21 @@ class Optimizer:
     def _lr(self):
         return self._learning_rate
 
+    def _follow_params_device(self):
+        """Move the lr tensor to the parameters' device when they moved,
+        and rebind the scheduler to the moved tensor. Parameters on more
+        than one device raise."""
+        devices = {p.device for p in self._parameter_list or ()}
+        if len(devices) > 1:
+            raise ValueError(
+                f"the optimizer's parameters lie on more than one device "
+                f"({sorted(map(str, devices))}); one learning-rate tensor "
+                f"cannot serve them")
+        if devices and self._learning_rate.device not in devices:
+            self._learning_rate = self._learning_rate.to(devices.pop())
+            if self._lr_scheduler is not None:
+                self._lr_scheduler._bind(self._learning_rate)
+
     # -- accumulators and masters ---------------------------------------------
     def _mp_active(self, p):
         return self._multi_precision and p.dtype in (torch.bfloat16,
@@ -135,6 +154,7 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self):
+        self._follow_params_device()
         pairs = self._collect_params_grads()
         if any(g is not None and g.is_sparse for _, g in pairs):
             raise NotImplementedError(f"sparse gradients: {_LATER}")

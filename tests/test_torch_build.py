@@ -76,6 +76,7 @@ def test_entry_points_match_their_c_signatures():
         assert m, (source, symbol)
         types = [p.strip().rsplit(" ", 1)[0] for p in m.group(1).split(",")]
         types = ["void*" if t.endswith("void*") else t for t in types]
-        n_ptrs, n_ints, n_strides = fa._ARITY[kernel]
+        n_ptrs, n_ints, n_strides = fa._ARITY.get((kernel, kind),
+                                                  fa._ARITY[kernel])
         assert types == (["void*"] * n_ptrs + ["int"] * n_ints + ["float"]
                          + ["long long"] * n_strides + ["void*"]), symbol

@@ -275,3 +275,94 @@ def test_gpt_adamw_compiled_step_matches_reference():
     assert compile_stats()["cache_hits"] == 2
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert got[-1] < got[0]
+
+
+# -- outer gradients (C1) and the lr tensor's device (C2) -------------------
+
+def test_forward_only_layer_gives_eager_grads_on_every_call():
+    """A forward-only to_static layer trained with an outer backward: the
+    grads of calls 1-3 (discovery, build, built) equal eager's, and
+    discovery finds the closed-over parameters as the program's leaves."""
+    xs, ys = _batches(3, seed=7)
+    eager, static = _MLP(5), _MLP(5)
+    fwd = pt.jit.to_static(static)
+    for i in range(3):
+        for model in (eager, fwd):
+            model.zero_grad(set_to_none=True)
+            F.cross_entropy(model(xs[i]), ys[i]).backward()
+        for (name, p), q in zip(eager.named_parameters(),
+                                static.parameters()):
+            assert q.grad is not None and q.grad.abs().sum() > 0, name
+            torch.testing.assert_close(q.grad, p.grad, rtol=1e-6,
+                                       atol=1e-7, msg=name)
+    prog, = static.forward.programs.values()
+    assert prog.built and not prog.internal_backward
+    assert {id(t) for t in prog.leaves} == {id(p)
+                                            for p in static.parameters()}
+
+
+def test_forward_only_grads_flow_to_a_differentiable_argument():
+    """A tensor argument that requires grad is an input of the program: its
+    grad (and what lies behind it) comes through, and the parameters behind
+    it are not taken for the program's leaves."""
+    emb = pt.nn.Linear(8, 8, device="cpu", generator=pt.make_generator(2))
+    head = _MLP(6)
+    fwd = pt.jit.to_static(head)
+    xs, ys = _batches(3, seed=8)
+    for i in range(3):
+        emb.zero_grad(set_to_none=True)
+        head.zero_grad(set_to_none=True)
+        F.cross_entropy(fwd(emb(xs[i])), ys[i]).backward()
+        got = [p.grad.clone() for p in (*emb.parameters(),
+                                        *head.parameters())]
+        emb.zero_grad(set_to_none=True)
+        head.zero_grad(set_to_none=True)
+        F.cross_entropy(_MLP.forward(head, emb(xs[i])), ys[i]).backward()
+        for g, p in zip(got, (*emb.parameters(), *head.parameters())):
+            torch.testing.assert_close(g, p.grad, rtol=1e-6, atol=1e-7)
+    prog, = head.forward.programs.values()
+    assert {id(t) for t in prog.leaves} == {id(p) for p in head.parameters()}
+
+
+def test_differentiating_a_self_backward_step_raises():
+    """A step that runs its own backward: on every call its output carries
+    a grad node whose backward raises the reference's error."""
+    model, step = _compiled(seed=9)
+    xs, ys = _batches(3, seed=9)
+    for i in range(3):
+        loss = step(xs[i], ys[i])
+        assert loss.requires_grad
+        with pytest.raises(RuntimeError, match="runs its own backward"):
+            (loss * 2.0).backward()
+    prog, = step.static_function.programs.values()
+    assert prog.internal_backward and prog.leaves == []
+
+
+def test_lr_tensor_follows_the_parameters_device():
+    """Parameters that lie on another device than the lr tensor (as when
+    they moved to the card after the optimizer was built; here the meta
+    device stands in for it) take the lr tensor along at the next step,
+    and the scheduler is rebound to the moved tensor."""
+    params = [torch.nn.Parameter(torch.empty(4, 3, device="meta"))]
+    params[0].grad = torch.empty(4, 3, device="meta")
+    sched = pt.optimizer.lr.LinearWarmup(learning_rate=0.1, warmup_steps=4,
+                                         start_lr=0.0, end_lr=0.1)
+    opt = pt.optimizer.SGD(learning_rate=sched, parameters=[])
+    opt._parameter_list = params
+    host_lr = opt._learning_rate
+    assert host_lr.device.type == "cpu" and sched._lr_tensor is host_lr
+    opt.step()
+    assert opt._learning_rate.device.type == "meta"
+    assert sched._lr_tensor is opt._learning_rate
+    sched.step()
+    assert float(host_lr) == 0.0        # the old tensor is left behind
+    assert sched._lr_tensor is opt._learning_rate
+
+
+def test_parameters_on_two_devices_raise():
+    model = _MLP(11)
+    model.fc1.weight = torch.nn.Parameter(
+        torch.empty(model.fc1.weight.shape, device="meta"))
+    opt = pt.optimizer.SGD(learning_rate=0.1, parameters=model.parameters())
+    with pytest.raises(ValueError, match="more than one device"):
+        opt.step()

@@ -484,3 +484,140 @@ def test_amp_recompute_step_captures_and_relaunches_b1(card):
             pt.set_flags({"FLAGS_compiled_step": True})
     torch.testing.assert_close(losses[True], losses[False], rtol=1e-6,
                                atol=0)
+
+
+# -- outer gradients through a captured forward (C1), the lr tensor's
+# device (C2), and BERT on the non-causal kernels ------------------------------
+
+def _rel_l2_grads(model, ref):
+    return {n: ((p.grad - ref[n]).norm() / ref[n].norm()).item()
+            for n, p in model.named_parameters()}
+
+
+def test_forward_only_to_static_gives_eager_grads(card):
+    """A forward-only to_static GPT under an outer backward, 3 calls (a
+    discovery pass, the capture of forward and backward with a replay of
+    each, replays): every grad equals eager's (f32, 1e-5 relative L2) and
+    none is zero; the program holds a captured backward."""
+    import paddle_tpu_torch as pt
+    xs, ys = _stream_batches(card, 3, seed=11)
+    eager, static = _tiny(card).train(), _tiny(card).train()
+    fwd = pt.jit.to_static(lambda x, y: static(x, labels=y))
+    for i in range(3):
+        loss = eager(xs[i], labels=ys[i])
+        loss.backward()
+        want = {n: p.grad.clone() for n, p in eager.named_parameters()}
+        eager.zero_grad(set_to_none=True)
+        fwd(xs[i], ys[i]).backward()
+        for name, rel in _rel_l2_grads(static, want).items():
+            assert rel <= 1e-5, (i, name, rel)
+        assert all(p.grad.abs().sum() > 0 for p in static.parameters())
+        static.zero_grad(set_to_none=True)
+    prog, = fwd.programs.values()
+    assert prog.graph is not None and prog.bwd_graph is not None
+    assert not prog.internal_backward
+    # a second call before the backward of the first: its buffers are gone
+    first = fwd(xs[0], ys[0])
+    fwd(xs[1], ys[1])
+    with pytest.raises(RuntimeError, match="most recent call"):
+        first.backward()
+
+
+def test_differentiating_a_captured_train_step_raises(card):
+    import paddle_tpu_torch as pt
+    model = _tiny(card).train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-3,
+                             parameters=model.parameters())
+    step = _adamw_step(model, opt)
+    xs, ys = _stream_batches(card, 3, seed=12)
+    for i in range(3):
+        loss = step(xs[i], ys[i])
+        with pytest.raises(RuntimeError, match="runs its own backward"):
+            (2.0 * loss).backward()
+    prog, = step.programs.values()
+    assert prog.graph is not None and prog.internal_backward
+
+
+def test_lr_follows_the_model_to_the_card_under_capture(card):
+    """An optimizer built on host parameters, the model then moved to the
+    card, a LinearWarmup scheduler, the step captured: the lr read back
+    after each replay is the scheduler's."""
+    import paddle_tpu_torch as pt
+    model = _tiny("cpu").train()
+    sched = pt.optimizer.lr.LinearWarmup(learning_rate=1e-3, warmup_steps=4,
+                                         start_lr=1e-4, end_lr=1e-3)
+    opt = pt.optimizer.AdamW(learning_rate=sched,
+                             parameters=model.parameters())
+    model.to(card)
+    assert opt._learning_rate.device.type == "cpu"
+
+    @pt.jit.to_static
+    def step(x, y):
+        loss = model(x, labels=y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return opt._learning_rate * 1.0
+    xs, ys = _stream_batches(card, 5, seed=13)
+    for i in range(5):
+        want = float(torch.tensor(sched(), dtype=torch.float32))
+        assert step(xs[i], ys[i]).item() == want, (i, want)
+        sched.step()
+    assert opt._learning_rate.is_cuda and sched._lr_tensor is opt._lr
+    assert step.programs[next(iter(step.programs))].graph is not None
+
+
+def test_bert_kernel_path_matches_math_path(card):
+    """A small f32 BERT at s = 256, head dim 64, no mask: loss and every
+    grad through B1/B2/B3 non-causal against the math path. The key
+    projections' bias grads are zero in exact arithmetic (the softmax over
+    the keys ignores a shift common to a query's logits), so a relative
+    gap there compares noise with noise: on each path they must stay below
+    1e-4 of their weight grad's norm instead."""
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+    cfg = dict(vocab_size=120, hidden_size=128, num_layers=2, num_heads=2,
+               intermediate_size=256, max_position=256, dropout=0.0)
+    ids = torch.randint(0, 120, (2, 256),
+                        generator=torch.Generator().manual_seed(14)).to(card)
+    labels = torch.tensor([0, 1], device=card)
+    runs = {}
+    for flash in (True, False):
+        model = BertForSequenceClassification(
+            BertConfig(**cfg, use_flash_attention=flash), device=card,
+            generator=torch.Generator().manual_seed(0)).train()
+        launch_counts.clear()
+        runs[flash] = _train_grads(model, ids, labels)
+        assert [launch_counts[fa.variant_counter(n, torch.float32)]
+                for n in fa.KERNEL_NAMES] == ([2, 2, 2] if flash
+                                              else [0, 0, 0])
+    (k_loss, k_grads), (m_loss, m_grads) = runs[True], runs[False]
+    assert abs(k_loss - m_loss) <= 1e-5 * abs(m_loss)
+    for name, g in k_grads.items():
+        if name.endswith("self_attn.k_proj.bias"):
+            weight = name[:-len("bias")] + "weight"
+            for grads in (k_grads, m_grads):
+                share = (grads[name].norm() / grads[weight].norm()).item()
+                assert share <= 1e-4, (name, share)
+            continue
+        rel = ((g - m_grads[name]).norm() / m_grads[name].norm()).item()
+        assert rel <= 1e-4, (name, rel)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_forward_also_writes_the_unrounded_output(card, causal):
+    """The training path's B1 launch (tensor cores) writes O in f32 beside
+    the bf16 O: one launch, the bf16 O and LSE unchanged, the f32 O
+    rounding to the bf16 one and within the tensor-core bound of the f32
+    plain version."""
+    q, k, v = _qkv(2, 512, 4, 64, torch.bfloat16, seed=21)
+    before = _variant_counts(fa.KERNEL_NAME)
+    out, lse, out32 = fa.flash_attention_fwd_for_grad(q, k, v, causal, 0.125)
+    after = _variant_counts(fa.KERNEL_NAME)
+    assert after[fa.TC] == before[fa.TC] + 1
+    assert out32.dtype == torch.float32
+    assert torch.equal(out, out32.to(torch.bfloat16))
+    plain_out, plain_lse = fa.flash_attention_fwd(q, k, v, causal, 0.125)
+    assert torch.equal(plain_out, out) and torch.equal(plain_lse, lse)
+    want, _ = fa._fwd_plain(q, k, v, causal, 0.125)
+    assert _rel_l2(out32, want) <= TC_REL_L2

@@ -275,3 +275,34 @@ def test_bwd_wrapper_rejects_what_the_kernels_do_not_take(out, lse, do,
     q = _z((1, 256, 2, 64))
     with pytest.raises(ValueError, match=match):
         port_fa.flash_attention_bwd(q, q, q, out, lse, do)
+
+
+def test_bf16_function_takes_delta_from_the_unrounded_output():
+    """For bf16 inputs the Function's backward computes D = rowsum(dO * O)
+    from O before its rounding to bf16: its grads equal the plain backward
+    given the f32 O, and differ from the plain backward given the bf16 O
+    (the reference's choice), whose rounding enters a whole row of dS with
+    one sign. The rows of dS then sum to zero, as in exact arithmetic, so
+    the grad of a bias added to every key (sum of dK over the keys)
+    vanishes up to bf16 rounding of dK."""
+    (q, k, v), do = _arrays(64, seed=31)
+    q, k, v, do = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v,
+                                                                     do))
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = port_attn._FlashAttentionFn.apply(*ts, False, 0.125)
+    out.backward(do)
+    out32, lse = port_fa._fwd_plain(q, k, v, False, 0.125)
+    assert out32.dtype == torch.float32
+    assert torch.equal(out, out32.to(torch.bfloat16))
+    want = port_fa.flash_attention_bwd_reference(q, k, v, out32, lse, do,
+                                                 False, 0.125)
+    rounded = port_fa.flash_attention_bwd_reference(q, k, v, out, lse, do,
+                                                    False, 0.125)
+    for t, w in zip(ts, want):
+        assert torch.equal(t.grad, w)
+    assert not torch.equal(ts[0].grad, rounded[0])
+    # sum of dK over the keys, against its size: the f32 O's D leaves only
+    # dK's own rounding; the bf16 O's D leaves O's rounding on every row
+    def key_sum_share(dk):
+        return (dk.float().sum(dim=1).norm() / dk.float().norm()).item()
+    assert key_sum_share(ts[1].grad) < key_sum_share(rounded[1])

@@ -194,7 +194,8 @@ print(json.dumps({
 """
 
 # modules the walk must reach, the training surface around the step among
-# them (amp, schedulers, clips, flags, the compiled step, recompute)
+# them (amp, schedulers, clips, flags, the compiled step, recompute), and
+# the BERT/ERNIE slice
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -203,6 +204,12 @@ PORT_MODULES = {
     "paddle_tpu_torch.distributed.fleet.utils",
     "paddle_tpu_torch.text.models.gpt",
     "paddle_tpu_torch.ops.cuda.flash_attention",
+    # the BERT/ERNIE slice
+    "paddle_tpu_torch.nn.layer.transformer",
+    "paddle_tpu_torch.nn.functional.activation",
+    "paddle_tpu_torch.ops.fused_residual_ln",
+    "paddle_tpu_torch.text.models.bert",
+    "paddle_tpu_torch.text.models.ernie",
 }
 
 
