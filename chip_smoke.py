@@ -80,6 +80,34 @@ Phases, each printing JSON lines:
    path), the same weights in bf16 against the f32 truth, eval logits and
    latencies of both paths, and a captured bf16 step on each path (B1, B2
    and B3 12 times each per replay, by kernel name).
+11. vision_reference: a ResNet-18 (10 classes, NHWC, the space-to-depth
+   stem, fused conv + BN) at 2 x 3 x 64 x 64 and a LeNet on the card are
+   held against the same models on the host in f32 (TF32 off): one
+   Momentum step's loss, grads and moved running statistics, then the
+   eval logits.
+12. resnet_train: bench.py's ResNet-50 lane (bench_resnet50) at full width
+   and depth: bf16, batch 128 at 224 x 224, NHWC, the space-to-depth stem,
+   fused conv + BN, Momentum(0.1, 0.9), the step captured and driven by
+   run_steps K = 32, 2 warm-up + 12 timed executions over 3 staged stacks
+   of bench's prototype stream (made on the card): 448 recorded steps, the
+   last-32 mean below bench's chance floor 6.71, 1 compile in the warm-up
+   and none timed, running statistics that move; step ms, images/s, MFU,
+   peak memory and a replay's profile by kernel class.
+13. resnet_fused: ResNet-50 fused against unfused conv + BN: one f32 step
+   at 32 x 224 x 224 (loss and every grad), and a bf16 eager step at batch
+   128 (peak memory over what the step starts with, step ms).
+14. resnet_eval: the trained ResNet-50 in eval mode, bf16, on the fused
+   op's folded-statistics path against BatchNorm in eval, both held to the
+   f32 unfused logits, at batch 128 and 1; latency and device time.
+15. lenet_train: bench.py's LeNet lane (bench_lenet): f32, Adam(1e-3),
+   batch 256, run_steps K = 32, 2 warm-up + 1 timed executions, the
+   last-32 mean below bench's floor 1.80; images/s.
+None of the conv net paths runs B1, B2 or B3: each counts 0 launches of
+them, and the kernels line says so.
+
+``--phases`` runs only the named phases (comma-separated: build,
+kernels, reference, serve, train, to_static_grad, bert, vision); the
+kernels line needs every phase and is printed only when all run.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -98,7 +126,7 @@ import time
 
 import numpy as np
 
-# H100 SXM dense peaks (NVIDIA data sheet) for the roofline bound
+# H100 SXM dense peaks (NVIDIA data sheet) for the roofline bound and MFU
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
@@ -134,6 +162,38 @@ OUTER_GRAD_RTOL = 1e-5
 # bf16 O read 1.6e-3 (PERF.md section 6).
 KEY_BIAS = "self_attn.k_proj.bias"
 KEY_BIAS_TOL = {"float32": 1e-5, "bfloat16": 5e-4}
+# bench.py's ResNet-50 lane (bench_resnet50, bench.py:828-912): batch 128
+# at 224 x 224, NHWC, the space-to-depth stem, run_steps with 32 steps an
+# execution, 2 warm-up + 12 timed executions (384 timed steps, 448
+# recorded) rotating over 3 staged stacks (96 distinct batches) of 1000
+# class prototypes at scale 2.0 plus unit noise; its chance floor: the
+# last-32 mean below 6.71 at 448 recorded steps (ln 1000 = 6.908;
+# bench.py:1244-1248). A training step is 3 x 4.09 GFLOP an image at 224
+# (bench.py:903-904).
+RESNET_BATCH, RESNET_HW, RESNET_SPE, RESNET_STACKS = 128, 224, 32, 3
+RESNET_WARMUP_EXEC, RESNET_TIMED_EXEC, RESNET_RECORDED = 2, 12, 448
+RESNET_FLOOR, RESNET_WINDOW, RESNET_PROTO_SCALE = 6.71, 32, 2.0
+RESNET_TRAIN_FLOP = 3 * 4.09e9
+# bench.py's LeNet lane (bench_lenet, bench.py:1004-1042): batch 256, 32
+# steps an execution, each on a distinct stack; floor 1.80 on the last 32
+# of 96 recorded steps (ln 10 = 2.303; bench.py:1243)
+LENET_BATCH, LENET_SPE, LENET_FLOOR, LENET_WINDOW = 256, 32, 1.80, 32
+# vision_reference, card (cuDNN, f32, TF32 off) against host (f32): the
+# loss's relative gap, each grad's relative L2 gap, each running
+# statistic's and the eval logits' max gap over the max magnitude. Sound
+# readings (ResNet-18 at 2 x 64 x 64, PERF.md section 6): loss 3.3e-6,
+# grads 1.7e-5, statistics 5.3e-6, logits 2.3e-5; LeNet below 1.3e-6
+VISION_TOL = {"loss": 2e-5, "grad": 1e-4, "stats": 2e-5, "logits": 1e-4}
+# resnet_fused (a): ResNet-50 f32 at 32 x 224, fused against unfused conv
+# + BN: the same forward association, so the loss differs only where
+# cuDNN's algorithm does; grads by the backward's order of sums. Sound
+# reading: loss equal to the bit, worst grad 4.8e-5 (bn1.bias), median
+# 2.0e-6 (PERF.md section 6)
+FUSED_F32_BATCH, FUSED_LOSS_RTOL, FUSED_GRAD_RTOL = 32, 1e-5, 2e-4
+# resnet_eval: each bf16 path's logits against the f32 unfused ones; the
+# fused path (an f32 scale/shift epilogue) within EVAL_FACTOR x the
+# unfused path's (bf16 BatchNorm) gap + EVAL_SLACK
+EVAL_FACTOR, EVAL_SLACK, EVAL_CALLS = 2.0, 2 ** -8, 20
 # max |O - plain O| and |LSE - plain LSE| allowed, kernel vs plain on the
 # card. bf16 (tensor cores, also held to the relative-L2 rule below): P is
 # rounded to bf16 before P.V and O to bf16, a few bf16 ulps at |O| < 2;
@@ -1742,7 +1802,494 @@ def phase_bert_flash(torch, seed):
                          for k in variants[torch.bfloat16]}}
 
 
-def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert):
+# --- the conv net slice: ResNet and LeNet --------------------------------
+
+def vision_pair(torch, make, seed):
+    """The same model (``make(device)``, weights from ``seed``) on the card
+    and on the host: the port's layers draw on the generator's device (the
+    host), so both get the same weights."""
+    import paddle_tpu_torch as pt
+    card = make("cuda", pt.make_generator(seed))
+    host = make("cpu", pt.make_generator(seed))
+    return card, host
+
+
+def step_state(torch, model, opt, x, y):
+    """One training step of ``model``: the f32 loss, every grad and every
+    running statistic after the forward, then the optimizer's update."""
+    import paddle_tpu_torch.nn.functional as F
+    loss = F.cross_entropy(model(x).float(), y)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.detach().clone() for n, b in model.named_buffers()}
+    opt.step()
+    opt.clear_grad()
+    return loss.item(), grads, stats
+
+
+def max_rel_gap(a, b):
+    """max |a - b| / max |b| over two tensors, in f32 on the host."""
+    a, b = a.float().cpu(), b.float().cpu()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def phase_vision_reference(torch, seed):
+    """A ResNet-18 (10 classes, NHWC, the space-to-depth stem, fused conv
+    + BN) at 2 x 3 x 64 x 64 and a LeNet at 8 x 1 x 28 x 28 on the card
+    are held against the same models on the host (whose path the host
+    tests hold against paddle_tpu), in f32 with TF32 off: one Momentum
+    step (the loss, every grad, the running statistics the forward moved)
+    and then the eval logits of the updated weights."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import LeNet, resnet18
+    rng = np.random.RandomState(seed + 11)
+    cases = {
+        "resnet18": (lambda d, g: resnet18(
+            num_classes=10, data_format="NHWC", stem="space_to_depth",
+            device=d, generator=g),
+            rng.randn(2, 64, 64, 3).astype("float32"),
+            rng.randint(0, 10, (2,))),
+        "lenet": (lambda d, g: LeNet(device=d, generator=g),
+                  rng.randn(8, 1, 28, 28).astype("float32"),
+                  rng.randint(0, 10, (8,))),
+    }
+    rows = {}
+    for name, (make, x, y) in cases.items():
+        card, host = vision_pair(torch, make, seed)
+        got, want = [], []
+        for model, dev, out in ((card, "cuda", got), (host, "cpu", want)):
+            model.train()
+            opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                        parameters=model.parameters())
+            xt = torch.tensor(x, device=dev)
+            out.extend(step_state(torch, model, opt, xt,
+                                  torch.tensor(y, device=dev)))
+            model.eval()
+            with torch.no_grad():
+                out.append(model(xt))
+        grads = grad_gaps(torch, got[1], want[1])
+        stats = sorted(((n, max_rel_gap(got[2][n], want[2][n]))
+                        for n in want[2]), key=lambda t: -t[1])
+        row = {"phase": "vision_reference", "model": name,
+               "loss": got[0], "host_loss": want[0],
+               "loss_rel_gap": abs(got[0] - want[0]) / abs(want[0]),
+               "worst_grads": grads[:3], "grads": len(grads),
+               "worst_stats": stats[:3], "stats": len(stats),
+               "eval_logits_gap": max_rel_gap(got[3], want[3]),
+               "tol": VISION_TOL}
+        emit(row)
+        assert row["loss_rel_gap"] <= VISION_TOL["loss"], row
+        assert grads[0][1] <= VISION_TOL["grad"], row
+        assert not stats or stats[0][1] <= VISION_TOL["stats"], row
+        assert row["eval_logits_gap"] <= VISION_TOL["logits"], row
+        rows[name] = row
+    return rows
+
+
+def image_stream(torch, seed, stacks, spe, batch, shape, classes, scale,
+                 noise, dtype):
+    """bench.py's class-prototype stream (bench_resnet50, bench_lenet),
+    made on the card from a seeded CUDA generator: ``classes`` prototype
+    images of ``shape`` from N(0, 1), and each batch's image = ``scale`` *
+    prototype[label] + ``noise`` * N(0, 1), labels uniform. Returns
+    ``stacks`` (images, labels) pairs with a leading axis of ``spe``
+    batches."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    protos = torch.randn((classes, *shape), generator=g, device="cuda")
+    out = []
+    for _ in range(stacks):
+        ys = torch.randint(0, classes, (spe, batch), generator=g,
+                           device="cuda")
+        xs = torch.empty((spe, batch, *shape), dtype=dtype, device="cuda")
+        for i in range(spe):
+            xs[i] = scale * protos[ys[i]] + noise * torch.randn(
+                (batch, *shape), generator=g, device="cuda")
+        out.append((xs, ys))
+    del protos
+    return out
+
+
+def conv_step_fn(model, opt):
+    """bench.py's conv net step through the port: the f32 cross-entropy of
+    the logits, backward, the optimizer's update."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+
+    @pt.jit.to_static
+    def step(x, y):
+        loss = F.cross_entropy(model(x).float(), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    return step
+
+
+def host_top(prof, top=8):
+    """The host ops of a profile that took the most host time (self CPU
+    ms, calls), for where the host bounds a path."""
+    ops = sorted((e for e in prof.key_averages()
+                  if e.self_cpu_time_total > 0),
+                 key=lambda e: -e.self_cpu_time_total)
+    return [{"op": e.key[:60], "self_cpu_ms": e.self_cpu_time_total / 1e3,
+             "calls": e.count} for e in ops[:top]]
+
+
+def kernel_classes(prof):
+    """Device ms and launches of a profile's kernels by kind: cuDNN's and
+    CUTLASS's convolutions, copies (each copy kernel listed), reductions,
+    the other elementwise kernels."""
+    classes, copies = {}, []
+    for us, count, name in kernel_times(prof):
+        low = name.lower()
+        if any(k in low for k in ("conv", "cudnn", "xmma", "cutlass",
+                                  "wgrad", "dgrad", "implicit", "gemm")):
+            kind = "conv_gemm"
+        elif "copy" in low or "memcpy" in low:
+            kind = "copy"
+            copies.append({"kernel": name[:150], "ms": us / 1e3,
+                           "count": count})
+        elif "reduce" in low:
+            kind = "reduce"
+        else:
+            kind = "elementwise_other"
+        ms, n = classes.get(kind, (0.0, 0))
+        classes[kind] = (ms + us / 1e3, n + count)
+    return {**{k: {"ms": ms, "launches": n}
+               for k, (ms, n) in classes.items()}, "copy_kernels": copies}
+
+
+def train_lane(torch, label, model, opt, stacks, warmup_exec, timed_exec,
+               watch):
+    """Drive a captured conv net step through ``run_steps``, one staged
+    stack per execution (rotating): ``warmup_exec`` executions, then
+    ``timed_exec`` timed ones, with the launch counts reset just before
+    and read just after, and the compile counters of each window. The
+    buffers named in ``watch`` are read before and after the timed
+    window. Returns (losses, seconds, warm, timed, flash launches,
+    watched (before, after), the step)."""
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    step = CompiledTrainStep(conv_step_fn(model, opt), label=label)
+    buffers = dict(model.named_buffers())
+    launch_counts.clear()
+    reset_compile_stats()
+    curve = []
+    for e in range(warmup_exec):
+        curve.append(step.run_steps(*stacks[e % len(stacks)]))
+    torch.cuda.synchronize()
+    warm = compile_stats()
+    reset_compile_stats()
+    before = {n: buffers[n].float().clone() for n in watch}
+    t0 = time.perf_counter()
+    for e in range(warmup_exec, warmup_exec + timed_exec):
+        curve.append(step.run_steps(*stacks[e % len(stacks)]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = compile_stats()
+    after = {n: buffers[n].float().clone() for n in watch}
+    flash = {n: launch_counts[n] for n in KERNEL_NAMES}
+    return (torch.cat(curve).tolist(), seconds, warm, timed, flash,
+            (before, after), step)
+
+
+def phase_resnet_train(torch, seed):
+    """bench.py's ResNet-50 lane (bench_resnet50) at full width and depth:
+    ResNet-50 (1000 classes) with bf16 parameters and buffers, NHWC, the
+    space-to-depth stem, fused conv + BN, Momentum(0.1, 0.9), batch 128 at
+    224 x 224 from bench's prototype stream (made on the card), the step
+    captured and driven by run_steps K = 32: 2 warm-up and 12 timed
+    executions over 3 staged stacks (96 distinct batches), 448 recorded
+    steps. Gates: last-32 mean below bench's chance floor 6.71, 1 compile
+    in the warm-up and none timed, the running statistics moved over the
+    timed window, no flash kernel launched. Prints step ms, images/s, MFU
+    (3 x 4.09 GFLOP an image, bench.py:903-904, against the dense bf16
+    peak), peak memory and one replay's profile."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stacks = image_stream(torch, seed, RESNET_STACKS, RESNET_SPE,
+                          RESNET_BATCH, (RESNET_HW, RESNET_HW, 3), 1000,
+                          RESNET_PROTO_SCALE, 1.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet50(data_format="NHWC", stem="space_to_depth",
+                     device="cuda", generator=pt.make_generator(seed))
+    model.bfloat16()
+    model.train()
+    opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                parameters=model.parameters())
+    watch = ("bn1._mean", "layer4.2.bn3._variance")
+    losses, seconds, warm, timed, flash, (before, after), step = train_lane(
+        torch, "resnet50", model, opt, stacks, RESNET_WARMUP_EXEC,
+        RESNET_TIMED_EXEC, watch)
+    peak = torch.cuda.max_memory_allocated()
+    timed_steps = RESNET_TIMED_EXEC * RESNET_SPE
+    step_ms = seconds / timed_steps * 1e3
+    ips = RESNET_BATCH * timed_steps / seconds
+    moved = {n: (after[n] - before[n]).abs().max().item() for n in watch}
+    x, y = stacks[-1][0][-1], stacks[-1][1][-1]
+    trace, wall_s, _, prof = profiled(torch, lambda: step(x, y), 1)
+    emit_profile(trace, wall_s, "resnet50_train_replay", 1, top=15,
+                 by_class=kernel_classes(trace))
+    last = float(np.mean(losses[-RESNET_WINDOW:]))
+    n_params = sum(1 for _ in model.parameters())
+    row = {"phase": "resnet_train", "dtype": "bfloat16",
+           "config": "ResNet-50 1000 classes, NHWC, space-to-depth stem, "
+                     "fused conv+BN", "parameters": n_params,
+           "optimizer": "Momentum lr 0.1 momentum 0.9",
+           "batch": [RESNET_BATCH, RESNET_HW, RESNET_HW, 3],
+           "steps_per_execution": RESNET_SPE,
+           "executions": RESNET_WARMUP_EXEC + RESNET_TIMED_EXEC,
+           "distinct_batches": RESNET_SPE * RESNET_STACKS,
+           "recorded_steps": len(losses), "timed_steps": timed_steps,
+           "data": "prototype stream made on the card (torch CUDA "
+                   "generator)", "data_s": data_s,
+           "compile_stats_warmup": warm, "compile_stats_timed": timed,
+           "step_ms": step_ms, "images_per_s": ips,
+           "mfu": ips * RESNET_TRAIN_FLOP / PEAK_FLOPS["bfloat16"],
+           "replay_profile": {**prof, "wall_ms": wall_s * 1e3,
+                              "busy_share": prof["device_ms"]
+                              / (wall_s * 1e3)},
+           "unprofiled_busy_share": prof["device_ms"] / step_ms,
+           "peak_mem_bytes": peak, "flash_launches": flash,
+           "running_stats_moved": moved,
+           "loss_first": losses[0], "loss_every_32nd": losses[::32],
+           f"last{RESNET_WINDOW}_mean": last, "chance_floor": RESNET_FLOOR}
+    emit(row)
+    assert warm["compiles"] == 1 and timed == {
+        "compiles": 0, "cache_hits": timed_steps, "retrace_warnings": 0}, \
+        (warm, timed)
+    assert len(losses) == RESNET_RECORDED and all(np.isfinite(losses))
+    assert last < RESNET_FLOOR, row
+    assert all(v > 0 for v in moved.values()), moved
+    assert all(c == 0 for c in flash.values()), flash
+    del stacks, step, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, model
+
+
+def one_step(torch, model, x, y):
+    """Eager forward and backward of the f32 loss: (loss, {name: grad})."""
+    import paddle_tpu_torch.nn.functional as F
+    loss = F.cross_entropy(model(x).float(), y)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def phase_resnet_fused(torch, seed):
+    """The fused conv + BN op on the card. (a) One f32 step (TF32 off) of
+    ResNet-50 at 32 x 224 x 224, NHWC, the space-to-depth stem, fused
+    against unfused (``fused_conv_bn=False``) on the same weights and
+    batch: the loss within FUSED_LOSS_RTOL, every grad within
+    FUSED_GRAD_RTOL relative L2. (b) bf16 at batch 128, fused against
+    unfused: the peak memory of an eager step over the memory held before
+    it, and the eager step's time (3 steps after a warm-up one)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet50
+
+    def build(fused, dtype):
+        m = resnet50(data_format="NHWC", stem="space_to_depth",
+                     fused_conv_bn=fused, device="cuda",
+                     generator=pt.make_generator(seed))
+        return (m.bfloat16() if dtype == torch.bfloat16 else m).train()
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 5)
+    x = torch.randn((FUSED_F32_BATCH, RESNET_HW, RESNET_HW, 3), generator=g,
+                    device="cuda")
+    y = torch.randint(0, 1000, (FUSED_F32_BATCH,), generator=g,
+                      device="cuda")
+    res = {}
+    for fused in (True, False):
+        model = build(fused, torch.float32)
+        res[fused] = one_step(torch, model, x, y)
+        del model
+    gaps = grad_gaps(torch, res[True][1], res[False][1])
+    loss_gap = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    xb = torch.randn((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), generator=g,
+                     device="cuda").to(torch.bfloat16)
+    yb = torch.randint(0, 1000, (RESNET_BATCH,), generator=g, device="cuda")
+    mem = {}
+    for fused in (True, False):
+        model = build(fused, torch.bfloat16)
+        opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+        step = conv_step_fn(model, opt)
+        pt.set_flags({"FLAGS_compiled_step": 0})
+        try:
+            step(xb, yb)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            step(xb, yb)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - held
+            t0 = time.perf_counter()
+            for _ in range(3):
+                step(xb, yb)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) / 3 * 1e3
+        finally:
+            pt.set_flags({"FLAGS_compiled_step": 1})
+        mem["fused" if fused else "unfused"] = {
+            "step_peak_over_held_bytes": peak, "held_bytes": held,
+            "eager_step_ms": ms}
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    row = {"phase": "resnet_fused",
+           "f32_step": {"batch": [FUSED_F32_BATCH, RESNET_HW, RESNET_HW, 3],
+                        "loss_rel_gap": loss_gap,
+                        "loss_rtol": FUSED_LOSS_RTOL,
+                        "worst_grads": gaps[:5],
+                        "median_grad_gap": float(np.median(
+                            [gap for _, gap in gaps])),
+                        "grad_rtol": FUSED_GRAD_RTOL},
+           "bf16_b128": mem,
+           "residual_bytes_saved": mem["unfused"]["step_peak_over_held_bytes"]
+           - mem["fused"]["step_peak_over_held_bytes"]}
+    emit(row)
+    assert loss_gap <= FUSED_LOSS_RTOL, row
+    assert gaps[0][1] <= FUSED_GRAD_RTOL, row
+    return row
+
+
+def phase_resnet_eval(torch, seed, trained):
+    """ResNet-50 in eval mode, bf16, on the weights and running statistics
+    the resnet_train phase left: the fused path (fused_conv_bn's folded-
+    statistics branch) against the unfused path (BatchNorm in eval), at
+    batch 128 and at batch 1. Both are held to the same weights in f32 on
+    the unfused path: the fused path's relative L2 gap at most
+    EVAL_FACTOR x the unfused path's + EVAL_SLACK. Latency (host clock
+    ending in a synchronize, mean of EVAL_CALLS calls), device time (None
+    where the profiler lost kernels and queued events could not stand in)
+    and the host ops that took the most host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.vision.models import resnet50
+    state = trained.state_dict()
+    paths = {"fused": trained.eval()}
+    for name, fused, dtype in (("unfused", False, torch.bfloat16),
+                               ("unfused_f32", False, torch.float32)):
+        m = resnet50(data_format="NHWC", stem="space_to_depth",
+                     fused_conv_bn=fused, device="cuda")
+        if dtype == torch.bfloat16:
+            m.bfloat16()
+        pt.load_numpy_state_dict(m, state)
+        paths[name] = m.eval()
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    x = torch.randn((RESNET_BATCH, RESNET_HW, RESNET_HW, 3), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    rows = []
+    launch_counts.clear()
+    with torch.no_grad():
+        for batch in (RESNET_BATCH, 1):
+            xb = x[:batch]
+            out = {k: m(xb if k != "unfused_f32" else xb.float()).float()
+                   for k, m in paths.items()}
+            truth = out["unfused_f32"]
+            gap = {k: rel_l2(out[k], truth) for k in ("fused", "unfused")}
+            row = {"phase": "resnet_eval", "batch": batch,
+                   "dtype": "bfloat16",
+                   "rel_l2_to_f32": gap,
+                   "fused_vs_unfused_rel_l2": rel_l2(out["fused"],
+                                                     out["unfused"]),
+                   "argmax_agree": (out["fused"].argmax(-1)
+                                    == out["unfused"].argmax(-1))
+                   .float().mean().item(),
+                   "tol": {"factor": EVAL_FACTOR, "slack": EVAL_SLACK}}
+            for k in ("fused", "unfused"):
+                m = paths[k]
+                for _ in range(3):
+                    m(xb)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EVAL_CALLS):
+                    m(xb)
+                torch.cuda.synchronize()
+                latency = (time.perf_counter() - t0) / EVAL_CALLS * 1e3
+                dev, launches = device_profile(torch, lambda: m(xb), reps=2,
+                                               warmup=1)
+                if launches is None and \
+                        not TIMING["queued_events"][-1]["queue_held"]:
+                    # the profiles lost kernels and the host did not stay
+                    # ahead of the queued calls: no device time
+                    dev = None
+                with profile(activities=[ProfilerActivity.CPU]) as prof:
+                    m(xb)
+                    torch.cuda.synchronize()
+                row[k] = {"latency_ms": latency, "device_ms": dev,
+                          "kernels": launches, "host_top": host_top(prof)}
+            row["latency_ms"] = row["fused"]["latency_ms"]
+            row["images_per_s"] = batch / row["latency_ms"] * 1e3
+            emit(row)
+            assert gap["fused"] <= EVAL_FACTOR * gap["unfused"] \
+                + EVAL_SLACK, row
+            rows.append(row)
+    flash = {n: launch_counts[n] for n in KERNEL_NAMES}
+    assert all(c == 0 for c in flash.values()), flash
+    del paths, trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, flash
+
+
+def phase_lenet_train(torch, seed):
+    """bench.py's LeNet lane (bench_lenet): LeNet in f32, Adam(1e-3),
+    batch 256 of 1 x 28 x 28 prototype images (10 classes, noise 0.3,
+    made on the card), the step captured and driven by run_steps K = 32:
+    2 warm-up executions and 1 timed, each on its own stack (96 distinct
+    batches, 96 recorded steps). Gates: last-32 mean below bench's floor
+    1.80, 1 compile in the warm-up and none timed, no flash kernel."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import LeNet
+    stacks = image_stream(torch, seed, 3, LENET_SPE, LENET_BATCH,
+                          (1, 28, 28), 10, 1.0, 0.3, torch.float32)
+    model = LeNet(device="cuda", generator=pt.make_generator(seed)).train()
+    opt = pt.optimizer.Adam(learning_rate=1e-3,
+                            parameters=model.parameters())
+    losses, seconds, warm, timed, flash, _, _ = train_lane(
+        torch, "lenet", model, opt, stacks, 2, 1, ())
+    last = float(np.mean(losses[-LENET_WINDOW:]))
+    row = {"phase": "lenet_train", "dtype": "float32",
+           "optimizer": "Adam lr 1e-3", "batch": [LENET_BATCH, 1, 28, 28],
+           "steps_per_execution": LENET_SPE, "recorded_steps": len(losses),
+           "compile_stats_warmup": warm, "compile_stats_timed": timed,
+           "step_ms": seconds / LENET_SPE * 1e3,
+           "images_per_s": LENET_BATCH * LENET_SPE / seconds,
+           "flash_launches": flash, "loss_first": losses[0],
+           "loss_every_8th": losses[::8],
+           f"last{LENET_WINDOW}_mean": last, "chance_floor": LENET_FLOOR}
+    emit(row)
+    assert warm["compiles"] == 1 and timed == {
+        "compiles": 0, "cache_hits": LENET_SPE, "retrace_warnings": 0}, \
+        (warm, timed)
+    assert len(losses) == 3 * LENET_SPE and all(np.isfinite(losses))
+    assert last < LENET_FLOOR, row
+    assert all(c == 0 for c in flash.values()), flash
+    del stacks, model, opt
+    torch.cuda.empty_cache()
+    return row
+
+
+def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
+                   vision):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -1752,7 +2299,8 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert):
     runs at full width, timed at (4, 512, 16, 64) causal; then B1, B2 and
     B3 tc_bf16 again, non-causal at BERT's shape (8, 512, 12, 64), with
     their launches in a bf16 BERT-base step (bert_flash) and per replay
-    of its captured step."""
+    of its captured step. Every entry also carries its launches on the
+    conv net paths (``vision``: {path: {kernel: launches}}), all 0."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -1760,10 +2308,14 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert):
             "share_of_bound", "factor_vs_library")
 
     def entry(name, source, line, row, launches, err, **extra):
+        kernel = name.split(".")[0]
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": ref + str(line), "launches": launches,
                 "max_abs_err": err, "bound_ms": row["bound_us"] / 1e3,
-                **{k: row[k] for k in keys}, **extra}
+                **{k: row[k] for k in keys},
+                "launches_conv_nets": {path: counts[kernel]
+                                       for path, counts in vision.items()},
+                **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
     dq_tc, dq_simt = bwd_rows["dq"][0], bwd_rows["dq"][4]
@@ -1858,10 +2410,22 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
             whole_backward_bound_ms=whole["bound_us"] / 1e3, **scope)]
 
 
+PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
+                "to_static_grad", "bert", "vision")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
+                    help="comma-separated phase groups to run (default: "
+                         "all); the kernels line needs all of them")
     args = ap.parse_args()
+    run = set(args.phases.split(","))
+    unknown = run - set(PHASE_GROUPS)
+    if unknown:
+        ap.error(f"unknown phases {sorted(unknown)}; choose from "
+                 f"{PHASE_GROUPS}")
 
     import torch
     if not torch.cuda.is_available():
@@ -1874,6 +2438,9 @@ def main():
     sys.path.insert(0, here)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # cuDNN picks its algorithms by heuristics: no autotuning runs, inside
+    # a capture or out of it
+    torch.backends.cudnn.benchmark = False
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1881,27 +2448,47 @@ def main():
         timeout=60).stdout.strip().splitlines()[0]
     emit({"phase": "device", "torch": torch.__version__,
           "cuda": torch.version.cuda, "name": torch.cuda.get_device_name(0),
-          "nvidia_smi": smi})
+          "nvidia_smi": smi, "phases": sorted(run)})
 
     t0 = time.perf_counter()
-    phase_build()
-    rows = phase_kernels(torch, args.seed)
-    bwd_rows = phase_kernels_bwd(torch, args.seed)
-    phase_reference(torch, args.seed)
-    phase_reference_train(torch, args.seed)
-    serve = phase_serve(torch, args.seed)
-    train = phase_train(torch, args.seed)
-    compiled = phase_compiled_train(torch, args.seed, train)
-    amp = phase_amp_train(torch, args.seed)
-    phase_to_static_grad(torch, args.seed)
-    phase_cls_train(torch, args.seed, "bert")
-    phase_cls_train(torch, args.seed, "ernie")
-    bert = phase_bert_flash(torch, args.seed)
+    out = {}
+    if "build" in run:
+        phase_build()
+    if "kernels" in run:
+        out["rows"] = phase_kernels(torch, args.seed)
+        out["bwd_rows"] = phase_kernels_bwd(torch, args.seed)
+    if "reference" in run:
+        phase_reference(torch, args.seed)
+        phase_reference_train(torch, args.seed)
+    if "serve" in run:
+        out["serve"] = phase_serve(torch, args.seed)
+    if "train" in run:
+        out["train"] = phase_train(torch, args.seed)
+        out["compiled"] = phase_compiled_train(torch, args.seed,
+                                               out["train"])
+        out["amp"] = phase_amp_train(torch, args.seed)
+    if "to_static_grad" in run:
+        phase_to_static_grad(torch, args.seed)
+    if "bert" in run:
+        phase_cls_train(torch, args.seed, "bert")
+        phase_cls_train(torch, args.seed, "ernie")
+        out["bert"] = phase_bert_flash(torch, args.seed)
+    if "vision" in run:
+        phase_vision_reference(torch, args.seed)
+        resnet, trained = phase_resnet_train(torch, args.seed)
+        phase_resnet_fused(torch, args.seed)
+        _, eval_flash = phase_resnet_eval(torch, args.seed, trained)
+        del trained
+        lenet = phase_lenet_train(torch, args.seed)
+        out["vision"] = {"resnet50_train": resnet["flash_launches"],
+                         "resnet50_eval": eval_flash,
+                         "lenet_train": lenet["flash_launches"]}
 
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    entries = kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp,
-                             bert)
-    emit({"kernels": entries})
+    if run == set(PHASE_GROUPS):
+        from paddle_tpu_torch.ops.cuda import flash_attention as fa
+        emit({"kernels": kernel_entries(
+            fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
+            out["compiled"], out["amp"], out["bert"], out["vision"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

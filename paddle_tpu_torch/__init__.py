@@ -11,13 +11,15 @@ GPT serves (prefill and KV-cached greedy decode) and trains
 step) through ``paddle_tpu_torch.text.models.gpt``; a step under
 ``jit.to_static`` is captured as one CUDA graph, with ``amp``, learning-
 rate schedulers (``optimizer.lr``), grad clipping (``nn.ClipGradBy*``) and
-recompute around it. Tensors are plain ``torch.Tensor``s: there is no
-paddle Tensor facade, ``loss.backward()`` is torch's, and ``no_grad`` is
-torch's.
+recompute around it. ResNet (``vision.models.resnet50``, NCHW or NHWC
+as channels_last, the space-to-depth stem, the fused conv + BN op) and
+LeNet train and evaluate through ``paddle_tpu_torch.vision.models``.
+Tensors are plain ``torch.Tensor``s: there is no paddle Tensor facade,
+``loss.backward()`` is torch's, and ``no_grad`` is torch's.
 """
 from torch import no_grad
 
-from . import amp, distributed, jit, nn, optimizer
+from . import amp, distributed, jit, nn, optimizer, vision
 from .core.device import CPUPlace, CUDAPlace
 from .core.random import make_generator
 from .framework.flags import get_flags, set_flags
@@ -25,4 +27,4 @@ from .framework.io_utils import load, load_numpy_state_dict, save
 
 __all__ = ["CPUPlace", "CUDAPlace", "make_generator", "load",
            "load_numpy_state_dict", "save", "amp", "distributed", "jit",
-           "nn", "optimizer", "no_grad", "get_flags", "set_flags"]
+           "nn", "optimizer", "vision", "no_grad", "get_flags", "set_flags"]

@@ -1,4 +1,5 @@
-"""Initializers: Constant, Normal and XavierNormal, the ones GPT uses.
+"""Initializers: Constant, Normal, Uniform and XavierNormal, the ones GPT,
+BERT and the conv nets use.
 
 Port of paddle_tpu/nn/initializer.py. An initializer is called with the
 shape, dtype, target device and a ``torch.Generator`` (None: torch's
@@ -12,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["Initializer", "Constant", "Normal", "XavierNormal"]
+__all__ = ["Initializer", "Constant", "Normal", "Uniform", "XavierNormal"]
 
 
 def _fan_in_out(shape):
@@ -50,6 +51,21 @@ class Normal(Initializer):
                         dtype=torch.float32,
                         device="cpu" if generator is None else generator.device)
         return (self.mean + self.std * z).to(device=device, dtype=dtype)
+
+
+class Uniform(Initializer):
+    """U(low, high), the conv layers' default: U(-1/sqrt(fan_in),
+    +1/sqrt(fan_in)) for weights and biases."""
+
+    def __init__(self, low=-1.0, high=1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype, device, generator):
+        u = torch.rand(tuple(shape), generator=generator,
+                       dtype=torch.float32,
+                       device="cpu" if generator is None else generator.device)
+        return (self.low + (self.high - self.low) * u).to(device=device,
+                                                          dtype=dtype)
 
 
 class XavierNormal(Initializer):

@@ -1,11 +1,18 @@
-"""LayerNorm (port of paddle_tpu/nn/layer/norm.py)."""
+"""LayerNorm and BatchNorm (port of paddle_tpu/nn/layer/norm.py).
+
+The batch norms keep their running statistics in buffers named ``_mean``
+and ``_variance``, as the reference's state dict does, in the layer's
+dtype; ``model.bfloat16()`` casts them with the parameters, as the
+reference's ``Layer.to`` does."""
 from __future__ import annotations
+
+import torch
 
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D"]
 
 
 class LayerNorm(Layer):
@@ -28,3 +35,52 @@ class LayerNorm(Layer):
 
     def extra_repr(self):
         return f"normalized_shape={self._normalized_shape}"
+
+
+class _BatchNormBase(Layer):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 use_global_stats=None, name=None, **factory):
+        super().__init__(**factory)
+        self._num_features = num_features
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self._use_global_stats = use_global_stats
+        self.weight = self.create_parameter(
+            shape=[num_features], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            shape=[num_features], attr=bias_attr, is_bias=True)
+        self.register_buffer("_mean", torch.zeros(
+            num_features, dtype=self._dtype, device=self._device))
+        self.register_buffer("_variance", torch.ones(
+            num_features, dtype=self._dtype, device=self._device))
+
+    def forward(self, x):
+        return F.batch_norm(
+            x, self._mean, self._variance, self.weight, self.bias,
+            training=self.training, momentum=self._momentum,
+            epsilon=self._epsilon, data_format=self._data_format,
+            use_global_stats=self._use_global_stats)
+
+    def extra_repr(self):
+        return (f"num_features={self._num_features}, "
+                f"momentum={self._momentum}")
+
+
+class BatchNorm(_BatchNormBase):
+    """fluid.dygraph.BatchNorm-compatible alias."""
+
+
+class BatchNorm1D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 use_global_stats=None, name=None, **factory):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats,
+                         **factory)
+
+
+class BatchNorm2D(_BatchNormBase):
+    pass

@@ -18,6 +18,13 @@ summation order only (O 2e-5); LSE is f32 in both (1e-4). Every f32 grad
 is held elementwise to |err| <= 1e-4 + 1e-4 * |plain|: summation order
 over up to 1024 terms with cancellation in dS, and values near zero. Each
 test also checks which variant ran (``launch_counts``).
+
+The conv net slice (cuDNN, f32 with TF32 off) is held against the same
+code on the host: conv2d and the poolings elementwise to 1e-4 relative +
+1e-4 (the padded exclusive average pool among them, whose torch backward
+is wrong on channels_last CUDA tensors), the fused conv + BN op's grads to 1e-4 of the largest, a ResNet-18
+step in f64 to 1e-12 (loss, statistics) and 1e-10 (grads, relative L2),
+and its eval logits in f32 to 1e-4.
 """
 import pytest
 import torch
@@ -40,6 +47,7 @@ def card():
                     "plain version is tested against the reference in "
                     "test_torch_flash_attention.py)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -621,3 +629,212 @@ def test_tc_forward_also_writes_the_unrounded_output(card, causal):
     assert torch.equal(plain_out, out) and torch.equal(plain_lse, lse)
     want, _ = fa._fwd_plain(q, k, v, causal, 0.125)
     assert _rel_l2(out32, want) <= TC_REL_L2
+
+
+# --- the conv net slice ---------------------------------------------------
+
+# f32, TF32 off: cuDNN and the host sum a wgrad's 420 products per weight
+# in other orders
+CONV_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("padding,stride", [(1, 1), (1, 2), ("SAME", 2),
+                                            ([0, 1, 1, 0], 1)])
+def test_conv2d_and_pools_on_card_match_host(card, fmt, padding, stride):
+    import paddle_tpu_torch.nn.functional as F
+    g = torch.Generator().manual_seed(31)
+    shape = (2, 8, 15, 14) if fmt == "NCHW" else (2, 15, 14, 8)
+    x = torch.randn(shape, generator=g)
+    w = torch.randn((16, 8, 3, 3), generator=g) * 0.2
+    b = torch.randn(16, generator=g)
+    results = []
+    for dev in ("cpu", card):
+        xd, wd, bd = (t.clone().to(dev).requires_grad_() for t in (x, w, b))
+        out = F.conv2d(xd, wd, bd, stride=stride, padding=padding,
+                       data_format=fmt)
+        pooled = [F.max_pool2d(out, 3, 2, 1, data_format=fmt),
+                  F.avg_pool2d(out, 3, 2, padding, data_format=fmt),
+                  F.adaptive_avg_pool2d(out, (3, 5), data_format=fmt)]
+        sum(p.square().sum() for p in pooled).backward()
+        results.append([t.detach().cpu() for t in (out, *pooled, xd.grad,
+                                                    wd.grad, bd.grad)])
+        if dev != "cpu" and fmt == "NHWC":
+            assert out.permute(0, 3, 1, 2).is_contiguous(
+                memory_format=torch.channels_last)
+    for host, got in zip(*results):
+        torch.testing.assert_close(got, host, **CONV_TOL)
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("act_input", [False, True])
+def test_fused_conv_bn_on_card_matches_unfused_and_host(card, fmt,
+                                                        act_input):
+    """The Function's cuDNN dgrad/wgrad and f32 BN backward on the card:
+    its forward equals the unfused composition's, its grads and running
+    statistics match the unfused ones and the host's."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.ops.fused_conv_bn import fused_conv_bn
+    g = torch.Generator().manual_seed(32)
+    shape = (4, 16, 14, 14) if fmt == "NCHW" else (4, 14, 14, 16)
+    x = torch.randn(shape, generator=g) * 2 + 0.5
+    w = torch.randn((32, 16, 3, 3), generator=g) * 0.2
+    gam = torch.rand(32, generator=g) + 0.5
+    bet = torch.randn(32, generator=g) * 0.1
+    runs = {}
+    for dev, fused in (("cpu", True), (card, True), (card, False)):
+        xd, wd, gd, bd = (t.clone().to(dev).requires_grad_()
+                          for t in (x, w, gam, bet))
+        rm = torch.zeros(32, device=dev)
+        rv = torch.ones(32, device=dev)
+        if fused:
+            y = fused_conv_bn(xd, wd, gd, bd, rm, rv, training=True,
+                              stride=2, padding=1, data_format=fmt,
+                              act_input=act_input)
+        else:
+            z = F.conv2d(F.relu(xd) if act_input else xd, wd, stride=2,
+                         padding=1, data_format=fmt)
+            y = F.batch_norm(z, rm, rv, gd, bd, training=True,
+                             data_format=fmt)
+        torch.tanh(y * 0.1).sum().backward()
+        runs[(str(dev), fused)] = [t.detach().cpu() for t in (
+            y, xd.grad, wd.grad, gd.grad, bd.grad, rm, rv)]
+    card_fused = runs[(str(card), True)]
+    assert torch.equal(card_fused[0], runs[(str(card), False)][0])
+    for want in (runs[(str(card), False)], runs[("cpu", True)]):
+        for got, ref in zip(card_fused, want):
+            gap = ((got - ref).abs().max() / ref.abs().max()).item()
+            assert gap <= 1e-4, gap
+
+
+def test_resnet18_step_on_card_matches_host(card):
+    """ResNet-18 (NHWC, the space-to-depth stem, fused conv + BN) at 2 x 64
+    x 64: loss, every grad and the moved running statistics, in f64 (cuDNN
+    runs f64 convs), where card and host agree to rounding whatever the
+    draw. In f32 a ReLU input within rounding of 0 can flip its mask
+    between two orders of summation and move the early layers' grads by
+    ~1e-2 (it does for this draw); chip_smoke's vision_reference holds an
+    f32 step on a draw without such a flip."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision.models import resnet18
+    g = torch.Generator().manual_seed(33)
+    x = torch.randn((2, 64, 64, 3), generator=g, dtype=torch.float64)
+    y = torch.tensor([1, 7])
+    runs = []
+    for dev in ("cpu", card):
+        model = resnet18(num_classes=10, data_format="NHWC",
+                         stem="space_to_depth", device=dev,
+                         generator=pt.make_generator(0)).double()
+        loss = F.cross_entropy(model(x.to(dev)), y.to(dev))
+        loss.backward()
+        runs.append((loss.item(),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()},
+                     {n: b.cpu() for n, b in model.named_buffers()}))
+    (h_loss, h_grads, h_stats), (c_loss, c_grads, c_stats) = runs
+    assert abs(c_loss - h_loss) <= 1e-12 * abs(h_loss)
+    for name, want in h_grads.items():
+        assert _rel_l2(c_grads[name], want) <= 1e-10, name
+    for name, want in h_stats.items():
+        gap = ((c_stats[name] - want).abs().max() / want.abs().max()).item()
+        assert gap <= 1e-12, name
+
+
+def test_resnet_paths_never_sync_the_host(card):
+    """After a first call (which reads the degenerate-gamma guard's verdict
+    once per parameter), a ResNet-18 training step and its eval forward,
+    fused and not, run with no host sync: torch's sync debug mode raises
+    on any."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.vision.models import resnet18
+    x = torch.randn((4, 64, 64, 3), device=card).bfloat16()
+    y = torch.randint(0, 10, (4,), device=card)
+    for fused in (True, False):
+        model = resnet18(num_classes=10, data_format="NHWC",
+                         stem="space_to_depth", fused_conv_bn=fused,
+                         device=card).bfloat16()
+        opt = pt.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+
+        def train_step():
+            loss = F.cross_entropy(model.train()(x).float(), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+
+        def eval_forward():
+            with torch.no_grad():
+                model.eval()(x)
+        train_step()
+        eval_forward()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            train_step()
+            eval_forward()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+
+def test_resnet_step_captures_and_moves_running_stats(card):
+    """A bf16 ResNet-18 step (NHWC, fused conv + BN) under to_static: the
+    capture takes cuDNN's convolutions and the in-place running-statistic
+    updates, so every replay moves the statistics and the loss falls on a
+    repeated batch; no flash kernel is launched."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.vision.models import resnet18
+    model = resnet18(num_classes=10, data_format="NHWC",
+                     stem="space_to_depth", device=card,
+                     generator=pt.make_generator(1))
+    model.bfloat16()
+    opt = pt.optimizer.Momentum(learning_rate=0.05, momentum=0.9,
+                                parameters=model.parameters())
+
+    @pt.jit.to_static
+    def step(x, y):
+        loss = pt.nn.functional.cross_entropy(model(x).float(), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    compiled = CompiledTrainStep(step, label="resnet18")
+    g = torch.Generator(device="cuda").manual_seed(34)
+    x = torch.randn((8, 64, 64, 3), generator=g, device=card).bfloat16()
+    y = torch.randint(0, 10, (8,), generator=g, device=card)
+    launch_counts.clear()
+    reset_compile_stats()
+    means, losses = [], []
+    for _ in range(6):
+        losses.append(compiled(x, y).item())
+        means.append(model.layer4[1].bn2._mean.float().clone())
+    assert compile_stats()["compiles"] == 1
+    assert step.programs[next(iter(step.programs))].graph is not None
+    assert all(not torch.equal(a, b) for a, b in zip(means, means[1:]))
+    assert losses[-1] < losses[0], losses
+    assert all(launch_counts[n] == 0 for n in fa.KERNEL_NAMES)
+
+
+def test_resnet_eval_fold_on_card_matches_bn_eval(card):
+    """Eval on the fused op's folded statistics against BatchNorm in eval,
+    both in f32 on the card, and against the host."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.models import resnet18
+    x = torch.randn((2, 64, 64, 3), generator=torch.Generator()
+                    .manual_seed(35))
+    outs = []
+    for dev, fused in ((card, True), (card, False), ("cpu", True)):
+        model = resnet18(num_classes=10, data_format="NHWC",
+                         fused_conv_bn=fused, device=dev,
+                         generator=pt.make_generator(2))
+        model.train()
+        with torch.no_grad():
+            model(x.to(dev))      # move the running statistics
+        model.eval()
+        with torch.no_grad():
+            outs.append(model(x.to(dev)).cpu())
+    for other in outs[1:]:
+        torch.testing.assert_close(outs[0], other, rtol=1e-4, atol=1e-4)

@@ -194,8 +194,8 @@ print(json.dumps({
 """
 
 # modules the walk must reach, the training surface around the step among
-# them (amp, schedulers, clips, flags, the compiled step, recompute), and
-# the BERT/ERNIE slice
+# them (amp, schedulers, clips, flags, the compiled step, recompute), the
+# BERT/ERNIE slice and the conv net slice
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -210,6 +210,15 @@ PORT_MODULES = {
     "paddle_tpu_torch.ops.fused_residual_ln",
     "paddle_tpu_torch.text.models.bert",
     "paddle_tpu_torch.text.models.ernie",
+    # the conv net slice
+    "paddle_tpu_torch.nn.functional.conv",
+    "paddle_tpu_torch.nn.functional.pooling",
+    "paddle_tpu_torch.nn.layer.conv",
+    "paddle_tpu_torch.nn.layer.pooling",
+    "paddle_tpu_torch.nn.layer.activation",
+    "paddle_tpu_torch.ops.fused_conv_bn",
+    "paddle_tpu_torch.vision.models.resnet",
+    "paddle_tpu_torch.vision.models.lenet",
 }
 
 
