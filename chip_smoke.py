@@ -104,10 +104,27 @@ Phases, each printing JSON lines:
    last-32 mean below bench's floor 1.80; images/s.
 None of the conv net paths runs B1, B2 or B3: each counts 0 launches of
 them, and the kernels line says so.
+16. serving (``--phases serving``): the serving stack through its entry
+   points. (a) BERT-base sequence classification at full width in bf16
+   behind ``inference.Config`` + ``serving.InferenceServer`` (2 replicas
+   sharing one CUDA graph per bucket 1, 2, 4, 8, all captured in warm-up,
+   started threaded): 4 client threads send 64 requests of one 512-token
+   row; every reply within 2^-7 relative L2 of a bf16 eager forward of
+   its row, and no further from the f32 one than twice that forward's own
+   gap + 2^-7, no shed or failure, no compile after warm-up, B1 12 times (tc_bf16) in a
+   profiled replay of the bucket-8 graph and no softmax kernel; latency
+   p50/p99, requests/s, occupancy, device ms per batch, peak memory,
+   hedges. (b) The decode engine attached to that server: 8 prompts, the
+   known stream of [1, 2, 3, 4, 5], identical prompts identical, compiles
+   within the backend's buckets, the KV pool back to full, TTFT and TPOT.
+   (c) ResNet-50 eval (NHWC, space-to-depth stem, fused) in bf16 behind
+   the same server, 16 requests of one 224 x 224 f32 image (cast to bf16
+   per call): replies held as (a), no B1.
 
 ``--phases`` runs only the named phases (comma-separated: build,
-kernels, reference, serve, train, to_static_grad, bert, vision); the
-kernels line needs every phase and is printed only when all run.
+kernels, reference, serve, train, to_static_grad, bert, vision,
+serving); the kernels line needs every phase and is printed only when
+all run.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -178,6 +195,26 @@ RESNET_TRAIN_FLOP = 3 * 4.09e9
 # steps an execution, each on a distinct stack; floor 1.80 on the last 32
 # of 96 recorded steps (ln 10 = 2.303; bench.py:1243)
 LENET_BATCH, LENET_SPE, LENET_FLOOR, LENET_WINDOW = 256, 32, 1.80, 32
+# the serving lanes: BERT-base (bench's BERT model at full width) and
+# ResNet-50 eval behind InferenceServer, bf16, 2 replicas sharing one
+# CUDA graph per bucket (1, 2, 4, 8), requests of one 512-token row (no
+# mask, so B1 non-causal) or one 224 x 224 image, a burst from each of 4
+# client threads. Each reply (a row of logits) is held to the eager
+# forwards of its row: within relative L2 SERVE_TOL of a bf16 copy of the
+# model (the same arithmetic: the graph, the cast weights, the per-call
+# input cast, padding and batching add no error of their own), and no
+# further from the f32 forward than SERVE_FACTOR x that bf16 copy's own
+# gap + SERVE_TOL. A flat 2^-7 to f32 per reply is not sound: bf16
+# (unit roundoff 2^-9 per rounding) through 12 encoder layers puts BERT-
+# base's 2-logit rows a median 1.3e-2 and at worst 0.11 from f32 (PERF.md
+# section 6)
+SERVE_BATCH, SERVE_SEQ, SERVE_REPLICAS, SERVE_CLIENTS = 8, 512, 2, 4
+SERVE_REQUESTS, SERVE_RESNET_REQUESTS = 64, 16
+SERVE_TOL, SERVE_FACTOR = 2 ** -7, 2.0
+# the decode lane: 8 prompts through the continuous-batching engine; the
+# verify skill's known stream (the toy stepper at max_new_tokens=6)
+DECODE_PROMPTS = 8
+DECODE_ORACLE = ([1, 2, 3, 4, 5], [30, 66, 139, 286, 581, 1172])
 # vision_reference, card (cuDNN, f32, TF32 off) against host (f32): the
 # loss's relative gap, each grad's relative L2 gap, each running
 # statistic's and the eval logits' max gap over the max magnitude. Sound
@@ -2288,8 +2325,396 @@ def phase_lenet_train(torch, seed):
     return row
 
 
+
+def serve_burst(torch, srv, rows, clients):
+    """``clients`` threads each submit their share of ``rows`` (one row per
+    request) at once, then wait for every reply. Returns each request in
+    row order, each one's latency (s, submit to reply on the host clock)
+    and the burst's wall seconds."""
+    import threading
+    reqs, lat = [None] * len(rows), [None] * len(rows)
+    errors = []
+
+    def client(k):
+        try:
+            mine = []
+            for i in range(k, len(rows), clients):
+                mine.append((i, time.perf_counter(),
+                             srv.submit([rows[i:i + 1]], timeout=120.0)))
+            for i, t0, req in mine:
+                req.wait(120.0)
+                lat[i] = time.perf_counter() - t0
+                reqs[i] = req
+        except Exception as e:     # reported below, never swallowed
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_s = time.perf_counter() - t0
+    assert not any(t.is_alive() for t in threads), "a client hung"
+    assert not errors, errors
+    return reqs, lat, wall_s
+
+
+def row_gaps(got, want):
+    """Each row's relative L2 gap of ``got`` to ``want``, in f64."""
+    got = np.asarray(got, np.float64).reshape(len(got), -1)
+    want = np.asarray(want, np.float64).reshape(len(want), -1)
+    return np.linalg.norm(got - want, axis=1) / np.linalg.norm(want, axis=1)
+
+
+def eager_forwards(torch, model, x, batch):
+    """The f32 eager forward of ``x`` (a host array) and that of a bf16
+    copy of ``model`` (parameters and buffers cast, float inputs cast),
+    in batches of ``batch`` rows, both as f32 host arrays."""
+    import copy
+    twin = copy.deepcopy(model).bfloat16().eval()
+    out = {"f32": [], "bf16": []}
+    with torch.no_grad():
+        for i in range(0, len(x), batch):
+            xb = torch.from_numpy(x[i:i + batch]).cuda()
+            out["f32"].append(model(xb).float().cpu())
+            if xb.is_floating_point():
+                xb = xb.to(torch.bfloat16)
+            out["bf16"].append(twin(xb).float().cpu())
+    del twin
+    return {k: torch.cat(v).numpy() for k, v in out.items()}
+
+
+def reply_check(reqs, eager):
+    """Each reply against the eager forwards of its row: its relative L2
+    gap to the bf16 eager forward (the same arithmetic: at most
+    SERVE_TOL), and its gap to the f32 eager forward against the bf16
+    eager forward's own (at most SERVE_FACTOR x it + SERVE_TOL). Returns
+    the summary and whether every row passed."""
+    for i, req in enumerate(reqs):
+        assert req is not None and req.error is None, (i, req and req.error)
+    got = np.stack([np.asarray(r.result[0][0], np.float32) for r in reqs])
+    to_f32, to_bf16 = row_gaps(got, eager["f32"]), row_gaps(got,
+                                                            eager["bf16"])
+    bf16_to_f32 = row_gaps(eager["bf16"], eager["f32"])
+    ok = bool(np.all(to_bf16 <= SERVE_TOL) and np.all(
+        to_f32 <= SERVE_FACTOR * bf16_to_f32 + SERVE_TOL))
+    summary = {
+        "reply_to_f32_rel_l2": {"worst": float(to_f32.max()),
+                                "median": float(np.median(to_f32)),
+                                "all_rows": float(np.linalg.norm(
+                                    got - eager["f32"]) / np.linalg.norm(
+                                    eager["f32"]))},
+        "bf16_eager_to_f32_rel_l2": {"worst": float(bf16_to_f32.max()),
+                                     "median": float(np.median(
+                                         bf16_to_f32))},
+        "reply_to_bf16_eager_rel_l2": {"worst": float(to_bf16.max()),
+                                       "median": float(np.median(to_bf16)),
+                                       "rows_equal_to_the_bit": int(
+                                           np.sum(to_bf16 == 0))},
+        "tol": {"to_bf16_eager": SERVE_TOL, "factor": SERVE_FACTOR,
+                "slack": SERVE_TOL}}
+    return summary, ok
+
+
+def server_summary(stats, lat, wall_s, n):
+    """The lane's end-to-end numbers: host-clock latency of each request
+    (submit to reply), the server's own percentiles, requests/s over the
+    burst, batches, occupancy, sheds, failures, hedges and retries, and
+    each batch's dispatch time on the host clock (the always-on
+    ``serving.batch_exec_ms`` histogram, reset before the lane)."""
+    from paddle_tpu_torch.profiler.metrics import get_registry
+    exec_ms = get_registry().histogram_summary("serving.batch_exec_ms")
+    return {"requests": n, "wall_s": wall_s, "requests_per_s": n / wall_s,
+            "batch_exec_ms": {k: exec_ms[k] for k in ("count", "p50",
+                                                      "p99")},
+            "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+            "server_latency_p50_ms": stats["latency_p50"] * 1e3,
+            "server_latency_p99_ms": stats["latency_p99"] * 1e3,
+            "batches": stats["batches"],
+            "batch_occupancy": stats["batch_occupancy"],
+            "shed": stats["shed"], "failed": stats["failed"],
+            "hedges": stats["hedges"], "hedge_wins": stats["hedge_wins"],
+            "retries": stats["retries"]}
+
+
+# the device symbols of the CUDA-core variants (TC_KERNEL_NAMES holds the
+# tensor-core ones); neither name is a substring of the other
+SIMT_KERNEL_NAMES = {"flash_attn_fwd": "flash_fwd_kernel",
+                     "flash_attn_bwd_dkv": "flash_bwd_dkv_kernel",
+                     "flash_attn_bwd_dq": "flash_bwd_dq_kernel"}
+
+
+def replay_profile(torch, graph, replays=5):
+    """Device time and kernels per replay of one predictor graph (replayed
+    under its lock), B1-B3 counted by kernel name (each variant apart,
+    ``flash_variant_launches``), and the softmax kernels that ran (the
+    math attention path's), if any."""
+    def run():
+        with graph.lock:
+            for _ in range(replays):
+                graph.graph.replay()
+    prof, _, _, per = profiled(torch, run, replays)
+    kernels = kernel_times(prof)
+    per["top_kernels"] = [(name[:70], us / 1e3 / replays, count / replays)
+                          for us, count, name in kernels[:6]]
+    per["flash_variant_launches"] = {
+        f"{k}.{kind}": sum(c for _, c, name in kernels if sym in name)
+        / replays
+        for kind, names in (("tc_bf16", TC_KERNEL_NAMES),
+                            ("simt_f32", SIMT_KERNEL_NAMES))
+        for k, sym in names.items()}
+    softmax = sorted({k[2] for k in kernels if "softmax" in k[2].lower()})
+    return per, softmax
+
+
+def predictor_run_ms(pred, batch, calls=10):
+    """Host-clock ms of one ``Predictor.run`` on a bucket's batch: the
+    copy into the graph's buffers, the replay and the copy of the outputs
+    back (the predictor's share of a dispatch)."""
+    pred.run([batch])
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        pred.run([batch])
+    return (time.perf_counter() - t0) / calls * 1e3
+
+
+def phase_serving_bert(torch, seed):
+    """BERT-base sequence classification (2 classes, full width, random
+    weights from the seed) served in bf16 through the port's entry points:
+    ``inference.Config().set_layer(model)`` +
+    ``enable_low_precision(BFLOAT16)``, then ``InferenceServer`` with
+    ServingConfig(max_batch_size=8, replicas=2, warmup_signatures=[512
+    int64 ids]) (buckets 1, 2, 4, 8, every one captured before start()),
+    started threaded; SERVE_CLIENTS threads submit SERVE_REQUESTS
+    512-token requests with no mask, a burst each. Gates: every reply
+    held to the eager forwards of its row on the card (reply_check), no
+    shed and no failure, each replica at most 4 compiles and none
+    after warm-up, and in a profiled replay of the bucket-8 graph B1 12
+    times (tc_bf16, non-causal) and no softmax kernel. Returns its row and
+    the started server, which the decode lane reuses."""
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import (KERNEL_NAMES,
+                                                           variant_counter)
+    from paddle_tpu_torch.profiler.metrics import reset_registry
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    from paddle_tpu_torch.text.models import BertConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = BertConfig.base()
+    model = bert_model(torch, cfg, seed).eval()
+    rows = np.random.RandomState(seed + 21).randint(
+        0, cfg.vocab_size, (SERVE_REQUESTS, SERVE_SEQ)).astype("int64")
+    eager = eager_forwards(torch, model, rows, SERVE_BATCH)
+    icfg = infer.Config()
+    icfg.set_layer(model)
+    icfg.enable_low_precision(infer.DataType.BFLOAT16)
+    scfg = ServingConfig(max_batch_size=SERVE_BATCH, replicas=SERVE_REPLICAS,
+                         warmup_signatures=[(((SERVE_SEQ,), "int64"),)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_registry()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    srv = InferenceServer(icfg, scfg)
+    warmup_s = time.perf_counter() - t0
+    warm = [r.compile_count for r in srv.scheduler.replicas]
+    srv.start()
+    reqs, lat, wall_s = serve_burst(torch, srv, rows, SERVE_CLIENTS)
+    stats = srv.stats()
+    peak = torch.cuda.max_memory_allocated()
+    counts = {k: launch_counts[k] for k in KERNEL_NAMES}
+    variants = {variant_counter(k, dt): launch_counts[variant_counter(k, dt)]
+                for k in KERNEL_NAMES
+                for dt in (torch.bfloat16, torch.float32)}
+    tc = variant_counter(KERNEL_NAMES[0], torch.bfloat16)
+    tc_launches = launch_counts[tc]
+    compiles = [r.compile_count for r in srv.scheduler.replicas]
+    pred = srv.scheduler.replicas[0].executor.predictor
+    prog = pred._jit_cache[(((SERVE_BATCH, SERVE_SEQ), "int64"),)]
+    per, softmax = replay_profile(torch, prog.graph)
+    per["predictor_run_ms"] = predictor_run_ms(pred, rows[:SERVE_BATCH])
+    replies, replies_ok = reply_check(reqs, eager)
+    row = {"phase": "serving", "lane": "bert_server",
+           "config": f"BERT-base v30522 h768 L12 a12 d64 bf16, requests of "
+                     f"1 x {SERVE_SEQ} ids, buckets {srv.config.buckets}, "
+                     f"{SERVE_REPLICAS} replicas, {SERVE_CLIENTS} clients",
+           **server_summary(stats, lat, wall_s, SERVE_REQUESTS),
+           "warmup_s": warmup_s, "compiles_after_warmup": warm,
+           "compiles_after_serving": compiles, "peak_mem_bytes": peak,
+           "flash_launches_warmup_and_capture": counts,
+           "flash_variant_launches_warmup_and_capture": variants,
+           "bucket8_replay": per, "softmax_kernels": softmax, **replies}
+    emit(row)
+    n = cfg.num_layers
+    assert replies_ok, row
+    assert stats["completed"] == SERVE_REQUESTS and not stats["shed"] \
+        and not stats["failed"], row
+    assert all(c <= len(srv.config.buckets) for c in warm), row
+    assert compiles == warm, row
+    # warm-up: each bucket's graph runs once eagerly, then is captured;
+    # replays pass no Python wrapper
+    assert counts == {KERNEL_NAMES[0]: 2 * n * len(srv.config.buckets),
+                      KERNEL_NAMES[1]: 0, KERNEL_NAMES[2]: 0}, row
+    assert tc_launches == counts[KERNEL_NAMES[0]], row
+    assert per["flash_launches"] == {KERNEL_NAMES[0]: n, KERNEL_NAMES[1]: 0,
+                                     KERNEL_NAMES[2]: 0}, row
+    assert per["flash_variant_launches"] == {
+        v: (n if v == tc else 0) for v in variants}, row
+    assert not softmax, row
+    return row, srv
+
+
+def phase_serving_decode(torch, srv):
+    """The continuous-batching decode engine on the started BERT server:
+    ``attach_decode(CompiledDecodeBackend(max_running=4),
+    DecodeConfig(max_running=4, max_new_tokens=6))`` (the backend's step a
+    CUDA graph per (bucket, signature)), then ``submit_generate`` of
+    DECODE_PROMPTS prompts in waves of the running-set cap (the engine
+    must not run more streams than the backend's largest bucket: ROADMAP
+    C-ref-6). Gates: the verify skill's prompt streams its known six
+    tokens, identical prompts stream identical tokens, compiles at most
+    the backend's buckets, each a captured graph, the KV pool back to
+    full, no B1-B3 launch. Stops the server."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.serving.decode import (CompiledDecodeBackend,
+                                                 DecodeConfig)
+    launch_counts.clear()
+    backend = CompiledDecodeBackend(max_running=4)
+    eng = srv.attach_decode(backend, DecodeConfig(max_running=4,
+                                                  max_new_tokens=6))
+    prompt, known = DECODE_ORACLE
+    prompts = [list(prompt), [3, 1, 4, 1, 5, 9, 2, 6], list(range(40)),
+               list(prompt), [7] * 17, [2, 7, 1, 8], list(range(60, 0, -1)),
+               [3, 1, 4, 1, 5, 9, 2, 6]][:DECODE_PROMPTS]
+    streams = []
+    t0 = time.perf_counter()
+    for i in range(0, len(prompts), 4):
+        wave = [srv.submit_generate(p, timeout=60.0)
+                for p in prompts[i:i + 4]]
+        for s in wave:
+            assert s.wait(60.0), s.describe()
+        streams += wave
+    wall_s = time.perf_counter() - t0
+    stats = srv.stats()["decode"]
+    flash = {k: launch_counts[k] for k in KERNEL_NAMES}
+    srv.stop()
+    tokens = [list(s.tokens) for s in streams]
+    row = {"phase": "serving", "lane": "decode",
+           "config": "CompiledDecodeBackend toy stepper, KV row width 8, "
+                     f"buckets {backend.buckets}, on the started BERT "
+                     "server",
+           "prompts": len(prompts), "wall_s": wall_s,
+           "tokens_per_s": sum(map(len, tokens)) / wall_s,
+           "tokens": tokens,
+           "errors": [repr(s.error) for s in streams if s.error],
+           "compiles": backend.step.compile_count,
+           "cache_hits": backend.step.cache_hits,
+           "graphs_captured": sum(p is not None for p in
+                                  backend.step._programs.values()),
+           "kv_blocks_free": stats["kv_blocks_free"],
+           "kv_blocks": eng.pool.num_blocks,
+           **{k: stats[k] for k in ("ttft_p50_ms", "ttft_p99_ms",
+                                    "tpot_p50_ms", "tpot_p99_ms")},
+           "flash_launches": flash}
+    emit(row)
+    assert not row["errors"], row
+    assert tokens[0] == known and tokens[3] == tokens[0], row
+    assert tokens[1] == tokens[7], row
+    assert 1 <= backend.step.compile_count <= len(backend.buckets), row
+    assert row["graphs_captured"] == backend.step.compile_count, row
+    assert stats["kv_blocks_free"] == eng.pool.num_blocks, row
+    assert all(c == 0 for c in flash.values()), row
+    return row
+
+
+def phase_serving_resnet(torch, seed):
+    """ResNet-50 eval served in bf16 (NHWC, the space-to-depth stem, fused
+    conv + BN on folded statistics, random weights from the seed, running
+    statistics moved by two training-mode forwards) behind the same
+    server: ServingConfig(max_batch_size=8, replicas=2), warm-up of one
+    224 x 224 x 3 float32 image, SERVE_RESNET_REQUESTS requests of one
+    image from SERVE_CLIENTS threads. Float inputs: each call casts them
+    to bf16 on the copy into the graph's buffer. Gates: every reply held
+    to the eager forwards of its row (reply_check), no shed or failure,
+    compiles only in warm-up, no B1-B3 launch."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.profiler.metrics import reset_registry
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    from paddle_tpu_torch.vision.models import resnet50
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = resnet50(data_format="NHWC", stem="space_to_depth",
+                     fused_conv_bn=True, device="cuda",
+                     generator=pt.make_generator(seed + 3))
+    images = np.random.RandomState(seed + 23).randn(
+        SERVE_RESNET_REQUESTS, RESNET_HW, RESNET_HW, 3).astype("float32")
+    with torch.no_grad():
+        model.train()
+        for _ in range(2):
+            model(torch.from_numpy(images).cuda())
+        model.eval()
+    eager = eager_forwards(torch, model, images, SERVE_BATCH)
+    icfg = infer.Config()
+    icfg.set_layer(model)
+    icfg.enable_low_precision(infer.DataType.BFLOAT16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_registry()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    srv = InferenceServer(icfg, ServingConfig(
+        max_batch_size=SERVE_BATCH, replicas=SERVE_REPLICAS,
+        warmup_signatures=[(((RESNET_HW, RESNET_HW, 3), "float32"),)]))
+    warmup_s = time.perf_counter() - t0
+    warm = [r.compile_count for r in srv.scheduler.replicas]
+    srv.start()
+    reqs, lat, wall_s = serve_burst(torch, srv, images, SERVE_CLIENTS)
+    stats = srv.stats()
+    srv.stop()
+    peak = torch.cuda.max_memory_allocated()
+    compiles = [r.compile_count for r in srv.scheduler.replicas]
+    flash = {k: launch_counts[k] for k in KERNEL_NAMES}
+    pred = srv.scheduler.replicas[0].executor.predictor
+    prog = pred._jit_cache[(((SERVE_BATCH, RESNET_HW, RESNET_HW, 3),
+                             "float32"),)]
+    per, _ = replay_profile(torch, prog.graph)
+    per["predictor_run_ms"] = predictor_run_ms(pred, images[:SERVE_BATCH])
+    replies, replies_ok = reply_check(reqs, eager)
+    row = {"phase": "serving", "lane": "resnet_server",
+           "config": "ResNet-50 NHWC s2d fused bf16, requests of one "
+                     f"{RESNET_HW}x{RESNET_HW}x3 f32 image, buckets "
+                     f"{srv.config.buckets}, {SERVE_REPLICAS} replicas, "
+                     f"{SERVE_CLIENTS} clients",
+           **server_summary(stats, lat, wall_s, SERVE_RESNET_REQUESTS),
+           "warmup_s": warmup_s, "compiles_after_warmup": warm,
+           "compiles_after_serving": compiles, "peak_mem_bytes": peak,
+           "input_buffer_dtype": str(prog.graph.static_in[0].dtype),
+           "bucket8_replay": per, "flash_launches": flash, **replies}
+    emit(row)
+    assert replies_ok, row
+    assert stats["completed"] == SERVE_RESNET_REQUESTS \
+        and not stats["shed"] and not stats["failed"], row
+    assert compiles == warm and all(c <= len(srv.config.buckets)
+                                    for c in warm), row
+    assert row["input_buffer_dtype"] == "torch.bfloat16", row
+    assert all(c == 0 for c in flash.values()), row
+    assert not any(per["flash_variant_launches"].values()), row
+    del srv, pred, prog, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
-                   vision):
+                   vision, serving):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -2300,7 +2725,11 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     B3 tc_bf16 again, non-causal at BERT's shape (8, 512, 12, 64), with
     their launches in a bf16 BERT-base step (bert_flash) and per replay
     of its captured step. Every entry also carries its launches on the
-    conv net paths (``vision``: {path: {kernel: launches}}), all 0."""
+    conv net paths (``vision``: {path: {kernel: launches}}), all 0, and on
+    the serving lanes (``serving``), for its own variant: per BERT-base
+    batch (by kernel name in a replay of the server's bucket-8 graph), in
+    the BERT server's warm-up and captures (the wrappers' counts), and in
+    the ResNet-50 and decode lanes."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -2309,12 +2738,16 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
 
     def entry(name, source, line, row, launches, err, **extra):
         kernel = name.split(".")[0]
+        variant = ".".join(name.split(".")[:2])
         return {"name": name, "route": "cuda", "source": src + source,
                 "replaces": ref + str(line), "launches": launches,
                 "max_abs_err": err, "bound_ms": row["bound_us"] / 1e3,
                 **{k: row[k] for k in keys},
                 "launches_conv_nets": {path: counts[kernel]
                                        for path, counts in vision.items()},
+                "launches_serving": {
+                    lane: counts.get(variant, counts.get(kernel, 0))
+                    for lane, counts in serving.items()},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -2411,7 +2844,7 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
-                "to_static_grad", "bert", "vision")
+                "to_static_grad", "bert", "vision", "serving")
 
 
 def main():
@@ -2483,12 +2916,25 @@ def main():
         out["vision"] = {"resnet50_train": resnet["flash_launches"],
                          "resnet50_eval": eval_flash,
                          "lenet_train": lenet["flash_launches"]}
+    if "serving" in run:
+        bert_row, srv = phase_serving_bert(torch, args.seed)
+        decode_row = phase_serving_decode(torch, srv)
+        del srv
+        resnet_row = phase_serving_resnet(torch, args.seed)
+        out["serving"] = {
+            "bert_server_per_batch": bert_row["bucket8_replay"][
+                "flash_variant_launches"],
+            "bert_server_warmup_and_capture": bert_row[
+                "flash_variant_launches_warmup_and_capture"],
+            "resnet_server": resnet_row["flash_launches"],
+            "decode": decode_row["flash_launches"]}
 
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
-            out["compiled"], out["amp"], out["bert"], out["vision"])})
+            out["compiled"], out["amp"], out["bert"], out["vision"],
+            out["serving"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

@@ -14,17 +14,23 @@ rate schedulers (``optimizer.lr``), grad clipping (``nn.ClipGradBy*``) and
 recompute around it. ResNet (``vision.models.resnet50``, NCHW or NHWC
 as channels_last, the space-to-depth stem, the fused conv + BN op) and
 LeNet train and evaluate through ``paddle_tpu_torch.vision.models``.
+Models serve through ``inference`` (``Config``, ``Predictor``: a CUDA
+graph per input signature) and ``serving`` (``InferenceServer``: bounded
+queue, admission control, shape-bucketed batching, replicas behind a
+scheduler, and the continuous-batching ``DecodeEngine``).
 Tensors are plain ``torch.Tensor``s: there is no paddle Tensor facade,
 ``loss.backward()`` is torch's, and ``no_grad`` is torch's.
 """
 from torch import no_grad
 
-from . import amp, distributed, jit, nn, optimizer, vision
+from . import (amp, distributed, inference, jit, nn, optimizer, serving,
+               vision)
 from .core.device import CPUPlace, CUDAPlace
 from .core.random import make_generator
 from .framework.flags import get_flags, set_flags
 from .framework.io_utils import load, load_numpy_state_dict, save
 
 __all__ = ["CPUPlace", "CUDAPlace", "make_generator", "load",
-           "load_numpy_state_dict", "save", "amp", "distributed", "jit",
-           "nn", "optimizer", "vision", "no_grad", "get_flags", "set_flags"]
+           "load_numpy_state_dict", "save", "amp", "distributed",
+           "inference", "jit", "nn", "optimizer", "serving", "vision",
+           "no_grad", "get_flags", "set_flags"]

@@ -1,15 +1,25 @@
 """Global flags: paddle.set_flags / paddle.get_flags.
 
-Port of paddle_tpu/framework/flags.py, with only the flags the port reads:
+Port of paddle_tpu/framework/flags.py, with only the flags the port reads,
+at the reference's defaults:
 
 - ``FLAGS_compiled_step`` (default on): ``jit.to_static`` and
   ``jit.compiled_step.CompiledTrainStep`` capture a step as a CUDA graph;
   0 runs every call eagerly, the debug and parity oracle.
 - ``FLAGS_compiled_step_max_retraces`` (8): distinct input signatures one
-  compiled step may build before the retrace-storm guard warns; 0
-  disables the guard.
+  compiled step (or one decode step cache) may build before the
+  retrace-storm guard warns; 0 disables the guard.
 - ``FLAGS_max_cached_programs`` (64): programs one ``to_static`` function
   keeps, evicted oldest first.
+- Resilience and observability: ``FLAGS_fault_injection`` and its seed
+  (setting either reconfigures ``resilience.faults``), the watchdog's
+  ``FLAGS_collective_timeout`` and ``FLAGS_watchdog_interval``, the flight
+  recorder's size, ``FLAGS_preflight_checks``, the metrics exporter's
+  interval and the request tracer's switches.
+- Serving (``serving/``) and continuous-batching decode
+  (``serving/decode/``): ``FLAGS_serving_*`` and ``FLAGS_decode_*``.
+  ``FLAGS_decode_quantize`` is accepted, but a set value raises in
+  ``DecodeEngine``: weight-only quantization (``slim.ptq``) is not ported.
 
 ``FLAGS_donate_state_buffers`` is not ported: it donates a jitted
 program's state buffers so XLA may write the new state over them, and a
@@ -28,6 +38,50 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_compiled_step": True,
     "FLAGS_compiled_step_max_retraces": 8,
     "FLAGS_max_cached_programs": 64,
+    # resilience (resilience/): fault-injection spec and seed
+    "FLAGS_fault_injection": "",
+    "FLAGS_fault_injection_seed": 0,
+    # watchdog deadline of one blocking section, and how often its
+    # monitor thread checks the deadlines
+    "FLAGS_collective_timeout": 300.0,
+    "FLAGS_watchdog_interval": 5.0,
+    # flight-recorder ring size (entries)
+    "FLAGS_flight_recorder_size": 1024,
+    # the known-answer test a restarted serving replica must pass
+    "FLAGS_preflight_checks": True,
+    # observability (profiler/): seconds between metrics snapshots written
+    # to the artifacts dir (0 disables the exporter), and request tracing
+    "FLAGS_metrics_export_interval": 60.0,
+    "FLAGS_request_tracing": True,
+    "FLAGS_trace_slow_ms": 1000.0,
+    "FLAGS_trace_head_sample": 100,
+    "FLAGS_trace_ring": 4096,
+    # serving (serving/): watchdog deadline of one dispatched batch
+    "FLAGS_serving_step_timeout": 60.0,
+    # bounded request queue; admission sheds (ServerOverloaded) beyond it
+    "FLAGS_serving_max_queue": 256,
+    # AIMD admission target latency, and the base retry_after hint (s)
+    "FLAGS_serving_admission_target_ms": 100.0,
+    "FLAGS_serving_retry_after": 0.1,
+    # circuit breaker: failures within the rolling window that open a
+    # replica's breaker, and the cooldown before its half-open probe
+    "FLAGS_serving_breaker_failures": 5,
+    "FLAGS_serving_breaker_window": 30.0,
+    "FLAGS_serving_breaker_cooldown": 10.0,
+    # hedged dispatch: share of dispatches allowed a second attempt, and
+    # the floor of the p99-derived hedge delay; budget 0 disables hedging
+    "FLAGS_serving_hedge_budget": 0.05,
+    "FLAGS_serving_hedge_min_ms": 10.0,
+    # continuous-batching decode (serving/decode/): KV pool geometry
+    "FLAGS_decode_block_size": 16,
+    "FLAGS_decode_kv_blocks": 256,
+    # prefill ration: prompt tokens absorbed per engine step
+    "FLAGS_decode_prefill_chunk": 64,
+    "FLAGS_decode_max_new_tokens": 64,
+    # weight-only quantization of decode replicas: not ported, "" only
+    "FLAGS_decode_quantize": "",
+    "FLAGS_decode_prefix_sharing": False,
+    "FLAGS_decode_spec_k": 0,
 }
 
 
@@ -51,6 +105,10 @@ for _k in list(_FLAGS):
 def set_flags(flags: dict):
     for k, v in flags.items():
         _FLAGS[k] = _coerce(_FLAGS[k], v) if k in _FLAGS else v
+    if "FLAGS_fault_injection" in flags or \
+            "FLAGS_fault_injection_seed" in flags:
+        from ..resilience import faults
+        faults.reconfigure_from_flags()
 
 
 def get_flags(flags=None):

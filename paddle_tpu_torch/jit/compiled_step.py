@@ -8,7 +8,10 @@ card (jit/to_static.py), and counts its lifecycle:
 - ``compiles`` increments once per signature, when its program is built
   (its graph captured), and ``cache_hits`` on every call (or every step of
   ``run_steps``) that replays a built program; ``compile_stats()`` reads
-  them and ``reset_compile_stats()`` zeroes them.
+  them and ``reset_compile_stats()`` zeroes them. Both are mirrored into
+  the metrics registry as ``compiled_step.compiles_total`` and
+  ``compiled_step.cache_hits_total``; the serving decode step
+  (``serving/decode/compiled_decode.py``) counts into the same pair.
 - A retrace-storm guard counts the distinct signatures one step builds
   and, past ``FLAGS_compiled_step_max_retraces``, warns once through
   ``warnings``.
@@ -16,23 +19,26 @@ card (jit/to_static.py), and counts its lifecycle:
   ``enable_to_static(False)`` makes the wrapper a passthrough to the eager
   step, with no counters.
 
-Not ported yet: the flight-recorder entry of a retrace storm, the metrics
-registry mirror of the counters and the StepTimer ``step/compile`` phase
-come with the observability modules (ROADMAP A11); ``CompiledStageProgram``
+Not ported yet: the flight-recorder entry of a retrace storm and the
+StepTimer ``step/compile`` phase come with the observability modules
+(ROADMAP A11); ``CompiledStageProgram``
 (pipeline and ring-attention stage programs) with the distributed slice
 (ROADMAP A10).
 """
 from __future__ import annotations
 
+import threading
 import warnings
 
 from ..framework.flags import get_flag
+from ..profiler import metrics as _metrics
 from .to_static import StaticFunction, _sig_of, _sig_of_step
 
 __all__ = ["CompiledTrainStep", "compiled_step_enabled", "compile_stats",
            "reset_compile_stats"]
 
 _STATS = {"compiles": 0, "cache_hits": 0, "retrace_warnings": 0}
+_stats_lock = threading.Lock()
 
 
 def compiled_step_enabled():
@@ -42,12 +48,26 @@ def compiled_step_enabled():
 
 def compile_stats():
     """Process-wide counters: compiles, cache hits, retrace warnings."""
-    return dict(_STATS)
+    with _stats_lock:
+        return dict(_STATS)
 
 
 def reset_compile_stats():
-    for k in _STATS:
-        _STATS[k] = 0
+    with _stats_lock:
+        for k in _STATS:
+            _STATS[k] = 0
+
+
+def _note_compile(n=1):
+    with _stats_lock:
+        _STATS["compiles"] += n
+    _metrics.get_registry().inc_counter("compiled_step.compiles_total", n)
+
+
+def _note_cache_hit(n=1):
+    with _stats_lock:
+        _STATS["cache_hits"] += n
+    _metrics.get_registry().inc_counter("compiled_step.cache_hits_total", n)
 
 
 class CompiledTrainStep:
@@ -77,7 +97,8 @@ class CompiledTrainStep:
         if bound <= 0 or len(self._seen_sigs) <= bound or self._storm_warned:
             return
         self._storm_warned = True
-        _STATS["retrace_warnings"] += 1
+        with _stats_lock:
+            _STATS["retrace_warnings"] += 1
         warnings.warn(
             f"compiled_step[{self._label}]: {len(self._seen_sigs)} distinct "
             f"input signatures built (> FLAGS_compiled_step_max_retraces="
@@ -94,8 +115,9 @@ class CompiledTrainStep:
         prog = self._static._programs.get(key)
         if prog is not None:
             if prog.built and not built:
-                _STATS["compiles"] += 1
-            _STATS["cache_hits"] += prog.hits - hits
+                _note_compile()
+            if prog.hits > hits:
+                _note_cache_hit(prog.hits - hits)
         return out
 
     def __call__(self, *args, **kwargs):

@@ -19,6 +19,14 @@ is held elementwise to |err| <= 1e-4 + 1e-4 * |plain|: summation order
 over up to 1024 terms with cancellation in dS, and values near zero. Each
 test also checks which variant ran (``launch_counts``).
 
+The serving slice: a Predictor on the card keeps one CUDA graph per
+input signature; its replies equal a direct replay of that graph to the
+bit and an eager f32 forward within 1e-4 relative + 1e-5 (summation order
+between the captured and the eager launches); a capture that syncs with
+the host raises and nothing falls back to eager; evicting a bf16 entry
+frees its graph; two replicas share the graphs under four client threads;
+and the decode backend's graphs stream the host's tokens.
+
 The conv net slice (cuDNN, f32 with TF32 off) is held against the same
 code on the host: conv2d and the poolings elementwise to 1e-4 relative +
 1e-4 (the padded exclusive average pool among them, whose torch backward
@@ -838,3 +846,175 @@ def test_resnet_eval_fold_on_card_matches_bn_eval(card):
             outs.append(model(x.to(dev)).cpu())
     for other in outs[1:]:
         torch.testing.assert_close(outs[0], other, rtol=1e-4, atol=1e-4)
+
+
+# -- the serving slice: a CUDA graph per signature ---------------------------
+
+def _bert_predictor(card, bf16=False, **config):
+    """A predictor over a 2-layer BERT at head dim 64 (the flash path at
+    s = 256) on the card."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+    model = BertForSequenceClassification(
+        BertConfig(vocab_size=120, hidden_size=128, num_layers=2,
+                   num_heads=2, intermediate_size=256, max_position=256,
+                   dropout=0.0, **config), num_classes=2, device="cpu",
+        generator=pt.make_generator(3))
+    cfg = infer.Config()
+    cfg.set_layer(model)
+    if bf16:
+        cfg.enable_low_precision(infer.DataType.BFLOAT16)
+    return infer.create_predictor(cfg), model
+
+
+def test_predictor_captures_one_graph_per_bucket(card):
+    """A server's executor over a predictor on the card: one graph per
+    bucket (compiles <= buckets), B1 in each (captured, not replayed by
+    Python), replies equal to the bit to a direct replay of the graph, and
+    within f32 summation order of the eager forward."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import BucketedExecutor
+    pred, model = _bert_predictor(card)
+    assert next(model.parameters()).is_cuda and not model.training
+    ex = BucketedExecutor(pred)
+    launch_counts.clear()
+    ex.warmup((((256,), "int64"),), [1, 2, 4])
+    # per bucket: an eager warm-up and the capture, 2 layers each
+    assert launch_counts[fa.KERNEL_NAME] == 3 * 2 * 2
+    assert ex.compile_count == 3 and len(pred._jit_cache) == 3
+    ids = np.random.RandomState(0).randint(0, 120, (4, 256)).astype("int64")
+    launch_counts.clear()
+    [got] = ex.run([ids])
+    assert launch_counts[fa.KERNEL_NAME] == 0 and ex.compile_count == 3
+    prog = pred._jit_cache[(((4, 256), "int64"),)]
+    prog.graph.graph.replay()
+    torch.cuda.synchronize()
+    assert np.array_equal(got, prog.graph.static_out[0].cpu().numpy())
+    with torch.no_grad():
+        eager = model(torch.tensor(ids, device=card)).cpu().numpy()
+    np.testing.assert_allclose(got, eager, rtol=1e-4, atol=1e-5)
+
+
+def test_predictor_capture_that_syncs_raises_without_fallback(card):
+    import numpy as np
+
+    import paddle_tpu_torch.inference as infer
+
+    class Syncs(torch.nn.Module):
+        def forward(self, x):
+            if x.sum().item() > 0:       # a host sync: cannot be captured
+                x = x + 1
+            return x * 2
+
+    cfg = infer.Config()
+    cfg.set_layer(Syncs())
+    pred = infer.create_predictor(cfg)
+    x = np.ones((2, 4), "float32")
+    for _ in range(2):     # and again: nothing falls back to eager
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            pred.run([x])
+    assert pred._jit_cache == {}
+
+
+def test_bf16_float_entry_eviction_frees_its_graph(card):
+    import gc
+    import weakref
+
+    import numpy as np
+
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.serving import BucketedExecutor
+    layer = torch.nn.Sequential(torch.nn.Linear(64, 64), torch.nn.ReLU())
+    cfg = infer.Config()
+    cfg.set_layer(layer)
+    cfg.enable_low_precision(infer.DataType.BFLOAT16)
+    pred = infer.create_predictor(cfg)
+    ex = BucketedExecutor(pred, max_cached=1)
+    x = np.random.RandomState(1).randn(8, 64).astype("float32")
+    [out] = ex.run([x])
+    entry = pred._jit_cache[(((8, 64), "float32"),)]
+    assert entry.graph.static_in[0].dtype == torch.bfloat16
+    with torch.no_grad():
+        want = layer.to(torch.bfloat16)(
+            torch.tensor(x, device=card).to(torch.bfloat16)).float()
+    # the same bf16 GEMM and ReLU, eager against captured
+    np.testing.assert_allclose(out, want.cpu().numpy(), rtol=2 ** -7,
+                               atol=1e-3)
+    gone = weakref.ref(entry.graph)
+    del entry
+    ex.run([x[:4]])
+    gc.collect()
+    assert gone() is None
+    assert list(pred._jit_cache) == [(((4, 64), "float32"),)]
+
+
+def test_replicas_share_graphs_under_concurrent_load(card):
+    """Two replicas of a threaded server share one graph per bucket;
+    four client threads get each its own rows' logits."""
+    import threading
+
+    import numpy as np
+
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    pred, model = _bert_predictor(card)
+    cfg = infer.Config()
+    cfg.set_layer(model)
+    srv = InferenceServer(cfg, ServingConfig(
+        max_batch_size=4, replicas=2,
+        warmup_signatures=[(((256,), "int64"),)]))
+    reps = srv.scheduler.replicas
+    assert reps[0].executor.predictor._jit_cache is \
+        reps[1].executor.predictor._jit_cache
+    srv.start()
+    rng = np.random.RandomState(2)
+    rows = rng.randint(0, 120, (16, 256)).astype("int64")
+    got = {}
+
+    def client(k):
+        for i in range(k, 16, 4):
+            got[i] = srv.infer([rows[i:i + 1]], timeout=60.0)[0]
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    srv.stop()
+    assert not any(t.is_alive() for t in threads) and len(got) == 16
+    with torch.no_grad():
+        eager = model(torch.tensor(rows, device=card)).cpu().numpy()
+    np.testing.assert_allclose(np.concatenate([got[i] for i in range(16)]),
+                               eager, rtol=1e-4, atol=1e-5)
+    assert srv.stats()["compiles"] == 2 * 3    # warm-up only
+
+
+def test_decode_step_graphs_match_the_host(card):
+    """The compiled decode backend on the card: one graph per (bucket,
+    signature), the same streams as on the host, with speculation too."""
+    from paddle_tpu_torch.serving.decode import (CompiledDecodeBackend,
+                                                 DecodeConfig, DecodeEngine,
+                                                 MirrorDraft)
+    runs = {}
+    for dev in ("cpu", card):
+        for k in (0, 3):
+            backend = CompiledDecodeBackend(max_running=4, device=dev)
+            eng = DecodeEngine(backend, DecodeConfig(
+                max_running=4, max_new_tokens=6, spec_k=k,
+                draft=MirrorDraft(corrupt_every=2) if k else None))
+            streams = [eng.join(p) for p in ([1, 2, 3, 4, 5], [3, 1, 4],
+                                             [1, 2, 3, 4, 5])]
+            for _ in range(40):
+                eng.step()
+            runs[(str(dev), k)] = [list(s.tokens) for s in streams]
+            assert backend.step.compile_count <= len(backend.buckets)
+            assert eng.pool.free() == eng.pool.num_blocks
+            if str(dev) != "cpu":
+                progs = list(backend.step._programs.values()) + \
+                    list(backend.vstep._programs.values())
+                assert progs and all(p is not None for p in progs)
+    assert runs[("cpu", 0)][0] == [30, 66, 139, 286, 581, 1172]
+    assert len({str(v) for v in runs.values()}) == 1

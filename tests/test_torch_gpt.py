@@ -195,7 +195,8 @@ print(json.dumps({
 
 # modules the walk must reach, the training surface around the step among
 # them (amp, schedulers, clips, flags, the compiled step, recompute), the
-# BERT/ERNIE slice and the conv net slice
+# BERT/ERNIE slice, the conv net slice and the serving slice (inference,
+# serving, resilience, profiler)
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -219,6 +220,28 @@ PORT_MODULES = {
     "paddle_tpu_torch.ops.fused_conv_bn",
     "paddle_tpu_torch.vision.models.resnet",
     "paddle_tpu_torch.vision.models.lenet",
+    # the serving slice
+    "paddle_tpu_torch.framework.errors",
+    "paddle_tpu_torch.resilience.faults",
+    "paddle_tpu_torch.resilience.recorder",
+    "paddle_tpu_torch.resilience.watchdog",
+    "paddle_tpu_torch.resilience.recovery",
+    "paddle_tpu_torch.resilience.health",
+    "paddle_tpu_torch.profiler.metrics",
+    "paddle_tpu_torch.profiler.tracing",
+    "paddle_tpu_torch.jit.save_load",
+    "paddle_tpu_torch.jit.inference_graph",
+    "paddle_tpu_torch.inference",
+    "paddle_tpu_torch.serving.batcher",
+    "paddle_tpu_torch.serving.metrics",
+    "paddle_tpu_torch.serving.overload",
+    "paddle_tpu_torch.serving.scheduler",
+    "paddle_tpu_torch.serving.server",
+    "paddle_tpu_torch.serving.decode.kv_cache",
+    "paddle_tpu_torch.serving.decode.prefix",
+    "paddle_tpu_torch.serving.decode.specdecode",
+    "paddle_tpu_torch.serving.decode.compiled_decode",
+    "paddle_tpu_torch.serving.decode.engine",
 }
 
 
