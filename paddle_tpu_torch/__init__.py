@@ -14,6 +14,10 @@ rate schedulers (``optimizer.lr``), grad clipping (``nn.ClipGradBy*``) and
 recompute around it. ResNet (``vision.models.resnet50``, NCHW or NHWC
 as channels_last, the space-to-depth stem, the fused conv + BN op) and
 LeNet train and evaluate through ``paddle_tpu_torch.vision.models``.
+Scripts train through the high-level API: ``Model(net).prepare(opt,
+nn.CrossEntropyLoss(), metric.Accuracy())`` then ``fit``, ``evaluate``,
+``predict``, ``save`` and ``load``, over ``io.DataLoader`` and the
+``vision.datasets`` and ``vision.transforms``, with ``callbacks``.
 Models serve through ``inference`` (``Config``, ``Predictor``: a CUDA
 graph per input signature) and ``serving`` (``InferenceServer``: bounded
 queue, admission control, shape-bucketed batching, replicas behind a
@@ -23,14 +27,16 @@ Tensors are plain ``torch.Tensor``s: there is no paddle Tensor facade,
 """
 from torch import no_grad
 
-from . import (amp, distributed, inference, jit, nn, optimizer, serving,
-               vision)
+from . import (amp, callbacks, distributed, hapi, inference, io, jit,
+               metric, nn, optimizer, serving, vision)
 from .core.device import CPUPlace, CUDAPlace
-from .core.random import make_generator
+from .core.random import make_generator, seed
 from .framework.flags import get_flags, set_flags
 from .framework.io_utils import load, load_numpy_state_dict, save
+from .hapi import Model, flops, summary
 
-__all__ = ["CPUPlace", "CUDAPlace", "make_generator", "load",
-           "load_numpy_state_dict", "save", "amp", "distributed",
-           "inference", "jit", "nn", "optimizer", "serving", "vision",
+__all__ = ["CPUPlace", "CUDAPlace", "make_generator", "seed", "load",
+           "load_numpy_state_dict", "save", "amp", "callbacks",
+           "distributed", "hapi", "inference", "io", "jit", "metric", "nn",
+           "optimizer", "serving", "vision", "Model", "summary", "flops",
            "no_grad", "get_flags", "set_flags"]

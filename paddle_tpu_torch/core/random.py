@@ -19,7 +19,7 @@ import contextlib
 
 import torch
 
-__all__ = ["make_generator", "uniform", "collect_generators"]
+__all__ = ["make_generator", "seed", "uniform", "collect_generators"]
 
 # the sets of generators that running discovery passes collect
 _collectors: list = []
@@ -28,6 +28,15 @@ _collectors: list = []
 def make_generator(seed: int = 0, device="cpu"):
     """A fresh generator on ``device`` seeded with ``seed``."""
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def seed(s: int):
+    """paddle.seed: reseed torch's default generators (the host's and
+    each card's, which layers built without a generator and dropout
+    without one draw from) and nothing else; numpy's generator is left as
+    it is, as the reference leaves it. Returns the host's default
+    generator."""
+    return torch.manual_seed(int(s))
 
 
 @contextlib.contextmanager

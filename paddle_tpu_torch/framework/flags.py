@@ -11,6 +11,13 @@ at the reference's defaults:
   retrace-storm guard warns; 0 disables the guard.
 - ``FLAGS_max_cached_programs`` (64): programs one ``to_static`` function
   keeps, evicted oldest first.
+- The training API (``hapi``): ``FLAGS_check_nan_inf`` (off: on, fit
+  guards every step with ``resilience.guard.StepGuard``) and
+  ``FLAGS_guard_max_bad_steps`` (3), ``FLAGS_input_prefetch`` (on),
+  ``FLAGS_async_checkpoint`` (off; a set value raises in
+  ``resilience.snapshot.save_model``: the background committer is ROADMAP
+  A11), ``FLAGS_ckpt_keep`` (3), ``FLAGS_steptimer`` (on) and
+  ``FLAGS_steptimer_sync_interval`` (16).
 - Resilience and observability: ``FLAGS_fault_injection`` and its seed
   (setting either reconfigures ``resilience.faults``), the watchdog's
   ``FLAGS_collective_timeout`` and ``FLAGS_watchdog_interval``, the flight
@@ -38,6 +45,19 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_compiled_step": True,
     "FLAGS_compiled_step_max_retraces": 8,
     "FLAGS_max_cached_programs": 64,
+    # the training API (hapi/): the step guard of Model.fit, which skips
+    # a non-finite step and rolls back after this many in a row; the
+    # fit loop's input prefetch thread; the background checkpoint
+    # committer (not ported: a set value raises in save_model)
+    "FLAGS_check_nan_inf": False,
+    "FLAGS_guard_max_bad_steps": 3,
+    "FLAGS_input_prefetch": True,
+    "FLAGS_async_checkpoint": False,
+    "FLAGS_ckpt_keep": 3,
+    # step-phase attribution (profiler/steptimer.py), and how often it
+    # waits for the card's work to time a step
+    "FLAGS_steptimer": True,
+    "FLAGS_steptimer_sync_interval": 16,
     # resilience (resilience/): fault-injection spec and seed
     "FLAGS_fault_injection": "",
     "FLAGS_fault_injection_seed": 0,

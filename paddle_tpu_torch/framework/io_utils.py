@@ -73,20 +73,24 @@ def load(path):
         return _from_serializable(pickle.load(f))
 
 
-def load_numpy_state_dict(module, arrays):
+def load_numpy_state_dict(module, arrays, strict=True):
     """Copy ``arrays`` ({name: ndarray or tensor}) into ``module``'s
     parameters and buffers by name: no renaming, no transposes. Raises on
-    a missing key, an extra key or a shape mismatch. Values are cast to
-    each parameter's dtype and device. Each parameter forgets the
-    degenerate-weight guard's cached verdict (ops/_param_guard.py), as the
-    reference's set_value does."""
+    a shape mismatch, and, when ``strict``, on a missing or an extra key
+    (``strict=False`` skips a name only one side has, as the reference's
+    ``set_state_dict`` does). Values are cast to each parameter's dtype
+    and device. Each parameter forgets the degenerate-weight guard's
+    cached verdict (ops/_param_guard.py), as the reference's set_value
+    does."""
     own = module.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
-    if missing or extra:
+    if strict and (missing or extra):
         raise KeyError(f"state dict mismatch: missing {missing}, "
                        f"unexpected {extra}")
     for name, dst in own.items():
+        if name not in arrays:
+            continue
         src = arrays[name]
         if not isinstance(src, torch.Tensor):
             src = tensor_from_numpy(np.asarray(src))

@@ -15,13 +15,15 @@ card (jit/to_static.py), and counts its lifecycle:
 - A retrace-storm guard counts the distinct signatures one step builds
   and, past ``FLAGS_compiled_step_max_retraces``, warns once through
   ``warnings``.
+- A call whose program is not built yet (a discovery pass, or the
+  capture) runs under the StepTimer's ``step/compile`` phase
+  (profiler/steptimer.py).
 - ``FLAGS_compiled_step=0`` (``compiled_step_enabled()``) or
   ``enable_to_static(False)`` makes the wrapper a passthrough to the eager
   step, with no counters.
 
-Not ported yet: the flight-recorder entry of a retrace storm and the
-StepTimer ``step/compile`` phase come with the observability modules
-(ROADMAP A11); ``CompiledStageProgram``
+Not ported yet: the flight-recorder entry of a retrace storm comes with
+the observability modules (ROADMAP A11); ``CompiledStageProgram``
 (pipeline and ring-attention stage programs) with the distributed slice
 (ROADMAP A10).
 """
@@ -32,6 +34,7 @@ import warnings
 
 from ..framework.flags import get_flag
 from ..profiler import metrics as _metrics
+from ..profiler import steptimer as _steptimer
 from .to_static import StaticFunction, _sig_of, _sig_of_step
 
 __all__ = ["CompiledTrainStep", "compiled_step_enabled", "compile_stats",
@@ -111,7 +114,10 @@ class CompiledTrainStep:
         built, hits = (prog.built, prog.hits) if prog else (False, 0)
         if not built:
             self._guard_retrace(key)
-        out = run()
+            with _steptimer.get_steptimer().phase("step/compile"):
+                out = run()
+        else:
+            out = run()
         prog = self._static._programs.get(key)
         if prog is not None:
             if prog.built and not built:

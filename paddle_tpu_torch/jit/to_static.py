@@ -18,7 +18,9 @@ call. Here a program is a ``torch.cuda.CUDAGraph``:
   static buffers and captures the body as a graph, in one memory pool
   shared by the function's programs and with those generators
   registered, then replays it once, so that N calls make N updates as
-  eagerly. Every later call copies its arguments into the static buffers
+  eagerly. The capture is ``thread_local``: another thread (the fit
+  loop's input prefetcher) may pin, allocate and copy meanwhile. Every
+  later call copies its arguments into the static buffers
   and replays. A capture that fails (a host sync, a copy from the host, a
   draw from a CPU generator) raises, naming the function: nothing falls
   back to eager.
@@ -440,7 +442,8 @@ class StaticFunction:
         bwd_graph = grad_out = grad_in = None
         try:
             with torch.cuda.device(device), torch.cuda.graph(
-                    graph, pool=self._pool, stream=side):
+                    graph, pool=self._pool, stream=side,
+                    capture_error_mode="thread_local"):
                 out = self._fn(*s_args, **s_kwargs)
             outs = _flatten_tensors(out, [])
             diff_out = [t.requires_grad for t in outs]
@@ -449,7 +452,8 @@ class StaticFunction:
                             for t, d in zip(outs, diff_out) if d]
                 bwd_graph = torch.cuda.CUDAGraph()
                 with torch.cuda.device(device), torch.cuda.graph(
-                        bwd_graph, pool=self._pool, stream=side):
+                        bwd_graph, pool=self._pool, stream=side,
+                        capture_error_mode="thread_local"):
                     grad_in = torch.autograd.grad(
                         [t for t, d in zip(outs, diff_out) if d], diff_in,
                         grad_out, allow_unused=True)

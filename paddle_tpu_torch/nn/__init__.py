@@ -1,6 +1,9 @@
-"""paddle.nn: the layers the GPT, BERT/ERNIE and conv net slices use."""
+"""paddle.nn: the layers the GPT, BERT/ERNIE and conv net slices use, and
+every loss layer of the reference."""
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .layer import loss as _loss
+from .layer.loss import *  # noqa: F401,F403
 from .layer import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
                     BatchNorm2D, Conv2D, Dropout, Embedding, Layer,
                     LayerList, LayerNorm, Linear, MaxPool2D,
@@ -14,4 +17,5 @@ __all__ = ["functional", "initializer", "AdaptiveAvgPool2D", "AvgPool2D",
            "MaxPool2D", "MultiHeadAttention", "ReLU", "Sequential",
            "Transformer", "TransformerDecoder", "TransformerDecoderLayer",
            "TransformerEncoder", "TransformerEncoderLayer",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm",
+           *_loss.__all__]

@@ -420,8 +420,8 @@ class MetricsExporter:
     def _rank_no(self):
         if self._rank is not None:
             return int(self._rank)
-        from ..resilience.recorder import _process_rank
-        return _process_rank()
+        from ..distributed.env import get_rank
+        return get_rank()
 
     @property
     def prom_path(self):

@@ -260,8 +260,8 @@ class RequestTracer:
         self.ring = int(get_flag("FLAGS_trace_ring", 4096) or 1) \
             if ring is None else int(ring)
         if rank is None:
-            from ..resilience.recorder import _process_rank
-            rank = _process_rank()
+            from ..distributed.env import get_rank
+            rank = get_rank()
         self.rank = int(rank)
         self.artifacts = artifacts
         self._registry = registry

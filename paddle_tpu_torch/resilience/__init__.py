@@ -8,13 +8,20 @@
   runs in one); expiry dumps the recorder and the thread stacks and
   raises :class:`DistributedTimeout`;
 - :mod:`.recovery` — the generation counter sections are fenced by;
-- :mod:`.health` — the preflight known-answer test of a restarted replica.
+- :mod:`.health` — the preflight known-answer test of a restarted replica;
+- :mod:`.guard` — the StepGuard that skips a non-finite train step
+  (``hapi.Model.fit`` under ``FLAGS_check_nan_inf``);
+- :mod:`.preempt` — SIGTERM to an emergency save and a resumable exit;
+- :mod:`.snapshot` — manifest-committed checkpoints with sha256 sidecars
+  and exact resume (``hapi.Model.save``), synchronous only.
 
-Retry, the step guard, preemption, integrity, recovery's restart manager
-and the rest wait for ROADMAP A11.
+Retry, integrity, the async checkpointer, recovery's restart manager and
+the rest wait for ROADMAP A11.
 """
-from . import faults, health, recorder, recovery, watchdog  # noqa: F401
+from . import (faults, guard, health, preempt, recorder,  # noqa: F401
+               recovery, snapshot, watchdog)
 from .watchdog import DistributedError, DistributedTimeout  # noqa: F401
 
-__all__ = ["faults", "health", "recorder", "recovery", "watchdog",
+__all__ = ["faults", "guard", "health", "preempt", "recorder", "recovery",
+           "snapshot", "watchdog",
            "DistributedError", "DistributedTimeout"]

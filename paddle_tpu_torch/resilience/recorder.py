@@ -1,10 +1,9 @@
 """Collective flight recorder: a per-process ring buffer of distributed ops.
 
 Port of paddle_tpu/resilience/recorder.py, with the same entry and dump
-format. The rank comes from PADDLE_TRAINER_ID, else from an initialised
-``torch.distributed`` group, else 0. The preemption hook
-(``install_signal_dump``) comes with the port of ``resilience/preempt.py``
-(ROADMAP A11).
+format. The rank is ``distributed.env.get_rank()``. The signal hook
+(``install_signal_dump``) comes with its only caller,
+``init_parallel_env`` (ROADMAP A10).
 
 Prior art: PyTorch's NCCL flight recorder and MegaScale's per-rank collective
 tracing. Every eager collective and p2p op logs an entry — op name, group
@@ -33,6 +32,8 @@ import tempfile
 import threading
 from contextlib import contextmanager
 
+from ..distributed.env import get_rank
+
 __all__ = ["FlightRecorder", "get_recorder", "reset", "artifacts_dir",
            "describe", "dump_path_for_rank"]
 
@@ -51,19 +52,6 @@ def artifacts_dir():
 def dump_path_for_rank(rank, base=None):
     return os.path.join(base or artifacts_dir(),
                         f"flight_recorder_rank{rank}.json")
-
-
-def _process_rank():
-    r = os.environ.get("PADDLE_TRAINER_ID")
-    if r is not None:
-        try:
-            return int(r)
-        except ValueError:
-            pass
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return 0
 
 
 def describe(value):
@@ -86,7 +74,7 @@ class FlightRecorder:
             from ..framework.flags import get_flag
             size = int(get_flag("FLAGS_flight_recorder_size", 1024) or 1024)
         self.size = max(1, int(size))
-        self.rank = _process_rank() if rank is None else int(rank)
+        self.rank = get_rank() if rank is None else int(rank)
         self.artifacts = artifacts
         self._clock = clock  # None -> time.time at call sites
         self._entries = collections.deque(maxlen=self.size)

@@ -1,4 +1,5 @@
-"""paddle.vision: the models ported so far (``vision.models``)."""
-from . import models
+"""paddle.vision: the models ported so far (``vision.models``), the
+datasets (``vision.datasets``) and the transforms (``vision.transforms``)."""
+from . import datasets, models, transforms
 
-__all__ = ["models"]
+__all__ = ["datasets", "models", "transforms"]

@@ -33,10 +33,24 @@ code on the host: conv2d and the poolings elementwise to 1e-4 relative +
 is wrong on channels_last CUDA tensors), the fused conv + BN op's grads to 1e-4 of the largest, a ResNet-18
 step in f64 to 1e-12 (loss, statistics) and 1e-10 (grads, relative L2),
 and its eval logits in f32 to 1e-4.
+
+The training API slice: ``fit`` on a card network hands the step only
+CUDA batches (with and without the prefetcher, captured and eager); the
+prefetcher's side-stream copy is ordered before the step reads it, even
+when the copy is held back on its stream; a spawned DataLoader worker
+sees no CUDA device while its parent holds a context; and ``Model.save``
+and ``load`` round-trip a LeNet's parameters and Adam state on the card
+to the bit.
 """
+import threading
+
 import pytest
 import torch
 
+import numpy as np
+
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.io import Dataset
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda import launch_counts
 from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
@@ -1018,3 +1032,129 @@ def test_decode_step_graphs_match_the_host(card):
                 assert progs and all(p is not None for p in progs)
     assert runs[("cpu", 0)][0] == [30, 66, 139, 286, 581, 1172]
     assert len({str(v) for v in runs.values()}) == 1
+
+
+# -- the training API slice -------------------------------------------------
+
+class _Devices(torch.nn.Module):
+    """A linear layer that records the device of every input it sees."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc = pt.nn.Linear(4, 3, device="cuda")
+        self.seen = set()
+
+    def forward(self, x):
+        self.seen.add(x.device.type)
+        return self.fc(x)
+
+
+@pytest.mark.parametrize("prefetch", [True, False])
+@pytest.mark.parametrize("compiled", [True, False])
+def test_fit_on_a_card_network_gets_only_cuda_batches(card, prefetch,
+                                                      compiled):
+    rng = np.random.RandomState(0)
+    ds = pt.io.TensorDataset([rng.randn(40, 4).astype("float32"),
+                              rng.randint(0, 3, 40).astype("int64")])
+    pt.set_flags({"FLAGS_input_prefetch": prefetch,
+                  "FLAGS_compiled_step": compiled})
+    try:
+        net = _Devices()
+        model = pt.Model(net).prepare(
+            pt.optimizer.SGD(learning_rate=0.1, parameters=net.parameters()),
+            pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+        model.fit(ds, batch_size=8, epochs=2, verbose=0,
+                  steps_per_execution=2)
+        model.evaluate(ds, batch_size=8, verbose=0)
+        model.predict(ds, batch_size=8)
+    finally:
+        pt.set_flags({"FLAGS_input_prefetch": True,
+                      "FLAGS_compiled_step": True})
+    assert net.seen == {"cuda"}
+
+
+def test_prefetch_copy_is_ordered_before_the_step_reads_it(card,
+                                                           monkeypatch):
+    """Each staged batch's copy waits behind a ~10 ms spin on the side
+    stream; the consumer reads it at once on its own stream and must see
+    the batch's values, not the buffer's earlier contents."""
+    from paddle_tpu_torch.hapi.prefetch import InputPrefetcher
+    real = InputPrefetcher._stage
+
+    def held_back(self, v):
+        torch.cuda._sleep(20_000_000)  # on the prefetcher's side stream
+        return real(self, v)
+    monkeypatch.setattr(InputPrefetcher, "_stage", held_back)
+    batches = [[torch.full((256, 1024), float(i))] for i in range(6)]
+    pf = InputPrefetcher(batches, lambda b: (b, []), device=card)
+    got, seen = [], []
+
+    def consume():  # in a thread of its own, so the test bounds its wait
+        while True:
+            # blocking-ok: a daemon thread the test joins with a deadline
+            item = pf.get()
+            if item is InputPrefetcher.DONE:
+                return
+            (x,), _ = item
+            seen.append(x.is_cuda)
+            got.append((x * 1).mean().item())
+    consumer = threading.Thread(target=consume, daemon=True)
+    try:
+        consumer.start()
+        consumer.join(timeout=60)
+        assert not consumer.is_alive(), "no batch staged within 60 s"
+    finally:
+        pf.close()
+    assert all(seen) and got == [float(i) for i in range(6)]
+
+
+class _CudaProbe(Dataset):
+    """What a worker process sees of CUDA."""
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, i):
+        import os
+        return np.array([torch.cuda.is_available(),
+                         torch.cuda.is_initialized(),
+                         os.environ.get("CUDA_VISIBLE_DEVICES") == ""],
+                        dtype=np.int64)
+
+
+def test_a_spawned_worker_does_not_touch_cuda(card):
+    torch.ones(1, device=card)  # the parent holds a context
+    dl = pt.io.DataLoader(_CudaProbe(), batch_size=2, num_workers=2,
+                          use_multiprocess=True)
+    rows = torch.cat(list(dl)).tolist()
+    assert rows == [[0, 0, 1]] * 4
+    assert torch.cuda.is_initialized()
+
+
+def test_model_save_and_load_round_trip_on_the_card(card, tmp_path):
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    def model(seed):
+        net = LeNet(device="cuda", generator=pt.make_generator(seed))
+        return pt.Model(net).prepare(
+            pt.optimizer.Adam(learning_rate=1e-3,
+                              parameters=net.parameters()),
+            pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    a = model(0)
+    data = pt.io.Subset(MNIST(mode="train"), list(range(512)))
+    a.fit(data, batch_size=64, epochs=1, verbose=0)
+    a.save(str(tmp_path / "m"))
+    b = model(1)
+    b.load(str(tmp_path / "m"))
+    for x, y in zip(a.network.state_dict().values(),
+                    b.network.state_dict().values()):
+        assert y.is_cuda and torch.equal(x, y)
+    sa, sb = a._optimizer.state_dict(), b._optimizer.state_dict()
+    assert sorted(sa) == sorted(sb)
+    for k, v in sa.items():
+        if isinstance(v, torch.Tensor):
+            assert sb[k].is_cuda and torch.equal(v.reshape(-1),
+                                                 sb[k].reshape(-1))
+    assert a.evaluate(data, batch_size=128, verbose=0) == \
+        b.evaluate(data, batch_size=128, verbose=0)

@@ -195,8 +195,9 @@ print(json.dumps({
 
 # modules the walk must reach, the training surface around the step among
 # them (amp, schedulers, clips, flags, the compiled step, recompute), the
-# BERT/ERNIE slice, the conv net slice and the serving slice (inference,
-# serving, resilience, profiler)
+# BERT/ERNIE slice, the conv net slice, the serving slice (inference,
+# serving, resilience, profiler) and the training API slice (io, hapi,
+# metric, losses, vision data)
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -242,6 +243,19 @@ PORT_MODULES = {
     "paddle_tpu_torch.serving.decode.specdecode",
     "paddle_tpu_torch.serving.decode.compiled_decode",
     "paddle_tpu_torch.serving.decode.engine",
+    # the training API slice
+    "paddle_tpu_torch.io", "paddle_tpu_torch.io.worker",
+    "paddle_tpu_torch.vision.datasets", "paddle_tpu_torch.vision.transforms",
+    "paddle_tpu_torch.metric", "paddle_tpu_torch.nn.layer.loss",
+    "paddle_tpu_torch.nn.functional.loss", "paddle_tpu_torch.callbacks",
+    "paddle_tpu_torch.hapi.model", "paddle_tpu_torch.hapi.callbacks",
+    "paddle_tpu_torch.hapi.prefetch", "paddle_tpu_torch.hapi.model_summary",
+    "paddle_tpu_torch.hapi.dynamic_flops",
+    "paddle_tpu_torch.profiler.steptimer",
+    "paddle_tpu_torch.distributed.env",
+    "paddle_tpu_torch.resilience.guard",
+    "paddle_tpu_torch.resilience.preempt",
+    "paddle_tpu_torch.resilience.snapshot",
 }
 
 
