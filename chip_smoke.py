@@ -141,10 +141,33 @@ them, and the kernels line says so.
    capture in the warm-up and none timed, and B1, B2 and B3 12 times
    each in a profiled replay of fit's compiled step.
 
+18. optim (``--phases optim``): the script surface. (a) optim_bert:
+   bert_flash's cell (BERT-base bf16, 8 x 512, B1-B3 non-causal) under
+   each optimizer of the reference's __all__ (LarsMomentum is Lars) and
+   two script-shaped runs (PaddleClas's Momentum + L2Decay(1e-4),
+   PaddleNLP's AdamW without decay on biases and norms and with a
+   layer-wise lr_ratio), each captured: discovery and capture, 3 timed
+   replays, a profiled replay (B1/B2/B3 12 each); the first update
+   (the discovery pass's, on the card) equals the same optimizer's on
+   the host from the card's parameters and grads (f32 relative L2 1e-6,
+   bf16 one ulp of the operands); step ms, device ms and kernels a replay, its
+   multi-tensor kernels and the optimizer's own kernels in an eager
+   step. (b) optim_sparse: GPT-medium's word table (32000 x 1024 f32)
+   with sparse gradients, 4 eager steps of 4 x 1024 ids: one gradient
+   row per id, untouched rows bitwise, SGD sparse = dense within 1e-6,
+   lazy Adam = the host within 1e-6; step ms and gradient bytes. (c)
+   tensor_api: every case of tests/test_torch_tensor_cases.py on the
+   card against the host (f32 1e-6, integers and bools exact). (d)
+   recompute_dropout: BERT-base f32 4 x 256 with dropout 0.1 and every
+   encoder layer recomputed, captured: each replay's loss and grads
+   equal the plain captured step's (1e-5), new masks each replay. The
+   captured GPT-medium, BERT-base and ResNet-50 lanes also print their
+   replay's multi-tensor kernels and the optimizer's own kernels.
+
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi); the kernels line needs every phase and is printed only
-when all run.
+serving, hapi, optim); the kernels line needs every phase and is printed
+only when all run.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -1376,10 +1399,10 @@ def phase_compiled_train(torch, seed, eager):
     reserved = torch.cuda.memory_reserved()
     losses = [loss.item() for loss in losses]
     # a replay of an earlier batch leads in (profiled's ``lead``)
-    _, wall_s, _, prof = profiled(torch, lambda: step(xs[-1], ys[-1]), 1,
-                                  expect={k: cfg.num_layers
-                                          for k in TC_KERNEL_NAMES},
-                                  lead=lambda: step(xs[-2], ys[-2]))
+    trace, wall_s, _, prof = profiled(torch, lambda: step(xs[-1], ys[-1]),
+                                      1, expect={k: cfg.num_layers
+                                                 for k in TC_KERNEL_NAMES},
+                                      lead=lambda: step(xs[-2], ys[-2]))
     step_ms = seconds / TRAIN_STEPS * 1e3
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
     row = {"phase": "compiled_train", "dtype": "bfloat16",
@@ -1403,7 +1426,12 @@ def phase_compiled_train(torch, seed, eager):
            "eager_profile": {k: eager["profile"][k] for k in (
                "device_ms", "wall_ms", "busy_share", "kernel_launches")},
            "losses": losses, "eager_losses": eager["losses"],
-           "curve_rel_gap_max": max(gaps), "curve_rtol": CURVE_RTOL}
+           "curve_rel_gap_max": max(gaps), "curve_rtol": CURVE_RTOL,
+           "replay_foreach_kernels": foreach_kernels(trace,
+                                                     prof["after_us"]),
+           # after every gated number: one more (zero-grad) update
+           "optimizer_eager_step": optimizer_profile(torch, opt,
+                                                     prof["device_ms"])}
     emit(row)
     n = cfg.num_layers
     assert warm == {"compiles": 1, "cache_hits": 2,
@@ -1772,7 +1800,12 @@ def cls_run(torch, arch, cfg, stacks, seed, weight_seed):
            "peak_mem_bytes": peak, "flash_launches": flash,
            "attention_path": "math (s = 128 < 256)",
            "loss_first": losses[0], "loss_every_16th": losses[::16],
-           f"last{CLS_WINDOW}_mean": last, "chance_floor": CLS_FLOOR}
+           f"last{CLS_WINDOW}_mean": last, "chance_floor": CLS_FLOOR,
+           "replay_foreach_kernels": foreach_kernels(trace)}
+    if arch == "bert" and weight_seed == seed:
+        # after every gated number: one more (zero-grad) update
+        row["optimizer_eager_step"] = optimizer_profile(torch, opt,
+                                                        prof["device_ms"])
     emit(row)
     assert warm["compiles"] == 1 and timed == {
         "compiles": 0, "cache_hits": timed_steps, "retrace_warnings": 0}, \
@@ -2204,7 +2237,8 @@ def phase_resnet_train(torch, seed):
            "peak_mem_bytes": peak, "flash_launches": flash,
            "running_stats_moved": moved,
            "loss_first": losses[0], "loss_every_32nd": losses[::32],
-           f"last{RESNET_WINDOW}_mean": last, "chance_floor": RESNET_FLOOR}
+           f"last{RESNET_WINDOW}_mean": last, "chance_floor": RESNET_FLOOR,
+           "replay_foreach_kernels": foreach_kernels(trace)}
     emit(row)
     assert warm["compiles"] == 1 and timed == {
         "compiles": 0, "cache_hits": timed_steps, "retrace_warnings": 0}, \
@@ -2213,7 +2247,15 @@ def phase_resnet_train(torch, seed):
     assert last < RESNET_FLOOR, row
     assert all(v > 0 for v in moved.values()), moved
     assert all(c == 0 for c in flash.values()), flash
-    del stacks, step, opt
+    # the optimizer's own kernels, from an extra (zero-grad) update that
+    # resnet_eval must not see: the trained weights are put back
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    row["optimizer_eager_step"] = optimizer_profile(torch, opt,
+                                                    prof["device_ms"])
+    model.load_state_dict(saved)
+    emit({"phase": "resnet_train", "part": "optimizer",
+          "optimizer_eager_step": row["optimizer_eager_step"]})
+    del stacks, step, opt, saved
     gc.collect()
     torch.cuda.empty_cache()
     return row, model
@@ -3363,8 +3405,529 @@ def phase_hapi_bert(torch, seed):
     return {**row, "launches_per_step": per_step}
 
 
+# --- the script surface (PR 10): every optimizer, sparse grads, the tensor
+# API, recompute with dropout under capture ------------------------------
+
+FOREACH_KERNEL = "multi_tensor_apply"
+# parameters whose first update is recomputed on the host (the optimizer
+# rules are per parameter, so a subset checks the rule; the word table
+# alone would make the host step slow)
+HOST_CHECK_PREFIXES = ("bert.embeddings.layer_norm.", "bert.encoder.layers.0.",
+                       "bert.encoder.layers.11.", "bert.pooler.",
+                       "classifier.")
+OPTIM_TIMED = 3
+# the first update, card against host: f32 tensors by relative L2, bf16
+# ones elementwise within one bf16 ulp of the operands (close_enough)
+OPTIM_F32_RTOL = 1e-6
+OPTIM_BF16_ULP = 2 ** -7
+RECOMPUTE_GRAD_RTOL = 1e-5
+SPARSE_SHAPE = (32000, 1024)
+SPARSE_STEPS = 4
+TENSOR_TOL = {"rtol": 1e-6, "atol": 1e-6}
+
+
+def optim_runs(pt):
+    """The optimizer runs of optim_bert: each class of the reference's
+    __all__ (LarsMomentum is Lars), then two script-shaped variants:
+    PaddleClas's Momentum + L2Decay(1e-4) and PaddleNLP's fine-tuning
+    AdamW (no decay on biases and norms, a layer-wise lr_ratio)."""
+    from paddle_tpu_torch.regularizer import L2Decay
+
+    def no_bias_or_norm(name):
+        return not any(k in name for k in ("bias", "norm"))
+
+    def layerwise(p):
+        m = re.search(r"encoder\.layers\.(\d+)\.", p.name)
+        if m:
+            return 0.8 ** (12 - int(m.group(1)))
+        return 0.8 ** 13 if "embeddings" in p.name else 1.0
+    mp = dict(multi_precision=True)
+    return {
+        "SGD": (pt.optimizer.SGD, dict(learning_rate=1e-3)),
+        "Momentum": (pt.optimizer.Momentum,
+                     dict(learning_rate=1e-3, momentum=0.9, **mp)),
+        "Adam": (pt.optimizer.Adam, dict(learning_rate=1e-4, **mp)),
+        "AdamW": (pt.optimizer.AdamW, dict(learning_rate=1e-4, **mp)),
+        "Adagrad": (pt.optimizer.Adagrad, dict(learning_rate=1e-3)),
+        "Adadelta": (pt.optimizer.Adadelta, dict(learning_rate=1.0)),
+        "Adamax": (pt.optimizer.Adamax, dict(learning_rate=1e-4)),
+        "RMSProp": (pt.optimizer.RMSProp, dict(learning_rate=1e-4,
+                                               momentum=0.9, centered=True)),
+        "Lamb": (pt.optimizer.Lamb, dict(learning_rate=1e-4)),
+        "Lars": (pt.optimizer.Lars, dict(learning_rate=1e-3)),
+        "LarsMomentum": (pt.optimizer.LarsMomentum,
+                         dict(learning_rate=1e-3, momentum=0.8)),
+        "Ftrl": (pt.optimizer.Ftrl, dict(learning_rate=1e-2, l1=1e-4,
+                                         l2=1e-4)),
+        "Momentum+L2Decay (PaddleClas)": (
+            pt.optimizer.Momentum, dict(learning_rate=0.1, momentum=0.9,
+                                        weight_decay=L2Decay(1e-4), **mp)),
+        "AdamW fine-tune (PaddleNLP)": (
+            pt.optimizer.AdamW, dict(learning_rate=5e-5, weight_decay=0.01,
+                                     apply_decay_param_fun=no_bias_or_norm,
+                                     lr_ratio=layerwise, **mp)),
+    }
+
+
+def range_kernels(prof, name):
+    """The kernels launched under the host ranges called ``name``
+    (record_function): [(name, device us)]."""
+    out = []
+
+    def walk(e):
+        out.extend((k.name, k.duration) for k in e.kernels)
+        for c in e.cpu_children:
+            walk(c)
+    for e in prof.events():
+        if e.name == name and str(e.device_type).endswith("CPU"):
+            walk(e)
+    return out
+
+
+def foreach_kernels(prof, after=None):
+    """Device ms and launches of a profile's multi-tensor kernels (the
+    torch._foreach_* passes: the optimizer's, in a replayed step)."""
+    ks = [k for k in kernel_times(prof, after) if FOREACH_KERNEL in k[2]]
+    return {"ms": sum(k[0] for k in ks) / 1e3,
+            "launches": sum(k[1] for k in ks)}
+
+
+def optimizer_profile(torch, opt, replay_device_ms):
+    """The optimizer's own kernels: one eager step on zero grads under a
+    record_function range, after a lead-in step in the same profile (a
+    profile loses its first records), run after the lane's gates: device
+    ms, launches, how many are multi-tensor passes, its share of a
+    replayed step's device time, and its largest kernels."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    params = [p for p in opt._parameter_list if p.requires_grad]
+
+    def zero_grads():
+        for p in params:
+            p.grad = torch.zeros_like(p)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        zero_grads()
+        opt.step()
+        zero_grads()
+        torch.cuda.synchronize()
+        with record_function("optimizer.step"):
+            opt.step()
+        torch.cuda.synchronize()
+    opt.clear_grad()
+    ks = range_kernels(prof, "optimizer.step")
+    by_name = {}
+    for name, us in ks:
+        t, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (t + us, n + 1)
+    ms = sum(us for _, us in ks) / 1e3
+    return {"device_ms": ms, "kernel_launches": len(ks),
+            "foreach_launches": sum(1 for n, _ in ks if FOREACH_KERNEL in n),
+            "share_of_replay_device_ms": ms / replay_device_ms,
+            "parameters": len(params),
+            "top": [{"kernel": n[:90], "ms": t / 1e3, "count": c}
+                    for n, (t, c) in sorted(by_name.items(),
+                                            key=lambda kv: -kv[1][0])[:5]]}
+
+
+def close_enough(torch, got, want, before=None):
+    """(ok, gap, gap as a share of its tolerance) of the first update's
+    tensors, card against host: relative L2 for f32; for bf16 the largest
+    elementwise difference in bf16 ulps of the operands (2^-7 of the
+    larger of the two results and the value before the update: where
+    p - u cancels, one ulp of u is many ulps of the small result)."""
+    if want.dtype == torch.bfloat16:
+        g, w = got.float(), want.float()
+        scale = torch.maximum(g.abs(), w.abs())
+        if before is not None:
+            scale = torch.maximum(scale, before.float().abs())
+        gap = ((g - w).abs() / (OPTIM_BF16_ULP * scale.clamp_min(1e-30))) \
+            .max().item()
+        return gap <= 1.0, gap, gap
+    gap = rel_l2(got.reshape(-1), want.reshape(-1))
+    return gap <= OPTIM_F32_RTOL, gap, gap / OPTIM_F32_RTOL
+
+
+def record_first_update(torch, opt, picked):
+    """Wrap ``opt.step`` so that its first call saves, on the host, the
+    picked parameters and grads before and the parameters and
+    accumulators after; later calls are the optimizer's own."""
+    rec = {}
+    real = opt.step
+
+    def step():
+        del opt.step                       # the class's own from now on
+        def host(t):
+            return t.detach().to("cpu", copy=True)
+        rec["before"] = {n: host(p) for n, p in picked}
+        rec["grads"] = {n: host(p.grad) for n, p in picked}
+        real()
+        rec["after"] = {n: host(p) for n, p in picked}
+        names = {n for n, _ in picked}
+        rec["state"] = {k: host(v)
+                        for k, v in opt.state_dict().items()
+                        if isinstance(v, torch.Tensor)
+                        and k.rsplit("__", 1)[0] in names}
+    opt.step = step
+    return rec
+
+
+def host_first_update(torch, pt, cls, kw, rec):
+    """The same optimizer's first update on the host from the card's
+    parameters and grads: [(tensor name, ok, gap)], worst first."""
+    params = []
+    for n, v in rec["before"].items():
+        p = pt.Parameter(v.clone())
+        p.name = n
+        p.grad = rec["grads"][n].clone()
+        params.append(p)
+    opt = cls(parameters=params, **kw)
+    opt.step()
+    gaps = [(n, *close_enough(torch, rec["after"][n], p.detach(),
+                              rec["before"][n]))
+            for n, p in zip(rec["before"], params)]
+    host_state = opt.state_dict()
+    assert sorted(host_state) == sorted(rec["state"]), (
+        sorted(host_state)[:4], sorted(rec["state"])[:4])
+    gaps += [(k, *close_enough(torch, rec["state"][k], v.detach()))
+             for k, v in host_state.items()]
+    return sorted(gaps, key=lambda g: -g[3])
+
+
+def phase_optim_bert(torch, seed):
+    """optim_bert: bert_flash's cell (BERT-base bf16, 8 x 512, dropout 0,
+    no mask: B1, B2 and B3 non-causal, 12 of each a step) under each
+    optimizer run of ``optim_runs``, from the same weights: the step
+    captured through CompiledTrainStep, the discovery pass and the
+    capture (warm-up), 3 timed replays, a profiled replay after a lead-in
+    one. Gates per run: the first update (the discovery pass's, eager on
+    the card) equals the same optimizer's on the host from the card's
+    parameters and grads (HOST_CHECK_PREFIXES), f32 relative L2 1e-6 and
+    bf16 one ulp; finite losses; no compile timed; B1/B2/B3 12 each per
+    replay. Prints step ms, device ms and kernels a replay, the
+    multi-tensor kernels in the replay and the optimizer's own kernels
+    in an eager step."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0
+    b, s = BERT_FLASH_SHAPE[:2]
+    n = cfg.num_layers
+    calls = 2 + OPTIM_TIMED + 2
+    (xs, ys), = cls_stream(seed + 5, 1, calls, b, s, cfg.vocab_size)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = bert_model(torch, cfg, seed)
+    model.bfloat16()
+    model.train()
+    for name, p in model.named_parameters():
+        p.name = name
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    picked = [(name, p) for name, p in model.named_parameters()
+              if name.startswith(HOST_CHECK_PREFIXES)]
+    assert pt.optimizer.LarsMomentum is pt.optimizer.Lars
+    rows, per_replay = [], []
+    t_phase = time.perf_counter()
+    for label, (cls, kw) in optim_runs(pt).items():
+        model.load_state_dict(init)
+        opt = cls(parameters=model.parameters(), **kw)
+        rec = record_first_update(torch, opt, picked)
+        step = CompiledTrainStep(train_step_fn(model, opt),
+                                 label=f"optim_{cls.__name__}")
+        reset_compile_stats()
+        losses = [step(xs[i], ys[i]) for i in range(2)]
+        torch.cuda.synchronize()
+        warm = compile_stats()
+        reset_compile_stats()
+        t0 = time.perf_counter()
+        for i in range(2, 2 + OPTIM_TIMED):
+            losses.append(step(xs[i], ys[i]))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        timed = compile_stats()
+        i = 2 + OPTIM_TIMED
+        trace, wall_s, _, prof = profiled(
+            torch, lambda: step(xs[i + 1], ys[i + 1]), 1,
+            expect={k: n for k in TC_KERNEL_NAMES},
+            lead=lambda: step(xs[i], ys[i]))
+        foreach = foreach_kernels(trace, prof["after_us"])
+        eager_opt = optimizer_profile(torch, opt, prof["device_ms"])
+        gaps = host_first_update(torch, pt, cls, kw, rec)
+        losses = [loss.item() for loss in losses]
+        row = {"phase": "optim_bert", "optimizer": label,
+               "class": cls.__name__,
+               "config": "BERT-base v30522 h768 L12 a12 d64 bf16, batch "
+                         f"{b} x {s}, B1-B3 non-causal",
+               "step_ms": seconds / OPTIM_TIMED * 1e3,
+               "tokens_per_s": b * s * OPTIM_TIMED / seconds,
+               "compile_stats_warmup": warm, "compile_stats_timed": timed,
+               "replay_device_ms": prof["device_ms"],
+               "replay_kernel_launches": prof["kernel_launches"],
+               "replay_graph_launches": prof["graph_launches"],
+               "flash_launches_per_replay": prof["flash_launches"],
+               "replay_foreach_kernels": foreach,
+               "optimizer_eager_step": eager_opt,
+               "first_update_host_check": {
+                   "tensors": len(gaps), "worst": gaps[:3],
+                   "f32_rel_l2_tol": OPTIM_F32_RTOL,
+                   "bf16_ulp_tol": OPTIM_BF16_ULP},
+               "losses": losses}
+        emit(row)
+        assert all(g[1] for g in gaps), (label, gaps[:5])
+        assert all(np.isfinite(losses)), (label, losses)
+        assert timed == {"compiles": 0, "cache_hits": OPTIM_TIMED,
+                         "retrace_warnings": 0}, (label, timed)
+        assert prof["flash_launches"] == {k: n for k in TC_KERNEL_NAMES}, \
+            (label, prof["flash_launches"])
+        rows.append(row)
+        per_replay.append(prof["flash_launches"])
+        del step, opt, rec
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "optim_bert", "part": "summary",
+          "seconds": time.perf_counter() - t_phase,
+          "step_ms": {r["optimizer"]: r["step_ms"] for r in rows},
+          "optimizer_eager_device_ms": {
+              r["optimizer"]: r["optimizer_eager_step"]["device_ms"]
+              for r in rows}})
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {f"{k}.{fa.TC}": min(c[k] for c in per_replay)
+            for k in TC_KERNEL_NAMES}
+
+
+def phase_optim_sparse(torch, seed):
+    """optim_sparse: GPT-medium's word embedding (32000 x 1024, f32) with
+    sparse=True, trained eagerly for 4 steps on 4 x 1024-token batches of
+    bench's stream, loss the mean square of the looked-up rows; with SGD
+    against the same table and batches with sparse=False, and with
+    Adam(lazy_mode=True) against the same run on the host. Gates: each
+    gradient is sparse with one row per token; rows (and Adam's moments)
+    that no id touched stay bitwise; SGD's sparse table equals its dense
+    one within 1e-6; lazy Adam's table and moments equal the host's
+    within 1e-6. Prints the sparse and dense step ms and the gradient's
+    bytes against the dense table's."""
+    import paddle_tpu_torch as pt
+    vocab, dim = SPARSE_SHAPE
+    xs, _ = bench_stream(seed, SPARSE_STEPS, 4, 1024, sub=vocab)
+    touched = np.zeros(vocab, bool)
+    touched[np.unique(xs)] = True
+
+    def run(opt_name, sparse, device, **kw):
+        emb = pt.nn.Embedding(vocab, dim, sparse=sparse, device=device,
+                              generator=pt.make_generator(seed))
+        w0 = emb.weight.detach().clone()
+        opt = getattr(pt.optimizer, opt_name)(parameters=emb.parameters(),
+                                              **kw)
+        times, nnz, grad_bytes = [], [], 0
+        for x in xs:
+            ids = torch.from_numpy(x).to(device)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = (emb(ids) ** 2).mean()
+            loss.backward()
+            g = emb.weight.grad
+            if sparse:
+                assert g.is_sparse, "the embedding's gradient is dense"
+                nnz.append(int(g._values().shape[0]))
+                grad_bytes = g._values().nbytes + g._indices().nbytes
+            else:
+                grad_bytes = g.nbytes
+            opt.step()
+            opt.clear_grad()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return emb.weight.detach(), w0, opt, times, nnz, grad_bytes
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {}
+    sgd_s, w0, _, sgd_s_ms, nnz, sparse_bytes = run("SGD", True, "cuda",
+                                                    learning_rate=0.5)
+    sgd_d, _, _, sgd_d_ms, _, dense_bytes = run("SGD", False, "cuda",
+                                                learning_rate=0.5)
+    untouched = torch.from_numpy(~touched).cuda()
+    out["sgd"] = {"sparse_step_ms": sgd_s_ms, "dense_step_ms": sgd_d_ms,
+                  "nnz_rows": nnz, "tokens_per_batch": xs[0].size,
+                  "sparse_vs_dense_max_abs": (sgd_s - sgd_d).abs().max()
+                  .item(),
+                  "untouched_rows_bitwise": bool(torch.equal(
+                      sgd_s[untouched], w0[untouched]))}
+    adam_kw = dict(learning_rate=1e-3, lazy_mode=True)
+    ad, w0, opt, ad_ms, nnz_a, _ = run("Adam", True, "cuda", **adam_kw)
+    m = opt._accumulators["moment1"][id(opt._parameter_list[0])]
+    host, _, hopt, _, _, _ = run("Adam", True, "cpu", **adam_kw)
+    hm = hopt._accumulators["moment1"][id(hopt._parameter_list[0])]
+    out["adam_lazy"] = {
+        "step_ms": ad_ms, "nnz_rows": nnz_a,
+        "card_vs_host_rel_l2": rel_l2(ad.cpu(), host),
+        "moment1_card_vs_host_rel_l2": rel_l2(m.cpu(), hm),
+        "untouched_rows_bitwise": bool(torch.equal(ad[untouched],
+                                                   w0[untouched])),
+        "untouched_moments_zero": bool((m[untouched] == 0).all())}
+    row = {"phase": "optim_sparse", "table": list(SPARSE_SHAPE),
+           "dtype": "float32", "steps": SPARSE_STEPS, "batch": [4, 1024],
+           "touched_rows": int(touched.sum()),
+           "grad_bytes_sparse": sparse_bytes, "grad_bytes_dense": dense_bytes,
+           "grad_bytes_ratio": sparse_bytes / dense_bytes, **out}
+    emit(row)
+    assert all(c == xs[0].size for c in nnz + nnz_a), (nnz, nnz_a)
+    assert out["sgd"]["untouched_rows_bitwise"], out["sgd"]
+    assert out["sgd"]["sparse_vs_dense_max_abs"] <= 1e-6, out["sgd"]
+    a = out["adam_lazy"]
+    assert a["untouched_rows_bitwise"] and a["untouched_moments_zero"], a
+    assert a["card_vs_host_rel_l2"] <= 1e-6, a
+    assert a["moment1_card_vs_host_rel_l2"] <= 1e-6, a
+    return row
+
+
+def phase_tensor_api(torch):
+    """tensor_api: every case of tests/test_torch_tensor_cases.py (the
+    host parity file's cases) through the port on the card, held against
+    the same case through the port on the host: f32 within rtol 1e-6 /
+    atol 1e-6 (a decomposition or solve within its own host tolerance,
+    1e-4 / 1e-5), integers and bools exactly, random draws by shape,
+    dtype and what their distribution guarantees."""
+    import paddle_tpu_torch as pt
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from test_torch_tensor_cases import CASES
+
+    def numpy(out):
+        if isinstance(out, (list, tuple)):
+            return [numpy(o) for o in out]
+        if isinstance(out, torch.Tensor):
+            t = out.detach().cpu()
+            return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+        return np.asarray(out)
+
+    def run(c, device):
+        pt.set_device(device)
+        pt.seed(0)
+        out = numpy(c.fn(pt, *[pt.to_tensor(a) for a in c.arrays]))
+        return c.post(c.arrays, out) if c.post is not None else out
+
+    def same(a, b, tol):
+        if isinstance(b, (list, tuple)):
+            return len(a) == len(b) and all(same(x, y, tol)
+                                            for x, y in zip(a, b))
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.dtype.kind in "fc":
+            return bool(np.allclose(a, b, equal_nan=True, **tol))
+        return bool(np.array_equal(a, b))
+    t0 = time.perf_counter()
+    failed, functions = [], set()
+    before = pt.get_device()
+    try:
+        for c in CASES:
+            tol = {k: max(v, c.tol.get(k, 0.0)) for k, v in TENSOR_TOL.items()}
+            if not same(run(c, "gpu"), run(c, "cpu"), tol):
+                failed.append(c.id)
+            functions.add(c.function)
+    finally:
+        pt.set_device(before)
+    row = {"phase": "tensor_api", "cases": len(CASES),
+           "functions": len(functions), "failed": failed,
+           "tolerance": TENSOR_TOL, "seconds": time.perf_counter() - t0}
+    emit(row)
+    assert not failed, failed
+    return row
+
+
+def phase_recompute_dropout(torch, seed):
+    """recompute_dropout: BERT-base f32 at 4 x 256 with hidden and
+    attention dropout 0.1 drawn from one CUDA generator, every encoder
+    layer under fleet.utils.recompute, the forward-and-backward step
+    captured through to_static; against the same step without recompute
+    from the same generator state. Gates: the first replay's loss and
+    grads equal the plain step's (grads within relative L2 1e-5); so do
+    the second replay's, on the same batch, whose loss differs from the
+    first's (new masks); no compile in the replays after the capture."""
+    import functools
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fleet.utils import recompute
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.base()
+    cfg.dropout = 0.1
+    (xs, ys), = cls_stream(seed + 9, 1, 1, 4, 256, cfg.vocab_size)
+    x, y = torch.from_numpy(xs[0]).cuda(), torch.from_numpy(ys[0]).cuda()
+    runs = {}
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = bert_model(torch, cfg, seed).train()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for m in model.modules():
+            if hasattr(m, "_generator"):
+                m._generator = gen
+        if remat:
+            for layer in model.bert.encoder.layers:
+                layer.forward = functools.partial(recompute, layer.forward)
+        params = [p for p in model.parameters() if p.requires_grad]
+
+        @pt.jit.to_static
+        def step_fn(x, y):
+            for p in params:
+                if p.grad is not None:
+                    p.grad.zero_()
+            loss = model(x, labels=y)
+            loss.backward()
+            return loss.float()
+        step = CompiledTrainStep(step_fn, label=f"recompute_{remat}")
+        step(x, y)                                   # discovery
+        reset_compile_stats()
+        first = step(x, y).item()                    # capture + replay 1
+        grads1 = {n: p.grad.detach().clone()
+                  for n, p in model.named_parameters()}
+        warm = compile_stats()
+        reset_compile_stats()
+        second = step(x, y).item()                   # replay 2
+        grads2 = {n: p.grad.detach().clone()
+                  for n, p in model.named_parameters()}
+        for _ in range(2):
+            step(x, y)
+        torch.cuda.synchronize()
+        runs[remat] = {"losses": [first, second], "grads": [grads1, grads2],
+                       "compile_stats_capture": warm,
+                       "compile_stats_replays": compile_stats()}
+        del model, step, step_fn, params
+    plain, remat = runs[False], runs[True]
+    gaps = [max(rel_l2(remat["grads"][k][n], g) for n, g in
+                plain["grads"][k].items()) for k in (0, 1)]
+    row = {"phase": "recompute_dropout",
+           "config": "BERT-base f32 v30522 h768 L12 a12, 4 x 256, hidden "
+                     "and attention dropout 0.1, recompute on every "
+                     "encoder layer, captured",
+           "losses_recompute": remat["losses"],
+           "losses_plain": plain["losses"],
+           "grad_rel_l2_worst_replay1": gaps[0],
+           "grad_rel_l2_worst_replay2": gaps[1],
+           "grad_rtol": RECOMPUTE_GRAD_RTOL,
+           "compile_stats_replays": remat["compile_stats_replays"]}
+    emit(row)
+    assert remat["compile_stats_replays"]["compiles"] == 0, row
+    assert remat["losses"][0] != remat["losses"][1], row
+    assert max(gaps) <= RECOMPUTE_GRAD_RTOL, row
+    for k in (0, 1):
+        assert abs(remat["losses"][k] - plain["losses"][k]) \
+            <= 1e-5 * abs(plain["losses"][k]), row
+    return row
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
-                   vision, serving, hapi):
+                   vision, serving, hapi, optim):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -3405,6 +3968,9 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                 "launches_hapi": {
                     lane: counts.get(variant, counts.get(kernel, 0))
                     for lane, counts in hapi.items()},
+                "launches_optim": {
+                    lane: counts.get(variant, 0)
+                    for lane, counts in optim.items()},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -3501,7 +4067,8 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
-                "to_static_grad", "bert", "vision", "serving", "hapi")
+                "to_static_grad", "bert", "vision", "serving", "hapi",
+                "optim")
 
 
 def main():
@@ -3597,12 +4164,30 @@ def main():
             r["phase"]: r["seconds"]
             for r in (lenet_row, resnet_row, bert_row)}})
 
+    if "optim" in run:
+        from paddle_tpu_torch.ops.cuda import launch_counts
+        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+        t_group = time.perf_counter()
+        lanes = {}
+        launch_counts.clear()
+        lanes["optim_bert"] = phase_optim_bert(torch, args.seed)
+        for lane, fn in (("optim_sparse", phase_optim_sparse),
+                         ("tensor_api", lambda t, _: phase_tensor_api(t)),
+                         ("recompute_dropout", phase_recompute_dropout)):
+            launch_counts.clear()
+            fn(torch, args.seed)
+            lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                           if k.split(".")[0] in KERNEL_NAMES}
+            assert not any(lanes[lane].values()), (lane, lanes[lane])
+        out["optim"] = lanes
+        emit({"phase": "optim", "seconds": time.perf_counter() - t_group})
+
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
             out["compiled"], out["amp"], out["bert"], out["vision"],
-            out["serving"], out["hapi"])})
+            out["serving"], out["hapi"], out["optim"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

@@ -22,21 +22,34 @@ Models serve through ``inference`` (``Config``, ``Predictor``: a CUDA
 graph per input signature) and ``serving`` (``InferenceServer``: bounded
 queue, admission control, shape-bucketed batching, replicas behind a
 scheduler, and the continuous-batching ``DecodeEngine``).
+Around them a script has the rest of the surface: every optimizer of the
+reference (``optimizer``; multi-tensor passes, parameter groups,
+``minimize``, sparse updates), ``ParamAttr`` and ``regularizer``,
+``nn.Embedding(sparse=True)``, ``set_device`` and the functional tensor
+API (``to_tensor``, ``concat``, ``gather``, ``topk``, ``einsum``, ...;
+``tensor/``), exported here.
 Tensors are plain ``torch.Tensor``s: there is no paddle Tensor facade,
-``loss.backward()`` is torch's, and ``no_grad`` is torch's.
+``loss.backward()`` is torch's, and ``no_grad`` is torch's; the
+reference's patched Tensor methods are functions here (``cast`` for
+``astype``).
 """
 from torch import no_grad
 
 from . import (amp, callbacks, distributed, hapi, inference, io, jit,
-               metric, nn, optimizer, serving, vision)
-from .core.device import CPUPlace, CUDAPlace
+               metric, nn, optimizer, regularizer, serving, tensor, vision)
+from .core.device import (CPUPlace, CUDAPlace, device_count, get_device,
+                          set_device)
 from .core.random import make_generator, seed
 from .framework.flags import get_flags, set_flags
 from .framework.io_utils import load, load_numpy_state_dict, save
+from .framework.param_attr import ParamAttr, Parameter
 from .hapi import Model, flops, summary
+from .tensor import *  # noqa: F401,F403
 
-__all__ = ["CPUPlace", "CUDAPlace", "make_generator", "seed", "load",
+__all__ = ["CPUPlace", "CUDAPlace", "set_device", "get_device",
+           "device_count", "make_generator", "seed", "load",
            "load_numpy_state_dict", "save", "amp", "callbacks",
            "distributed", "hapi", "inference", "io", "jit", "metric", "nn",
-           "optimizer", "serving", "vision", "Model", "summary", "flops",
-           "no_grad", "get_flags", "set_flags"]
+           "optimizer", "regularizer", "serving", "tensor", "vision",
+           "Model", "summary", "flops", "no_grad", "get_flags", "set_flags",
+           "ParamAttr", "Parameter", *tensor.__all__]

@@ -17,8 +17,11 @@ forward saw them when the rerun happens inside ``loss.backward()``:
   of the device when it has none): their states are saved when the
   forward runs and restored around the rerun, then put back, so the
   rerun draws the forward's masks. Inside a step being captured as a
-  CUDA graph a generator's state cannot be saved that way, and such a
-  function raises; a function that draws nothing saves nothing.
+  CUDA graph a generator's state cannot be saved that way: there the
+  rerun switches each generator to a state of its own that the capture's
+  discovery pass planned and the graph replays in step with the forward
+  (core/random.py ``RerunPlan``), so each replay's rerun draws that
+  replay's forward masks. A function that draws nothing saves nothing.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ...amp.auto_cast import restore, snapshot
+from ...core.random import rerun_region
 
 __all__ = ["recompute"]
 
@@ -76,25 +80,42 @@ def _as_in_forward(amp_state, gens, states):
             g.set_state(s)
 
 
+@contextlib.contextmanager
+def _on_planned_states(amp_state, planned):
+    """The captured rerun: the forward's amp state, and each generator
+    switched to its planned state (graph-safe), then back."""
+    amp_now = snapshot()
+    live = [g.graphsafe_get_state() for g, _ in planned]
+    restore(amp_state)
+    for g, state in planned:
+        g.graphsafe_set_state(state)
+    try:
+        yield
+    finally:
+        restore(amp_now)
+        for (g, _), state in zip(planned, live):
+            g.graphsafe_set_state(state)
+
+
 def recompute(function, *args, **kwargs):
     """``function(*args, **kwargs)``, its activations recomputed in the
     backward (module docstring)."""
     preserve = kwargs.pop("preserve_rng_state", True)
     kwargs.pop("use_reentrant", None)
     gens = _generators(function, args) if preserve else []
-    if gens and any(isinstance(t, torch.Tensor) and t.is_cuda for t in args) \
-            and torch.cuda.is_current_stream_capturing():
-        raise NotImplementedError(
-            "recompute of a layer that draws dropout masks inside a step "
-            "being captured as a CUDA graph: the generators' states cannot "
-            "be saved there; train it with dropout 0, without recompute, or "
-            "with FLAGS_compiled_step=0")
     amp_state = snapshot()
-    states = [g.get_state() for g in gens]
+    planned = rerun_region(gens) if gens else None
+    if planned is not None:
+        def rerun():
+            return _on_planned_states(amp_state, planned)
+    else:
+        states = [g.get_state() for g in gens]
+
+        def rerun():
+            return _as_in_forward(amp_state, gens, states)
 
     def contexts():
-        return contextlib.nullcontext(), _as_in_forward(amp_state, gens,
-                                                        states)
+        return contextlib.nullcontext(), rerun()
 
     return checkpoint(function, *args, use_reentrant=False,
                       preserve_rng_state=False, context_fn=contexts, **kwargs)

@@ -13,10 +13,12 @@ call. Here a program is a ``torch.cuda.CUDAGraph``:
   the side stream the capture uses. They create what a step creates once
   (optimizer accumulators and masters, the guard's verdicts, the kernel
   libraries, cuBLAS's handles) and note the explicit random generators
-  the step draws from (core/random.py).
+  the step draws from (core/random.py) and, on the card, where its
+  recomputed regions draw (``RerunPlan``).
 - Build: on CUDA inputs the next call copies its tensor arguments into
   static buffers and captures the body as a graph, in one memory pool
-  shared by the function's programs and with those generators
+  shared by the function's programs and with those generators (and the
+  recomputed regions' planned states, synced before every replay)
   registered, then replays it once, so that N calls make N updates as
   eagerly. The capture is ``thread_local``: another thread (the fit
   loop's input prefetcher) may pin, allocate and copy meanwhile. Every
@@ -62,15 +64,36 @@ from __future__ import annotations
 import contextlib
 import functools
 import os
+import threading
 
 import torch
 from torch.autograd.function import once_differentiable
 
-from ..core.random import collect_generators
+from ..core.random import (RerunPlan, collect_generators, play_reruns,
+                           record_reruns)
 from ..framework.flags import get_flag
 from ..ops import _param_guard
 
-__all__ = ["to_static", "StaticFunction", "InputSpec", "enable_to_static"]
+__all__ = ["to_static", "StaticFunction", "InputSpec", "enable_to_static",
+           "in_static_step"]
+
+# how deep the calling thread is inside to_static programs' steps
+_depth = threading.local()
+
+
+def in_static_step():
+    """Whether the calling thread runs inside a to_static step (its
+    discovery pass, its capture or, on the host, its built program)."""
+    return getattr(_depth, "n", 0) > 0
+
+
+@contextlib.contextmanager
+def _static_step():
+    _depth.n = getattr(_depth, "n", 0) + 1
+    try:
+        yield
+    finally:
+        _depth.n -= 1
 
 
 class InputSpec:
@@ -266,15 +289,16 @@ class _GraphedCall(torch.autograd.Function):
 
 
 class _Program:
-    __slots__ = ("stage", "built", "hits", "generators", "internal_backward",
-                 "leaves", "graph", "static_in", "static_out", "diff_out",
-                 "bwd_graph", "grad_out", "grad_in")
+    __slots__ = ("stage", "built", "hits", "generators", "reruns",
+                 "internal_backward", "leaves", "graph", "static_in",
+                 "static_out", "diff_out", "bwd_graph", "grad_out", "grad_in")
 
     def __init__(self):
         self.stage = 0          # discovery passes run
         self.built = False      # captured (CUDA) or past discovery (CPU)
         self.hits = 0           # calls that found the program built
         self.generators = set()
+        self.reruns = None      # the recomputed regions' RerunPlan (card)
         self.internal_backward = False  # the body runs its own backward
         self.leaves = []        # the leaves requiring grad it reaches
         self.graph = None
@@ -361,6 +385,10 @@ class StaticFunction:
         """One call of the program under ``key``: a discovery pass, a build
         and replay, or a replay. Returns (outputs, the program, whether the
         outputs are the graph's static buffers)."""
+        with _static_step():
+            return self._step_in(key, args, kwargs)
+
+    def _step_in(self, key, args, kwargs):
         prog = self._programs.get(key)
         if prog is None or prog.stage < _discovery_passes():
             return (*self._discover(key, prog, args, kwargs), False)
@@ -374,6 +402,8 @@ class StaticFunction:
         with torch.no_grad():
             for dst, src in zip(prog.static_in, leaves):
                 dst.copy_(src)
+        if prog.reruns is not None:
+            prog.reruns.sync()
         prog.graph.replay()
         self._replays += 1
         return prog.static_out, prog, True
@@ -392,10 +422,11 @@ class StaticFunction:
             if device is None:
                 out = self._fn(*args, **kwargs)
             else:
+                prog.reruns = RerunPlan(device)
                 side = self._side_stream(device)
                 current = torch.cuda.current_stream(device)
                 side.wait_stream(current)
-                with torch.cuda.stream(side):
+                with torch.cuda.stream(side), record_reruns(prog.reruns):
                     out = self._fn(*args, **kwargs)
                 current.wait_stream(side)
                 for t in _flatten_tensors(out, []):
@@ -427,6 +458,7 @@ class StaticFunction:
                     f"generator, which this torch cannot register with a "
                     f"CUDA graph; use the default generator")
             graph.register_generator_state(gen)
+        prog.reruns.register(graph)
         # outer grad flow: a body that runs no backward of its own, called
         # with grad enabled, whose outputs depend on something that
         # requires grad, gets its backward captured too
@@ -441,9 +473,9 @@ class StaticFunction:
         side = self._side_stream(device)
         bwd_graph = grad_out = grad_in = None
         try:
-            with torch.cuda.device(device), torch.cuda.graph(
-                    graph, pool=self._pool, stream=side,
-                    capture_error_mode="thread_local"):
+            with torch.cuda.device(device), play_reruns(prog.reruns), \
+                    torch.cuda.graph(graph, pool=self._pool, stream=side,
+                                     capture_error_mode="thread_local"):
                 out = self._fn(*s_args, **s_kwargs)
             outs = _flatten_tensors(out, [])
             diff_out = [t.requires_grad for t in outs]
@@ -451,6 +483,7 @@ class StaticFunction:
                 grad_out = [torch.empty_like(t)
                             for t, d in zip(outs, diff_out) if d]
                 bwd_graph = torch.cuda.CUDAGraph()
+                prog.reruns.register(bwd_graph)
                 with torch.cuda.device(device), torch.cuda.graph(
                         bwd_graph, pool=self._pool, stream=side,
                         capture_error_mode="thread_local"):

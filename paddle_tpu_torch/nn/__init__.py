@@ -1,5 +1,6 @@
 """paddle.nn: the layers the GPT, BERT/ERNIE and conv net slices use, and
 every loss layer of the reference."""
+from ..framework.param_attr import ParamAttr
 from . import functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer import loss as _loss
@@ -11,7 +12,7 @@ from .layer import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
                     TransformerDecoder, TransformerDecoderLayer,
                     TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "initializer", "AdaptiveAvgPool2D", "AvgPool2D",
+__all__ = ["functional", "initializer", "ParamAttr", "AdaptiveAvgPool2D", "AvgPool2D",
            "BatchNorm", "BatchNorm1D", "BatchNorm2D", "Conv2D", "Dropout",
            "Embedding", "Layer", "LayerList", "LayerNorm", "Linear",
            "MaxPool2D", "MultiHeadAttention", "ReLU", "Sequential",

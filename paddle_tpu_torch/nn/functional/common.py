@@ -23,10 +23,27 @@ def linear(x, weight, bias=None):
     return out if bias is None else out + bias
 
 
-def embedding(x, weight):
-    """Gather rows of ``weight`` (int32 or int64 ids)."""
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Gather rows of ``weight`` (int32 or int64 ids). Positions equal to
+    ``padding_idx`` (negative: counted from the end) give zero rows and
+    add nothing to the weight's gradient. ``sparse=True`` makes the
+    weight's gradient a sparse COO tensor (one row per id, duplicates
+    accumulating; core/selected_rows.py) in plain eager mode on a leaf
+    weight; inside a ``to_static`` step, and for a computed weight, the
+    gradient is dense, as in the reference (a sparse gradient never
+    enters a CUDA graph)."""
     weight, = amp_cast("embedding", weight)
-    return torch.nn.functional.embedding(x, weight)
+    if padding_idx is not None and padding_idx < 0:
+        padding_idx += weight.shape[0]
+    if sparse:
+        from ...jit.to_static import in_static_step
+        sparse = (weight.is_leaf and weight.requires_grad
+                  and torch.is_grad_enabled() and not in_static_step())
+    out = torch.nn.functional.embedding(x, weight, padding_idx=padding_idx,
+                                        sparse=sparse)
+    if padding_idx is not None:
+        out = out * (x != padding_idx).unsqueeze(-1).to(out.dtype)
+    return out
 
 
 def dropout(x, p=0.5, training=True, generator=None):

@@ -1,6 +1,8 @@
 """Linear, Embedding, Dropout (port of paddle_tpu/nn/layer/common.py)."""
 from __future__ import annotations
 
+import torch
+
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
@@ -32,17 +34,30 @@ class Linear(Layer):
 
 
 class Embedding(Layer):
-    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 **factory):
+    """A lookup table (num_embeddings, embedding_dim) drawn from N(0, 1);
+    the ``padding_idx`` row starts at zero and its positions give zero
+    rows. ``sparse=True``: the weight's gradient is a sparse COO tensor
+    in eager mode (F.embedding)."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, **factory):
         super().__init__(**factory)
         self._num_embeddings = num_embeddings
         self._embedding_dim = embedding_dim
+        self._sparse = sparse
+        self._padding_idx = (None if padding_idx is None else
+                             padding_idx if padding_idx >= 0
+                             else num_embeddings + padding_idx)
         self.weight = self.create_parameter(
             shape=[num_embeddings, embedding_dim], attr=weight_attr,
             default_initializer=I.Normal(0.0, 1.0))
+        if self._padding_idx is not None:
+            with torch.no_grad():
+                self.weight[self._padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"

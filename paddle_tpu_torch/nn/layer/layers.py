@@ -13,6 +13,7 @@ import torch
 
 from ...core.device import resolve_device
 from ...core.dtypes import convert_dtype
+from ...framework.param_attr import ParamAttr, Parameter
 from .. import initializer as I
 
 __all__ = ["Layer"]
@@ -32,18 +33,27 @@ class Layer(torch.nn.Module):
 
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,
                          default_initializer=None):
-        """``attr`` is None, False (no parameter: returns None) or an
-        Initializer, which wins over ``default_initializer``. Without
-        either, biases start at 0 and weights XavierNormal."""
+        """``attr`` is None, False (no parameter: returns None), a name, an
+        Initializer or a ParamAttr. The attribute's initializer wins over
+        ``default_initializer``; without either, biases start at 0 and
+        weights XavierNormal. The Parameter carries the attribute's
+        ``name``, ``trainable`` (as ``requires_grad``), ``optimize_attr``,
+        ``regularizer`` and ``need_clip``, which the optimizer and the
+        grad clips read."""
+        attr = ParamAttr._to_attr(attr)
         if attr is False:
             return None
-        init = attr if isinstance(attr, I.Initializer) else \
-            default_initializer
+        init = attr.initializer or default_initializer
         if init is None:
             init = I.Constant(0.0) if is_bias else I.XavierNormal()
         value = init(shape, convert_dtype(dtype) or self._dtype,
                      self._device, self._generator)
-        return torch.nn.Parameter(value)
+        p = Parameter(value, requires_grad=attr.trainable)
+        p.name = attr.name
+        p.optimize_attr = {"learning_rate": attr.learning_rate}
+        p.regularizer = attr.regularizer
+        p.need_clip = attr.need_clip
+        return p
 
     def sublayers(self, include_self=False):
         """Every sublayer, each once, depth first with a layer before its

@@ -7,22 +7,42 @@ value at each replay. Parameters moved after construction
 (``model.to("cuda")`` keeps the Parameter objects) take the lr tensor
 with them at the next ``step()``, which rebinds the scheduler; the first
 step of a captured function runs in its discovery pass, before the
-capture, so the graph reads the moved tensor. Per-parameter accumulators are created lazily
-(``_get_accumulator``), keyed by the parameter. With ``multi_precision`` a
+capture, so the graph reads the moved tensor. ``parameters`` may be a
+list of parameter-group dicts: their ``params`` are flattened, as in the
+reference, and a group that sets anything else raises (the reference
+stores such keys and never reads them; ROADMAP C-ref-10).
+
+``step()``:
+
+1. collects the (parameter, grad) pairs of the trainable parameters;
+2. clips them (``grad_clip``, nn/clip.py); a sparse gradient is merged,
+   its value block clipped, and rebuilt, so it stays sparse;
+3. folds the regularizers into the dense grads (``_apply_decay``): a
+   parameter's own ``ParamAttr`` regularizer, else the optimizer's
+   ``weight_decay`` (a float is an L2 coefficient, or an
+   ``L2Decay``/``L1Decay``; under ``multi_precision`` taken against the
+   f32 master);
+4. hands each sparse gradient to ``_apply_sparse_update`` (densify and
+   update, unless the rule has a row-wise form), and buckets the dense
+   pairs by (device, dtype, multi-precision). Each optimizer's rule
+   (``_update``) then runs once per bucket as ``torch._foreach_*``
+   passes over its lists, with the ops in the order of the reference's
+   per-parameter rule, so the roundings are the same. Parameters,
+   masters and accumulators are updated in place: a captured step keeps
+   its addresses across replays.
+
+Per-parameter accumulators are created lazily (``_get_accumulator``),
+keyed by the parameter; beta powers and bias corrections are f32 0-d
+tensors per parameter whatever its dtype. With ``multi_precision`` a
 bf16/f16 parameter gets an f32 master weight and f32 moments; the update
-runs on the master and the parameter is rewritten from it. ``step()``
-clips the grads (``grad_clip``, nn/clip.py), folds in the L2
-``weight_decay`` and updates the parameters in place under no_grad, so
-the model keeps its Parameter objects.
+runs on the master and the parameter is rewritten from it.
+``minimize(loss)`` runs the backward and the step.
 
 ``state_dict`` uses the reference's keys (``{name}__{accumulator}``, name
 the parameter's ``name`` or ``param_{i}`` by its place in the list, and
 ``LR_Scheduler``), so either package reads the other's optimizer
 checkpoints; ``set_state_dict`` copies into existing tensors in place,
-keeping the addresses a captured step holds. Sparse gradients raise
-NotImplementedError until a later slice brings them (ROADMAP A2);
-parameter groups, per-parameter regularizers and ``minimize`` are not
-ported yet either.
+keeping the addresses a captured step holds.
 """
 from __future__ import annotations
 
@@ -31,13 +51,68 @@ from collections import defaultdict
 import numpy as np
 import torch
 
+from ..core import selected_rows as sr
 from ..framework.io_utils import tensor_from_numpy
 from ..nn.clip import ClipGradBase
+from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
 __all__ = ["Optimizer"]
 
-_LATER = "comes with a later slice of the port (ROADMAP A2)"
+
+def _flatten_groups(parameters):
+    """The parameter list, with parameter-group dicts flattened."""
+    params = list(parameters) if parameters is not None else None
+    if not params or not isinstance(params[0], dict):
+        return params
+    flat = []
+    for group in params:
+        extra = sorted(set(group) - {"params"})
+        if extra:
+            raise NotImplementedError(
+                f"parameter group options {extra}: the reference stores "
+                f"them and never reads them, so the port refuses them "
+                f"instead of ignoring them (ROADMAP C-ref-10)")
+        flat += list(group["params"])
+    return flat
+
+
+def _as_regularizer(weight_decay):
+    """The optimizer-level regularizer: None, a float (an L2 coefficient)
+    or an L2Decay/L1Decay; None where it decays nothing."""
+    if isinstance(weight_decay, WeightDecayRegularizer):
+        return weight_decay if weight_decay.coeff else None
+    if weight_decay is None or isinstance(weight_decay, (int, float)):
+        return L2Decay(weight_decay) if weight_decay else None
+    raise TypeError(f"weight_decay must be a float or an L1Decay/L2Decay, "
+                    f"got {type(weight_decay)}")
+
+
+class _Bucket:
+    """Dense (parameter, grad) pairs of one device, dtype and precision
+    mode: the lists an optimizer's rule runs over. ``work`` is what the
+    rule updates: the f32 masters under multi_precision (the grads cast
+    to f32), else the parameters (the grads in their dtype)."""
+
+    __slots__ = ("params", "grads", "masters")
+
+    def __init__(self, params, grads, masters=None):
+        self.params, self.grads, self.masters = params, grads, masters
+
+    @property
+    def work(self):
+        return self.params if self.masters is None else self.masters
+
+    @property
+    def dtype(self):
+        return self.work[0].dtype
+
+
+def _one_minus(ts):
+    """[1 - t] for 0-d tensors, each rounded once."""
+    out = torch._foreach_neg(ts)
+    torch._foreach_add_(out, 1.0)
+    return out
 
 
 class Optimizer:
@@ -58,14 +133,14 @@ class Optimizer:
         if grad_clip is not None and not isinstance(grad_clip, ClipGradBase):
             raise TypeError(f"grad_clip must be a ClipGradBy* instance, got "
                             f"{type(grad_clip)}")
-        params = list(parameters) if parameters is not None else None
+        params = _flatten_groups(parameters)
         self._parameter_list = params
         device = params[0].device if params else torch.device("cpu")
         self._learning_rate = torch.tensor(lr0, dtype=torch.float32,
                                            device=device)
         if self._lr_scheduler is not None:
             self._lr_scheduler._bind(self._learning_rate)
-        self._weight_decay = weight_decay
+        self._regularizer = _as_regularizer(weight_decay)
         self._grad_clip = grad_clip
         self._accumulators = defaultdict(dict)  # name -> {id(param): tensor}
         self._acc_inits = {}                    # name -> initial value
@@ -82,6 +157,10 @@ class Optimizer:
     @property
     def _lr(self):
         return self._learning_rate
+
+    def _lr_as(self, dtype):
+        """The lr tensor in ``dtype`` (itself in f32)."""
+        return self._lr if dtype == torch.float32 else self._lr.to(dtype)
 
     def _follow_params_device(self):
         """Move the lr tensor to the parameters' device when they moved,
@@ -120,11 +199,27 @@ class Optimizer:
         accs = self._accumulators[name]
         acc = accs.get(id(param))
         if acc is None:
-            shp = tuple(shape) if shape is not None else tuple(param.shape)
-            acc = torch.full(shp, init, dtype=dtype or param.dtype,
-                             device=param.device)
+            if shape is None:
+                # the parameter's own layout (channels_last conv weights):
+                # lists whose strides differ fall off the multi-tensor
+                # kernels onto one launch per tensor
+                acc = torch.full_like(param, init, dtype=dtype or param.dtype)
+            else:
+                acc = torch.full(tuple(shape), init, dtype=dtype
+                                 or param.dtype, device=param.device)
             accs[id(param)] = acc
         return acc
+
+    def _accs(self, name, b, init=0.0, shape=None, f32=False):
+        """A bucket's accumulators ``name``: f32 where ``f32`` or under
+        multi_precision, else in the parameters' dtype."""
+        dtype = torch.float32 if f32 or b.masters is not None else None
+        return [self._get_accumulator(name, p, init, dtype, shape)
+                for p in b.params]
+
+    def _beta_pows(self, name, b):
+        """Each parameter's f32 0-d beta power ``name``, from 1."""
+        return self._accs(name, b, init=1.0, shape=(), f32=True)
 
     # -- main entry points ------------------------------------------------------
     def _collect_params_grads(self):
@@ -133,46 +228,104 @@ class Optimizer:
                 "parameters must be passed to the optimizer in eager mode")
         return [(p, p.grad) for p in self._parameter_list if p.requires_grad]
 
-    def _apply_decay(self, params_grads):
-        """L2 regularization folded into the grads (the optimizer-level
-        ``weight_decay`` coefficient). Decoupled decay (AdamW) overrides
-        ``_apply_update`` instead."""
-        coeff = float(self._weight_decay or 0.0)
-        if not coeff:
-            return params_grads
+    def _clip(self, pairs):
+        """The grad clip over the pairs; a sparse gradient is merged, its
+        value block (whose norm is the dense gradient's) clipped, and
+        rebuilt sparse."""
+        merged = {}
+        proxied = []
+        for i, (p, g) in enumerate(pairs):
+            if g.is_sparse:
+                merged[i] = g = sr.merge(g)
+                g = sr.value(g)
+            proxied.append((p, g))
+        clipped = list(self._grad_clip(proxied))
+        for i, g in merged.items():
+            p, v = clipped[i]
+            clipped[i] = (p, torch.sparse_coo_tensor(
+                g._indices(), v, g.shape, is_coalesced=True))
+        return clipped
+
+    def _apply_decay(self, pairs):
+        """Regularization folded into the dense grads: a parameter's own
+        regularizer (ParamAttr) wins over the optimizer-level one, which
+        under multi_precision is taken against the f32 master (a bf16
+        decay term can round away entirely). Each regularizer's terms are
+        one multi-tensor pass; sparse grads pass undecayed, as in the
+        reference. Decoupled decay (AdamW) is part of its rule instead."""
+        groups = {}
+        for i, (p, g) in enumerate(pairs):
+            own = getattr(p, "regularizer", None)
+            reg = own or self._regularizer
+            if reg is None or g.is_sparse:
+                continue
+            master = own is None and self._mp_active(p)
+            groups.setdefault((id(reg), master), (reg, master, []))[2] \
+                .append(i)
+        out = list(pairs)
+        for reg, master, idx in groups.values():
+            ps = [self._get_master(pairs[i][0]) if master else pairs[i][0]
+                  for i in idx]
+            terms = reg.grad_terms(ps)
+            torch._foreach_add_(terms, [pairs[i][1].float() if master
+                                        else pairs[i][1] for i in idx])
+            for i, t in zip(idx, terms):
+                out[i] = (pairs[i][0], t)
+        return out
+
+    def _buckets(self, pairs):
+        groups = defaultdict(list)
+        for p, g in pairs:
+            groups[(p.device, p.dtype, self._mp_active(p))].append((p, g))
         out = []
-        for p, g in params_grads:
-            if g is not None:
-                if self._mp_active(p):
-                    # f32 decay against the master: a bf16 decay term can
-                    # round away entirely
-                    g = g.float() + coeff * self._get_master(p)
-                else:
-                    g = g + coeff * p
-            out.append((p, g))
+        for (_, dtype, mp), items in groups.items():
+            params = [p for p, _ in items]
+            if mp:
+                out.append(_Bucket(params, [g.float() for _, g in items],
+                                   [self._get_master(p) for p in params]))
+            else:
+                out.append(_Bucket(params, [g.to(dtype) for _, g in items]))
         return out
 
     @torch.no_grad()
     def step(self):
         self._follow_params_device()
-        pairs = self._collect_params_grads()
-        if any(g is not None and g.is_sparse for _, g in pairs):
-            raise NotImplementedError(f"sparse gradients: {_LATER}")
+        pairs = [(p, g) for p, g in self._collect_params_grads()
+                 if g is not None]
         if self._grad_clip is not None:
-            pairs = self._grad_clip(pairs)
+            pairs = self._clip(pairs)
+        dense = []
         for p, g in self._apply_decay(pairs):
-            if g is not None:
-                self._apply_update(p, g)
+            if g.is_sparse:
+                self._apply_sparse_update(p, g)
+            else:
+                dense.append((p, g))
+        for b in self._buckets(dense):
+            self._update(b)
 
-    def _apply_update(self, param, grad):
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """The backward of ``loss`` and one ``step()``; returns (None, None)
+        as the reference's eager path does."""
+        loss.backward()
+        self.step()
+        return None, None
+
+    def _update(self, b):
+        """The optimizer's rule over one bucket."""
         raise NotImplementedError
 
-    def _write(self, p, master, new_w):
-        """Store an update: into the master and then the parameter (rounded
-        to its dtype) with multi_precision, else into the parameter."""
-        if master is not None:
-            master.copy_(new_w)
-        p.copy_(new_w)
+    def _apply_sparse_update(self, p, g):
+        """A sparse gradient. Default: densify (right for every rule);
+        rules with a row-wise form (SGD, Adam's lazy_mode) override."""
+        for b in self._buckets([(p, sr.to_dense(g))]):
+            self._update(b)
+
+    @staticmethod
+    def _store(b):
+        """Round the masters into the parameters (multi_precision)."""
+        if b.masters is not None:
+            torch._foreach_copy_(b.params, b.masters)
 
     def clear_grad(self, set_to_zero=False):
         """Drop the gradients (``p.grad = None``), or zero them in place

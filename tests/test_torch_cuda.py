@@ -1158,3 +1158,238 @@ def test_model_save_and_load_round_trip_on_the_card(card, tmp_path):
                                                  sb[k].reshape(-1))
     assert a.evaluate(data, batch_size=128, verbose=0) == \
         b.evaluate(data, batch_size=128, verbose=0)
+
+
+# -- the script surface (PR 10): the optimizers, sparse embedding gradients,
+# recompute with dropout under capture, the tensor API -------------------------
+
+OPTIMIZER_RUNS = {
+    "SGD": dict(learning_rate=0.1),
+    "Momentum": dict(learning_rate=0.1, momentum=0.9, multi_precision=True),
+    "Adam": dict(learning_rate=0.01, multi_precision=True),
+    "AdamW": dict(learning_rate=0.01, weight_decay=0.1, multi_precision=True,
+                  lr_ratio=lambda p: 0.5),
+    "Adagrad": dict(learning_rate=0.1),
+    "Adadelta": dict(learning_rate=1.0),
+    "Adamax": dict(learning_rate=0.01),
+    "RMSProp": dict(learning_rate=0.01, momentum=0.9, centered=True),
+    "Lamb": dict(learning_rate=0.01),
+    "Lars": dict(learning_rate=0.1),
+    "LarsMomentum": dict(learning_rate=0.1, momentum=0.8),
+    "Ftrl": dict(learning_rate=0.1, l1=0.01, l2=0.01),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("key", sorted(OPTIMIZER_RUNS))
+def test_optimizer_on_card_matches_host(card, key, dtype):
+    """Each optimizer (its multi-tensor passes) under L2Decay(0.01) and
+    ClipGradByGlobalNorm(0.5) on the card and on the host from the same
+    parameters and grads: 3 steps in f32, parameters and every
+    accumulator within relative L2 1e-6; one step in bf16, within one
+    bf16 ulp of the operands (2^-7 of the larger of the results and the
+    value before the step: where p - u cancels, one ulp of u is many ulps
+    of the result)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.regularizer import L2Decay
+    kw = dict(OPTIMIZER_RUNS[key])
+    if dtype == torch.float32:
+        kw.pop("multi_precision", None)
+    if key not in ("AdamW", "Lamb"):
+        kw["weight_decay"] = L2Decay(0.01)
+    rng = np.random.RandomState(4)
+    shapes = [(64, 48), (48,), (300, 17)]
+    inits = [torch.tensor(rng.randn(*s).astype("float32")).to(dtype)
+             for s in shapes]
+    grads = [[torch.tensor(rng.randn(*s).astype("float32")).to(dtype)
+              for s in shapes]
+             for _ in range(3 if dtype == torch.float32 else 1)]
+    out = {}
+    for device in ("cuda", "cpu"):
+        params = [pt.Parameter(t.to(device, copy=True)) for t in inits]
+        for i, p in enumerate(params):
+            p.name = f"p{i}"
+        opt = getattr(pt.optimizer, key)(
+            parameters=params, grad_clip=pt.nn.ClipGradByGlobalNorm(0.5),
+            **kw)
+        for step_grads in grads:
+            for p, g in zip(params, step_grads):
+                p.grad = g.to(device, copy=True)
+            opt.step()
+            opt.clear_grad()
+        out[device] = {**{p.name: p.detach().cpu() for p in params},
+                       **{k: v.detach().cpu()
+                          for k, v in opt.state_dict().items()}}
+    assert sorted(out["cuda"]) == sorted(out["cpu"])
+    before = {f"p{i}": t.float().abs() for i, t in enumerate(inits)}
+    for k, want in out["cpu"].items():
+        got = out["cuda"][k]
+        if want.dtype == torch.bfloat16:
+            scale = torch.maximum(got.float().abs(), want.float().abs())
+            if k in before:
+                scale = torch.maximum(scale, before[k])
+            gap = ((got.float() - want.float()).abs()
+                   / scale.clamp_min(1e-30)).max().item()
+            assert gap <= 2 ** -7, (key, k, gap)
+        else:
+            assert _rel_l2(got.reshape(-1), want.reshape(-1)) <= 1e-6, \
+                (key, k)
+
+
+def test_captured_optimizer_keeps_its_addresses(card):
+    """A captured step's multi-tensor update writes parameters, masters
+    and accumulators in place: their addresses stay across replays and
+    the replayed steps equal eager ones."""
+    import paddle_tpu_torch as pt
+    losses, ptrs = {}, []
+    for compiled in (False, True):
+        pt.set_flags({"FLAGS_compiled_step": compiled})
+        try:
+            torch.manual_seed(0)
+            lin = pt.nn.Linear(32, 8, device=card)
+            opt = pt.optimizer.Lamb(learning_rate=0.01,
+                                    parameters=lin.parameters())
+
+            @pt.jit.to_static
+            def step(x):
+                loss = (lin(x) ** 2).mean()
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                return loss
+            x = torch.ones(4, 32, device=card)
+            got = []
+            for _ in range(5):
+                got.append(step(x).item())
+                if compiled:
+                    ptrs.append([p.data_ptr() for p in lin.parameters()]
+                                + sorted(t.data_ptr() for t in
+                                         opt.state_dict().values()))
+            losses[compiled] = got
+        finally:
+            pt.set_flags({"FLAGS_compiled_step": True})
+    assert all(p == ptrs[1] for p in ptrs[1:])
+    np.testing.assert_allclose(losses[True], losses[False], rtol=1e-6)
+
+
+def test_sparse_embedding_on_card(card):
+    """sparse=True on the card: one gradient row per id; SGD's sparse
+    step equals the dense one; lazy Adam leaves untouched rows bitwise
+    and equals the host's."""
+    import paddle_tpu_torch as pt
+    ids = torch.tensor([[1, 5, 5, 9], [2, 9, 0, 5]])
+    tables = {}
+    for device, sparse, name in (("cuda", True, "SGD"),
+                                 ("cuda", False, "SGD"),
+                                 ("cuda", True, "Adam"),
+                                 ("cpu", True, "Adam")):
+        emb = pt.nn.Embedding(12, 16, sparse=sparse, device=device,
+                              generator=torch.Generator().manual_seed(1))
+        w0 = emb.weight.detach().clone()
+        kw = dict(lazy_mode=True) if name == "Adam" else {}
+        opt = getattr(pt.optimizer, name)(learning_rate=0.1,
+                                          parameters=emb.parameters(), **kw)
+        for _ in range(3):
+            (emb(ids.to(device)) ** 2).sum().backward()
+            g = emb.weight.grad
+            assert g.is_sparse == sparse
+            if sparse:
+                assert g._values().shape[0] == ids.numel()
+            opt.step()
+            opt.clear_grad()
+        tables[(device, sparse, name)] = (emb.weight.detach().cpu(),
+                                          w0.cpu())
+    s, d = tables[("cuda", True, "SGD")], tables[("cuda", False, "SGD")]
+    assert (s[0] - d[0]).abs().max().item() <= 1e-6
+    card_adam, host_adam = tables[("cuda", True, "Adam")], \
+        tables[("cpu", True, "Adam")]
+    untouched = [3, 4, 6, 7, 8, 10, 11]
+    assert torch.equal(card_adam[0][untouched], card_adam[1][untouched])
+    assert _rel_l2(card_adam[0], host_adam[0]) <= 1e-6
+
+
+def test_recompute_with_dropout_under_capture(card):
+    """A GPT with dropout 0.1 from a CUDA generator and recompute, its
+    step captured: each replay's loss and grads equal the same captured
+    step without recompute from the same generator state, and the second
+    replay draws new masks."""
+    import paddle_tpu_torch as pt
+    xs, ys = _stream_batches(card, 1, seed=5)
+    runs = {}
+    for remat in (False, True):
+        cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                        num_heads=2, max_position_embeddings=512,
+                        dropout=0.1, recompute=remat)
+        model = GPTForCausalLM(cfg, device=card,
+                               generator=torch.Generator().manual_seed(0))
+        gen = torch.Generator(device=card).manual_seed(3)
+        for m in model.modules():
+            if hasattr(m, "_generator"):
+                m._generator = gen
+        model.train()
+        params = list(model.parameters())
+
+        @pt.jit.to_static
+        def step(x, y):
+            for p in params:
+                if p.grad is not None:
+                    p.grad.zero_()
+            loss = model(x, labels=y)
+            loss.backward()
+            return loss.float()
+        step(xs[0], ys[0])
+        out = []
+        for _ in range(2):
+            loss = step(xs[0], ys[0]).item()
+            out.append((loss, [p.grad.detach().clone() for p in params]))
+        runs[remat] = out
+    for (lp, gp), (lr, gr) in zip(runs[False], runs[True]):
+        assert abs(lr - lp) <= 1e-6 * abs(lp), (lr, lp)
+        for a, b in zip(gr, gp):
+            assert _rel_l2(a, b) <= 1e-5
+    assert runs[True][0][0] != runs[True][1][0]
+
+
+def test_tensor_api_cases_on_card_match_host(card):
+    """Every case of tests/test_torch_tensor_cases.py on the card against
+    the host: f32 within 1e-6 (a decomposition within its own host
+    tolerance), integers and bools exactly."""
+    import paddle_tpu_torch as pt
+    from test_torch_tensor_cases import CASES
+
+    def run(c, device):
+        pt.set_device(device)
+        pt.seed(0)
+        out = c.fn(pt, *[pt.to_tensor(a) for a in c.arrays])
+
+        def numpy(o):
+            if isinstance(o, (list, tuple)):
+                return [numpy(v) for v in o]
+            if isinstance(o, torch.Tensor):
+                return o.detach().cpu().float().numpy() \
+                    if o.dtype == torch.bfloat16 else o.detach().cpu().numpy()
+            return np.asarray(o)
+        out = numpy(out)
+        return c.post(c.arrays, out) if c.post is not None else out
+
+    def check(a, b, tol, cid):
+        if isinstance(b, (list, tuple)):
+            assert len(a) == len(b), cid
+            for x, y in zip(a, b):
+                check(x, y, tol, cid)
+            return
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.shape == b.shape and a.dtype == b.dtype, cid
+        if a.dtype.kind in "fc":
+            np.testing.assert_allclose(a, b, err_msg=cid, equal_nan=True,
+                                       **tol)
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=cid)
+    before = pt.get_device()
+    try:
+        for c in CASES:
+            tol = {"rtol": max(1e-6, c.tol.get("rtol", 0.0)),
+                   "atol": max(1e-6, c.tol.get("atol", 0.0))}
+            check(run(c, "gpu"), run(c, "cpu"), tol, c.id)
+    finally:
+        pt.set_device(before)

@@ -196,8 +196,9 @@ print(json.dumps({
 # modules the walk must reach, the training surface around the step among
 # them (amp, schedulers, clips, flags, the compiled step, recompute), the
 # BERT/ERNIE slice, the conv net slice, the serving slice (inference,
-# serving, resilience, profiler) and the training API slice (io, hapi,
-# metric, losses, vision data)
+# serving, resilience, profiler), the training API slice (io, hapi,
+# metric, losses, vision data) and the script surface (ParamAttr, the
+# regularizers, sparse rows, devices, the tensor API)
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -256,6 +257,15 @@ PORT_MODULES = {
     "paddle_tpu_torch.resilience.guard",
     "paddle_tpu_torch.resilience.preempt",
     "paddle_tpu_torch.resilience.snapshot",
+    # the script surface
+    "paddle_tpu_torch.framework.param_attr", "paddle_tpu_torch.regularizer",
+    "paddle_tpu_torch.core.selected_rows", "paddle_tpu_torch.core.device",
+    "paddle_tpu_torch.tensor", "paddle_tpu_torch.tensor.attribute",
+    "paddle_tpu_torch.tensor.creation", "paddle_tpu_torch.tensor.einsum",
+    "paddle_tpu_torch.tensor.linalg", "paddle_tpu_torch.tensor.logic",
+    "paddle_tpu_torch.tensor.manipulation", "paddle_tpu_torch.tensor.math",
+    "paddle_tpu_torch.tensor.random", "paddle_tpu_torch.tensor.search",
+    "paddle_tpu_torch.tensor.stat",
 }
 
 

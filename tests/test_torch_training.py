@@ -291,12 +291,16 @@ def test_optimizer_lr_and_clear_grad():
         pt.optimizer.SGD(learning_rate=object(), parameters=[p])
     with pytest.raises(TypeError, match="grad_clip"):
         pt.optimizer.SGD(parameters=[p], grad_clip=1.0)
-    # still to come (ROADMAP A2): AdamW's lr_ratio and sparse grads
-    with pytest.raises(NotImplementedError, match="later slice"):
-        pt.optimizer.AdamW(parameters=[p], lr_ratio=lambda q: 1.0)
-    p.grad = torch.ones(3).to_sparse()
-    with pytest.raises(NotImplementedError, match="later slice"):
-        opt.step()
+    # AdamW's lr_ratio and sparse grads are taken (ROADMAP A2, done): a
+    # sparse grad of ones steps as its dense equivalent does
+    pt.optimizer.AdamW(parameters=[p], lr_ratio=lambda q: 1.0)
+    q = torch.nn.Parameter(torch.ones(3))
+    twin = pt.optimizer.AdamW(learning_rate=0.5, parameters=[q])
+    opt.set_lr(0.5)
+    p.grad, q.grad = torch.ones(3).to_sparse(), torch.ones(3)
+    opt.step()
+    twin.step()
+    assert torch.equal(p.detach(), q.detach())
 
 
 # -- (e) the slice on a tiny GPT -------------------------------------------
