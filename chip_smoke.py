@@ -164,10 +164,37 @@ them, and the kernels line says so.
    captured GPT-medium, BERT-base and ResNet-50 lanes also print their
    replay's multi-tensor kernels and the optimizer's own kernels.
 
+19. surface (``--phases surface``): the common surface. (a) nn_cases:
+   every case of tests/test_torch_nn_cases.py (activations, the common
+   functions, initializers, activation/common/container layers) on the
+   card against the host (f32 1e-6, interpolate and fold 1e-5, integers
+   and bools exact). (b) mobilenet_train, the slice's full-width path:
+   MobileNetV2 (scale 1.0, 1000 classes) built on the host with
+   KaimingNormal through set_global_initializer, saved as .pdparams and
+   loaded into the card's model by set_state_dict(paddle.load(path)),
+   bf16, NHWC, batch 128 at 224 x 224 of bench's prototype stream,
+   Momentum(0.9) + L2Decay(4e-5) under CosineAnnealingDecay from 0.045,
+   captured, run_steps K = 32, 2 warm-up + 8 timed executions: losses
+   finite and falling (last 32 below first 32), 1 compile in the warm-up
+   and none timed; step ms, images/s, peak memory, a replay's device time
+   by kernel class, launches and busy share; then one epoch (96 steps) of
+   the same stream through Model.fit with steps_per_execution=4, its step
+   time over the captured step's. (c) mobile_nets_small: MobileNetV1/V2
+   (scale 0.25) and ShuffleNetV2 x0.25 at 2 x 64 x 64 in f32, one
+   Momentum + L2Decay step card against host (loss 2e-5, grads 1e-4 plus
+   4 x the host's own f32 noise, eval logits 1e-4). (d) mobilenet_eval:
+   the trained MobileNetV2 in bf16 eval, BN folded into the convs against
+   BN eval, both held to f32 BN eval; latency at batch 128 and 1. (e)
+   state_guard: the degenerate-weight guard (ROADMAP C3) through a
+   captured fused_residual_ln step: a set_state_dict or an in-place
+   zero_ that changes the verdict builds a new program and gives plain
+   autograd's dw; one that keeps it builds none. None of these lanes
+   launches B1, B2 or B3 (``launches_surface`` on the kernels line).
+
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi, optim); the kernels line needs every phase and is printed
-only when all run.
+serving, hapi, optim, surface); the kernels line needs every phase and
+is printed only when all run.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -2136,13 +2163,14 @@ def kernel_classes(prof):
 
 
 def train_lane(torch, label, model, opt, stacks, warmup_exec, timed_exec,
-               watch):
+               watch, after_exec=None):
     """Drive a captured conv net step through ``run_steps``, one staged
     stack per execution (rotating): ``warmup_exec`` executions, then
     ``timed_exec`` timed ones, with the launch counts reset just before
-    and read just after, and the compile counters of each window. The
-    buffers named in ``watch`` are read before and after the timed
-    window. Returns (losses, seconds, warm, timed, flash launches,
+    and read just after, and the compile counters of each window;
+    ``after_exec``, where given, runs after each execution (a scheduler's
+    step). The buffers named in ``watch`` are read before and after the
+    timed window. Returns (losses, seconds, warm, timed, flash launches,
     watched (before, after), the step)."""
     from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
                                                     compile_stats,
@@ -2156,6 +2184,8 @@ def train_lane(torch, label, model, opt, stacks, warmup_exec, timed_exec,
     curve = []
     for e in range(warmup_exec):
         curve.append(step.run_steps(*stacks[e % len(stacks)]))
+        if after_exec is not None:
+            after_exec()
     torch.cuda.synchronize()
     warm = compile_stats()
     reset_compile_stats()
@@ -2163,6 +2193,8 @@ def train_lane(torch, label, model, opt, stacks, warmup_exec, timed_exec,
     t0 = time.perf_counter()
     for e in range(warmup_exec, warmup_exec + timed_exec):
         curve.append(step.run_steps(*stacks[e % len(stacks)]))
+        if after_exec is not None:
+            after_exec()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     timed = compile_stats()
@@ -3788,17 +3820,19 @@ def phase_optim_sparse(torch, seed):
     return row
 
 
-def phase_tensor_api(torch):
-    """tensor_api: every case of tests/test_torch_tensor_cases.py (the
-    host parity file's cases) through the port on the card, held against
-    the same case through the port on the host: f32 within rtol 1e-6 /
-    atol 1e-6 (a decomposition or solve within its own host tolerance,
-    1e-4 / 1e-5), integers and bools exactly, random draws by shape,
-    dtype and what their distribution guarantees."""
+def cases_on_card(torch, module, phase):
+    """Every case of tests/<module>.py (a host parity file's cases)
+    through the port on the card, held against the same case through the
+    port on the host: floats within TENSOR_TOL (or the case's own host
+    tolerance where larger), integers and bools exactly, random draws by
+    shape, dtype and what their distribution guarantees. Emits the row;
+    fails on any case."""
+    import importlib
+
     import paddle_tpu_torch as pt
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
-    from test_torch_tensor_cases import CASES
+    cases = importlib.import_module(module).CASES
 
     def numpy(out):
         if isinstance(out, (list, tuple)):
@@ -3828,19 +3862,26 @@ def phase_tensor_api(torch):
     failed, functions = [], set()
     before = pt.get_device()
     try:
-        for c in CASES:
+        for c in cases:
             tol = {k: max(v, c.tol.get(k, 0.0)) for k, v in TENSOR_TOL.items()}
             if not same(run(c, "gpu"), run(c, "cpu"), tol):
                 failed.append(c.id)
             functions.add(c.function)
     finally:
         pt.set_device(before)
-    row = {"phase": "tensor_api", "cases": len(CASES),
+    row = {"phase": phase, "cases": len(cases),
            "functions": len(functions), "failed": failed,
            "tolerance": TENSOR_TOL, "seconds": time.perf_counter() - t0}
     emit(row)
     assert not failed, failed
     return row
+
+
+def phase_tensor_api(torch):
+    """tensor_api: every case of tests/test_torch_tensor_cases.py on the
+    card against the host (cases_on_card; a decomposition or solve within
+    its own host tolerance, 1e-4 / 1e-5)."""
+    return cases_on_card(torch, "test_torch_tensor_cases", "tensor_api")
 
 
 def phase_recompute_dropout(torch, seed):
@@ -3926,8 +3967,484 @@ def phase_recompute_dropout(torch, seed):
     return row
 
 
+# --- the common surface: the nn cases on the card, MobileNetV2 at
+# full width, the three mobile nets card against host, the degenerate-
+# weight guard after a load ---------------------------------------------
+
+# MobileNetV2 (scale 1.0, 1000 classes) in bf16, NHWC, batch 128 at 224 x
+# 224 of bench's prototype stream (as resnet_train), run_steps K = 32: 2
+# warm-up + 8 timed executions over 3 staged stacks (320 recorded steps);
+# Momentum(0.9) with L2Decay(4e-5) under CosineAnnealingDecay from 0.045
+# (the MobileNetV2 paper's rate and decay, as PaddleClas's ImageNet recipe
+# takes them). The cosine spans a whole training, MOBILE_T_MAX steps (240
+# epochs of ImageNet-1k's 1,281,167 images at batch 128), of which the
+# lane runs the first 320: the scheduler advances 32 steps after each
+# execution, and the rate stays 0.045 within 1e-5 relative
+MOBILE_BATCH, MOBILE_HW, MOBILE_SPE, MOBILE_STACKS = 128, 224, 32, 3
+MOBILE_WARMUP_EXEC, MOBILE_TIMED_EXEC, MOBILE_WINDOW = 2, 8, 32
+MOBILE_LR, MOBILE_MOMENTUM, MOBILE_DECAY = 0.045, 0.9, 4e-5
+MOBILE_T_MAX = 240 * (1281167 // 128)
+MOBILE_FIT_SPE = 4
+# mobile_nets_small: f32 at 2 x 64 x 64 (the reference test's size), card
+# against host. The deep BatchNorms normalise over 8 to 32 values a
+# channel, and a BN bias that feeds a conv and another BN has an exact
+# gradient of 0, so a flat relative bound on every grad cannot hold in
+# f32 (tests/test_torch_mobile_nets.py): each grad is held to
+# VISION_TOL["grad"] + MOBILE_NOISE_FACTOR x the host's own f32 noise on
+# it (its f32 grad against the same step in f64)
+MOBILE_SMALL = (("mobilenet_v1", {"scale": 0.25}),
+                ("mobilenet_v2", {"scale": 0.25}),
+                ("shufflenet_v2_x0_25", {}))
+MOBILE_NOISE_FACTOR = 4.0
+# state_guard: a LayerNorm weight of width 768 (BERT-base's) whose
+# channel GUARD_CHANNEL is zeroed after the captured step is warm; dw
+# against plain autograd within GUARD_TOL
+GUARD_WIDTH, GUARD_CHANNEL, GUARD_TOL = 768, 3, 1e-5
+
+
+def phase_nn_cases(torch):
+    """nn_cases: every case of tests/test_torch_nn_cases.py (activations,
+    common functions, initializers and layers) on the card against the
+    host (cases_on_card; interpolate and fold within their host
+    tolerance, 1e-5)."""
+    return cases_on_card(torch, "test_torch_nn_cases", "nn_cases")
+
+
+def _f32_logits(pt, net):
+    """``net`` behind a layer that returns its logits in f32 (the loss of
+    a bf16 network is taken in f32, as the captured step does)."""
+    class F32Logits(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.net = net
+
+        def forward(self, x):
+            return self.net(x).float()
+    return F32Logits()
+
+
+def phase_mobilenet_train(torch, seed):
+    """The slice's full-width path: MobileNetV2 (scale 1.0, 1000 classes)
+    built on the host with KaimingNormal through set_global_initializer
+    (from --seed), saved as .pdparams, loaded into the card's model with
+    set_state_dict(paddle.load(path)), cast to bf16, NHWC (channels-
+    last); Momentum(0.9) + L2Decay(4e-5) under CosineAnnealingDecay from
+    0.045 (the schedule of a whole training, of which the lane runs the
+    start); batch 128 at 224 x 224 of bench's prototype stream (made on
+    the card); the step captured and driven by run_steps K = 32 (2
+    warm-up and 8 timed executions over 3 staged stacks). Gates: the load reports no
+    missing or unexpected key and gives the host's values, every loss
+    finite, the last-32 mean below the first-32 mean, 1 compile in the
+    warm-up and none timed, no flash kernel launched. Reported: step ms,
+    images/s, peak memory, a replay's device time by kernel class,
+    launches and busy share, whether the last-32 mean clears bench's
+    chance floor (information, not a gate). Then one epoch of the same
+    stream (96 batches) through Model.fit with steps_per_execution=4: its
+    step time over the captured step's (2 warm-up executions untimed).
+    Returns (the row, the trained model)."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (compile_stats,
+                                                    reset_compile_stats)
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    init = pt.nn.initializer
+    t_lane = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init.set_global_initializer(init.KaimingNormal(), init.Constant(0.0))
+    try:
+        host = mobilenet_v2(scale=1.0, num_classes=1000, device="cpu",
+                            generator=pt.make_generator(seed))
+    finally:
+        init.set_global_initializer(None, None)
+    torch.cuda.reset_peak_memory_stats()
+    model = mobilenet_v2(scale=1.0, num_classes=1000, data_format="NHWC",
+                         device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mobilenet_v2.pdparams")
+        pt.save(host.state_dict(), path)
+        load_t0 = time.perf_counter()
+        keys = model.set_state_dict(pt.load(path))
+        load_s = time.perf_counter() - load_t0
+        size = os.path.getsize(path)
+    loaded = all(torch.equal(model.state_dict()[k].cpu(), v)
+                 for k, v in host.state_dict().items())
+    n_bn = sum(isinstance(m, pt.nn.BatchNorm2D) for m in model.modules())
+    n_params = sum(p.numel() for p in model.parameters())
+    del host
+    model.bfloat16()
+    model.train()
+    total_exec = MOBILE_WARMUP_EXEC + MOBILE_TIMED_EXEC
+    sched = pt.optimizer.lr.CosineAnnealingDecay(learning_rate=MOBILE_LR,
+                                                 T_max=MOBILE_T_MAX)
+    opt = pt.optimizer.Momentum(
+        learning_rate=sched, momentum=MOBILE_MOMENTUM,
+        parameters=model.parameters(),
+        weight_decay=pt.regularizer.L2Decay(MOBILE_DECAY))
+    t0 = time.perf_counter()
+    stacks = image_stream(torch, seed, MOBILE_STACKS, MOBILE_SPE,
+                          MOBILE_BATCH, (MOBILE_HW, MOBILE_HW, 3), 1000,
+                          RESNET_PROTO_SCALE, 1.0, torch.bfloat16)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+    lrs = []
+    watch = ("features.0.1._mean", "features.18.1._variance")
+    losses, seconds, warm, timed, flash, (before, after), step = train_lane(
+        torch, "mobilenet_v2", model, opt, stacks, MOBILE_WARMUP_EXEC,
+        MOBILE_TIMED_EXEC, watch,
+        after_exec=lambda: (lrs.append(opt.get_lr()),
+                            sched.step(sched.last_epoch + MOBILE_SPE)))
+    peak = torch.cuda.max_memory_allocated()
+    timed_steps = MOBILE_TIMED_EXEC * MOBILE_SPE
+    step_ms = seconds / timed_steps * 1e3
+    x, y = stacks[-1][0][-1], stacks[-1][1][-1]
+    trace, wall_s, _, prof = profiled(torch, lambda: step(x, y), 1)
+    by_class = kernel_classes(trace)
+    emit_profile(trace, wall_s, "mobilenet_v2_train_replay", 1, top=15,
+                 by_class=by_class)
+    first = float(np.mean(losses[:MOBILE_WINDOW]))
+    last = float(np.mean(losses[-MOBILE_WINDOW:]))
+    moved = {n: (after[n] - before[n]).abs().max().item() for n in watch}
+    row = {"phase": "mobilenet_train", "dtype": "bfloat16",
+           "config": "MobileNetV2 scale 1.0, 1000 classes, NHWC "
+                     "(channels-last), KaimingNormal via "
+                     "set_global_initializer",
+           "parameters": n_params, "batch_norms": n_bn,
+           "pdparams_bytes": size, "set_state_dict_s": load_s,
+           "set_state_dict_keys": keys, "loaded_equals_host": loaded,
+           "optimizer": f"Momentum {MOBILE_MOMENTUM} + L2Decay "
+                        f"{MOBILE_DECAY}, CosineAnnealingDecay from "
+                        f"{MOBILE_LR}, T_max {MOBILE_T_MAX} steps",
+           "lr_per_execution": lrs,
+           "batch": [MOBILE_BATCH, MOBILE_HW, MOBILE_HW, 3],
+           "steps_per_execution": MOBILE_SPE, "executions": total_exec,
+           "recorded_steps": len(losses), "timed_steps": timed_steps,
+           "data": "prototype stream made on the card", "data_s": data_s,
+           "compile_stats_warmup": warm, "compile_stats_timed": timed,
+           "step_ms": step_ms,
+           "images_per_s": MOBILE_BATCH * timed_steps / seconds,
+           "replay_profile": {**prof, "wall_ms": wall_s * 1e3,
+                              "busy_share": prof["device_ms"]
+                              / (wall_s * 1e3)},
+           "device_ms_by_class": {k: v for k, v in by_class.items()
+                                  if k != "copy_kernels"},
+           "unprofiled_busy_share": prof["device_ms"] / step_ms,
+           "peak_mem_bytes": peak, "flash_launches": flash,
+           "running_stats_moved": moved, "loss_first": losses[0],
+           "loss_every_16th": losses[::16],
+           f"first{MOBILE_WINDOW}_mean": first,
+           f"last{MOBILE_WINDOW}_mean": last,
+           "chance_floor": RESNET_FLOOR,
+           "clears_chance_floor": last < RESNET_FLOOR}
+    emit(row)
+    assert keys == ([], []) and loaded, row
+    assert warm["compiles"] == 1 and timed == {
+        "compiles": 0, "cache_hits": timed_steps, "retrace_warnings": 0}, \
+        (warm, timed)
+    assert all(np.isfinite(losses)) and last < first, row
+    assert all(v > 0 for v in moved.values()), moved
+    assert all(c == 0 for c in flash.values()), flash
+    del step, opt, trace
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one epoch of the same stream through Model.fit
+    xs = torch.cat([s[0].reshape(-1, MOBILE_HW, MOBILE_HW, 3)
+                    for s in stacks])
+    ys = torch.cat([s[1].reshape(-1) for s in stacks])
+    del stacks
+    ds = pt.io.TensorDataset([xs, ys])
+    n_steps = MOBILE_STACKS * MOBILE_SPE
+    warm_steps = 2 * MOBILE_FIT_SPE
+    window = {}
+
+    def on_mark(k):
+        if k == warm_steps:
+            window["warm"] = compile_stats()
+            reset_compile_stats()
+
+    fit_opt = pt.optimizer.Momentum(
+        learning_rate=MOBILE_LR, momentum=MOBILE_MOMENTUM,
+        parameters=model.parameters(),
+        weight_decay=pt.regularizer.L2Decay(MOBILE_DECAY))
+    m = pt.Model(_f32_logits(pt, model)).prepare(fit_opt,
+                                                  pt.nn.CrossEntropyLoss())
+    log = loss_log(pt, marks=(warm_steps, n_steps), on_mark=on_mark)
+    reset_compile_stats()
+    m.fit(ds, batch_size=MOBILE_BATCH, shuffle=False, drop_last=True,
+          epochs=1, verbose=0, callbacks=[log],
+          steps_per_execution=MOBILE_FIT_SPE)
+    fit_timed = compile_stats()
+    fit_ms = (log.t[n_steps] - log.t[warm_steps]) \
+        / (n_steps - warm_steps) * 1e3
+    fit_row = {"phase": "mobilenet_train", "part": "fit",
+               "steps": len(log.losses),
+               "steps_per_execution": MOBILE_FIT_SPE,
+               "fit_step_ms": fit_ms, "captured_step_ms": step_ms,
+               "fit_over_captured": fit_ms / step_ms,
+               "compile_stats_warmup": window["warm"],
+               "compile_stats_timed": fit_timed,
+               "loss_first": log.losses[0], "loss_last": log.losses[-1],
+               "seconds": time.perf_counter() - t_lane}
+    emit(fit_row)
+    assert len(log.losses) == n_steps and all(np.isfinite(log.losses)), \
+        fit_row
+    assert fit_timed["compiles"] == 0, fit_row
+    row.update(fit=fit_row, seconds=fit_row["seconds"])
+    del m, fit_opt, ds, xs, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, model
+
+
+def small_step(torch, pt, model, x, y):
+    """One Momentum(0.05, 0.9) + L2Decay(4e-5) step of ``model``: the loss,
+    every grad, then the eval logits of the updated weights."""
+    opt = pt.optimizer.Momentum(
+        learning_rate=0.05, momentum=0.9, parameters=model.parameters(),
+        weight_decay=pt.regularizer.L2Decay(4e-5))
+    model.train()
+    loss, grads, _ = step_state(torch, model, opt, x, y)
+    model.eval()
+    with torch.no_grad():
+        logits = model(x)
+    return loss, grads, logits
+
+
+def phase_mobile_nets_small(torch, seed):
+    """MobileNetV1 (scale 0.25), MobileNetV2 (scale 0.25, classifier
+    dropout 0) and ShuffleNetV2 x0.25, 10 classes, at 2 x 3 x 64 x 64 in
+    f32 (TF32 off), the same weights on the card and the host: one
+    Momentum + L2Decay step's loss (within VISION_TOL["loss"]), every grad
+    (within VISION_TOL["grad"] + MOBILE_NOISE_FACTOR x the host's f32
+    noise on it, from the host's f64 step) and the eval logits after the
+    step (VISION_TOL["logits"])."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import vision
+    rng = np.random.RandomState(seed + 13)
+    x = rng.randn(2, 3, 64, 64).astype("float32")
+    y = rng.randint(0, 10, (2,))
+    rows = []
+    for name, kw in MOBILE_SMALL:
+        def make(device, gen, name=name, kw=kw):
+            return getattr(vision.models, name)(num_classes=10, device=device,
+                                                generator=gen, **kw)
+        card, host = vision_pair(torch, make, seed)
+        exact = copy.deepcopy(host).to(dtype=torch.float64)
+        for m in (card, host, exact):
+            if name == "mobilenet_v2":
+                m.classifier[0].p = 0.0
+        got = small_step(torch, pt, card, torch.tensor(x, device="cuda"),
+                         torch.tensor(y, device="cuda"))
+        want = small_step(torch, pt, host, torch.tensor(x), torch.tensor(y))
+        truth = small_step(torch, pt, exact,
+                           torch.tensor(x, dtype=torch.float64),
+                           torch.tensor(y))
+        worst = []
+        for n, g in want[1].items():
+            noise = rel_l2(g, truth[1][n])
+            gap = rel_l2(got[1][n].cpu(), g)
+            worst.append((gap / (MOBILE_NOISE_FACTOR * noise
+                                 + VISION_TOL["grad"]), n, gap, noise))
+        worst.sort(reverse=True)
+        row = {"phase": "mobile_nets_small", "model": name,
+               "loss": got[0], "host_loss": want[0],
+               "loss_rel_gap": abs(got[0] - want[0]) / abs(want[0]),
+               "grads": len(worst),
+               "worst_grads": [{"name": n, "gap": gap, "host_noise": nz,
+                                "share_of_bound": r}
+                               for r, n, gap, nz in worst[:3]],
+               "eval_logits_gap": max_rel_gap(got[2], want[2]),
+               "tol": VISION_TOL, "noise_factor": MOBILE_NOISE_FACTOR}
+        emit(row)
+        assert row["loss_rel_gap"] <= VISION_TOL["loss"], row
+        assert worst[0][0] <= 1.0, row
+        assert row["eval_logits_gap"] <= VISION_TOL["logits"], row
+        rows.append(row)
+    return rows
+
+
+def fold_bn(torch, pt, model):
+    """A copy of ``model`` in which every Conv2D followed by a BatchNorm2D
+    in a Sequential takes the BN's eval statistics: weight w * s and bias
+    beta - mean * s, s = gamma / sqrt(var + eps) (computed in f32, stored
+    in the model's dtype and layout), the BN replaced by Identity. Returns
+    (the copy, how many BNs were folded)."""
+    import copy
+    folded = copy.deepcopy(model)
+    n = 0
+    for seq in folded.modules():
+        if not isinstance(seq, torch.nn.Sequential):
+            continue
+        names = list(seq._modules)
+        for a, b in zip(names, names[1:]):
+            conv, bn = seq._modules[a], seq._modules[b]
+            if not (isinstance(conv, pt.nn.Conv2D)
+                    and isinstance(bn, pt.nn.BatchNorm2D)):
+                continue
+            s = bn.weight.float() * torch.rsqrt(bn._variance.float()
+                                                + bn._epsilon)
+            shift = bn.bias.float() - bn._mean.float() * s
+            if conv.bias is not None:
+                shift = shift + conv.bias.float() * s
+            with torch.no_grad():
+                conv.weight.copy_(conv.weight.float() * s.view(-1, 1, 1, 1))
+            conv.bias = pt.Parameter(shift.to(conv.weight.dtype).detach())
+            seq._modules[b] = pt.nn.Identity()
+            n += 1
+    return folded, n
+
+
+def phase_mobilenet_eval(torch, seed, trained):
+    """MobileNetV2 in eval mode, bf16, on the weights and running
+    statistics mobilenet_train left: BN folded into the convs (fold_bn)
+    against BatchNorm in eval, both held to the same weights in f32 with
+    BN eval: the folded path's relative L2 gap at most EVAL_FACTOR x the
+    BN path's + EVAL_SLACK, at batch 128 and at batch 1. Latency (host
+    clock ending in a synchronize, mean of EVAL_CALLS calls) and device
+    time of each path."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    trained.eval()
+    folded, n = fold_bn(torch, pt, trained)
+    truth_model = copy.deepcopy(trained).float()
+    paths = {"bn_eval": trained, "folded": folded.eval()}
+    g = torch.Generator(device="cuda").manual_seed(seed + 17)
+    x = torch.randn((MOBILE_BATCH, MOBILE_HW, MOBILE_HW, 3), generator=g,
+                    device="cuda").to(torch.bfloat16)
+    rows = []
+    with torch.no_grad():
+        for batch in (MOBILE_BATCH, 1):
+            xb = x[:batch]
+            truth = truth_model(xb.float()).float()
+            out = {k: m(xb).float() for k, m in paths.items()}
+            gap = {k: rel_l2(o, truth) for k, o in out.items()}
+            row = {"phase": "mobilenet_eval", "batch": batch,
+                   "dtype": "bfloat16", "folded_batch_norms": n,
+                   "rel_l2_to_f32": gap,
+                   "argmax_agree": (out["folded"].argmax(-1)
+                                    == out["bn_eval"].argmax(-1))
+                   .float().mean().item(),
+                   "tol": {"factor": EVAL_FACTOR, "slack": EVAL_SLACK}}
+            for k, m in paths.items():
+                for _ in range(3):
+                    m(xb)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(EVAL_CALLS):
+                    m(xb)
+                torch.cuda.synchronize()
+                latency = (time.perf_counter() - t0) / EVAL_CALLS * 1e3
+                dev, launches = device_profile(torch, lambda: m(xb), reps=2,
+                                               warmup=1)
+                row[k] = {"latency_ms": latency, "device_ms": dev,
+                          "kernels": launches,
+                          "images_per_s": batch / latency * 1e3}
+            emit(row)
+            assert gap["folded"] <= EVAL_FACTOR * gap["bn_eval"] \
+                + EVAL_SLACK, row
+            rows.append(row)
+    del paths, folded, truth_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_state_guard(torch, seed):
+    """C3 on the card: a step through fused_residual_ln (LayerNorm width
+    768, 8 x 128 tokens, f32), captured by to_static and warm with an all-
+    ones weight; then (a) set_state_dict loads a weight whose channel 3
+    is 0, (b) set_state_dict restores ones, (c) an in-place zero_ of
+    channel 3. Each load that changes the guard's verdict must make the
+    next call build a new program, the one that keeps it must not; after
+    each write the replay's output (which reads the weight) and dw equal
+    plain autograd's within GUARD_TOL, so a load reaches a captured
+    graph's parameter in place; after (a) and (c) dw is not 0 at
+    channel 3."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import fused_residual_ln as rln
+    g = torch.Generator(device="cuda").manual_seed(seed + 19)
+    shape = (8, 128, GUARD_WIDTH)
+    x, y, ct = (torch.randn(shape, generator=g, device="cuda")
+                for _ in range(3))
+
+    class Block(pt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ln = pt.nn.LayerNorm(GUARD_WIDTH, device="cuda")
+
+        def forward(self, a, b):
+            return rln.fused_residual_ln(a, b, self.ln.weight, self.ln.bias)
+    block = Block()
+
+    @pt.jit.to_static
+    def step(a, b, c):
+        out = block(a, b)
+        out.backward(c)
+        dw = block.ln.weight.grad
+        block.ln.weight.grad = None
+        return dw, out.detach()
+
+    def plain():
+        w = block.ln.weight.detach().clone().requires_grad_()
+        z = x + y
+        out = (z - z.mean(-1, keepdim=True)) * torch.rsqrt(
+            z.var(-1, correction=0, keepdim=True) + 1e-5) * w \
+            + block.ln.bias.detach()
+        out.backward(ct)
+        return w.grad, out.detach()
+
+    def zeroed():
+        w = torch.ones(GUARD_WIDTH, device="cuda")
+        w[GUARD_CHANNEL] = 0.0
+        return w
+
+    for _ in range(3):
+        step(x, y, ct)
+    rows = []
+    for label, write, changes in (
+            ("set_state_dict_zero_channel",
+             lambda: block.set_state_dict({"ln.weight": zeroed()}), True),
+            ("set_state_dict_ones",
+             lambda: block.set_state_dict(
+                 {"ln.weight": torch.ones(GUARD_WIDTH)}), True),
+            ("set_state_dict_same_verdict",
+             lambda: block.set_state_dict(
+                 {"ln.weight": torch.full((GUARD_WIDTH,), 2.0)}), False),
+            ("inplace_zero_", lambda: block.ln.weight[GUARD_CHANNEL]
+             .detach().zero_(), True)):
+        n0 = len(step.programs)
+        write()
+        dw, out = [step(x, y, ct) for _ in range(3)][-1]
+        torch.cuda.synchronize()
+        want_dw, want_out = plain()
+        gap = (dw - want_dw).abs().max().item()
+        out_gap = (out - want_out).abs().max().item()
+        row = {"phase": "state_guard", "write": label,
+               "programs_before": n0, "programs_after": len(step.programs),
+               "verdict": block.ln.weight._degen_cache[1],
+               "dw_max_abs_gap_to_plain": gap,
+               "out_max_abs_gap_to_plain": out_gap,
+               "dw_at_channel": dw[GUARD_CHANNEL].item(),
+               "plain_dw_at_channel": want_dw[GUARD_CHANNEL].item(),
+               "tol": GUARD_TOL}
+        emit(row)
+        assert len(step.programs) == n0 + (1 if changes else 0), row
+        assert gap <= GUARD_TOL * max(1.0, want_dw.abs().max().item()), row
+        assert out_gap <= GUARD_TOL * max(1.0, want_out.abs().max().item()),\
+            row
+        if row["verdict"]:
+            assert abs(row["dw_at_channel"]) > 1e-3, row
+        rows.append(row)
+    return rows
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
-                   vision, serving, hapi, optim):
+                   vision, serving, hapi, optim, surface):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -3946,7 +4463,10 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     (``hapi``), per step: by kernel name in a replay of hapi_bert's
     captured step for the tensor-core variants (the wrappers' counts for
     the SIMT ones), the wrappers' counts over the whole lane for
-    hapi_lenet and hapi_resnet50."""
+    hapi_lenet and hapi_resnet50; on the script surface's lanes
+    (``optim``) and on the common surface's (``surface``: nn_cases,
+    mobilenet_train, mobile_nets_small, mobilenet_eval, state_guard, all
+    0), the wrappers' counts over each lane."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -3971,6 +4491,9 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                 "launches_optim": {
                     lane: counts.get(variant, 0)
                     for lane, counts in optim.items()},
+                "launches_surface": {
+                    lane: counts.get(variant, 0)
+                    for lane, counts in surface.items()},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -4068,7 +4591,7 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
                 "to_static_grad", "bert", "vision", "serving", "hapi",
-                "optim")
+                "optim", "surface")
 
 
 def main():
@@ -4182,12 +4705,44 @@ def main():
         out["optim"] = lanes
         emit({"phase": "optim", "seconds": time.perf_counter() - t_group})
 
+    if "surface" in run:
+        from paddle_tpu_torch.ops.cuda import launch_counts
+        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+        t_group = time.perf_counter()
+        lanes, seconds, trained = {}, {}, []
+
+        def train(t, sd):
+            row, model = phase_mobilenet_train(t, sd)
+            trained.append(model)
+            return row
+
+        def evaluate(t, sd):
+            rows = phase_mobilenet_eval(t, sd, trained.pop())
+            gc.collect()
+            t.cuda.empty_cache()
+            return rows
+        for lane, fn in (("nn_cases", lambda t, _: phase_nn_cases(t)),
+                         ("mobilenet_train", train),
+                         ("mobile_nets_small", phase_mobile_nets_small),
+                         ("mobilenet_eval", evaluate),
+                         ("state_guard", phase_state_guard)):
+            launch_counts.clear()
+            t_lane = time.perf_counter()
+            fn(torch, args.seed)
+            seconds[lane] = time.perf_counter() - t_lane
+            lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                           if k.split(".")[0] in KERNEL_NAMES}
+            assert not any(lanes[lane].values()), (lane, lanes[lane])
+        out["surface"] = lanes
+        emit({"phase": "surface", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": seconds})
+
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
             out["compiled"], out["amp"], out["bert"], out["vision"],
-            out["serving"], out["hapi"], out["optim"])})
+            out["serving"], out["hapi"], out["optim"], out["surface"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

@@ -33,7 +33,8 @@ import torch
 
 __all__ = ["make_generator", "seed", "uniform", "collect_generators",
            "api_generator", "note_draw", "RerunPlan", "record_reruns",
-           "play_reruns", "rerun_region"]
+           "play_reruns", "rerun_region", "get_cuda_rng_state",
+           "set_cuda_rng_state"]
 
 # the sets of generators that running discovery passes collect
 _collectors: list = []
@@ -143,6 +144,37 @@ def seed(s: int):
     Returns the host's default generator."""
     _api_generators.clear()
     return torch.manual_seed(int(s))
+
+
+def _refuse_in_capture(what):
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"{what} inside a CUDA graph capture: a captured generator's "
+            f"state cannot be read or set while it captures (as "
+            f"Generator.clone_state refuses); call it outside the step")
+
+
+def get_cuda_rng_state():
+    """paddle.get_cuda_rng_state: the state of torch's default generator
+    of each visible card (the ones ``seed`` seeds and dropout without a
+    generator draws from), one per device (none on a host without a
+    card). Refused inside a capture."""
+    _refuse_in_capture("get_cuda_rng_state")
+    return [torch.cuda.default_generators[i].get_state()
+            for i in range(torch.cuda.device_count())]
+
+
+def set_cuda_rng_state(state_list):
+    """paddle.set_cuda_rng_state: put each card's default generator back
+    to a state ``get_cuda_rng_state`` returned, so the next draws (a
+    dropout mask) repeat. Refused inside a capture."""
+    _refuse_in_capture("set_cuda_rng_state")
+    states = list(state_list)
+    if len(states) != torch.cuda.device_count():
+        raise ValueError(f"set_cuda_rng_state: {len(states)} states for "
+                         f"{torch.cuda.device_count()} devices")
+    for i, st in enumerate(states):
+        torch.cuda.default_generators[i].set_state(st)
 
 
 def api_generator(device):

@@ -15,7 +15,7 @@ import pickle
 import numpy as np
 import torch
 
-from ..ops._param_guard import clear_degenerate_cache
+from ..ops._param_guard import recheck
 
 __all__ = ["save", "load", "load_numpy_state_dict", "tensor_from_numpy"]
 
@@ -79,9 +79,11 @@ def load_numpy_state_dict(module, arrays, strict=True):
     a shape mismatch, and, when ``strict``, on a missing or an extra key
     (``strict=False`` skips a name only one side has, as the reference's
     ``set_state_dict`` does). Values are cast to each parameter's dtype
-    and device. Each parameter forgets the degenerate-weight guard's
-    cached verdict (ops/_param_guard.py), as the reference's set_value
-    does."""
+    and device, in place: the parameter objects, their addresses and
+    their memory format stay, so captured steps and optimizer state keep
+    pointing at them. The degenerate-weight guard's cached verdict on each
+    parameter is checked again (ops/_param_guard.py), as the reference's
+    set_value drops it."""
     own = module.state_dict()
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
@@ -102,5 +104,5 @@ def load_numpy_state_dict(module, arrays, strict=True):
     # state_dict() holds detached aliases; the cache lives on the
     # parameters themselves
     for param in module.parameters():
-        clear_degenerate_cache(param)
+        recheck(param)
     return module

@@ -3,18 +3,23 @@ and of the reference's Parameter, core/tensor.py).
 
 ``ParamAttr`` is what a layer's ``weight_attr``/``bias_attr`` says about
 the parameter it creates: its name, initializer, learning-rate factor
-(kept in ``optimize_attr``; neither package's optimizers read it),
+(kept in ``optimize_attr``; the reference's optimizers never read it,
+and the port's raise for a factor other than 1.0: ROADMAP C-ref-14),
 regularizer, whether it trains and whether gradient clipping applies to
 it. ``Parameter`` is a ``torch.nn.Parameter`` that can carry those
 attributes: torch's own tensors have a read-only ``name``, and a
 parameter's attributes survive ``copy.deepcopy`` and pickling here,
-which torch's Parameter drops.
+which torch's Parameter drops. A write through ``p.data``, which torch's
+version counter does not see, makes the degenerate-weight guard check
+the parameter again (ops/_param_guard.py).
 """
 from __future__ import annotations
 
 import copy
 
 import torch
+
+from ..ops import _param_guard
 
 __all__ = ["ParamAttr", "Parameter"]
 
@@ -25,9 +30,22 @@ def _rebuild(data, requires_grad, attrs):
     return p
 
 
+_TENSOR_DATA = torch.Tensor.data
+
+
 class Parameter(torch.nn.Parameter):
     # shadows the tensor's read-only ``name`` so that it can be set
     name = None
+
+    @property
+    def data(self):
+        _param_guard.touch(self)
+        return _TENSOR_DATA.__get__(self)
+
+    @data.setter
+    def data(self, value):
+        _TENSOR_DATA.__set__(self, value)
+        _param_guard.touch(self)
 
     def __deepcopy__(self, memo):
         if id(self) in memo:

@@ -6,6 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.dtypes import get_default_dtype
 from ..nn.layer import common as C
 from ..nn.layer import conv as CONV
 from ..nn.layer import norm as NORM
@@ -50,8 +51,9 @@ _RULES = [
 
 
 def flops(net, input_size, custom_ops=None, print_detail=False):
-    """The FLOPs of ``net`` on zeros of ``input_size`` (float32, on the
-    network's device); ``custom_ops`` maps a layer type to its own rule."""
+    """The FLOPs of ``net`` on zeros of ``input_size`` (the default dtype,
+    on the network's device); ``custom_ops`` maps a layer type to its own
+    rule."""
     total = [0]
     hooks = []
     custom_ops = custom_ops or {}
@@ -73,7 +75,8 @@ def flops(net, input_size, custom_ops=None, print_detail=False):
         if name and not any(True for _ in layer.children()):
             hooks.append(layer.register_forward_hook(hook))
     device = next((p.device for p in net.parameters()), torch.device("cpu"))
-    x = torch.zeros(tuple(input_size), dtype=torch.float32, device=device)
+    x = torch.zeros(tuple(input_size), dtype=get_default_dtype(),
+                    device=device)
     was_training = net.training
     net.eval()
     try:

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.dtypes import convert_dtype
+from ..core.dtypes import convert_dtype, get_default_dtype
 
 __all__ = ["summary"]
 
@@ -20,7 +20,7 @@ def summary(net, input_size=None, dtypes=None, input=None):  # noqa: A002
     """Print a table of ``net``'s leaf layers and return
     ``{"total_params", "trainable_params"}``. The input is ``input`` or
     zeros of ``input_size`` (one shape, or a list of shapes) and
-    ``dtypes`` (default float32) on the network's device."""
+    ``dtypes`` (default: the default dtype) on the network's device."""
     entries = []
     hooks = []
 
@@ -49,7 +49,8 @@ def summary(net, input_size=None, dtypes=None, input=None):  # noqa: A002
         dts = dtypes if isinstance(dtypes, (list, tuple)) else \
             [dtypes] * len(sizes)
         device = _device_of(net)
-        x = [torch.zeros(tuple(s), dtype=convert_dtype(dt) or torch.float32,
+        x = [torch.zeros(tuple(s),
+                         dtype=convert_dtype(dt) or get_default_dtype(),
                          device=device) for s, dt in zip(sizes, dts)]
     was_training = net.training
     net.eval()

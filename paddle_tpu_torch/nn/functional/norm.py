@@ -1,4 +1,5 @@
-"""layer_norm and batch_norm (port of paddle_tpu/nn/functional/norm.py).
+"""layer_norm, batch_norm and normalize (port of
+paddle_tpu/nn/functional/norm.py).
 
 Same arithmetic as the reference: mean and population variance over the
 normalized (layer_norm) or all but the channel (batch_norm) axes,
@@ -17,7 +18,7 @@ import torch
 
 from ...amp.auto_cast import amp_cast
 
-__all__ = ["layer_norm", "batch_norm"]
+__all__ = ["layer_norm", "batch_norm", "normalize"]
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-05):
@@ -84,3 +85,13 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     if bias is not None:
         out = out + bias.reshape(bshape)
     return out
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """x / max(||x||_p, epsilon) along ``axis``."""
+    x, = amp_cast("normalize", x)
+    if p == 2:
+        n = torch.sqrt(torch.sum(x * x, dim=axis, keepdim=True))
+    else:
+        n = torch.sum(x.abs() ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp(n, min=epsilon)

@@ -10,7 +10,10 @@ step of a captured function runs in its discovery pass, before the
 capture, so the graph reads the moved tensor. ``parameters`` may be a
 list of parameter-group dicts: their ``params`` are flattened, as in the
 reference, and a group that sets anything else raises (the reference
-stores such keys and never reads them; ROADMAP C-ref-10).
+stores such keys and never reads them; ROADMAP C-ref-10). So does a
+parameter whose ``ParamAttr(learning_rate=r)`` is not 1.0: the reference
+stores r in ``optimize_attr`` and no optimizer of it reads it (ROADMAP
+C-ref-14).
 
 ``step()``:
 
@@ -29,7 +32,9 @@ stores such keys and never reads them; ROADMAP C-ref-10).
    passes over its lists, with the ops in the order of the reference's
    per-parameter rule, so the roundings are the same. Parameters,
    masters and accumulators are updated in place: a captured step keeps
-   its addresses across replays.
+   its addresses across replays. The updated parameters keep the
+   degenerate-weight guard's verdicts (ops/_param_guard.py ``restamp``):
+   an optimizer's own update is not a load.
 
 Per-parameter accumulators are created lazily (``_get_accumulator``),
 keyed by the parameter; beta powers and bias corrections are f32 0-d
@@ -54,6 +59,7 @@ import torch
 from ..core import selected_rows as sr
 from ..framework.io_utils import tensor_from_numpy
 from ..nn.clip import ClipGradBase
+from ..ops import _param_guard
 from ..regularizer import L2Decay, WeightDecayRegularizer
 from .lr import LRScheduler
 
@@ -75,6 +81,22 @@ def _flatten_groups(parameters):
                 f"instead of ignoring them (ROADMAP C-ref-10)")
         flat += list(group["params"])
     return flat
+
+
+def _refuse_lr_factors(params):
+    """Raise for a parameter whose ParamAttr sets a learning-rate factor
+    other than 1.0: the reference keeps it in ``optimize_attr`` and none
+    of its optimizers reads it, so the port refuses it instead of
+    ignoring it (ROADMAP C-ref-14)."""
+    for p in params or ():
+        r = (getattr(p, "optimize_attr", None) or {}).get("learning_rate",
+                                                          1.0)
+        if r != 1.0:
+            raise NotImplementedError(
+                f"parameter {getattr(p, 'name', None)!r} has "
+                f"ParamAttr(learning_rate={r}): the reference stores the "
+                f"factor and no optimizer reads it, so the port refuses it "
+                f"instead of ignoring it (ROADMAP C-ref-14)")
 
 
 def _as_regularizer(weight_decay):
@@ -134,6 +156,7 @@ class Optimizer:
             raise TypeError(f"grad_clip must be a ClipGradBy* instance, got "
                             f"{type(grad_clip)}")
         params = _flatten_groups(parameters)
+        _refuse_lr_factors(params)
         self._parameter_list = params
         device = params[0].device if params else torch.device("cpu")
         self._learning_rate = torch.tensor(lr0, dtype=torch.float32,
@@ -292,6 +315,7 @@ class Optimizer:
         self._follow_params_device()
         pairs = [(p, g) for p, g in self._collect_params_grads()
                  if g is not None]
+        guarded = _param_guard.fresh(p for p, _ in pairs)
         if self._grad_clip is not None:
             pairs = self._clip(pairs)
         dense = []
@@ -302,6 +326,7 @@ class Optimizer:
                 dense.append((p, g))
         for b in self._buckets(dense):
             self._update(b)
+        _param_guard.restamp(guarded)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):

@@ -2,8 +2,9 @@
 
 Creation functions place their tensors on the current device
 (``set_device``; cuda:0 unless another was set) and keep the reference's
-dtype rules: floats default to float32, Python integers to int32, and a
-64-bit dtype request narrows to 32 bits (core/dtypes.py).
+dtype rules: floats default to the default dtype (``set_default_dtype``,
+float32 unless set), Python integers to int32, and a 64-bit dtype request
+narrows to 32 bits (core/dtypes.py).
 """
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.dtypes import convert_dtype, narrow_host_array
+from ..core.dtypes import (convert_dtype, get_default_dtype,
+                           narrow_host_array)
 from ..framework.io_utils import tensor_from_numpy
 
 __all__ = [
@@ -38,9 +40,9 @@ def _scalar(v):
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     """paddle.to_tensor: a tensor on ``place`` (the current device when
     None) from a tensor, an array, a list or a scalar. Host float64 data
-    becomes float32 and 64-bit integer data int32, range-checked, unless
-    ``dtype`` says otherwise; ``stop_gradient=False`` makes it require
-    grad."""
+    takes the default dtype and 64-bit integer data int32, range-checked,
+    unless ``dtype`` says otherwise; ``stop_gradient=False`` makes it
+    require grad."""
     device = resolve_device(place)
     dtype = convert_dtype(dtype)
     if isinstance(data, torch.Tensor):
@@ -49,7 +51,7 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     else:
         arr = np.asarray(data)
         if dtype is None and arr.dtype == np.float64:
-            dtype = torch.float32
+            dtype = get_default_dtype()
         if dtype is None or not (dtype.is_floating_point or dtype.is_complex
                                  or dtype == torch.bool):
             arr = narrow_host_array(arr)
@@ -62,12 +64,12 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
 
 def zeros(shape, dtype=None, name=None):
     return torch.zeros(_shape(shape), dtype=convert_dtype(dtype)
-                       or torch.float32, device=resolve_device())
+                       or get_default_dtype(), device=resolve_device())
 
 
 def ones(shape, dtype=None, name=None):
     return torch.ones(_shape(shape), dtype=convert_dtype(dtype)
-                      or torch.float32, device=resolve_device())
+                      or get_default_dtype(), device=resolve_device())
 
 
 def _fill_dtype(fill_value):
@@ -75,7 +77,7 @@ def _fill_dtype(fill_value):
         return torch.bool
     if isinstance(fill_value, (int, np.integer)):
         return torch.int32
-    return torch.float32
+    return get_default_dtype()
 
 
 def full(shape, fill_value, dtype=None, name=None):
@@ -111,7 +113,7 @@ def arange(start=0, end=None, step=1, dtype=None, name=None):
         start, end = 0, start
     dtype = convert_dtype(dtype)
     if dtype is None:
-        dtype = torch.float32 if any(isinstance(v, float)
+        dtype = get_default_dtype() if any(isinstance(v, float)
                                      for v in (start, end, step)) \
             else torch.int32
     return torch.arange(start, end, step, dtype=dtype,
@@ -120,14 +122,14 @@ def arange(start=0, end=None, step=1, dtype=None, name=None):
 
 def linspace(start, stop, num, dtype=None, name=None):
     return torch.linspace(_scalar(start), _scalar(stop), int(_scalar(num)),
-                          dtype=convert_dtype(dtype) or torch.float32,
+                          dtype=convert_dtype(dtype) or get_default_dtype(),
                           device=resolve_device())
 
 
 def eye(num_rows, num_columns=None, dtype=None, name=None):
     return torch.eye(num_rows, num_columns if num_columns is not None
                      else num_rows, dtype=convert_dtype(dtype)
-                     or torch.float32, device=resolve_device())
+                     or get_default_dtype(), device=resolve_device())
 
 
 def diag(x, offset=0, padding_value=0, name=None):

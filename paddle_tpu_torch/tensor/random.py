@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core.device import resolve_device
-from ..core.dtypes import convert_dtype
+from ..core.dtypes import convert_dtype, get_default_dtype
 from ..core.random import api_generator, note_draw
 from .creation import _shape
 
@@ -29,14 +29,14 @@ def _gen(device):
 def rand(shape, dtype=None, name=None):
     device = resolve_device()
     return torch.rand(_shape(shape), dtype=convert_dtype(dtype)
-                      or torch.float32, device=device,
+                      or get_default_dtype(), device=device,
                       generator=_gen(device))
 
 
 def randn(shape, dtype=None, name=None):
     device = resolve_device()
     return torch.randn(_shape(shape), dtype=convert_dtype(dtype)
-                       or torch.float32, device=device,
+                       or get_default_dtype(), device=device,
                        generator=_gen(device))
 
 
@@ -51,12 +51,13 @@ def normal(mean=0.0, std=1.0, shape=None, name=None):
         like = mean if isinstance(mean, torch.Tensor) else std
         shp = torch.broadcast_shapes(torch.as_tensor(mean).shape,
                                      torch.as_tensor(std).shape)
-        z = torch.randn(shp, device=like.device,
+        z = torch.randn(shp, dtype=get_default_dtype(), device=like.device,
                         generator=_gen(like.device))
         return mean + std * z
     device = resolve_device()
     z = torch.randn(_shape(shape) if shape is not None else (),
-                    device=device, generator=_gen(device))
+                    dtype=get_default_dtype(), device=device,
+                    generator=_gen(device))
     return mean + std * z
 
 
@@ -66,7 +67,7 @@ def uniform(shape, dtype=None, min=-1.0, max=1.0, seed=0,  # noqa: A002
     lo = float(min.item() if isinstance(min, torch.Tensor) else min)
     hi = float(max.item() if isinstance(max, torch.Tensor) else max)
     u = torch.rand(_shape(shape), dtype=convert_dtype(dtype)
-                   or torch.float32, device=device,
+                   or get_default_dtype(), device=device,
                    generator=_gen(device))
     return lo + (hi - lo) * u
 

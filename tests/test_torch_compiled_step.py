@@ -185,8 +185,9 @@ def test_per_instance_programs():
 
 
 def test_loading_weights_builds_a_new_program():
-    """load_numpy_state_dict drops the degenerate-weight guard's verdicts,
-    which a captured step baked in: the next call keys a new program."""
+    """A load that changes the degenerate-weight guard's verdict on a
+    weight (which a captured step baked in) makes the next call key a new
+    program; a load that keeps every verdict reuses the program."""
     cfg = GPTConfig(vocab_size=32, hidden_size=64, num_layers=1,
                     num_heads=1, max_position_embeddings=16, dropout=0.0)
     model = GPTForCausalLM(cfg, device="cpu")
@@ -196,6 +197,12 @@ def test_loading_weights_builds_a_new_program():
         step(ids, ids)
     pt.load_numpy_state_dict(model, {k: v.clone() for k, v in
                                      model.state_dict().items()})
+    step(ids, ids)
+    assert len(step.programs) == 1
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    ln = next(k for k in state if k.endswith("ln2.weight"))
+    state[ln][3] = 0.0
+    pt.load_numpy_state_dict(model, state)
     step(ids, ids)
     assert len(step.programs) == 2
 

@@ -1350,13 +1350,10 @@ def test_recompute_with_dropout_under_capture(card):
     assert runs[True][0][0] != runs[True][1][0]
 
 
-def test_tensor_api_cases_on_card_match_host(card):
-    """Every case of tests/test_torch_tensor_cases.py on the card against
-    the host: f32 within 1e-6 (a decomposition within its own host
-    tolerance), integers and bools exactly."""
-    import paddle_tpu_torch as pt
-    from test_torch_tensor_cases import CASES
-
+def _cases_match_host(cases):
+    """Each case (tests/test_torch_*_cases.py) on the card against the
+    host: f32 within 1e-6 (or the case's own host tolerance where
+    larger), integers and bools exactly."""
     def run(c, device):
         pt.set_device(device)
         pt.seed(0)
@@ -1387,9 +1384,127 @@ def test_tensor_api_cases_on_card_match_host(card):
             np.testing.assert_array_equal(a, b, err_msg=cid)
     before = pt.get_device()
     try:
-        for c in CASES:
+        for c in cases:
             tol = {"rtol": max(1e-6, c.tol.get("rtol", 0.0)),
                    "atol": max(1e-6, c.tol.get("atol", 0.0))}
             check(run(c, "gpu"), run(c, "cpu"), tol, c.id)
     finally:
         pt.set_device(before)
+
+
+def test_tensor_api_cases_on_card_match_host(card):
+    """Every case of tests/test_torch_tensor_cases.py on the card against
+    the host: f32 within 1e-6 (a decomposition within its own host
+    tolerance), integers and bools exactly."""
+    from test_torch_tensor_cases import CASES
+    _cases_match_host(CASES)
+
+
+# -- the common surface (nn cases, MobileNetV2, the guard, the RNG state) ----
+def test_nn_cases_on_card_match_host(card):
+    """Every case of tests/test_torch_nn_cases.py on the card against the
+    host: f32 within 1e-6 (interpolate and fold within their own host
+    tolerance), integers and bools exactly, random draws by what their
+    distribution guarantees."""
+    from test_torch_nn_cases import CASES
+    _cases_match_host(CASES)
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+def test_mobilenet_v2_step_on_card_matches_host(card, fmt):
+    """MobileNetV2 (scale 0.25, 10 classes, classifier dropout 0) at 2 x
+    64 x 64, one training step and the eval logits, card against host in
+    f64 (in f32 a BN bias whose exact gradient is 0 gets rounding noise on
+    both sides): loss and logits to 1e-12 relative, every grad within
+    1e-10 of the model's grad norm."""
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randn(2, 3, 64, 64))
+    if fmt == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    y = torch.tensor(rng.randint(0, 10, (2,)))
+    outs = []
+    for device in ("cuda", "cpu"):
+        model = mobilenet_v2(scale=0.25, num_classes=10, data_format=fmt,
+                             device=device,
+                             generator=pt.make_generator(6))
+        model.classifier[0].p = 0.0
+        model.to(dtype=torch.float64)
+        loss = pt.nn.functional.cross_entropy(model(x.to(device)),
+                                              y.to(device))
+        loss.backward()
+        model.eval()
+        with torch.no_grad():
+            logits = model(x.to(device)).cpu()
+        outs.append((loss.item(), logits,
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (l0, e0, g0), (l1, e1, g1) = outs
+    assert abs(l0 - l1) <= 1e-12 * abs(l1)
+    assert ((e0 - e1).norm() / e1.norm()).item() <= 1e-12
+    norm = torch.sqrt(sum((g ** 2).sum() for g in g1.values())).item()
+    for n in g1:
+        assert (g0[n] - g1[n]).norm().item() <= 1e-10 * norm, n
+
+
+@pytest.mark.parametrize("write", ["set_state_dict", "load_state_dict",
+                                   "zero_"])
+def test_guard_after_a_write_through_a_captured_step(card, write):
+    """ROADMAP C3 on the card: a step through fused_residual_ln captured
+    by to_static and warm with an all-ones weight; after a write that
+    zeroes channel 3 the next call builds a new program and its dw equals
+    plain autograd's (not 0 at channel 3)."""
+    from paddle_tpu_torch.ops import fused_residual_ln as rln
+    g = torch.Generator(device="cuda").manual_seed(7)
+    x, y, ct = (torch.randn((4, 64, 256), generator=g, device="cuda")
+                for _ in range(3))
+    ln = pt.nn.LayerNorm(256, device="cuda")
+
+    @pt.jit.to_static
+    def step(a, b, c):
+        rln.fused_residual_ln(a, b, ln.weight, ln.bias).backward(c)
+        dw = ln.weight.grad
+        ln.weight.grad = None
+        return dw
+    for _ in range(3):
+        step(x, y, ct)
+    assert len(step.programs) == 1
+    zeroed = torch.ones(256, device="cuda")
+    zeroed[3] = 0.0
+    if write == "set_state_dict":
+        ln.set_state_dict({"weight": zeroed})
+    elif write == "load_state_dict":
+        ln.load_state_dict({"weight": zeroed, "bias": ln.bias.detach()})
+    else:
+        with torch.no_grad():
+            ln.weight[3].zero_()
+    got = [step(x, y, ct) for _ in range(3)][-1]
+    assert len(step.programs) == 2
+    w = ln.weight.detach().clone().requires_grad_()
+    z = x + y
+    out = (z - z.mean(-1, keepdim=True)) * torch.rsqrt(
+        z.var(-1, correction=0, keepdim=True) + 1e-5) * w + ln.bias.detach()
+    out.backward(ct)
+    assert abs(got[3].item()) > 1e-3
+    assert (got - w.grad).abs().max().item() <= \
+        1e-5 * max(1.0, w.grad.abs().max().item())
+
+
+def test_cuda_rng_state_round_trip_repeats_a_dropout_mask(card):
+    """get_cuda_rng_state / set_cuda_rng_state over the default generators
+    seed() seeds: a round trip repeats the next dropout mask; both refuse
+    inside a capture."""
+    x = torch.ones(4096, device="cuda")
+    pt.seed(3)
+    pt.nn.functional.dropout(x, 0.5)
+    state = pt.get_cuda_rng_state()
+    assert len(state) == torch.cuda.device_count()
+    a = pt.nn.functional.dropout(x, 0.5)
+    b = pt.nn.functional.dropout(x, 0.5)
+    assert not torch.equal(a, b)
+    pt.set_cuda_rng_state(state)
+    assert torch.equal(pt.nn.functional.dropout(x, 0.5), a)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="capture"):
+        with torch.cuda.graph(graph):
+            pt.get_cuda_rng_state()
+    torch.cuda.synchronize()

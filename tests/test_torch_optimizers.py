@@ -261,6 +261,11 @@ def test_param_attr_precedence_matches_reference():
     assert pl.weight.need_clip is False and pl.weight.optimize_attr == {
         "learning_rate": 0.5}
     assert isinstance(pl.weight.regularizer, L1Decay)
+    # the reference never reads the factor; the port refuses it (C-ref-14)
+    with pytest.raises(NotImplementedError, match="C-ref-14"):
+        pt.optimizer.Momentum(learning_rate=0.1,
+                              parameters=pl.parameters())
+    pl.weight.optimize_attr["learning_rate"] = 1.0
     ropt = ref.optimizer.Momentum(
         learning_rate=0.1, parameters=rl.parameters(),
         weight_decay=RefL2(0.3), grad_clip=ref.nn.ClipGradByGlobalNorm(1e-3))

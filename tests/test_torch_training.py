@@ -24,6 +24,7 @@ from paddle_tpu.text.models.gpt import GPTForCausalLM as RefGPT
 
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn.functional as PF
+from paddle_tpu_torch.ops import _param_guard
 from paddle_tpu_torch.ops import attention as port_attn
 from paddle_tpu_torch.ops import fused_residual_ln as port_rln
 from paddle_tpu_torch.ops.cuda import flash_attention as port_fa
@@ -115,21 +116,34 @@ def test_fused_residual_ln_grads_match_jax_vjp(degenerate, return_residual,
 
 
 def test_fused_residual_ln_guard_is_sticky_and_reset_by_loading():
+    """The verdict is cached on the parameter and kept across an
+    optimizer's own update (sticky: no sync per step); a write the
+    version counter sees, and a load, make it checked again (C3)."""
     layer = GPTForCausalLM(GPTConfig(vocab_size=16, hidden_size=64,
                                      num_layers=1, num_heads=1,
                                      max_position_embeddings=128,
                                      dropout=0.0), device="cpu")
     w = layer.gpt.h[0].ln2.weight
+    name = next(n for n, p in layer.named_parameters() if p is w)
     x = torch.zeros(1, 4, 64, requires_grad=True)
     port_rln.fused_residual_ln(x, x, w, layer.gpt.h[0].ln2.bias)
     assert w._degen_cache == (port_rln._W_TOL, False)
+    gen = _param_guard.generation()
     with torch.no_grad():
-        w.zero_()         # an in-place update keeps the verdict (sticky)
-    assert port_rln.degenerate_below_tol(w, port_rln._W_TOL) is False
-    sd = {k: v.numpy() for k, v in layer.state_dict().items()}
-    pt.load_numpy_state_dict(layer, sd)
-    assert not hasattr(w, "_degen_cache")
+        w.zero_()         # an in-place write: the verdict is checked again
     assert port_rln.degenerate_below_tol(w, port_rln._W_TOL) is True
+    assert _param_guard.generation() == gen + 1
+    sd = {k: v.numpy() for k, v in layer.state_dict().items()}
+    sd[name] = np.ones(64, np.float32)
+    pt.load_numpy_state_dict(layer, sd)
+    assert w._degen_cache == (port_rln._W_TOL, False)
+    assert _param_guard.generation() == gen + 2
+    opt = pt.optimizer.SGD(learning_rate=1.0, parameters=[w])
+    w.grad = torch.ones_like(w)
+    opt.step()            # w is 0 now, but an update keeps the verdict
+    assert float(w.detach().abs().max()) == 0.0
+    assert port_rln.degenerate_below_tol(w, port_rln._W_TOL) is False
+    assert _param_guard.generation() == gen + 2
 
 
 # -- (b) fused_ffn -----------------------------------------------------------
