@@ -12,9 +12,10 @@ Phases, each printing JSON lines:
    and time kernel, plain version and a library yardstick: flash attention
    B1 (causal and not, head dim 64 and 128, bf16 and f32), then its
    backward B2 (dK, dV) and B3 (dQ) at the training shape (4 x 1024, 16
-   heads of 64, bf16, causal) and five more; last B1, B2 and B3 at BERT's
-   shape (8 x 512, 12 heads of 64, bf16, non-causal, q, k and v three
-   contiguous tensors). bf16 runs the tensor-core
+   heads of 64, bf16, causal) and five more; B1 at translate's encoder
+   shape (8 x 256, 8 heads of 64, bf16, non-causal); last B1, B2 and B3
+   at BERT's shape (8 x 512, 12 heads of 64, bf16, non-causal, q, k and
+   v three contiguous tensors). bf16 runs the tensor-core
    variants, f32 the CUDA-core (SIMT) ones; each row names the variant
    that ran. At the bf16 causal shapes and at BERT's the wrapper's whole
    backward (bwd_delta, B2 and B3) is also timed against the library's,
@@ -191,10 +192,34 @@ them, and the kernels line says so.
    autograd's dw; one that keeps it builds none. None of these lanes
    launches B1, B2 or B3 (``launches_surface`` on the kernels line).
 
+20. nn_rest (``--phases nn_rest``): the rest of nn. (a) nn_rest_cases:
+   every case of tests/test_torch_nn_rest_cases.py (1-D, 3-D and
+   transposed convs, poolings with masks and unpooling, the group,
+   instance, local-response and spectral norms, nn.utils, vision.py's
+   samplers, sparse_attention, gather_tree) on the card against the host
+   (f32 1e-6, the transposed convs and samplers 1e-5, integers and bools
+   exact). (b) rnn_small: LSTM, GRU and SimpleRNN (tanh, relu), 2 layers,
+   bidirectional, 3 x 7 x 16, f32 card against host (outputs 1e-5, grads
+   1e-4; the tanh SimpleRNN 2e-5 and 5e-4, cuDNN's tanh cell being less
+   accurate than the host's), and BeamSearchDecoder over a GRUCell with finished beams
+   (tokens and parents identical). (c) translate, a full-width path:
+   Transformer-base (nn.Transformer's defaults) with a shared
+   37000-token embedding, bf16, 8 sources of 256 tokens encoded (B1 6
+   times, tc_bf16, non-causal, at (8, 256, 8, 64)) and decoded with beam 4
+   through TransformerBeamSearchDecoder + dynamic_decode (at most 128
+   steps); beam 1 equals a greedy loop over the same cell; encode ms,
+   time to the first token, step ms p50/p99, decoded tokens/s, kernels a
+   step, busy share, peak memory. (d) lstm_lm, a full-width path: the
+   PTB "medium" LSTM LM (vocab 10000, 2 x LSTM(650), dropout 0.5, SGD(1.0)
+   + ClipGradByGlobalNorm(5.0), f32, 20 x 35, truncated BPTT) captured by
+   to_static, 2 + 256 steps on a Markov stream made on the card, the
+   loss finite and falling; step ms, tokens/s, device time by class,
+   busy share, peak memory.
+
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi, optim, surface); the kernels line needs every phase and
-is printed only when all run.
+serving, hapi, optim, surface, nn_rest); the kernels line needs every
+phase and is printed only when all run.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -238,6 +263,8 @@ CLS_WEIGHT_DRAWS = 3
 # BERT-base on the flash kernels: (batch, seq, heads, head dim) at s = 512,
 # where the selection rule takes B1, B2 and B3 (non-causal)
 BERT_FLASH_SHAPE = (8, 512, 12, 64)
+# translate's encoder self-attention: Transformer-base at 8 x 256
+TRANSLATE_FLASH_SHAPE = (8, 256, 8, 64)
 BERT_FLASH_REPLAYS = 16
 # eval-mode f32 logits, kernel path against math path (summation order)
 BERT_LOGIT_TOL = 1e-3
@@ -599,6 +626,7 @@ def phase_kernels(torch, seed):
              (2, 1024, 16, 128, torch.bfloat16, False),
              (4, 512, 16, 64, torch.float32, True),
              (2, 512, 16, 128, torch.float32, False),
+             (*TRANSLATE_FLASH_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
     for b, s, h, d, dtype, causal in cases:
@@ -3858,19 +3886,32 @@ def cases_on_card(torch, module, phase):
         if a.dtype.kind in "fc":
             return bool(np.allclose(a, b, equal_nan=True, **tol))
         return bool(np.array_equal(a, b))
+    def gap(a, b):
+        # the largest float gap of a failed case (shape or dtype apart: inf)
+        if isinstance(b, (list, tuple)):
+            return max([gap(x, y) for x, y in zip(a, b)] or [0.0])
+        a, b = np.asarray(a), np.asarray(b)
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return float("inf")
+        if a.dtype.kind in "fc":
+            return float(np.nanmax(np.abs(a - b), initial=0.0))
+        return float(not np.array_equal(a, b))
     t0 = time.perf_counter()
-    failed, functions = [], set()
+    failed, gaps, functions = [], {}, set()
     before = pt.get_device()
     try:
         for c in cases:
             tol = {k: max(v, c.tol.get(k, 0.0)) for k, v in TENSOR_TOL.items()}
-            if not same(run(c, "gpu"), run(c, "cpu"), tol):
+            card, host = run(c, "gpu"), run(c, "cpu")
+            if not same(card, host, tol):
                 failed.append(c.id)
+                gaps[c.id] = gap(card, host)
             functions.add(c.function)
     finally:
         pt.set_device(before)
     row = {"phase": phase, "cases": len(cases),
            "functions": len(functions), "failed": failed,
+           "failed_max_abs_gap": gaps,
            "tolerance": TENSOR_TOL, "seconds": time.perf_counter() - t0}
     emit(row)
     assert not failed, failed
@@ -4443,8 +4484,504 @@ def phase_state_guard(torch, seed):
     return rows
 
 
+# -- the rest of nn (nn_rest group) -------------------------------------------
+# rnn_small: f32 card against host
+RNN_SMALL = {"batch": 3, "steps": 7, "width": 16, "layers": 2}
+RNN_OUT_TOL, RNN_GRAD_TOL = 1e-5, 1e-4
+# cuDNN's tanh RNN cell is ~50x less accurate than the host's f32: on an
+# H100 its outputs sit 8-9.6e-6 and its grads 0.7-1.4e-4 (relative to 1 +
+# |grad|) from the f64 truth, where the host's sit 2e-7 and 2-3e-6
+TANH_RNN_OUT_TOL, TANH_RNN_GRAD_TOL = 2e-5, 5e-4
+# translate: Transformer-base (Vaswani et al. 2017, Table 3 "base") with a
+# shared 37000-token embedding, beam 4 (their section 6.1)
+TRANSLATE = {"vocab": 37000, "d_model": 512, "batch": 8, "src_len": 256,
+             "beam": 4, "max_steps": 128, "greedy_steps": 32, "bos": 1,
+             "eos": 2, "encode_reps": 5}
+# lstm_lm: the PTB "medium" LSTM of Zaremba et al. 2014 (section 4.1) as
+# PaddlePaddle's ptb_lm example trains it
+LSTM_LM = {"vocab": 10000, "width": 650, "layers": 2, "dropout": 0.5,
+           "num_steps": 35, "batch": 20, "lr": 1.0, "clip": 5.0,
+           "init_scale": 0.05, "warmup": 2, "timed": 256, "window": 32,
+           "markov_ids": 2000, "markov_fanout": 17, "markov_mult": 31}
+
+
+def phase_nn_rest_cases(torch):
+    """nn_rest_cases: every case of tests/test_torch_nn_rest_cases.py
+    (1-D, 3-D and transposed convs, every pooling with masks and
+    unpooling, the group/instance/LRN/spectral norms, nn.utils, vision.py,
+    sparse_attention, gather_tree) on the card against the host
+    (cases_on_card, TF32 off; transposed convs and the samplers within
+    their host tolerance, 1e-5)."""
+    return cases_on_card(torch, "test_torch_nn_rest_cases", "nn_rest_cases")
+
+
+def phase_rnn_small(torch, seed):
+    """rnn_small: LSTM, GRU and SimpleRNN (tanh and relu), 2 layers,
+    bidirectional, batch 3 x 7 steps, width 16, f32 on the card (cuDNN's
+    RNN, one call per layer) against the same weights on the host: outputs
+    and final states within RNN_OUT_TOL, the input's and every weight's
+    grad (of a fixed random weighting of all outputs) within RNN_GRAD_TOL
+    (the tanh SimpleRNN within TANH_RNN_OUT_TOL and TANH_RNN_GRAD_TOL).
+    Then BeamSearchDecoder (beam 3) over a GRUCell, an embedding and a
+    projection whose bias favours the end token, 6 steps on the card and
+    on the host: tokens, parents, lengths and finished flags identical,
+    with at least one beam finished."""
+    import paddle_tpu_torch as pt
+    b, t, w, nl = (RNN_SMALL[k] for k in ("batch", "steps", "width",
+                                          "layers"))
+    g = torch.Generator().manual_seed(seed + 31)
+    x = torch.randn(b, t, w, generator=g)
+    rows = []
+    for name, kw in (("LSTM", {}), ("GRU", {}), ("SimpleRNN", {}),
+                     ("SimpleRNN", {"activation": "relu"})):
+        cls = getattr(pt.nn, name)
+
+        def run(device, state=None):
+            layer = cls(w, w, num_layers=nl, direction="bidirect",
+                        device=device, generator=pt.make_generator(seed), **kw)
+            if state is not None:
+                layer.set_state_dict(state)
+            xi = x.detach().to(device).requires_grad_()
+            out, final = layer(xi)
+            outs = [out] + list(final if isinstance(final, tuple)
+                                else (final,))
+            weights = [torch.randn(o.shape, generator=torch.Generator()
+                                   .manual_seed(seed + i)).to(device)
+                       for i, o in enumerate(outs)]
+            sum((o * wt).sum() for o, wt in zip(outs, weights)).backward()
+            grads = {n: p.grad.cpu() for n, p in layer.named_parameters()}
+            grads["input"] = xi.grad.cpu()
+            return [o.detach().cpu() for o in outs], grads, layer.state_dict()
+        host_out, host_grads, state = run("cpu")
+        card_out, card_grads, _ = run("cuda", state)
+        out_gap = max((a - h).abs().max().item()
+                      for a, h in zip(card_out, host_out))
+        grad_gap = max(((card_grads[n] - host_grads[n]).abs()
+                        / (1.0 + host_grads[n].abs())).max().item()
+                       for n in host_grads)
+        tanh = name == "SimpleRNN" and not kw
+        tol = {"out": TANH_RNN_OUT_TOL if tanh else RNN_OUT_TOL,
+               "grad": TANH_RNN_GRAD_TOL if tanh else RNN_GRAD_TOL}
+        row = {"phase": "rnn_small", "layer": name, **kw, "layers": nl,
+               "direction": "bidirect", "shape": [b, t, w],
+               "out_max_abs_gap": out_gap, "grad_max_rel_gap": grad_gap,
+               "tol": tol}
+        emit(row)
+        assert out_gap <= tol["out"] and grad_gap <= tol["grad"], row
+        rows.append(row)
+
+    vocab, beam = 6, 3
+
+    def decode(device):
+        gen = pt.make_generator(seed + 32)
+        emb = pt.nn.Embedding(vocab, w, device=device, generator=gen)
+        cell = pt.nn.GRUCell(w, w, device=device, generator=gen)
+        proj = pt.nn.Linear(w, vocab, device=device, generator=gen)
+        with torch.no_grad():
+            proj.bias[0] += 0.6
+        dec = pt.nn.BeamSearchDecoder(cell, 1, 0, beam, embedding_fn=emb,
+                                      output_fn=proj)
+        init = torch.randn(2, w, generator=torch.Generator().manual_seed(
+            seed + 33)).to(device)
+        inputs, states = dec.initialize(init)
+        toks, parents = [], []
+        with torch.no_grad():
+            for step in range(6):
+                out, states, inputs, _ = dec.step(step, inputs, states)
+                toks.append(out[0].cpu())
+                parents.append(out[1].cpu())
+        return (torch.stack(toks), torch.stack(parents),
+                states["lengths"].cpu(), states["finished"].cpu())
+    card, host = decode("cuda"), decode("cpu")
+    same = all(torch.equal(a, h) for a, h in zip(card, host))
+    row = {"phase": "rnn_small", "decoder": "BeamSearchDecoder over GRUCell",
+           "beam": beam, "vocab": vocab, "steps": 6, "identical": same,
+           "finished_beams": int(card[3].sum()),
+           "tokens_batch0": card[0][:, 0].tolist()}
+    emit(row)
+    assert same and row["finished_beams"] > 0, row
+    rows.append(row)
+    return rows
+
+
+def translate_model(torch, pt, seed):
+    """Transformer-base with a shared source/target/output embedding and
+    sinusoidal positions, random weights from ``seed``, bf16, eval."""
+    cfg = TRANSLATE
+    d, vocab = cfg["d_model"], cfg["vocab"]
+    max_len = cfg["src_len"] + cfg["max_steps"]
+
+    class Translator(pt.nn.Layer):
+        def __init__(self):
+            super().__init__(device="cuda",
+                             generator=pt.make_generator(seed))
+            fk = self.factory_kwargs()
+            self.embedding = pt.nn.Embedding(vocab, d, **fk)
+            self.transformer = pt.nn.Transformer(**fk)
+            pos = torch.arange(max_len, dtype=torch.float32)[:, None]
+            freq = 10000.0 ** (torch.arange(0, d, 2) / d)
+            pe = torch.zeros(max_len, d)
+            pe[:, 0::2] = torch.sin(pos / freq)
+            pe[:, 1::2] = torch.cos(pos / freq)
+            self.register_buffer("pe", pe.to("cuda"))
+
+        def embed(self, ids, start):
+            return (self.embedding(ids) * d ** 0.5
+                    + self.pe[start:start + ids.shape[1]])
+
+        def encode(self, src):
+            return self.transformer.encoder(self.embed(src, 0))
+
+        def cell(self, memory):
+            """The decode step over ``memory``: (ids, caches) -> (logits
+            through the shared embedding, new caches); the position is the
+            self-attention cache's length."""
+            def step(ids, caches):
+                x = self.embed(ids[:, None], caches[0][0].k.shape[1])
+                out, new = self.transformer.decoder(x, memory, cache=caches)
+                return out[:, 0] @ self.embedding.weight.T, new
+            return step
+    model = Translator()
+    model.bfloat16()
+    model.eval()
+    return model
+
+
+class _StepClock:
+    """A decoder whose steps are timed on the host: the time between one
+    step's start and the next's includes dynamic_decode's per-step sync."""
+
+    def __init__(self, decoder):
+        self.decoder, self.starts = decoder, []
+
+    def __getattr__(self, name):
+        return getattr(self.decoder, name)
+
+    def step(self, *args, **kwargs):
+        self.starts.append(time.perf_counter())
+        return self.decoder.step(*args, **kwargs)
+
+
+def phase_translate(torch, seed):
+    """translate, the first full-width path: Transformer-base (d_model
+    512, 8 heads, 6 + 6 layers, FFN 2048, ReLU; nn.Transformer's
+    defaults) with a shared 37000-token embedding, bf16, eval, random
+    weights from --seed; 8 sources of 256 tokens (no padding, so no mask:
+    the encoder's self-attention takes B1, tc_bf16, at (8, 256, 8, 64));
+    beam 4 through TransformerBeamSearchDecoder + dynamic_decode, the
+    memory tiled by tile_beam_merge_with_batch and the caches from
+    gen_cache, at most 128 steps (no length penalty: the reference's
+    decoder has none). Gates: output (8, T, 4); B1 launched exactly 6
+    times in the encode+decode (the wrappers' counts, reset just before);
+    every final log-prob finite; beam 1 (32 steps) equals a greedy loop
+    over the same cell. Reported: encode ms (wall, median of 5, and device
+    from a profile), time to the first decoded token, decode step ms
+    p50/p99, steps, decoded tokens/s (batch x beam a step), kernels a
+    step and the busy share (a profiled 8-step decode), peak memory."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAME, TC
+    cfg = TRANSLATE
+    t_lane = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = translate_model(torch, pt, seed)
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    src = torch.randint(3, cfg["vocab"], (cfg["batch"], cfg["src_len"]),
+                        generator=gen, device="cuda")
+    beam = cfg["beam"]
+    tile = pt.nn.BeamSearchDecoder.tile_beam_merge_with_batch
+
+    def decode(memory, beam_size, max_steps, clock=None):
+        if beam_size > 1:
+            memory = tile(memory, beam_size)
+        dec = pt.nn.TransformerBeamSearchDecoder(
+            model.cell(memory), cfg["bos"], cfg["eos"], beam_size)
+        if clock is not None:
+            clock.decoder = dec
+            dec = clock
+        return pt.nn.dynamic_decode(
+            dec, inits=model.transformer.decoder.gen_cache(memory),
+            max_step_num=max_steps)
+
+    with torch.no_grad():
+        decode(model.encode(src), beam, 2)      # warm-up
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(cfg["encode_reps"]):
+            t0 = time.perf_counter()
+            model.encode(src)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        trace, _, _, enc_prof = profiled(torch, lambda: model.encode(src), 1)
+        torch.cuda.reset_peak_memory_stats()
+        clock = _StepClock(None)
+        launch_counts.clear()
+        t0 = time.perf_counter()
+        preds, states = decode(model.encode(src), beam, cfg["max_steps"],
+                               clock)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        b1 = launch_counts[f"{KERNEL_NAME}.{TC}"]
+        flash = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        ends = clock.starts[1:] + [t_end]
+        step_ms = [(e - s) * 1e3 for s, e in zip(clock.starts, ends)]
+        steps = len(step_ms)
+        first_token_ms = (ends[0] - t0) * 1e3
+        decode_s = t_end - clock.starts[0]
+        finite = bool(torch.isfinite(states["log_probs"]).all())
+        # beam 1 against a greedy loop over the same cell
+        memory = model.encode(src)
+        greedy_preds, _ = decode(memory, 1, cfg["greedy_steps"])
+        cell = model.cell(memory)
+        caches = model.transformer.decoder.gen_cache(memory)
+        tok = torch.full((cfg["batch"],), cfg["bos"], dtype=torch.int32,
+                         device="cuda")
+        done = torch.zeros(cfg["batch"], dtype=torch.bool, device="cuda")
+        greedy = []
+        for _ in range(greedy_preds.shape[1]):
+            logits, caches = cell(tok, caches)
+            nxt = torch.log_softmax(logits.float(), -1).argmax(-1)
+            tok = torch.where(done, cfg["eos"], nxt).to(torch.int32)
+            greedy.append(tok)
+            done = done | (tok == cfg["eos"])
+        beam1_equal = torch.equal(greedy_preds[:, :, 0],
+                                  torch.stack(greedy, dim=1))
+        # kernels a step and the busy share over 8 decode steps
+        prof_trace, prof_wall_s, _, _ = profiled(
+            torch, lambda: decode(memory, beam, 8), 1)
+    kernels = kernel_times(prof_trace)
+    row = {"phase": "translate", "dtype": "bfloat16",
+           "config": "Transformer-base: d_model 512, 8 heads, 6 + 6 layers, "
+                     "FFN 2048, ReLU; shared 37000-token embedding, "
+                     "sinusoidal positions",
+           "parameters": n_params, "sources": [cfg["batch"], cfg["src_len"]],
+           "beam": beam, "max_step_num": cfg["max_steps"],
+           "output_shape": list(preds.shape), "decode_steps": steps,
+           "encode_wall_ms_median": float(np.median(walls)),
+           "encode_wall_ms": walls,
+           "encode_device_ms": enc_prof["device_ms"],
+           "encode_kernels": enc_prof["kernel_launches"],
+           "time_to_first_token_ms": first_token_ms,
+           "decode_step_ms_p50": float(np.percentile(step_ms, 50)),
+           "decode_step_ms_p99": float(np.percentile(step_ms, 99)),
+           "decode_s": decode_s,
+           "decoded_tokens_per_s": cfg["batch"] * beam * steps / decode_s,
+           "profiled_decode": {
+               "steps": 8, "wall_ms": prof_wall_s * 1e3,
+               "kernels_per_step": sum(k[1] for k in kernels) / 8,
+               "device_ms": sum(k[0] for k in kernels) / 1e3,
+               "busy_share": device_busy(prof_trace) / (prof_wall_s * 1e3)},
+           "peak_mem_bytes": peak, "b1_launches": b1,
+           "flash_launch_counts": flash, "log_probs_finite": finite,
+           "beam1_equals_greedy": beam1_equal,
+           "greedy_steps": greedy_preds.shape[1],
+           "tokens_source0_beam0": preds[0, :16, 0].tolist(),
+           "seconds": time.perf_counter() - t_lane}
+    emit(row)
+    emit_profile(prof_trace, prof_wall_s, "translate_decode_8_steps", 8,
+                 top=12)
+    assert list(preds.shape) == [cfg["batch"], steps, beam], row
+    assert b1 == 6, row
+    assert finite and beam1_equal, row
+    del model, trace, prof_trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def markov_stream(torch, seed, n, ids):
+    """n tokens of s[i] = (31 s[i-1] + r_i) mod ids, r_i uniform in [0,
+    17), s[0] = 0 (paddle_tpu/text/datasets.py's Imikolov stream, whose
+    chain runs over 2000 ids), made on the card from ``seed``: the affine
+    maps x -> a x + b are composed by a Hillis-Steele scan, so no step
+    waits on the one before it."""
+    cfg = LSTM_LM
+    g = torch.Generator(device="cuda").manual_seed(seed + 51)
+    b = torch.randint(0, cfg["markov_fanout"], (n,), generator=g,
+                      device="cuda", dtype=torch.int64)
+    b[0] = 0
+    a = torch.full((n,), cfg["markov_mult"], device="cuda",
+                   dtype=torch.int64)
+    shift = 1
+    while shift < n:
+        a2, b2 = a.clone(), b.clone()
+        b2[shift:] = (a[shift:] * b[:-shift] + b[shift:]) % ids
+        a2[shift:] = (a[shift:] * a[:-shift]) % ids
+        a, b, shift = a2, b2, shift * 2
+    return b
+
+
+def lstm_classes(prof):
+    """Device ms and launches of an LSTM step's kernels by class: cuDNN's
+    RNN kernels, GEMMs, reductions, copies, the other elementwise ones."""
+    classes = {}
+    for us, count, name in kernel_times(prof):
+        low = name.lower()
+        if any(k in low for k in ("rnn", "lstm", "cudnn")):
+            kind = "rnn"
+        elif any(k in low for k in ("gemm", "xmma", "cutlass", "sm90_",
+                                    "sm80_", "ampere")):
+            kind = "gemm"
+        elif "reduce" in low:
+            kind = "reduction"
+        elif "copy" in low or "memcpy" in low or "memset" in low:
+            kind = "copy"
+        else:
+            kind = "elementwise"
+        ms, n = classes.get(kind, (0.0, 0))
+        classes[kind] = (ms + us / 1e3, n + count)
+    return {k: {"ms": ms, "launches": n} for k, (ms, n) in classes.items()}
+
+
+def phase_lstm_lm(torch, seed):
+    """lstm_lm, the second full-width path: the PTB "medium" LSTM
+    language model (Zaremba et al. 2014, section 4.1; PaddlePaddle's
+    ptb_lm example): vocab 10000, embedding 650, nn.LSTM(650, 650,
+    num_layers=2, dropout=0.5) (cuDNN, one call per layer), dropout 0.5
+    on its input and output, Linear(650, 10000), every weight
+    Uniform(-0.05, 0.05) through ParamAttr; 35 unrolled steps, batch 20;
+    SGD(1.0) with ClipGradByGlobalNorm(5.0), f32; (h, c) carried across
+    steps in buffers, detached (truncated BPTT); the step captured by
+    to_static (CompiledTrainStep): 2 warm-up steps (discovery, capture),
+    then 256 timed ones over Imikolov's Markov stream (its chain over
+    2000 of the 10000 ids, as PTB's text uses a skewed part of its
+    vocabulary; over all 10000 the unigram is uniform and 256 steps
+    learn nothing measurable) made on the card. Gates:
+    every loss finite, the last-32 mean below the first-32 mean, 1
+    compile in the warm-up and none timed. Reported: step ms, tokens/s
+    (700 a step), a replay's kernels, device time by class and busy
+    share, peak memory, captured."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    cfg = LSTM_LM
+    v, h, nl = cfg["vocab"], cfg["width"], cfg["layers"]
+    bsz, nsteps = cfg["batch"], cfg["num_steps"]
+    t_lane = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init = pt.nn.initializer.Uniform(-cfg["init_scale"], cfg["init_scale"])
+
+    class PTBModel(pt.nn.Layer):
+        def __init__(self):
+            super().__init__(device="cuda", generator=pt.make_generator(
+                seed, "cuda"))
+            fk = self.factory_kwargs()
+            attr = pt.ParamAttr(initializer=init)
+            self.embedding = pt.nn.Embedding(v, h, weight_attr=attr, **fk)
+            self.lstm = pt.nn.LSTM(h, h, num_layers=nl,
+                                   dropout=cfg["dropout"],
+                                   weight_ih_attr=attr, weight_hh_attr=attr,
+                                   bias_ih_attr=attr, bias_hh_attr=attr,
+                                   **fk)
+            self.dropout = pt.nn.Dropout(cfg["dropout"], **fk)
+            self.proj = pt.nn.Linear(h, v, weight_attr=attr, bias_attr=attr,
+                                     **fk)
+            self.register_buffer("h", torch.zeros(nl, bsz, h,
+                                                  device="cuda"))
+            self.register_buffer("c", torch.zeros(nl, bsz, h,
+                                                  device="cuda"))
+
+        def forward(self, x):
+            out, (hn, cn) = self.lstm(self.dropout(self.embedding(x)),
+                                      (self.h, self.c))
+            return self.proj(self.dropout(out)), hn, cn
+    model = PTBModel()
+    model.train()
+    opt = pt.optimizer.SGD(learning_rate=cfg["lr"],
+                           parameters=model.parameters(),
+                           grad_clip=pt.nn.ClipGradByGlobalNorm(cfg["clip"]))
+
+    @pt.jit.to_static
+    def train_step(x, y):
+        logits, hn, cn = model(x)
+        loss = pt.nn.functional.cross_entropy(logits.reshape([-1, v]),
+                                              y.reshape([-1]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        # truncated BPTT: the next step starts from these states, detached
+        with torch.no_grad():
+            model.h.copy_(hn)
+            model.c.copy_(cn)
+        return loss
+    step = CompiledTrainStep(train_step, label="lstm_lm")
+    total = cfg["warmup"] + cfg["timed"]
+    t0 = time.perf_counter()
+    stream = markov_stream(torch, seed, bsz * (total * nsteps + 1),
+                           cfg["markov_ids"])
+    data = stream.reshape(bsz, -1)
+    torch.cuda.synchronize()
+    data_s = time.perf_counter() - t0
+
+    def batch(k):
+        seg = data[:, k * nsteps:(k + 1) * nsteps + 1]
+        return seg[:, :-1].contiguous(), seg[:, 1:].contiguous()
+    losses = []
+    reset_compile_stats()
+    for k in range(cfg["warmup"]):
+        losses.append(step(*batch(k)))
+    torch.cuda.synchronize()
+    warm = compile_stats()
+    reset_compile_stats()
+    batches = [batch(k) for k in range(cfg["warmup"], total)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in batches:
+        losses.append(step(x, y))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    timed = compile_stats()
+    peak = torch.cuda.max_memory_allocated()
+    losses = torch.stack(losses).float().tolist()
+    step_ms = seconds / cfg["timed"] * 1e3
+    x, y = batches[-1]
+    trace, wall_s, _, prof = profiled(torch, lambda: step(x, y), 1)
+    win = cfg["window"]
+    first, last = (float(np.mean(losses[:win])),
+                   float(np.mean(losses[-win:])))
+    n_params = sum(p.numel() for p in model.parameters())
+    programs = step.static_function._programs.values()
+    captured = bool(programs) and all(p.graph is not None for p in programs)
+    row = {"phase": "lstm_lm", "dtype": "float32",
+           "config": "PTB medium LSTM: vocab 10000, embedding 650, 2 x "
+                     "LSTM(650), dropout 0.5, Linear(650, 10000), "
+                     "Uniform(-0.05, 0.05)",
+           "parameters": n_params, "batch": [bsz, nsteps],
+           "optimizer": "SGD(1.0) + ClipGradByGlobalNorm(5.0)",
+           "data": f"Imikolov's Markov stream (31 s + U[0, 17)) mod "
+                   f"{cfg['markov_ids']} made on the card", "data_s": data_s,
+           "warmup_steps": cfg["warmup"], "timed_steps": cfg["timed"],
+           "compile_stats_warmup": warm, "compile_stats_timed": timed,
+           "captured": captured, "step_ms": step_ms,
+           "tokens_per_s": bsz * nsteps / (step_ms / 1e3),
+           "replay_profile": {**prof, "wall_ms": wall_s * 1e3,
+                              "busy_share": device_busy(trace)
+                              / (wall_s * 1e3)},
+           "device_ms_by_class": lstm_classes(trace),
+           "unprofiled_busy_share": prof["device_ms"] / step_ms,
+           "peak_mem_bytes": peak, "loss_first": losses[0],
+           "loss_every_16th": losses[::16], f"first{win}_mean": first,
+           f"last{win}_mean": last,
+           "seconds": time.perf_counter() - t_lane}
+    emit(row)
+    emit_profile(trace, wall_s, "lstm_lm_replay", 1, top=12)
+    assert all(np.isfinite(losses)) and last < first, row
+    assert warm["compiles"] == 1 and timed["compiles"] == 0, (warm, timed)
+    assert captured, row
+    del model, opt, step, train_step, trace
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
-                   vision, serving, hapi, optim, surface):
+                   vision, serving, hapi, optim, surface, nn_rest):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -4466,7 +5003,11 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     hapi_lenet and hapi_resnet50; on the script surface's lanes
     (``optim``) and on the common surface's (``surface``: nn_cases,
     mobilenet_train, mobile_nets_small, mobilenet_eval, state_guard, all
-    0), the wrappers' counts over each lane."""
+    0), the wrappers' counts over each lane; and on the rest of nn's
+    (``nn_rest``): the wrappers' counts over the translate path's encode
+    and beam search (B1 tc_bf16 6, the encoder's six layers) and over
+    each other lane (all 0). B1 tc_bf16 has a row of its own at
+    translate's encoder shape (8, 256, 8, 64), with its launches there."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -4494,6 +5035,9 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                 "launches_surface": {
                     lane: counts.get(variant, 0)
                     for lane, counts in surface.items()},
+                "launches_nn_rest": {
+                    lane: counts.get(variant, 0)
+                    for lane, counts in nn_rest.items()},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -4547,6 +5091,11 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
               dq_simt["max_abs_err"],
               main_path="f32 training step (train_check, correctness run)",
               **scope),
+        entry(f"{fa.KERNEL_NAME}.{tc}.translate", "flash_attn_fwd_tc.cu",
+              114, rows[-2], nn_rest["translate"][f"{fa.KERNEL_NAME}.{tc}"],
+              rows[-2]["max_abs_err_o"], rel_l2=rows[-2]["rel_l2_o"],
+              main_path="Transformer-base bf16 encode at 8 x 256, "
+                        "non-causal (translate)"),
         *bert_entries(fa, entry, rows[-1], bwd_rows, bert, scope)]
 
 
@@ -4591,7 +5140,7 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
                 "to_static_grad", "bert", "vision", "serving", "hapi",
-                "optim", "surface")
+                "optim", "surface", "nn_rest")
 
 
 def main():
@@ -4737,12 +5286,39 @@ def main():
         emit({"phase": "surface", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    if "nn_rest" in run:
+        from paddle_tpu_torch.ops.cuda import launch_counts
+        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+        t_group = time.perf_counter()
+        lanes, seconds = {}, {}
+        for lane, fn in (
+                ("nn_rest_cases", lambda t, _: phase_nn_rest_cases(t)),
+                ("rnn_small", phase_rnn_small),
+                ("translate", phase_translate),
+                ("lstm_lm", phase_lstm_lm)):
+            launch_counts.clear()
+            t_lane = time.perf_counter()
+            row = fn(torch, args.seed)
+            seconds[lane] = time.perf_counter() - t_lane
+            if lane == "translate":
+                # the path's own window: the counts reset just before its
+                # encode and beam search and read just after
+                lanes[lane] = row["flash_launch_counts"]
+            else:
+                lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                               if k.split(".")[0] in KERNEL_NAMES}
+                assert not any(lanes[lane].values()), (lane, lanes[lane])
+        out["nn_rest"] = lanes
+        emit({"phase": "nn_rest", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": seconds})
+
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
             out["compiled"], out["amp"], out["bert"], out["vision"],
-            out["serving"], out["hapi"], out["optim"], out["surface"])})
+            out["serving"], out["hapi"], out["optim"], out["surface"],
+            out["nn_rest"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

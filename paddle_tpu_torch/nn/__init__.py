@@ -1,13 +1,18 @@
-"""paddle.nn: Layer and its containers, every activation and common
-layer of the reference, Conv2D, the norms, the 2-D poolings, the
-transformer layers and every loss layer. The rest of the reference's
-layers (1-D/3-D convs and poolings, RNNs, the other norms, decoding)
-come with the rest of nn (ROADMAP A4)."""
+"""paddle.nn: Layer and every layer of the reference (containers,
+activations, the common layers, the convolutions, the norms, the
+poolings, the RNNs, the transformer layers, every loss), decoding
+(``decode``: the beam search decoders and ``dynamic_decode``), ``utils``
+and ``quant``. SyncBatchNorm comes with distributed (ROADMAP A10)."""
 from ..framework.param_attr import ParamAttr
-from . import functional, initializer
+from . import decode, functional, initializer, quant, utils
 from . import layer as _layer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .decode import (BeamSearchDecoder, Decoder,
+                     TransformerBeamSearchDecoder, dynamic_decode)
 from .layer import *  # noqa: F401,F403
 
 __all__ = ["functional", "initializer", "ParamAttr", "ClipGradByValue",
-           "ClipGradByNorm", "ClipGradByGlobalNorm", *_layer.__all__]
+           "ClipGradByNorm", "ClipGradByGlobalNorm", "decode", "quant",
+           "utils", "Decoder", "BeamSearchDecoder",
+           "TransformerBeamSearchDecoder", "dynamic_decode",
+           *_layer.__all__]

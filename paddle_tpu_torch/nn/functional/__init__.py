@@ -1,21 +1,26 @@
-"""paddle.nn.functional: activations, the common functions, conv2d, the
-norms, the 2-D poolings and every loss of the reference, with the
-functions its __init__ defines (``sequence_mask``,
-``scaled_dot_product_attention``, ``diag_embed``, ``npair_loss``). The
-rest of the reference's functions (the 1-D and 3-D convs and poolings,
-vision.py's samplers, sparse attention, ``gather_tree``) come with the
-rest of nn (ROADMAP A4)."""
+"""paddle.nn.functional: every function of the reference: the
+activations, the common functions, the convolutions, the norms, the
+poolings, vision.py's samplers, sparse attention and every loss, with
+the functions its __init__ defines (``sequence_mask``,
+``scaled_dot_product_attention``, ``diag_embed``, ``npair_loss``,
+``gather_tree``)."""
 import torch
 
 from . import activation as _activation
 from . import common as _common
+from . import conv as _conv
 from . import loss as _loss
+from . import norm as _norm
+from . import pooling as _pooling
+from . import vision  # noqa: F401  (F.vision, as the reference binds it)
 from .activation import *  # noqa: F401,F403
 from .common import *  # noqa: F401,F403
-from .conv import conv2d
+from .conv import *  # noqa: F401,F403
 from .loss import *  # noqa: F401,F403
-from .norm import batch_norm, layer_norm, normalize
-from .pooling import adaptive_avg_pool2d, avg_pool2d, max_pool2d
+from .norm import *  # noqa: F401,F403
+from .pooling import *  # noqa: F401,F403
+from .sparse_attention import sparse_attention
+from .vision import *  # noqa: F401,F403
 
 
 def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
@@ -70,7 +75,15 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
     return ce + reg
 
 
-__all__ = [*_activation.__all__, *_common.__all__, "conv2d", "batch_norm",
-           "layer_norm", "normalize", "adaptive_avg_pool2d", "avg_pool2d",
-           "max_pool2d", "sequence_mask", "scaled_dot_product_attention",
-           "embedding_renorm_", "diag_embed", "npair_loss", *_loss.__all__]
+def gather_tree(ids, parents):
+    """Beam search's backtrack: (max_time, batch, beam) token ids and
+    parent beams to the full sequence of each final beam."""
+    from ..decode import backtrack
+    return backtrack(ids, parents)
+
+
+__all__ = [*_activation.__all__, *_common.__all__, *_conv.__all__,
+           *_norm.__all__, *_pooling.__all__, *vision.__all__,
+           "sparse_attention", "sequence_mask",
+           "scaled_dot_product_attention", "embedding_renorm_",
+           "diag_embed", "npair_loss", "gather_tree", *_loss.__all__]

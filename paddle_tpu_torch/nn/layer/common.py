@@ -1,8 +1,7 @@
 """The common layers (port of paddle_tpu/nn/layer/common.py): Linear,
 Embedding, the dropouts, Identity, Flatten, the upsamplers, the pads,
 CosineSimilarity, Bilinear, Unfold/Fold, the pixel and channel
-shuffles and PairwiseDistance. MaxUnPool2D comes with max_unpool (ROADMAP
-A4)."""
+shuffles, PairwiseDistance and MaxUnPool2D."""
 from __future__ import annotations
 
 import torch
@@ -16,7 +15,7 @@ __all__ = ["Linear", "Dropout", "Dropout2D", "Dropout3D", "AlphaDropout",
            "UpsamplingBilinear2D", "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D",
            "CosineSimilarity", "Bilinear", "Identity", "Unfold", "Fold",
            "PixelShuffle", "PixelUnshuffle", "ChannelShuffle",
-           "PairwiseDistance"]
+           "PairwiseDistance", "MaxUnPool2D"]
 
 
 class Identity(Layer):
@@ -314,3 +313,19 @@ class PairwiseDistance(Layer):
         d = x - y + self._epsilon
         return torch.sum(d.abs() ** self._p, dim=-1,
                          keepdim=self._keepdim) ** (1.0 / self._p)
+
+
+class MaxUnPool2D(Layer):
+    """The inverse of max_pool2d(return_mask=True): F.max_unpool2d with
+    the layer's arguments."""
+
+    def __init__(self, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None,
+                 **factory):
+        super().__init__(**factory)
+        self._args = (kernel_size, stride, padding, data_format, output_size)
+
+    def forward(self, x, indices):
+        k, s, p, df, osz = self._args
+        return F.max_unpool2d(x, indices, k, stride=s, padding=p,
+                              data_format=df, output_size=osz)

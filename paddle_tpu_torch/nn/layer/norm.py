@@ -1,18 +1,30 @@
-"""LayerNorm and BatchNorm (port of paddle_tpu/nn/layer/norm.py).
+"""The norm layers (port of paddle_tpu/nn/layer/norm.py): LayerNorm, the
+batch norms, GroupNorm, the instance norms, LocalResponseNorm and
+SpectralNorm. SyncBatchNorm comes with distributed (ROADMAP A10).
 
 The batch norms keep their running statistics in buffers named ``_mean``
 and ``_variance``, as the reference's state dict does, in the layer's
 dtype; ``model.bfloat16()`` casts them with the parameters, as the
-reference's ``Layer.to`` does."""
+reference's ``Layer.to`` does. The instance norms' affine parameters are
+``scale`` and ``bias`` (both absent when either attr is False), and the
+reference never reads their ``momentum``: anything but 0.9 raises
+(ROADMAP C-ref-17). SpectralNorm's ``weight_u`` and ``weight_v`` are
+parameters that take no gradient (every optimizer skips them) and are
+written in place by each forward's power iteration."""
 from __future__ import annotations
+
+import math
 
 import torch
 
+from ...amp.auto_cast import amp_cast
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D"]
+__all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
+           "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm"]
 
 
 class LayerNorm(Layer):
@@ -84,3 +96,128 @@ class BatchNorm1D(_BatchNormBase):
 
 class BatchNorm2D(_BatchNormBase):
     pass
+
+
+class BatchNorm3D(_BatchNormBase):
+    def __init__(self, num_features, momentum=0.9, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 use_global_stats=None, name=None, **factory):
+        super().__init__(num_features, momentum, epsilon, weight_attr,
+                         bias_attr, data_format, use_global_stats,
+                         **factory)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-05,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, **factory):
+        super().__init__(**factory)
+        self._num_groups = num_groups
+        self._num_channels = num_channels
+        self._epsilon = epsilon
+        self._data_format = data_format
+        self.weight = self.create_parameter(
+            shape=[num_channels], attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = self.create_parameter(
+            shape=[num_channels], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class _InstanceNormBase(Layer):
+    def __init__(self, num_features, epsilon=1e-05, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, **factory):
+        super().__init__(**factory)
+        if momentum != 0.9:
+            raise NotImplementedError(
+                f"momentum={momentum!r}: the reference's instance norms keep "
+                f"no running statistics and never read it (ROADMAP "
+                f"C-ref-17)")
+        self._epsilon = epsilon
+        self._data_format = data_format
+        if weight_attr is False or bias_attr is False:
+            self.scale = None
+            self.bias = None
+        else:
+            self.scale = self.create_parameter(
+                shape=[num_features], attr=weight_attr,
+                default_initializer=I.Constant(1.0))
+            self.bias = self.create_parameter(
+                shape=[num_features], attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.scale, bias=self.bias,
+                               eps=self._epsilon,
+                               data_format=self._data_format)
+
+
+class InstanceNorm1D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm2D(_InstanceNormBase):
+    pass
+
+
+class InstanceNorm3D(_InstanceNormBase):
+    pass
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=0.0001, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None, **factory):
+        super().__init__(**factory)
+        self.size = size
+        self.alpha = alpha
+        self.beta = beta
+        self.k = k
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.local_response_norm(x, self.size, self.alpha, self.beta,
+                                     self.k, self.data_format)
+
+
+class SpectralNorm(Layer):
+    """weight / sigma, sigma the largest singular value of ``weight``
+    seen as a (weight_shape[dim], -1) matrix, estimated by
+    ``power_iters`` steps of power iteration from the stored ``u`` and
+    ``v``. The iteration runs outside the gradient (sigma = u^T W v with
+    u, v constants, as the reference's op differentiates it)."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, eps=1e-12,
+                 name=None, dtype="float32", **factory):
+        super().__init__(**factory)
+        self._dim = dim
+        self._power_iters = power_iters
+        self._eps = eps
+        h = weight_shape[dim]
+        w = math.prod(s for i, s in enumerate(weight_shape) if i != dim)
+        self.weight_u = self.create_parameter(
+            [h], default_initializer=I.Normal(0.0, 1.0))
+        self.weight_v = self.create_parameter(
+            [w], default_initializer=I.Normal(0.0, 1.0))
+        self.weight_u.requires_grad_(False)
+        self.weight_v.requires_grad_(False)
+
+    def forward(self, weight):
+        weight, = amp_cast("spectral_norm", weight)
+        dim = self._dim
+        perm = (dim,) + tuple(i for i in range(weight.dim()) if i != dim)
+        mat = weight.permute(perm).reshape(weight.shape[dim], -1)
+        u, v = self.weight_u, self.weight_v
+        with torch.no_grad():
+            fixed = mat.detach()
+            for _ in range(self._power_iters):
+                v = fixed.T @ u
+                v = v / (torch.linalg.vector_norm(v) + self._eps)
+                u = fixed @ v
+                u = u / (torch.linalg.vector_norm(u) + self._eps)
+            if self._power_iters:
+                self.weight_u.copy_(u)
+                self.weight_v.copy_(v)
+        return weight / (u @ mat @ v)

@@ -1508,3 +1508,126 @@ def test_cuda_rng_state_round_trip_repeats_a_dropout_mask(card):
         with torch.cuda.graph(graph):
             pt.get_cuda_rng_state()
     torch.cuda.synchronize()
+
+
+# -- the rest of nn (nn_rest cases, RNNs, beam search, the LSTM LM step) ------
+def test_nn_rest_cases_on_card_match_host(card):
+    """Every case of tests/test_torch_nn_rest_cases.py on the card against
+    the host: f32 within 1e-6 (the transposed convs and the samplers
+    within their own host tolerance, 1e-5), integers and bools exactly."""
+    from test_torch_nn_rest_cases import CASES
+    _cases_match_host(CASES)
+
+
+@pytest.mark.parametrize("cls,out_tol,grad_tol", [
+    ("LSTM", 1e-5, 1e-4), ("GRU", 1e-5, 1e-4), ("SimpleRNN", 2e-5, 5e-4)])
+def test_rnn_on_card_matches_host(card, cls, out_tol, grad_tol):
+    """A 2-layer bidirectional RNN through cuDNN against the same weights
+    on the host, f32: outputs and final states within 1e-5, the input's
+    and every weight's grad within 1e-4 (relative to 1 + |grad|). The
+    tanh SimpleRNN within 2e-5 and 5e-4: cuDNN's tanh cell sits 8-9.6e-6
+    (outputs) and 0.7-1.4e-4 (grads) from the f64 truth on an H100, where
+    the host's f32 sits 2e-7 and 2-3e-6."""
+    x = torch.randn(3, 7, 16, generator=torch.Generator().manual_seed(0))
+
+    def run(device, state=None):
+        layer = getattr(pt.nn, cls)(16, 16, num_layers=2,
+                                    direction="bidirect", device=device,
+                                    generator=pt.make_generator(1))
+        if state is not None:
+            layer.set_state_dict(state)
+        xi = x.detach().to(device).requires_grad_()
+        out, final = layer(xi)
+        outs = [out, *(final if isinstance(final, tuple) else (final,))]
+        sum((o * (i + 1.5)).sum() for i, o in enumerate(outs)).backward()
+        grads = [xi.grad] + [p.grad for p in layer.parameters()]
+        return ([o.detach().cpu() for o in outs],
+                [g.cpu() for g in grads], layer.state_dict())
+    host_out, host_grads, state = run("cpu")
+    card_out, card_grads, _ = run("cuda", state)
+    for a, b in zip(card_out, host_out):
+        assert (a - b).abs().max().item() <= out_tol
+    for a, b in zip(card_grads, host_grads):
+        assert ((a - b).abs() / (1 + b.abs())).max().item() <= grad_tol
+
+
+def test_beam_search_tie_rule_on_card_matches_host(card):
+    """The top-k of tied scores keeps the lower index first on the card as
+    on the host, and a beam search with a vocabulary smaller than the
+    beam (ties among step 0's -1e9 beams) and finishing beams steps
+    identically on both."""
+    from paddle_tpu_torch.nn.decode import top_k_lower_index_first
+    g = torch.Generator().manual_seed(2)
+    scores = torch.randint(0, 4, (6, 4 * 37), generator=g).float() - 1e9
+    for k in (1, 4, 9):
+        host = top_k_lower_index_first(scores, k)
+        dev = top_k_lower_index_first(scores.cuda(), k)
+        assert torch.equal(dev[1].cpu(), host[1])
+        assert torch.equal(dev[0].cpu(), host[0])
+
+    def trace(device):
+        table = torch.tensor([[0.0, 1.0, 1.0], [2.0, 0.5, 0.5],
+                              [0.0, 0.0, 3.0]], device=device)
+
+        class Table(pt.nn.Layer):
+            def forward(self, ids, states):
+                return table[ids.long()], states
+        dec = pt.nn.BeamSearchDecoder(Table(), 0, 2, 4)
+        inputs, states = dec.initialize(torch.zeros(2, 3, device=device))
+        out = []
+        for t in range(5):
+            o, states, inputs, fin = dec.step(t, inputs, states)
+            out += [o[0].cpu(), o[1].cpu(), fin.cpu()]
+        return out
+    for a, b in zip(trace("cuda"), trace("cpu")):
+        assert torch.equal(a, b)
+
+
+def test_lstm_lm_step_captured_on_card(card):
+    """A two-layer LSTM language-model step (dropout 0, SGD + global-norm
+    clip, (h, c) carried detached) captured by to_static: one CUDA graph,
+    and its losses and final weights equal the eager steps' within 1e-5."""
+    def run(compiled):
+        pt.set_flags({"FLAGS_compiled_step": compiled})
+        try:
+            emb = pt.nn.Embedding(100, 32, device="cuda",
+                                  generator=pt.make_generator(3))
+            lstm = pt.nn.LSTM(32, 32, num_layers=2, device="cuda",
+                              generator=pt.make_generator(4))
+            proj = pt.nn.Linear(32, 100, device="cuda",
+                                generator=pt.make_generator(5))
+            params = [*emb.parameters(), *lstm.parameters(),
+                      *proj.parameters()]
+            opt = pt.optimizer.SGD(
+                learning_rate=1.0, parameters=params,
+                grad_clip=pt.nn.ClipGradByGlobalNorm(5.0))
+            h = torch.zeros(2, 4, 32, device="cuda")
+            c = torch.zeros(2, 4, 32, device="cuda")
+
+            @pt.jit.to_static
+            def step(x, y):
+                out, (hn, cn) = lstm(emb(x), (h, c))
+                loss = pt.nn.functional.cross_entropy(
+                    proj(out).reshape([-1, 100]), y.reshape([-1]))
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                with torch.no_grad():
+                    h.copy_(hn)
+                    c.copy_(cn)
+                return loss
+            g = torch.Generator(device="cuda").manual_seed(6)
+            data = torch.randint(0, 100, (6, 4, 6), generator=g,
+                                 device="cuda")
+            losses = [step(d[:, :-1].contiguous(), d[:, 1:].contiguous())
+                      for d in data]
+            programs = list(step.programs.values()) if compiled else []
+            return (torch.stack(losses).cpu(), proj.weight.detach().cpu(),
+                    programs)
+        finally:
+            pt.set_flags({"FLAGS_compiled_step": True})
+    captured, w_captured, programs = run(True)
+    eager, w_eager, _ = run(False)
+    assert len(programs) == 1 and programs[0].graph is not None
+    assert torch.allclose(captured, eager, rtol=1e-5, atol=1e-5)
+    assert torch.allclose(w_captured, w_eager, rtol=1e-5, atol=1e-5)

@@ -212,31 +212,14 @@ def test_default_dtype_reaches_creation_layers_and_draws(default_dtypes):
 # names the reference's modules bind that are not API (imports, helpers)
 ARTEFACTS = {"annotations", "apply", "builtins", "jax", "jnp", "next_key",
              "np", "operator", "unwrap", "convert_dtype", "Tensor"}
-# what later slices port (ROADMAP A4, A10, A13)
+# what later slices port (ROADMAP A10, A13)
 LATER = {
     "": {"DataParallel", "NPUPlace", "TPUPlace", "SelectedRows",
          "autograd", "cost_model", "device", "distribution", "fft", "grad",
          "hub", "incubate", "onnx", "signal", "slim", "sparsity", "static",
          "sysconfig", "utils"},
-    ".nn": {"AdaptiveAvgPool1D", "AdaptiveAvgPool3D", "AdaptiveMaxPool1D",
-            "AdaptiveMaxPool2D", "AdaptiveMaxPool3D", "AvgPool1D",
-            "AvgPool3D", "BatchNorm3D", "BeamSearchDecoder", "BiRNN",
-            "Conv1D", "Conv1DTranspose", "Conv2DTranspose", "Conv3D",
-            "Conv3DTranspose", "Decoder", "GRU", "GRUCell", "GroupNorm",
-            "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LSTM",
-            "LSTMCell", "LocalResponseNorm", "MaxPool1D", "MaxPool3D",
-            "MaxUnPool2D", "RNN", "RNNCellBase", "SimpleRNN",
-            "SimpleRNNCell", "SpectralNorm", "SyncBatchNorm",
-            "TransformerBeamSearchDecoder", "decode", "dynamic_decode",
-            "quant", "utils"},
-    ".nn.functional": {
-        "adaptive_avg_pool1d", "adaptive_avg_pool3d", "adaptive_max_pool1d",
-        "adaptive_max_pool2d", "adaptive_max_pool3d", "affine_grid",
-        "avg_pool1d", "avg_pool3d", "conv1d", "conv1d_transpose",
-        "conv2d_transpose", "conv3d", "conv3d_transpose", "gather_tree",
-        "grid_sample", "group_norm", "instance_norm", "local_response_norm",
-        "max_pool1d", "max_pool3d", "max_unpool1d", "max_unpool2d",
-        "sparse_attention", "temporal_shift", "vision"},
+    ".nn": {"SyncBatchNorm"},
+    ".nn.functional": set(),
     ".nn.initializer": set(),
 }
 
