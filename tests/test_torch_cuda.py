@@ -1631,3 +1631,246 @@ def test_lstm_lm_step_captured_on_card(card):
     assert len(programs) == 1 and programs[0].graph is not None
     assert torch.allclose(captured, eager, rtol=1e-5, atol=1e-5)
     assert torch.allclose(w_captured, w_eager, rtol=1e-5, atol=1e-5)
+
+
+# -- the rest of paddle.vision and paddle.text (zoo) --------------------------
+ZOO_CARD = ["alexnet", "vgg11_bn", "squeezenet1_0", "googlenet",
+            "inception_v3", "densenet121", "resnext50_32x4d"]
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("family", ZOO_CARD)
+def test_zoo_step_on_card_matches_host(card, family, fmt):
+    """Each vision family of tests/test_torch_zoo_stages.py, one training
+    step and the eval outputs, card against host in f64 (in f32 a max-pool
+    near-tie or a BatchNorm over a few values makes the step
+    ill-conditioned): loss and outputs to 1e-10 relative, every grad
+    within 1e-9 of the model's grad norm. ResNeXt through the fused op."""
+    from test_torch_zoo_stages import FAMILIES, loss_of, no_dropout, outputs
+    ctor, kw, hw, batch = FAMILIES[family][:4]
+    rng = np.random.RandomState(7)
+    x = torch.tensor(rng.randn(batch, 3, hw, hw))
+    if fmt == "NHWC":
+        x = x.permute(0, 2, 3, 1).contiguous()
+    y = torch.tensor(rng.randint(0, 10, (batch,)))
+    runs = []
+    for device in ("cuda", "cpu"):
+        model = getattr(pt.vision.models, ctor)(
+            num_classes=10, data_format=fmt, device=device,
+            generator=pt.make_generator(8), **kw)
+        no_dropout(model, pt)
+        model.to(dtype=torch.float64)
+        loss = loss_of(pt, model(x.to(device)), y.to(device))
+        loss.backward()
+        model.eval()
+        with torch.no_grad():
+            outs = [o.cpu() for o in outputs(model(x.to(device)))]
+        runs.append((loss.item(), outs,
+                     {n: p.grad.cpu() for n, p in model.named_parameters()}))
+    (l0, e0, g0), (l1, e1, g1) = runs
+    assert abs(l0 - l1) <= 1e-10 * abs(l1)
+    for a, b in zip(e0, e1):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-10
+    norm = torch.sqrt(sum((g ** 2).sum() for g in g1.values())).item()
+    for n in g1:
+        assert (g0[n] - g1[n]).norm().item() <= 1e-9 * norm, n
+
+
+def test_densenet_captured_steps_match_eager(card, request):
+    """DenseNet-121 (10 classes, NHWC, f32) at 4 x 64 x 64: four
+    Momentum(Nesterov) + L2Decay steps captured through CompiledTrainStep
+    (one compile) give the eager steps' losses within 1e-4 relative,
+    cuDNN held to its deterministic algorithms. The lr is 0.01: at 0.1
+    the loss of these four images climbs 2.5 -> 16 in four steps, where
+    the captured and eager runs part by 5e-4 on an H100."""
+    import copy
+
+    from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
+                                                    compile_stats,
+                                                    reset_compile_stats)
+    rng = np.random.RandomState(9)
+    xs = torch.tensor(rng.randn(4, 4, 64, 64, 3).astype("float32")).cuda()
+    ys = torch.tensor(rng.randint(0, 10, (4, 4))).cuda()
+    model = pt.vision.models.densenet121(num_classes=10, data_format="NHWC",
+                                         device="cuda",
+                                         generator=pt.make_generator(2))
+    twin = copy.deepcopy(model)
+
+    def opt_for(m):
+        return pt.optimizer.Momentum(
+            learning_rate=0.01, momentum=0.9, use_nesterov=True,
+            parameters=m.parameters(),
+            weight_decay=pt.regularizer.L2Decay(1e-4))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    request.addfinalizer(lambda: setattr(torch.backends.cudnn,
+                                         "deterministic", deterministic))
+    eager_opt = opt_for(twin)
+    eager = []
+    for i in range(4):
+        loss = pt.nn.functional.cross_entropy(twin(xs[i]), ys[i])
+        loss.backward()
+        eager_opt.step()
+        eager_opt.clear_grad()
+        eager.append(loss.item())
+    opt = opt_for(model)
+
+    @pt.jit.to_static
+    def step(x, y):
+        loss = pt.nn.functional.cross_entropy(model(x), y)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss
+    reset_compile_stats()
+    got = CompiledTrainStep(step, label="densenet").run_steps(xs, ys)
+    assert compile_stats()["compiles"] == 1
+    for a, b in zip(got.tolist(), eager):
+        assert abs(a - b) <= 1e-4 * abs(b), (got.tolist(), eager)
+
+
+@pytest.mark.parametrize("name", ["squeezenet1_1", "googlenet"])
+def test_zoo_predictor_on_card_matches_eager(card, name):
+    """A vision family served by inference.Predictor in bf16 (one CUDA
+    graph) at 4 x 96 x 96 NHWC: every output row within relative L2 2^-7
+    of a bf16 eager forward (GoogLeNet's three outputs each)."""
+    import copy
+
+    import paddle_tpu_torch.inference as infer
+    model = getattr(pt.vision.models, name)(
+        num_classes=1000, data_format="NHWC", device="cuda",
+        generator=pt.make_generator(3)).eval()
+    images = np.random.RandomState(4).randn(4, 96, 96, 3).astype("float32")
+    twin = copy.deepcopy(model).bfloat16()
+    with torch.no_grad():
+        out = twin(torch.from_numpy(images).cuda().bfloat16())
+    eager = [o.float().cpu().numpy()
+             for o in (out if isinstance(out, tuple) else (out,))]
+    cfg = infer.Config()
+    cfg.set_layer(model)
+    cfg.enable_low_precision(infer.DataType.BFLOAT16)
+    got = infer.create_predictor(cfg).run([images])
+    assert len(got) == len(eager)
+    for g, e in zip(got, eager):
+        gaps = np.linalg.norm(g - e, axis=1) / np.linalg.norm(e, axis=1)
+        assert np.all(gaps <= 2 ** -7), gaps
+
+
+def test_vision_ops_on_card_match_host(card):
+    """Every op of vision.ops and viterbi_decode at small sizes, card
+    against host: floats within 1e-5 of the largest magnitude, indices,
+    counts and paths identical; nms_padded captured in a CUDA graph
+    replays the eager call's result."""
+    from paddle_tpu_torch.text import viterbi_decode
+    from paddle_tpu_torch.vision import ops
+    rng = np.random.RandomState(11)
+
+    def f32(*shape, scale=1.0):
+        return torch.tensor((rng.randn(*shape) * scale).astype("float32"))
+    xy = rng.rand(40, 2) * 30
+    boxes = torch.tensor(np.concatenate(
+        [xy, xy + rng.rand(40, 2) * 20 + 2], 1).astype("float32"))
+    num = torch.tensor([15, 25], dtype=torch.int32)
+    scores = torch.tensor(rng.permutation(40).astype("float32") / 40)
+    cats = torch.tensor(rng.randint(0, 5, 40))
+    cases = [
+        (lambda x, b, n: ops.roi_align(x, b, n, 7, 0.5), [f32(2, 8, 28, 30),
+                                                         boxes, num]),
+        (lambda x, b, n: ops.roi_pool(x, b, n, 7, 0.5), [f32(2, 8, 28, 30),
+                                                        boxes, num]),
+        (lambda x, b, n: ops.psroi_pool(x, b, n, 3, 0.5),
+         [f32(2, 18, 28, 30), boxes, num]),
+        (lambda x, o, w, m: ops.deform_conv2d(x, o, w, padding=1,
+                                              deformable_groups=2, mask=m),
+         [f32(2, 8, 12, 14), f32(2, 36, 12, 14, scale=2.0), f32(6, 8, 3, 3),
+          torch.rand(2, 18, 12, 14)]),
+        (lambda b, s: ops.nms(b, 0.5, s), [boxes, scores]),
+        (lambda b, s, c: ops.nms_padded(b, s, 0.5, 30, category_idxs=c),
+         [boxes, scores, cats]),
+        (lambda x, i: ops.yolo_box(x, i, [10, 13, 16, 30, 33, 23], 4),
+         [f32(2, 27, 5, 6), torch.tensor([[160, 192], [96, 128]])]),
+        (lambda p, t, n: viterbi_decode(p, t, n),
+         [f32(5, 9, 4), f32(4, 4), torch.tensor([9, 3, 1, 7, 9])]),
+    ]
+    gt = np.zeros((2, 4, 4), "float32")
+    gt[:, :3] = [[0.3, 0.4, 0.2, 0.3], [0.7, 0.6, 0.1, 0.1],
+                 [0.1, 0.9, 0.3, 0.2]]
+    cases.append((lambda x, b, lab: ops.yolo_loss(
+        x, b, lab, [10, 13, 16, 30, 33, 23], [0, 1, 2], 4, 0.5, 32,
+        use_label_smooth=True),
+        [f32(2, 27, 4, 4), torch.tensor(gt),
+         torch.tensor(rng.randint(0, 4, (2, 4)))]))
+    for fn, args in cases:
+        got = fn(*[a.cuda() for a in args])
+        want = fn(*args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert g.is_cuda
+            if w.is_floating_point():
+                gap = (g.cpu() - w).abs().max() / w.abs().max().clamp_min(1)
+                assert gap.item() <= 1e-5, (fn.__name__, args[0].shape,
+                                            gap.item())
+            else:
+                assert torch.equal(g.cpu(), w), (fn.__name__, g, w)
+    args = [boxes.cuda(), scores.cuda(), cats.cuda()]
+    eager = ops.nms_padded(*args[:2], 0.5, 30, category_idxs=args[2])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        ops.nms_padded(*args[:2], 0.5, 30, category_idxs=args[2])
+    with torch.cuda.graph(graph, stream=side):
+        captured = ops.nms_padded(*args[:2], 0.5, 30, category_idxs=args[2])
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+    with pytest.raises(TypeError, match="nms_padded"):
+        with torch.cuda.graph(torch.cuda.CUDAGraph()):
+            ops.nms(args[0], 0.5, args[1])
+
+
+def test_tokenizer_into_bert_predictor_on_card(card):
+    """FasterTokenizer lands its ids on the card equal to the host's; a
+    2-layer BERT (4 heads of 64) served in bf16 by inference.Predictor
+    at 2 x 256 with no mask runs B1 once a layer in the warm-up and once
+    in the capture, and its logits are within relative L2 2^-7 of a bf16
+    eager forward."""
+    import copy
+
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.text import FasterTokenizer, Vocab
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + \
+        [chr(c) for c in range(ord("a"), ord("z") + 1)] + \
+        ["##" + chr(c) for c in range(ord("a"), ord("z") + 1)] + \
+        ["the", "fox", "##es", "über", "你", "."]
+    tok = FasterTokenizer(Vocab.from_dict({w: i for i, w in
+                                           enumerate(words)}))
+    docs = [" ".join(["The foxes jump, über 你好."] * 60)] * 2
+    before = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        host = tok(docs, max_seq_len=256)
+    finally:
+        pt.set_device(before)
+    ids, seg = tok(docs, max_seq_len=256)
+    assert ids.is_cuda and ids.shape == (2, 256)
+    assert torch.equal(ids.cpu(), host[0]) and torch.equal(seg.cpu(),
+                                                           host[1])
+    cfg = BertConfig(vocab_size=len(words), hidden_size=256, num_layers=2,
+                     num_heads=4, intermediate_size=512, dropout=0.0)
+    model = BertForSequenceClassification(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(1)).eval()
+    with torch.no_grad():
+        eager = copy.deepcopy(model).bfloat16()(ids, seg).float().cpu()
+    icfg = infer.Config()
+    icfg.set_layer(model)
+    icfg.enable_low_precision(infer.DataType.BFLOAT16)
+    launch_counts.clear()
+    got = infer.create_predictor(icfg).run([ids.cpu().numpy(),
+                                            seg.cpu().numpy()])[0]
+    assert launch_counts[fa.KERNEL_NAMES[0]] == 2 * cfg.num_layers
+    gaps = (torch.tensor(got) - eager).norm(dim=1) / eager.norm(dim=1)
+    assert (gaps <= 2 ** -7).all(), gaps

@@ -221,6 +221,10 @@ LATER = {
     ".nn": {"SyncBatchNorm"},
     ".nn.functional": set(),
     ".nn.initializer": set(),
+    ".vision": set(),
+    ".vision.models": set(),
+    ".vision.ops": set(),
+    ".text": set(),
 }
 
 
