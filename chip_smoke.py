@@ -246,11 +246,44 @@ them, and the kernels line says so.
    forward; tokenizer, predictor, device and end-to-end ms, documents/s,
    busy share; then short pairs padded to 128 with a mask (the math
    path, 0 B1 launches).
+22. dist_tune (``--phases dist_tune``): the autotuner, the fusion policy
+   and data parallelism, with a fresh autotune cache. (a) autotune: every
+   tile of B1, B2 and B3 at GPT's (4, 1024, 16, 64) causal, one dp_gpt
+   rank's (2, 1024, 16, 64), BERT's (8, 512, 12, 64) and head dim 128:
+   ptxas's registers and spills, relative L2 to the plain version under
+   the 2^-7 gate, device ms and bound; the tuner's search and its winner
+   at each shape; then a second process over the same cache makes the
+   same decisions with 0 searches. (b) fusion_policy: each fused op
+   against its unfused form at GPT-medium's and ResNet-50's shapes, and
+   flash attention against the math path at GPT's and BERT's, forward and
+   backward in bf16: both ms, the factor, the auto decision (the table)
+   and the searched one (a tuner with fusion_search); then policy_steps:
+   GPT-medium's step eager and captured with the fused forms everywhere,
+   under auto (the table) and under the searched auto. (c) dp_gpt:
+   GPT-medium bf16 (AdamW mp) under DataParallel at 2 ranks, two
+   processes on the card (gloo over CUDA tensors), each with 2 x 1024 of
+   bench's 4 x 1024 batch: the first step's reduced gradients bitwise
+   equal on both ranks and their norm within DP_GRAD_RTOL of this
+   process's serial step on the whole batch from the same weights, the
+   first 4 global losses within DP_LOSS_RTOL of its losses, the weights
+   after the steps bitwise equal on both ranks; step ms, buckets, flushes
+   and ``step/collective_wait`` a step, B1-B3 launches a step per rank
+   (24 each) and their tiles, busy share and peak memory; neither rank
+   searches (the autotune lane's cache holds a rank's shape). (d)
+   dp_fit: LeNet through Model.fit at world size 2 against one process's
+   fit on the same global batches. (e) collectives:
+   all_reduce (sum, max, bf16), broadcast, all_gather, reduce_scatter and
+   alltoall on CUDA tensors over the 2 gloo ranks, and every collective
+   over a one-rank NCCL group, against numpy.
 
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi, optim, surface, nn_rest, zoo); the kernels line needs
-every phase and is printed only when all run.
+serving, hapi, optim, surface, nn_rest, zoo, dist_tune); the kernels
+line needs every phase and is printed only when all run. Every phase
+runs under the defaults: FLAGS_fusion_policy=auto (the table this card
+measured, which keeps flash attention, fused conv + BN and the fused
+residual LN, and routes the bf16 FFN's training call unfused) and the
+tile search on.
 
 Then it prints the kernels line ({"kernels": [...]}, with each kernel's
 launches on the main path, error, times and bound), the card's name and
@@ -5831,8 +5864,731 @@ def phase_tokenize_bert(torch, seed):
     return row
 
 
+# -- dist_tune: the autotuner, the fusion policy and data parallelism --------
+
+# the shapes whose tiles the autotune lane prints: (label, (B, S, H, D),
+# causal), GPT-medium's training shape, BERT's, and head dim 128
+TUNE_SHAPES = (("gpt", (4, 1024, 16, 64), True),
+               ("bert", BERT_FLASH_SHAPE, False),
+               ("d128", (2, 1024, 16, 128), True),
+               ("gpt_dp_rank", (2, 1024, 16, 64), True))
+# dp_gpt: ranks on the one card, steps (the first DP_CHECKED held to the
+# serial step's losses), and the steps timed after the first
+DIST_WORLD, DP_STEPS, DP_CHECKED = 2, 6, 4
+# dp_gpt's bounds against the serial step from the same weights: the
+# first step's reduced gradient norm, and each of the first DP_CHECKED
+# losses (relative). The losses' worst gap measured 1.7e-5 on an H100
+# 80GB HBM3 at 700 W; a sum where the mean belongs doubles the norm
+DP_GRAD_RTOL, DP_LOSS_RTOL = 1e-3, 1e-3
+# dp_fit: LeNet through Model.fit at world size 2, global batch and steps;
+# the losses held to one process's fit on the same global batches (f32,
+# cuDNN deterministic; the sums run over other batch splits)
+DP_FIT_BATCH, DP_FIT_STEPS, DP_FIT_RTOL = 64, 16, 1e-4
+# the ResNet-50 layer the fusion lane times fused_conv_bn at: the first
+# bottleneck's 3x3 conv, bf16 NHWC at batch 128
+CONV_BN_SHAPE = (128, 56, 56, 64)
+FUSION_REPS, FUSION_ROUNDS = 10, 6
+
+
+def autotune_cache_dir():
+    """A fresh autotune cache inside the build directory (git-ignored)."""
+    from paddle_tpu_torch.ops.cuda import _build
+    path = _build.BUILD_DIR / f"autotune-{os.getpid()}-{time.time_ns()}"
+    path.mkdir(parents=True)
+    return str(path)
+
+
+def phase_autotune(torch, seed, cache_dir):
+    """Every tile of B1, B2 and B3 at TUNE_SHAPES: ptxas's registers and
+    spills, its relative L2 to the plain version (the 2^-7 gate) and its
+    device ms; then the tuner's search and its winner; then a second
+    process over the same cache makes the same decisions with 0 searches
+    and at least one disk hit."""
+    from paddle_tpu_torch.ops import autotune
+    from paddle_tpu_torch.ops.cuda import _build
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = cache_dir
+    autotune.set_tuner(autotune.Autotuner())
+    autotune.reset_counters()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, winners = [], {}
+    for label, (b, s, h, d), causal in TUNE_SHAPES:
+        scale = 1.0 / d ** 0.5
+        q, k, v, do = (torch.randn((b, s, h, d), generator=gen, device="cuda",
+                                   dtype=torch.float32).to(torch.bfloat16)
+                       for _ in range(4))
+        out32, lse = fa._fwd_plain(q, k, v, causal, scale)
+        want_fwd = out32
+        want_bwd = fa.flash_attention_bwd_reference(q, k, v, out32, lse, do,
+                                                    causal, scale)
+        lse = lse.contiguous()
+        delta = fa.bwd_delta(out32, do)
+        for kernel in fa.KERNEL_NAMES:
+            source, function = fa._TC_FUNCTION[kernel]
+            report = _build.kernel_resources(source)
+            kept, dropped = fa.tile_candidates(kernel, d)
+            for tile in fa.TILES:
+                res = report.get((function, (d, tile)), {})
+                row = {"phase": "autotune", "shape_label": label,
+                       "shape": [b, s, h, d], "causal": causal,
+                       "kernel": kernel, "tile": tile, **res,
+                       "kept": tile in kept,
+                       "dropped_because": dropped.get(tile)}
+                if tile in kept:
+                    if kernel == fa.KERNEL_NAME:
+                        def call(t=tile):
+                            return fa._launch(q, k, v, causal, scale,
+                                              tile=t)[0]
+                        gaps = {"o": rel_l2(call(), want_fwd)}
+                        bound = flash_bound(b, s, h, d, "bfloat16", causal)
+                    elif kernel == fa.DKV_KERNEL:
+                        def call(t=tile):
+                            return fa.launch_dkv(q, k, v, do, lse, delta,
+                                                 causal, scale, tile=t)
+                        dk, dv = call()
+                        gaps = {"dk": rel_l2(dk, want_bwd[1]),
+                                "dv": rel_l2(dv, want_bwd[2])}
+                        bound = flash_bwd_bound(b, s, h, d, "bfloat16",
+                                                causal, "dkv")
+                    else:
+                        def call(t=tile):
+                            return fa.launch_dq(q, k, v, do, lse, delta,
+                                                causal, scale, tile=t)
+                        gaps = {"dq": rel_l2(call(), want_bwd[0])}
+                        bound = flash_bwd_bound(b, s, h, d, "bfloat16",
+                                                causal, "dq")
+                    row.update(rel_l2=gaps, gate=fa.TILE_GATE,
+                               ms=device_ms(torch, call),
+                               bound_ms=bound[0], bound_by=bound[1])
+                    assert all(g <= fa.TILE_GATE for g in gaps.values()), row
+                rows.append(row)
+        dev = q.device
+        fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, causal,
+                                   dev)
+        bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, causal,
+                                   dev)
+        winners[label] = {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                          fa.DQ_KERNEL: bwd[2], "fwd_blocks": list(fwd),
+                          "bwd_blocks": list(bwd)}
+        for row in rows:
+            if row["shape_label"] == label:
+                row["winner"] = row["tile"] == winners[label][row["kernel"]]
+                emit(row)
+        del q, k, v, do, out32, lse, delta, want_bwd
+    first = autotune.counters()
+    tuner = autotune.get_tuner()
+    # a second process, the same cache: the same answers, no search
+    code = ("import json, sys, torch\n"
+            "sys.path.insert(0, '.')\n"
+            "from paddle_tpu_torch.ops import autotune\n"
+            "from paddle_tpu_torch.ops.cuda import flash_attention as fa\n"
+            "out = {}\n"
+            f"for label, (b, s, h, d), causal in {TUNE_SHAPES!r}:\n"
+            "    dev = torch.device('cuda')\n"
+            "    f = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16,"
+            " causal, dev)\n"
+            "    g = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16,"
+            " causal, dev)\n"
+            "    out[label] = [list(f), list(g)]\n"
+            "print(json.dumps({'decisions': out,"
+            " 'counters': autotune.counters()}))\n")
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ,
+                               "PADDLE_TPU_AUTOTUNE_CACHE": cache_dir})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    second = json.loads(proc.stdout.strip().splitlines()[-1])
+    row = {"phase": "autotune_summary", "winners": winners,
+           "counters_first_process": first,
+           "candidate_errors": tuner.errors,
+           "second_process": second}
+    emit(row)
+    assert first["searches"] >= 1, first
+    assert second["counters"]["searches"] == 0, second
+    assert second["counters"]["disk_hits"] >= 1, second
+    for label, (f, g) in second["decisions"].items():
+        assert f == winners[label]["fwd_blocks"] \
+            and g == winners[label]["bwd_blocks"], (label, f, g, winners)
+    return {"rows": rows, "winners": winners}
+
+
+def fusion_cases(torch, pt, seed):
+    """(op, label, fused fn, unfused fn, operands) at the shapes the models
+    call each op with."""
+    from paddle_tpu_torch.nn.functional.conv import conv_args, nchw_view
+    from paddle_tpu_torch.ops import attention, fused_conv_bn, fused_ffn
+    from paddle_tpu_torch.ops import fused_residual_ln as frl
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+    b, s, hid = TRAIN_BATCH, TRAIN_SEQ, 1024
+    eps = 1e-5
+    ln = (rand(b, s, hid), rand(b, s, hid), 1.0 + rand(hid, scale=0.1),
+          rand(hid, scale=0.1))
+    ffn = (rand(b, s, hid), rand(hid, 4 * hid, scale=0.02),
+           rand(4 * hid, scale=0.02), rand(4 * hid, hid, scale=0.02),
+           rand(hid, scale=0.02))
+    n, hh, ww, c = CONV_BN_SHAPE
+    x = rand(n, hh, ww, c)
+    w = rand(c, c, 3, 3, scale=(2.0 / (9 * c)) ** 0.5)
+    xc = nchw_view(x, "NHWC")
+    stride, sym, pre, dil = conv_args(xc, w, 1, 1, 1)
+    cfg = (stride, sym, pre, dil, 1, True, True)
+    conv = (xc, w.contiguous(memory_format=torch.channels_last),
+            1.0 + rand(c, scale=0.1), rand(c, scale=0.1))
+    cases = [
+        ("fused_residual_ln", "gpt_medium",
+         lambda *a: frl._FusedResidualLNFn.apply(*a, eps, True),
+         lambda *a: frl._fwd_impl(*a, eps)[:2], ln),
+        ("fused_ffn", "gpt_medium",
+         lambda *a: fused_ffn._FusedFFNFn.apply(*a, "gelu_tanh"),
+         lambda *a: fused_ffn._plain(*a, "gelu_tanh"), ffn),
+        ("fused_conv_bn", "resnet50_layer1_3x3",
+         lambda *a: fused_conv_bn._FusedConvBNFn.apply(*a, cfg, eps)[0],
+         lambda *a: fused_conv_bn._fwd_impl(*a, cfg, eps)[0], conv)]
+    for label, (bb, ss, h, d), causal in TUNE_SHAPES[:2]:
+        qkv = tuple(rand(bb, ss, h, d) for _ in range(3))
+        scale = 1.0 / d ** 0.5
+        cases.append((
+            "flash_attention", label,
+            lambda q, k, v, c=causal, sc=scale: attention._flash(q, k, v, c,
+                                                                 sc),
+            lambda q, k, v, c=causal, sc=scale: attention._math_attention(
+                q, k, v, None, sc, c, 0.0, None), qkv))
+    return cases
+
+
+def phase_fusion_policy(torch, seed, cache_dir):
+    """Each fused op against its unfused form at the models' shapes, in
+    each direction where the forms differ (the three fused ops share one
+    forward, so only fwd_bwd; flash against the math path both ways):
+    fused and unfused ms (``autotune.measure``: the best of FUSION_REPS
+    replays of a captured window of calls after a warm-up, FUSION_ROUNDS
+    rounds in alternating order, the median and every round), the factor unfused / fused, the auto decision (the table
+    ``_POLICY_FALLBACK``) and the decision of a fresh tuner's search
+    (``Autotuner(fusion_search=True)``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import autotune
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = cache_dir
+    autotune.set_tuner(autotune.Autotuner())
+    searcher = autotune.Autotuner(fusion_search=True)
+    rows = []
+    for op, label, fused, unfused, args in fusion_cases(torch, pt, seed):
+        directions = ("fwd", "fwd_bwd") if op == "flash_attention" \
+            else ("fwd_bwd",)
+        for direction in directions:
+            probe = autotune._grad_probe if direction == "fwd_bwd" \
+                else autotune._no_grad_probe
+            # alternating rounds (fused, unfused, unfused, fused, ...): the
+            # median of each form's rounds, and their spread
+            samples = {"fused": [], "unfused": []}
+            forms = (("fused", fused), ("unfused", unfused))
+            for i in range(FUSION_ROUNDS):
+                for name, fn in forms if i % 2 == 0 else forms[::-1]:
+                    samples[name].append(autotune.measure(
+                        probe(fn), args, warmup=3, reps=FUSION_REPS))
+            ms = {k: float(np.median(v)) for k, v in samples.items()}
+            factors = [u / f for f, u in zip(samples["fused"],
+                                             samples["unfused"])]
+            prev = autotune._FORCE_DIRECTION[0]
+            autotune._FORCE_DIRECTION[0] = direction
+            tuner = autotune.get_tuner()
+            try:
+                _, choice = autotune.choose_fused(op, fused, unfused, args)
+                autotune.set_tuner(searcher)
+                _, searched = autotune.choose_fused(op, fused, unfused,
+                                                    args)
+            finally:
+                autotune._FORCE_DIRECTION[0] = prev
+                autotune.set_tuner(tuner)
+            dt = autotune.short_dtype(args[0].dtype)
+            row = {"phase": "fusion_policy", "op": op, "shape_label": label,
+                   "shape": list(args[0].shape), "dtype": dt,
+                   "direction": direction, "fused_ms": ms["fused"],
+                   "unfused_ms": ms["unfused"],
+                   "factor_unfused_over_fused": ms["unfused"] / ms["fused"],
+                   "factor_rounds": factors,
+                   "fused_ms_rounds": samples["fused"],
+                   "unfused_ms_rounds": samples["unfused"],
+                   "measured_winner": autotune.auto_winner(ms["fused"],
+                                                           ms["unfused"]),
+                   "auto_decision": choice, "searched_decision": searched}
+            emit(row)
+            assert choice == autotune.policy_table_choice(op, dt,
+                                                          direction), row
+            rows.append(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+# policy_steps: the settings GPT-medium's step is timed under, each as
+# (label, FLAGS_fusion_policy, whether the tuner times the fused forms)
+POLICY_SETTINGS = (
+    ("fused", "always", False),
+    ("auto", "auto", False),
+    ("searched", "auto", True))
+POLICY_STEPS = 10
+
+
+def phase_policy_steps(torch, seed):
+    """GPT-medium's bf16 training step (bench's 4 x 1024, AdamW mp) under
+    each of POLICY_SETTINGS: the fused forms everywhere, auto (the
+    table's answers) and the searched auto; POLICY_STEPS eager and
+    POLICY_STEPS captured steps after 4 of warm-up each, every step's ms
+    (the eager step is host-bound, so its spread is shown), the peak of
+    the eager steps."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops import autotune
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    xs, ys = bench_stream(seed, 1, TRAIN_BATCH, TRAIN_SEQ)
+    x, y = torch.from_numpy(xs[0]).cuda(), torch.from_numpy(ys[0]).cuda()
+    flags = pt.get_flags(["FLAGS_fusion_policy", "FLAGS_compiled_step"])
+    base = autotune.get_tuner()
+    searcher = autotune.Autotuner(fusion_search=True)
+    rows = []
+    try:
+        for label, policy, search in POLICY_SETTINGS:
+            pt.set_flags({"FLAGS_fusion_policy": policy})
+            autotune.set_tuner(searcher if search else base)
+            autotune.reset_counters()
+            row = {"phase": "policy_steps", "setting": label}
+            for captured in (False, True):
+                model = GPTForCausalLM(
+                    cfg, device="cuda", dtype=torch.bfloat16,
+                    generator=torch.Generator().manual_seed(seed))
+                model.train()
+                opt = pt.optimizer.AdamW(learning_rate=1e-4,
+                                         multi_precision=True,
+                                         parameters=model.parameters())
+                pt.set_flags({"FLAGS_compiled_step": captured})
+                step = train_step_fn(model, opt)
+                for _ in range(4):
+                    step(x, y)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                ms, losses = [], []
+                for _ in range(POLICY_STEPS):
+                    t0 = time.perf_counter()
+                    losses.append(step(x, y))
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                kind = "captured" if captured else "eager"
+                row[kind + "_ms_median"] = float(np.median(ms))
+                row[kind + "_ms"] = ms
+                row[kind + "_peak_mem_bytes"] = \
+                    torch.cuda.max_memory_allocated()
+                assert all(np.isfinite([v.item() for v in losses])), row
+                del model, opt, step
+                gc.collect()
+                torch.cuda.empty_cache()
+            c = autotune.counters()
+            row["decisions"] = {k: c[k] for k in ("policy_fused",
+                                                  "policy_unfused",
+                                                  "searches")}
+            emit(row)
+            rows.append(row)
+    finally:
+        pt.set_flags(flags)
+        autotune.set_tuner(base)
+    return rows
+
+
+def grad_fingerprint(torch, model):
+    """The norm (float64) of every parameter's gradient together, and a
+    SHA-1 of their bytes in parameter order."""
+    import hashlib
+    h = hashlib.sha1()
+    total = torch.zeros((), dtype=torch.float64, device="cuda")
+    for _, p in sorted(model.named_parameters()):
+        g = p.grad.detach()
+        total += g.double().pow(2).sum()
+        h.update(g.contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return {"grad_norm": total.sqrt().item(), "grad_sha": h.hexdigest()}
+
+
+def param_sha(torch, model):
+    import hashlib
+    h = hashlib.sha1()
+    for _, p in sorted(model.named_parameters()):
+        h.update(p.detach().contiguous().reshape(-1).view(torch.uint8).cpu()
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def serial_gpt_losses(torch, seed):
+    """GPT-medium bf16, AdamW(multi_precision), the whole 4 x 1024 batch
+    of bench's stream, DP_CHECKED eager steps on this process: the losses
+    and the first step's gradient norm the data-parallel run is held
+    to."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    xs, ys = bench_stream(seed, DP_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    losses = []
+    for i in range(DP_CHECKED):
+        loss = model(torch.from_numpy(xs[i]).cuda(),
+                     labels=torch.from_numpy(ys[i]).cuda())
+        loss.backward()
+        if i == 0:
+            grad_norm = grad_fingerprint(torch, model)["grad_norm"]
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    del model, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "grad_norm": grad_norm}
+
+
+def rank_collectives(torch, dist, rank, world):
+    """The collectives on CUDA tensors over the gloo group of the ranks on
+    one card (all_reduce and broadcast take them as they are; the others
+    are staged through the host)."""
+    cuda = torch.device("cuda")
+    res = {}
+    t = torch.arange(6, dtype=torch.float32, device=cuda).reshape(2, 3) \
+        * (rank + 1)
+    res["all_reduce_sum"] = dist.all_reduce(t).tolist()
+    t = torch.full((4,), float(rank), device=cuda)
+    res["all_reduce_max"] = dist.all_reduce(
+        t, op=dist.ReduceOp.MAX).tolist()
+    t = torch.full((8,), float(rank + 1), device=cuda, dtype=torch.bfloat16)
+    res["all_reduce_bf16"] = dist.all_reduce(t).float().tolist()
+    t = torch.full((3,), float(rank * 10 + 7), device=cuda)
+    res["broadcast"] = dist.broadcast(t, src=1).tolist()
+    lst = []
+    dist.all_gather(lst, torch.full((2,), float(rank), device=cuda))
+    res["all_gather"] = [x.tolist() for x in lst]
+    t = torch.arange(2 * world, dtype=torch.float32, device=cuda) + rank
+    res["reduce_scatter"] = dist.reduce_scatter(t).tolist()
+    t = torch.tensor([[rank * 10.0 + i] for i in range(world)], device=cuda)
+    res["alltoall"] = dist.alltoall(t).reshape(-1).tolist()
+    res["devices"] = sorted({str(x.device) for x in lst})
+    return res
+
+
+def rank_dp_gpt(torch, pt, dist, seed, rank, world):
+    """GPT-medium bf16 under DataParallel: this rank's rows of bench's
+    4 x 1024 batch, AdamW(multi_precision), DP_STEPS eager steps (the
+    Reducer's collectives cannot be captured). Returns the global losses
+    (the ranks' mean), the first step's reduced gradients' norm and SHA-1,
+    the weights' SHA-1 after the steps, step ms, buckets, collective_wait,
+    B1-B3 launches and their tiles, peak memory and the busy share of one
+    profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import steptimer
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    per = TRAIN_BATCH // world
+    xs, ys = bench_stream(seed, DP_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    xs = torch.from_numpy(xs[:, rank * per:(rank + 1) * per]).cuda()
+    ys = torch.from_numpy(ys[:, rank * per:(rank + 1) * per]).cuda()
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    dp = pt.DataParallel(model)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    reducer = dp._reducer
+
+    first = {}
+
+    def step(i):
+        loss = dp(xs[i], labels=ys[i])
+        loss.backward()
+        if not first:
+            first.update(grad_fingerprint(torch, model))
+        opt.step()
+        opt.clear_grad()
+        g = loss.detach().float().reshape(1).clone()
+        return dist.all_reduce(g, op=dist.ReduceOp.AVG).item()
+
+    losses, step_ms, launches, flushes = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DP_STEPS):
+        if i == 1:
+            steptimer.reset_steptimer()
+        launch_counts.clear()
+        f0 = reducer.flushes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(step(i))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({k: launch_counts[k] for k in launch_counts
+                         if k.split(".")[0] in fa.KERNEL_NAMES})
+        flushes.append(reducer.flushes - f0)
+    weights = param_sha(torch, model)
+    timed = DP_STEPS - 1
+    wait_ms = steptimer.get_steptimer().breakdown()["phase_ms"].get(
+        "collective_wait", 0.0) / timed
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(0)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    b, s, h, d = per, TRAIN_SEQ, cfg.num_heads, cfg.hidden_size \
+        // cfg.num_heads
+    dev = torch.device("cuda")
+    fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    return {"losses": losses, **first, "param_sha": weights,
+            "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ
+            / (float(np.median(step_ms[1:])) / 1e3),
+            "buckets": len(reducer.buckets),
+            "bucket_flushes_per_step": flushes,
+            "collective_wait_ms_per_step": wait_ms,
+            "launches_per_step": launches,
+            "tiles": {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                      fa.DQ_KERNEL: bwd[2]},
+            "profiled_step_ms": wall,
+            "busy_share": device_busy(prof) / wall,
+            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
+def rank_dp_fit(torch, pt, seed, rank, world):
+    """LeNet through Model.fit at world size 2: each rank's loader takes
+    its shard of the global batches (DistributedBatchSampler); returns the
+    global loss of each step (the ranks' mean) and the device launches of
+    the flash kernels (none)."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.vision.datasets import MNIST
+    data = pt.io.Subset(MNIST(mode="train"),
+                        list(range(DP_FIT_BATCH * DP_FIT_STEPS)))
+    model = hapi_lenet_model(pt, seed, "cuda")
+    log = loss_log(pt)
+    launch_counts.clear()
+    with cudnn_deterministic(torch):
+        model.fit(data, batch_size=DP_FIT_BATCH // world, epochs=1,
+                  shuffle=False, verbose=0, callbacks=[log])
+    local = torch.tensor(log.losses, device="cuda")
+    pt.distributed.all_reduce(local, op=pt.distributed.ReduceOp.AVG)
+    return {"losses": local.tolist(), "wrapped":
+            type(model.network).__name__,
+            "launches": {k: launch_counts[k] for k in KERNEL_NAMES}}
+
+
+def dist_rank_main(torch, args):
+    """One rank of the dist_tune group's data-parallel lanes (a child
+    process of phase_dist): the collectives, dp_gpt and dp_fit, written
+    to ``args.dist_out`` as JSON."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env as denv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank, "world": world, "backend": denv.backend(),
+           "device": str(denv.device())}
+    out["collectives"] = rank_collectives(torch, dist, rank, world)
+    out["dp_gpt"] = rank_dp_gpt(torch, pt, dist, args.seed, rank, world)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["dp_fit"] = rank_dp_fit(torch, pt, args.seed, rank, world)
+    from paddle_tpu_torch.ops import autotune
+    out["autotune_counters"] = autotune.counters()
+    with open(args.dist_out, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist(torch, seed, cache_dir):
+    """dp_gpt, dp_fit and the gloo collectives: DIST_WORLD rank processes
+    on the one card (gloo over CUDA tensors: NCCL refuses two ranks on one
+    device), each running dist_rank_main, held to this process's serial
+    runs; their tiles come from the autotune lane's cache, their fusion
+    decisions from the table."""
+    import paddle_tpu_torch as pt
+    here = os.path.dirname(os.path.abspath(__file__))
+    serial = serial_gpt_losses(torch, seed)
+    # one process's fit on the same global batches
+    from paddle_tpu_torch.vision.datasets import MNIST
+    data = pt.io.Subset(MNIST(mode="train"),
+                        list(range(DP_FIT_BATCH * DP_FIT_STEPS)))
+    model = hapi_lenet_model(pt, seed, "cuda")
+    log = loss_log(pt)
+    with cudnn_deterministic(torch):
+        model.fit(data, batch_size=DP_FIT_BATCH, epochs=1, shuffle=False,
+                  verbose=0, callbacks=[log])
+    serial_fit = log.losses
+    del model
+    addr = f"localhost:{free_port()}"
+    outs = [os.path.join(cache_dir, f"rank{r}.json")
+            for r in range(DIST_WORLD)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(DIST_WORLD):
+            env = {**os.environ, "PADDLE_TRAINER_ID": str(r),
+                   "PADDLE_TRAINERS_NUM": str(DIST_WORLD),
+                   "PADDLE_COORDINATOR_ADDR": addr,
+                   "PADDLE_TPU_AUTOTUNE_CACHE": cache_dir}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--dist-rank", str(r), "--dist-out", outs[r]],
+                cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    for r, (p, log_text) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, (r, log_text[-4000:])
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return serial, serial_fit, ranks, seconds
+
+
+def check_dist(serial, serial_fit, ranks, seconds):
+    """The dist lanes' rows and gates: collectives against numpy; dp_gpt's
+    reduced gradients and weights the same on both ranks, its gradient
+    norm and losses against the serial step's, B1-B3 24 a step on every
+    rank; dp_fit against the serial fit."""
+    world = len(ranks)
+    base = np.arange(6, dtype="float32").reshape(2, 3)
+    want = {
+        "all_reduce_sum": sum(base * (r + 1) for r in range(world)).tolist(),
+        "all_reduce_max": [world - 1.0] * 4,
+        "all_reduce_bf16": [world * (world + 1) / 2.0] * 8,
+        "broadcast": [17.0] * 3,
+        "all_gather": [[float(i)] * 2 for i in range(world)]}
+    full = sum(np.arange(2 * world, dtype="float32") + j
+               for j in range(world))
+    for r, res in enumerate(ranks):
+        got = res["collectives"]
+        row = {"phase": "collectives", "backend": res["backend"],
+               "rank": r, "device": res["device"], **got}
+        emit(row)
+        for k, v in want.items():
+            np.testing.assert_allclose(got[k], v, err_msg=k)
+        np.testing.assert_allclose(got["reduce_scatter"],
+                                   full[r * 2:(r + 1) * 2])
+        np.testing.assert_allclose(got["alltoall"],
+                                   [j * 10.0 + r for j in range(world)])
+        assert res["backend"] == "gloo" and res["device"].startswith(
+            "cuda"), res
+    dp = [res["dp_gpt"] for res in ranks]
+    gaps = [abs(a - b) / abs(b)
+            for a, b in zip(dp[0]["losses"], serial["losses"])]
+    grad_gap = abs(dp[0]["grad_norm"] - serial["grad_norm"]) \
+        / serial["grad_norm"]
+    row = {"phase": "dp_gpt", "world": world, "backend": ranks[0]["backend"],
+           "config": "GPT-medium v32000 h1024 L24 a16 d64 bf16, AdamW mp",
+           "global_batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "serial_losses": serial["losses"], "dp_losses": dp[0]["losses"],
+           "loss_rel_gaps": gaps, "loss_rtol": DP_LOSS_RTOL,
+           "serial_grad_norm": serial["grad_norm"],
+           "grad_norm_rel_gap": grad_gap, "grad_rtol": DP_GRAD_RTOL,
+           "seconds_ranks": seconds,
+           **{f"rank{r}": d for r, d in enumerate(dp)},
+           "autotune_counters": [res["autotune_counters"] for res in ranks]}
+    emit(row)
+    # every rank applies the same reduced gradients, so the ranks' weights
+    # stay equal to the bit; a rank that skipped a reduce breaks both
+    assert dp[0]["grad_sha"] == dp[1]["grad_sha"], "reduced grads differ"
+    assert dp[0]["param_sha"] == dp[1]["param_sha"], "weights differ"
+    assert grad_gap <= DP_GRAD_RTOL, grad_gap
+    assert max(gaps) <= DP_LOSS_RTOL, gaps
+    for d in dp:
+        for counts in d["launches_per_step"]:
+            for kernel in ("flash_attn_fwd", "flash_attn_bwd_dkv",
+                           "flash_attn_bwd_dq"):
+                assert counts.get(f"{kernel}.tc_bf16", 0) == 24, counts
+        assert d["tiles"] == dp[0]["tiles"], (d["tiles"], dp[0]["tiles"])
+    # the autotune lane's cache answered every rank's tiles
+    for res in ranks:
+        assert res["autotune_counters"]["searches"] == 0, res
+        assert res["autotune_counters"]["disk_hits"] >= 1, res
+    fit = [res["dp_fit"] for res in ranks]
+    fit_gaps = [abs(a - b) / abs(b)
+                for a, b in zip(fit[0]["losses"], serial_fit)]
+    row = {"phase": "dp_fit", "world": world, "model": "LeNet",
+           "global_batch": DP_FIT_BATCH, "steps": DP_FIT_STEPS,
+           "serial_losses": serial_fit, "dp_losses": fit[0]["losses"],
+           "loss_rel_gaps": fit_gaps, "loss_rtol": DP_FIT_RTOL,
+           "wrapped": fit[0]["wrapped"], "launches": fit[0]["launches"]}
+    emit(row)
+    assert len(fit[0]["losses"]) == DP_FIT_STEPS == len(serial_fit), row
+    assert max(fit_gaps) <= DP_FIT_RTOL, fit_gaps
+    assert fit[0]["wrapped"] == "DataParallel", fit[0]
+    return dp, fit
+
+
+def phase_nccl_single(torch):
+    """Every collective over a one-rank NCCL group on this card, against
+    numpy: the NCCL backend runs (at world size 1 each result is the
+    input, or its one chunk)."""
+    import torch.distributed as tdist
+
+    import paddle_tpu_torch.distributed as dist
+    tdist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                             f"{free_port()}", world_size=1, rank=0)
+    try:
+        cuda = torch.device("cuda")
+        x = torch.arange(6, dtype=torch.float32, device=cuda).reshape(2, 3)
+        res = {"backend": tdist.get_backend()}
+        res["all_reduce"] = dist.all_reduce(x.clone()).tolist()
+        res["all_reduce_max"] = dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX).tolist()
+        res["broadcast"] = dist.broadcast(x.clone(), src=0).tolist()
+        lst = []
+        dist.all_gather(lst, x.clone())
+        res["all_gather"] = [t.tolist() for t in lst]
+        res["reduce"] = dist.reduce(x.clone(), dst=0).tolist()
+        res["reduce_scatter"] = dist.reduce_scatter(x.clone()).tolist()
+        res["alltoall"] = dist.alltoall(x.clone()[None]).tolist()
+        out = torch.empty_like(x)
+        res["scatter"] = dist.scatter(out, [x.clone()], src=0).tolist()
+        dist.barrier()
+        emit({"phase": "collectives_nccl", **res})
+        want = x.tolist()
+        for k in ("all_reduce", "all_reduce_max", "broadcast", "reduce",
+                  "reduce_scatter", "scatter"):
+            assert res[k] == want, (k, res[k])
+        assert res["all_gather"] == [want] and res["alltoall"] == [want]
+        assert res["backend"] == "nccl", res
+    finally:
+        tdist.destroy_process_group()
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
-                   vision, serving, hapi, optim, surface, nn_rest, zoo):
+                   vision, serving, hapi, optim, surface, nn_rest, zoo,
+                   dist_tune):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -5862,7 +6618,10 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     the launches in a replay of its graph by kernel name (B1 tc_bf16 12 a
     batch without a mask, 0 in the masked batch). B1 tc_bf16 has a row of
     its own at translate's encoder shape (8, 256, 8, 64), with its
-    launches there."""
+    launches there. And on the dist_tune group's (``launches_dist_tune``):
+    per step on each rank of dp_gpt (GPT-medium bf16 under DataParallel at
+    2 ranks on the card), with the tile each kernel ran at, and over
+    dp_fit and the NCCL collectives (0)."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -5896,6 +6655,14 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                 "launches_zoo": {
                     lane: counts.get(variant, 0)
                     for lane, counts in zoo.items()},
+                "launches_dist_tune": {
+                    **{lane: dist_tune[lane].get(variant, 0)
+                       for lane in ("dp_gpt_per_step_rank0",
+                                    "dp_gpt_per_step_rank1",
+                                    "collectives_nccl")},
+                    "dp_fit": dist_tune["dp_fit"][kernel],
+                    "dp_gpt_tile": dist_tune["dp_gpt_tiles"][kernel]
+                    if variant.endswith(fa.TC) else None},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -5998,7 +6765,7 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
                 "to_static_grad", "bert", "vision", "serving", "hapi",
-                "optim", "surface", "nn_rest", "zoo")
+                "optim", "surface", "nn_rest", "zoo", "dist_tune")
 
 
 def main():
@@ -6007,6 +6774,11 @@ def main():
     ap.add_argument("--phases", default=",".join(PHASE_GROUPS),
                     help="comma-separated phase groups to run (default: "
                          "all); the kernels line needs all of them")
+    # one rank of the dist_tune group's data-parallel lanes, started by
+    # phase_dist (with PADDLE_TRAINER_ID and the coordinator's address)
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     run = set(args.phases.split(","))
     unknown = run - set(PHASE_GROUPS)
@@ -6023,6 +6795,11 @@ def main():
         sys.exit("chip_smoke: paddle_tpu_torch/ not found beside this "
                  "script; run it from a checkout of the repository")
     sys.path.insert(0, here)
+    if args.dist_rank is not None:
+        dist_rank_main(torch, args)
+        return
+    # the tuner's answers stay inside the checkout (the build directory)
+    os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = autotune_cache_dir()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # cuDNN picks its algorithms by heuristics: no autotuning runs, inside
@@ -6044,6 +6821,8 @@ def main():
     if "kernels" in run:
         out["rows"] = phase_kernels(torch, args.seed)
         out["bwd_rows"] = phase_kernels_bwd(torch, args.seed)
+    # every phase runs under the defaults: FLAGS_fusion_policy auto (the
+    # measured table) and the tile search on
     if "reference" in run:
         phase_reference(torch, args.seed)
         phase_reference_train(torch, args.seed)
@@ -6197,13 +6976,49 @@ def main():
         emit({"phase": "zoo", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    if "dist_tune" in run:
+        from paddle_tpu_torch.ops.cuda import launch_counts
+        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+        t_group = time.perf_counter()
+        seconds = {}
+        cache_dir = autotune_cache_dir()
+        t_lane = time.perf_counter()
+        tune = phase_autotune(torch, args.seed, cache_dir)
+        seconds["autotune"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        phase_fusion_policy(torch, args.seed, cache_dir)
+        seconds["fusion_policy"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        phase_policy_steps(torch, args.seed)
+        seconds["policy_steps"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        dp, fit = check_dist(*phase_dist(torch, args.seed, cache_dir))
+        seconds["dp_gpt_dp_fit_collectives"] = time.perf_counter() - t_lane
+        t_lane = time.perf_counter()
+        launch_counts.clear()
+        phase_nccl_single(torch)
+        seconds["collectives_nccl"] = time.perf_counter() - t_lane
+        nccl = {k: launch_counts[k] for k in launch_counts
+                if k.split(".")[0] in KERNEL_NAMES}
+        assert not any(nccl.values()), nccl
+        # each path's own window: a rank's counts reset before each step
+        # and read after it (the last timed step)
+        out["dist_tune"] = {
+            "dp_gpt_per_step_rank0": dp[0]["launches_per_step"][-1],
+            "dp_gpt_per_step_rank1": dp[1]["launches_per_step"][-1],
+            "dp_gpt_tiles": dp[0]["tiles"],
+            "dp_fit": fit[0]["launches"], "collectives_nccl": nccl,
+            "winners": tune["winners"]}
+        emit({"phase": "dist_tune", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": seconds})
+
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
             out["compiled"], out["amp"], out["bert"], out["vision"],
             out["serving"], out["hapi"], out["optim"], out["surface"],
-            out["nn_rest"], out["zoo"])})
+            out["nn_rest"], out["zoo"], out["dist_tune"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

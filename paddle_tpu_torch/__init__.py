@@ -56,6 +56,7 @@ from .core.dtypes import (bfloat16, complex64, complex128, convert_dtype,
 from .core.dtypes import bool_ as bool  # noqa: A001
 from .core.random import (get_cuda_rng_state, make_generator, seed,
                           set_cuda_rng_state)
+from .distributed.parallel import DataParallel
 from .framework.flags import get_flags, set_flags
 from .framework.io_utils import load, load_numpy_state_dict, save
 from .framework.param_attr import ParamAttr, Parameter
@@ -172,6 +173,7 @@ __all__ = ["CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "Place",
            "callbacks", "distributed", "hapi", "inference", "io", "jit",
            "metric", "nn", "optimizer", "regularizer", "serving", "tensor",
            "text", "vision", "linalg", "Model", "summary", "flops",
+           "DataParallel",
            "no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "get_flags", "set_flags", "ParamAttr", "Parameter", "Tensor",
            "dtype", "bool", "uint8", "int8", "int16", "int32", "int64",

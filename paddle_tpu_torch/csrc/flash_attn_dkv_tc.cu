@@ -23,9 +23,13 @@
 // 3.35 TB/s): bound by operations, just.
 //
 // Design: the transposed formulation, so that neither P nor dS ever goes
-// through shared memory. A block owns 64 key rows of one (batch, head), 16
-// per warp, grid (S/64, B*H); blockIdx.x 0 (the longest loop when causal)
-// starts first. Every product has the warp's key rows as its M side:
+// through shared memory. A block owns BK key rows of one (batch, head), 16
+// per warp, grid (S/BK, B*H); blockIdx.x 0 (the longest loop when causal)
+// starts first. BK is a template parameter, instantiated at 64 (4 warps)
+// and 128 (8 warps), and the caller picks one per shape
+// (ops/cuda/flash_attention.py _tuned_bwd_blocks, timed by ops/autotune.py
+// on the card); a warp's work and registers are the same in both, the
+// larger block shares each Q and dO tile between twice the key rows. Every product has the warp's key rows as its M side:
 //     S^T  = K . Q^T     A = K (registers), B = Q rows (ldmatrix)
 //     P^T  = exp(S^T - LSE[q])       LSE indexed by column, from shared
 //     dV  += P^T . dO    A = P^T (bf16, registers), B = dO (ldmatrix.trans)
@@ -45,8 +49,9 @@
 // D = 128 the query tile is 32 wide and K's and V's fragments are reloaded
 // from shared memory per tile, each just before its product. ptxas's
 // register and spill lines for both are printed by chip_smoke.py's build
-// phase. Shared memory: 49 KB at D = 64 (K, V 16 KB; 2 x (Q, dO) 32 KB; 2 x
-// (LSE, Dl) 1 KB), 64.5 KB at D = 128.
+// phase. Shared memory at BK = 64: 49 KB at D = 64 (K, V 16 KB; 2 x (Q, dO)
+// 32 KB; 2 x (LSE, Dl) 1 KB), 64.5 KB at D = 128; K and V double at BK =
+// 128 (65 KB and 96.5 KB).
 //
 // Where the numerics differ from the reference: P and dS are rounded to bf16
 // as mma operands (relative 2^-9 per term), and the scale is applied to the
@@ -73,15 +78,12 @@ namespace {
 
 using ptk::bf16;
 
-constexpr int BK = 64;        // key rows per block
-constexpr int WARPS = 4;      // 16 key rows each
-constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_BIG = -1e30f;
 
-static_assert(BK == 16 * WARPS, "one m16 row block per warp");
-
-template <int D>
+// BK key rows per block, 16 per warp
+template <int D, int BK>
 struct Cfg {
+  static constexpr int THREADS = 32 * (BK / 16);
   static constexpr int BQ = D == 64 ? 64 : 32;   // query rows per tile
   static constexpr bool KV_IN_REGS = D == 64;    // K, V fragments kept
   static constexpr int KV = BK * D;              // elements of K or V
@@ -96,8 +98,8 @@ struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int BK>
+__global__ void __launch_bounds__(32 * (BK / 16))
 flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const bf16* __restrict__ dout,
@@ -105,8 +107,11 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const float* __restrict__ delta,
                         bf16* __restrict__ dk, bf16* __restrict__ dv, int S,
                         int H, float scale, int causal, Strides st) {
-  using C = Cfg<D>;
+  using C = Cfg<D, BK>;
   constexpr int BQ = C::BQ;
+  constexpr int THREADS = C::THREADS;
+  static_assert(BK % 16 == 0 && BK % BQ == 0,
+                "one m16 row block per warp; whole query tiles per block");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
   bf16* Vs = Ks + C::KV;
@@ -300,18 +305,18 @@ flash_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dk, void* dv, int B, int S, int H, float scale,
                    int causal, const Strides& st, cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_tc_kernel<D>;
-  const size_t smem = Cfg<D>::BYTES;
+  auto kernel = flash_bwd_dkv_tc_kernel<D, BK>;
+  const size_t smem = Cfg<D, BK>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / BK, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, Cfg<D, BK>::THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -324,17 +329,19 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q, k, v, dout: (B, S, H, D) bf16 with element strides (batch, seq, head)
 // given for each, in that order, multiples of 8, unit stride on D and
 // 16-byte-aligned bases; lse and delta contiguous (B, H, S) f32; dk, dv
-// contiguous (B, S, H, D) bf16. Returns the cudaError_t of the launch (0 on
-// success). Does not synchronise.
+// contiguous (B, S, H, D) bf16; bk: the key rows per block, 64 or 128 (the
+// instantiation). Returns the cudaError_t of the launch (0 on success). Does
+// not synchronise.
 extern "C" int pt_flash_attn_bwd_dkv_tc(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-    int H, int D, int causal, float scale, long long q_sb, long long q_ss,
-    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
-    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
-    long long o_ss, long long o_sh, void* stream) {
-  // BK is a multiple of both query-tile widths
-  if (B <= 0 || H <= 0 || S <= 0 || S % BK != 0 || (long long)B * H > 65535)
+    int H, int D, int causal, int bk, float scale, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh, void* stream) {
+  // bk is a multiple of both query-tile widths
+  if (B <= 0 || H <= 0 || S <= 0 || (bk != 64 && bk != 128) || S % bk != 0 ||
+      (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
@@ -352,12 +359,18 @@ extern "C" int pt_flash_attn_bwd_dkv_tc(
     st.o[i] = s[9 + i];
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch<64>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale,
-                           causal, st, cs);
-  if (D == 128)
-    return (int)launch<128>(q, k, v, dout, lse, delta, dk, dv, B, S, H, scale,
-                            causal, st, cs);
+  if (D == 64 && bk == 64)
+    return (int)launch<64, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                               scale, causal, st, cs);
+  if (D == 64 && bk == 128)
+    return (int)launch<64, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                scale, causal, st, cs);
+  if (D == 128 && bk == 64)
+    return (int)launch<128, 64>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                scale, causal, st, cs);
+  if (D == 128 && bk == 128)
+    return (int)launch<128, 128>(q, k, v, dout, lse, delta, dk, dv, B, S, H,
+                                 scale, causal, st, cs);
   return (int)cudaErrorInvalidValue;
 }
 

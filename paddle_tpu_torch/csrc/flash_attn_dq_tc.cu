@@ -21,8 +21,13 @@
 // 3.35 TB/s): bound by operations, just.
 //
 // Design: FlashAttention-2's dQ pass on mma.sync m16n8k16, laid out as the
-// forward (flash_attn_fwd_tc.cu). A block owns 64 query rows of one (batch,
-// head) and runs 4 warps, 16 rows each; grid (S/64, B*H). When causal,
+// forward (flash_attn_fwd_tc.cu). A block owns BQ query rows of one (batch,
+// head) and runs BQ/16 warps, 16 rows each; grid (S/BQ, B*H). BQ is a
+// template parameter, instantiated at 64 (4 warps) and 128 (8 warps), and
+// the caller picks one per shape (ops/cuda/flash_attention.py
+// _tuned_bwd_blocks, timed by ops/autotune.py on the card); a warp's work
+// and registers are the same in both, the larger block shares each K and V
+// tile between twice the rows. When causal,
 // blockIdx.x 0 takes the last query tile, whose key loop is the longest, so
 // the longest blocks start first. Q and dO are copied once into bf16 shared
 // tiles with cp.async; each lane keeps the LSE and Dl of its two rows (g and
@@ -43,8 +48,9 @@
 // would take 64 of them, so each is reloaded from shared memory per tile,
 // one k16 slice just before its products. Either way ptxas fills most of
 // the 255-register budget without spilling; its register and spill lines
-// for both are printed by chip_smoke.py's build phase. Shared memory: 48 KB at D = 64 (Q, dO 16 KB; 2 x (K, V) 32 KB),
-// 96 KB at D = 128.
+// for both are printed by chip_smoke.py's build phase. Shared memory at
+// BQ = 64: 48 KB at D = 64 (Q, dO 16 KB; 2 x (K, V) 32 KB), 96 KB at D =
+// 128; the Q and dO tiles double at BQ = 128 (64 KB and 128 KB).
 //
 // Where the numerics differ from the reference: dS is rounded to bf16 as an
 // mma operand (relative 2^-9 per term), and the scale is applied to the f32
@@ -72,16 +78,13 @@ namespace {
 
 using ptk::bf16;
 
-constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per streamed tile
-constexpr int WARPS = 4;      // 16 query rows each
-constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_BIG = -1e30f;
 
-static_assert(BQ == 16 * WARPS, "one m16 row block per warp");
-
-template <int D>
+// BQ query rows per block, 16 per warp
+template <int D, int BQ>
 struct Cfg {
+  static constexpr int THREADS = 32 * (BQ / 16);
   static constexpr bool QO_IN_REGS = D == 64;   // Q, dO fragments kept
   static constexpr int QT = BQ * D;             // elements of Q or dO
   static constexpr int KV = BK * D;             // elements of one K or V tile
@@ -94,8 +97,8 @@ struct Strides {
   long long q[3], k[3], v[3], o[3];
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int BQ>
+__global__ void __launch_bounds__(32 * (BQ / 16))
 flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v,
                        const bf16* __restrict__ dout,
@@ -103,7 +106,9 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const float* __restrict__ delta,
                        bf16* __restrict__ dq, int S, int H, float scale,
                        int causal, Strides st) {
-  using C = Cfg<D>;
+  using C = Cfg<D, BQ>;
+  constexpr int THREADS = C::THREADS;
+  static_assert(BQ % 16 == 0, "one m16 row block per warp");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* dOs = Qs + C::QT;
@@ -247,18 +252,18 @@ flash_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    void* dq, int B, int S, int H, float scale, int causal,
                    const Strides& st, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_tc_kernel<D>;
-  const size_t smem = Cfg<D>::BYTES;
+  auto kernel = flash_bwd_dq_tc_kernel<D, BQ>;
+  const size_t smem = Cfg<D, BQ>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / BQ, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, Cfg<D, BQ>::THREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -271,17 +276,18 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 // q, k, v, dout: (B, S, H, D) bf16 with element strides (batch, seq, head)
 // given for each, in that order, multiples of 8, unit stride on D and
 // 16-byte-aligned bases; lse and delta contiguous (B, H, S) f32; dq
-// contiguous (B, S, H, D) bf16. Returns the cudaError_t of the launch (0 on
-// success). Does not synchronise.
+// contiguous (B, S, H, D) bf16; bq: the query rows per block, 64 or 128 (the
+// instantiation). Returns the cudaError_t of the launch (0 on success). Does
+// not synchronise.
 extern "C" int pt_flash_attn_bwd_dq_tc(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int S, int H, int D,
-    int causal, float scale, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-    long long o_sh, void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || S % BQ != 0 || S % BK != 0 ||
-      (long long)B * H > 65535)
+    int causal, int bq, float scale, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long o_sb,
+    long long o_ss, long long o_sh, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0 || (bq != 64 && bq != 128) || S % bq != 0 ||
+      S % BK != 0 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const long long s[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                            v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
@@ -299,12 +305,18 @@ extern "C" int pt_flash_attn_bwd_dq_tc(
     st.o[i] = s[9 + i];
   }
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch<64>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
-                           causal, st, cs);
-  if (D == 128)
-    return (int)launch<128>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
-                            causal, st, cs);
+  if (D == 64 && bq == 64)
+    return (int)launch<64, 64>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
+                               causal, st, cs);
+  if (D == 64 && bq == 128)
+    return (int)launch<64, 128>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
+                                causal, st, cs);
+  if (D == 128 && bq == 64)
+    return (int)launch<128, 64>(q, k, v, dout, lse, delta, dq, B, S, H, scale,
+                                causal, st, cs);
+  if (D == 128 && bq == 128)
+    return (int)launch<128, 128>(q, k, v, dout, lse, delta, dq, B, S, H,
+                                 scale, causal, st, cs);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,15 +22,22 @@
 // (10.09 us) against 8.6 GFLOP (8.7 us): bound by bytes at both. The
 // training path's launch also writes O in f32, 4 more bytes per element.
 //
-// Design (FlashAttention-2 on mma.sync). A block owns 64 query rows of one
-// (batch, head) and runs 4 warps, 16 rows each; grid (S/64, B*H). When
+// Design (FlashAttention-2 on mma.sync). A block owns BQ query rows of one
+// (batch, head) and runs BQ/16 warps, 16 rows each; grid (S/BQ, B*H). BQ is
+// a template parameter, instantiated at 64 (4 warps) and 128 (8 warps); the
+// caller picks one per shape (ops/cuda/flash_attention.py
+// _tuned_fwd_blocks, timed by ops/autotune.py on the card). A warp's work
+// and registers are the same in both: the larger block shares each K and V
+// tile between twice the query rows (half the K/V reads from L2) and puts
+// half as many blocks on the grid. When
 // causal, blockIdx.x 0 takes the last query tile, so the longest blocks start
 // first. Q's tile is copied once into bf16 shared memory with cp.async and
 // its A fragments stay in registers for the whole key loop. K and V tiles of
 // 64 keys stream through a two-stage cp.async ring: the next tile's copy is
 // in flight while the current one is multiplied. Shared tiles are bf16 with
 // 16-byte chunks XOR-swizzled by row, so ldmatrix reads them without bank
-// conflicts: 40 KB at D = 64 (Q 8 KB + 2 x (K + V) 32 KB), 80 KB at D = 128.
+// conflicts: 40 KB at D = 64 (Q 8 KB + 2 x (K + V) 32 KB), 80 KB at D = 128
+// for BQ = 64; the Q tile doubles at BQ = 128 (48 KB and 96 KB).
 // S = Q . K^T is one m16n8k16 mma per (n8 key tile, k16 slice), K's B
 // fragments by ldmatrix; the scale multiplies the f32 accumulator, never q in
 // bf16 (the reference scales q in f32; scaling S in f32 agrees with it up to
@@ -72,16 +79,11 @@ namespace {
 
 using ptk::bf16;
 
-constexpr int BQ = 64;        // query rows per block
 constexpr int BK = 64;        // keys per streamed tile
-constexpr int WARPS = 4;      // 16 query rows each
-constexpr int THREADS = 32 * WARPS;
 constexpr float NEG_BIG = -1e30f;
 constexpr float L_FLOOR = 1e-30f;
 
-static_assert(BQ == 16 * WARPS, "one m16 row block per warp");
-
-template <int D>
+template <int D, int BQ>
 struct Smem {
   static constexpr int Q = BQ * D;     // elements of the Q tile
   static constexpr int KV = BK * D;    // elements of one K or V tile
@@ -89,8 +91,8 @@ struct Smem {
   static constexpr size_t BYTES = sizeof(bf16) * (size_t)(Q + 4 * KV);
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+template <int D, int BQ>
+__global__ void __launch_bounds__(32 * (BQ / 16))
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ o32, float* __restrict__ lse, int S,
@@ -98,10 +100,12 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     int causal, long long q_sb, long long q_ss, long long q_sh,
                     long long k_sb, long long k_ss, long long k_sh,
                     long long v_sb, long long v_ss, long long v_sh) {
-  constexpr int KV = Smem<D>::KV;
+  constexpr int KV = Smem<D, BQ>::KV;
+  constexpr int THREADS = 32 * (BQ / 16);   // 16 query rows a warp
+  static_assert(BQ % 16 == 0, "one m16 row block per warp");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* ring = Qs + Smem<D>::Q;   // stage s: K at ring + 2*s*KV, V after it
+  bf16* ring = Qs + Smem<D, BQ>::Q;   // stage s: K at ring + 2*s*KV, V after
 
   const int lane = threadIdx.x & 31;
   const int row_w = (threadIdx.x >> 5) * 16;   // the warp's first tile row
@@ -249,17 +253,17 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int D, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* o32, void* lse, int B, int S, int H, float scale,
                    int causal, const long long* st, cudaStream_t stream) {
-  auto kernel = flash_fwd_tc_kernel<D>;
-  const size_t smem = Smem<D>::BYTES;
+  auto kernel = flash_fwd_tc_kernel<D, BQ>;
+  const size_t smem = Smem<D, BQ>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(S / BQ, B * H);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  kernel<<<grid, 32 * (BQ / 16), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(o32), static_cast<float*>(lse), S, H, scale,
@@ -273,17 +277,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // q, k, v: (B, S, H, D) bf16 with element strides (batch, seq, head) given
 // for each, multiples of 8, unit stride on D and 16-byte-aligned bases; o:
 // contiguous (B, S, H, D) bf16; o32: null, or contiguous (B, S, H, D) f32
-// for O unrounded; lse: contiguous (B, H, S) f32. Returns the cudaError_t of
-// the launch (0 on success). Does not synchronise.
+// for O unrounded; lse: contiguous (B, H, S) f32; bq: the query rows per
+// block, 64 or 128 (the instantiation). Returns the cudaError_t of the
+// launch (0 on success). Does not synchronise.
 extern "C" int pt_flash_attn_fwd_tc(
     const void* q, const void* k, const void* v, void* o, void* o32,
-    void* lse, int B, int S, int H, int D, int causal, float scale,
+    void* lse, int B, int S, int H, int D, int causal, int bq, float scale,
     long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     void* stream) {
-  if (B <= 0 || H <= 0 || S <= 0 || S % BQ != 0 || S % BK != 0 ||
-      (long long)B * H > 65535)
+  if (B <= 0 || H <= 0 || S <= 0 || (bq != 64 && bq != 128) || S % bq != 0 ||
+      S % BK != 0 || (long long)B * H > 65535)
     return (int)cudaErrorInvalidValue;
   const long long st[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
   for (long long x : st)
@@ -293,12 +298,18 @@ extern "C" int pt_flash_attn_fwd_tc(
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
       return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return (int)launch<64>(q, k, v, o, o32, lse, B, S, H, scale, causal, st,
-                           s);
-  if (D == 128)
-    return (int)launch<128>(q, k, v, o, o32, lse, B, S, H, scale, causal, st,
-                            s);
+  if (D == 64 && bq == 64)
+    return (int)launch<64, 64>(q, k, v, o, o32, lse, B, S, H, scale, causal,
+                               st, s);
+  if (D == 64 && bq == 128)
+    return (int)launch<64, 128>(q, k, v, o, o32, lse, B, S, H, scale, causal,
+                                st, s);
+  if (D == 128 && bq == 64)
+    return (int)launch<128, 64>(q, k, v, o, o32, lse, B, S, H, scale, causal,
+                                st, s);
+  if (D == 128 && bq == 128)
+    return (int)launch<128, 128>(q, k, v, o, o32, lse, B, S, H, scale, causal,
+                                 st, s);
   return (int)cudaErrorInvalidValue;
 }
 

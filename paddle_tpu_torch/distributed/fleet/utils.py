@@ -22,6 +22,10 @@ forward saw them when the rerun happens inside ``loss.backward()``:
   discovery pass planned and the graph replays in step with the forward
   (core/random.py ``RerunPlan``), so each replay's rerun draws that
   replay's forward masks. A function that draws nothing saves nothing.
+
+The region's fusion-policy decisions (``ops/autotune.py``) are taken for
+a differentiated region: ``_FORCE_DIRECTION`` is "fwd_bwd" while the
+forward runs, as in the reference.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ...amp.auto_cast import restore, snapshot
 from ...core.random import rerun_region
+from ...ops import autotune
 
 __all__ = ["recompute"]
 
@@ -117,5 +122,11 @@ def recompute(function, *args, **kwargs):
     def contexts():
         return contextlib.nullcontext(), rerun()
 
-    return checkpoint(function, *args, use_reentrant=False,
-                      preserve_rng_state=False, context_fn=contexts, **kwargs)
+    prev = autotune._FORCE_DIRECTION[0]
+    autotune._FORCE_DIRECTION[0] = "fwd_bwd"
+    try:
+        return checkpoint(function, *args, use_reentrant=False,
+                          preserve_rng_state=False, context_fn=contexts,
+                          **kwargs)
+    finally:
+        autotune._FORCE_DIRECTION[0] = prev

@@ -23,6 +23,15 @@ at the reference's defaults:
   ``FLAGS_collective_timeout`` and ``FLAGS_watchdog_interval``, the flight
   recorder's size, ``FLAGS_preflight_checks``, the metrics exporter's
   interval and the request tracer's switches.
+- The kernel tier (``ops/autotune.py``): ``FLAGS_fusion_policy``
+  (``auto``, ``always`` or ``never``; default ``auto``: each fused op and
+  flash attention run the form that this card's measured table names for
+  the call's op, dtype and direction) and ``FLAGS_autotune`` (on: flash
+  attention's tiles are searched on the card; off, or on the CPU, a fixed
+  tile answers).
+- Data parallelism (``distributed/``): ``FLAGS_reducer_bucket_mb`` (25),
+  the size cap of one fused gradient bucket of ``DataParallel``'s
+  Reducer.
 - Serving (``serving/``) and continuous-batching decode
   (``serving/decode/``): ``FLAGS_serving_*`` and ``FLAGS_decode_*``.
   ``FLAGS_decode_quantize`` is accepted, but a set value raises in
@@ -45,6 +54,12 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_compiled_step": True,
     "FLAGS_compiled_step_max_retraces": 8,
     "FLAGS_max_cached_programs": 64,
+    # the kernel tier (ops/autotune.py): the measured fusion policy
+    # (auto|always|never) and the switch of the timed tile search
+    "FLAGS_fusion_policy": "auto",
+    "FLAGS_autotune": True,
+    # size cap (MB) of one fused gradient bucket of DataParallel's Reducer
+    "FLAGS_reducer_bucket_mb": 25,
     # the training API (hapi/): the step guard of Model.fit, which skips
     # a non-finite step and rolls back after this many in a row; the
     # fit loop's input prefetch thread; the background checkpoint

@@ -15,9 +15,12 @@ signature and gets its own capture, under
 ``FLAGS_compiled_step_max_retraces``.
 
 ``prepare`` accepts ``amp_configs`` and does not read it, as the
-reference does (ROADMAP C-ref-7). Data-parallel training (world size > 1,
-which the reference wraps in ``DataParallel``) and ``spec_layout`` raise
-NotImplementedError until ROADMAP A10 ports the distributed slice.
+reference does (ROADMAP C-ref-7). At world size > 1 ``prepare`` wraps
+the network in ``DataParallel``, as the reference does, and the loaders
+take this rank's shard (``DistributedBatchSampler``); such a step runs
+eagerly, since its collectives cannot be captured in a CUDA graph
+(``DataParallel.captures``). ``spec_layout`` raises NotImplementedError
+until ROADMAP A10's ``spec_layout.py`` item.
 """
 from __future__ import annotations
 
@@ -32,10 +35,6 @@ from ..metric import _np as _host
 from ..profiler import steptimer as _steptimer
 
 __all__ = ["Model"]
-
-_DP_LATER = ("data-parallel training comes with the distributed slice of "
-             "the port (ROADMAP A10)")
-
 
 def _to_list(x):
     if x is None:
@@ -90,12 +89,12 @@ class Model:
         if spec_layout is not None:
             raise NotImplementedError(
                 "prepare(spec_layout=...): sharded parameters and batches "
-                "come with the distributed slice of the port (ROADMAP A10)")
+                "come with ROADMAP A10's spec_layout.py item")
         from ..distributed import env as _dist_env
-        if _dist_env.get_world_size() > 1:
-            raise NotImplementedError(
-                f"Model.prepare at world size "
-                f"{_dist_env.get_world_size()}: {_DP_LATER}")
+        from ..distributed.parallel import DataParallel
+        if _dist_env.get_world_size() > 1 and \
+                not isinstance(self.network, DataParallel):
+            self.network = DataParallel(self.network)
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
@@ -121,9 +120,15 @@ class Model:
             return total
         from ..jit.compiled_step import CompiledTrainStep, \
             compiled_step_enabled
-        self._compiled_train_step = (
-            CompiledTrainStep(_step, label="hapi.train_step")
-            if compiled_step_enabled() else StaticFunction(_step))
+        if compiled_step_enabled() and getattr(self.network, "captures",
+                                               True):
+            self._compiled_train_step = CompiledTrainStep(
+                _step, label="hapi.train_step")
+        else:
+            self._compiled_train_step = StaticFunction(_step)
+            # a data-parallel step's collectives run eagerly
+            self._compiled_train_step._enabled = getattr(
+                self.network, "captures", True)
 
     def train_batch(self, inputs, labels=None, update=True):
         """One optimizer step on one batch; returns [loss]."""

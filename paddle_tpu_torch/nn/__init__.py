@@ -2,7 +2,7 @@
 activations, the common layers, the convolutions, the norms, the
 poolings, the RNNs, the transformer layers, every loss), decoding
 (``decode``: the beam search decoders and ``dynamic_decode``), ``utils``
-and ``quant``. SyncBatchNorm comes with distributed (ROADMAP A10)."""
+and ``quant``."""
 from ..framework.param_attr import ParamAttr
 from . import decode, functional, initializer, quant, utils
 from . import layer as _layer

@@ -396,6 +396,9 @@ def bilinear(x1, x2, weight, bias=None, name=None):
 
 
 def class_center_sample(label, num_classes, num_samples, group=None):
+    """Raises, as the reference does (its sampling of class centres is
+    parameter-server oriented and out of its scope,
+    paddle_tpu/nn/functional/common.py)."""
     raise NotImplementedError(
-        "class_center_sample samples class centres across a sharded "
-        "classifier: it comes with the distributed slice (ROADMAP A10)")
+        "class_center_sample is parameter-server oriented and out of "
+        "scope, as in the reference")

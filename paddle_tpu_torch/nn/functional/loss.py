@@ -12,8 +12,8 @@ device tensor (no host sync, so a captured step can compute it).
 The other losses follow the reference's formulas line for line, each
 under the reference's op name for ``amp.auto_cast`` (cross_entropy and
 softmax_with_cross_entropy are black-listed, so promoted to float32; at
-O2 the others compute in the low dtype). ``margin_cross_entropy`` over a
-class-sharded ``group`` needs the distributed slice (ROADMAP A10).
+O2 the others compute in the low dtype). ``margin_cross_entropy`` also
+takes a class-sharded ``group``.
 """
 from __future__ import annotations
 
@@ -332,22 +332,48 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5, margin3=0.0,
                          reduction="mean", name=None):
     """ArcFace-family margin softmax: the target class's cosine theta
     becomes cos(margin1 * theta + margin2) - margin3, then a scaled
-    softmax cross entropy, in float32."""
-    if group is not None:
+    softmax cross entropy, in float32.
+
+    ``group`` (a ``distributed.Group``): the classes are sharded over the
+    group, member r holding classes [r * C, (r + 1) * C) of the logits'
+    last axis and every member the global labels, as in the reference's
+    class-sharded branch: the row max goes through a max all-reduce, the
+    softmax denominator and the target's logit through sum all-reduces
+    whose backward is the identity (each member's copy of the loss
+    differentiates its own shard), and every member's loss is
+    -(target logit - max - log(denominator)). A mesh axis name (the
+    reference's SPMD form) raises: ``shard_map`` comes with a later
+    ROADMAP A10 item."""
+    if isinstance(group, str):
         raise NotImplementedError(
-            "margin_cross_entropy over a class-sharded group needs the "
-            "distributed slice of the port (ROADMAP A10)")
+            f"margin_cross_entropy(group={group!r}): a mesh axis name is the "
+            f"reference's shard_map form, which comes with a later ROADMAP "
+            f"A10 item; pass a distributed.Group")
+    from ...distributed.collective import ReduceOp, _mp_allreduce, all_reduce
     x = logits.float()
+    n_cls = x.shape[-1]
+    lb = label.long()
+    if group is not None:
+        # global class ids: one_hot hits only the shard that owns the class
+        lb = lb - max(group.rank, 0) * n_cls
     theta = torch.arccos(x.clamp(-1.0 + 1e-7, 1.0 - 1e-7))
     cos_m = torch.cos(margin1 * theta + margin2) - margin3
-    onehot = torch.nn.functional.one_hot(label.long(), x.shape[-1]).to(
-        x.dtype)
+    onehot = ((lb[..., None] == torch.arange(n_cls, device=x.device))
+              .to(x.dtype))
     logits_m = torch.where(onehot > 0, cos_m, x) * scale
-    mx = logits_m.amax(-1, keepdim=True)
+    mx = logits_m.amax(-1, keepdim=True).detach()
+    if group is not None:
+        mx = all_reduce(mx.clone(), op=ReduceOp.MAX, group=group)
     ex = torch.exp(logits_m - mx)
     denom = ex.sum(-1, keepdim=True)
-    logp = (logits_m - mx) - torch.log(denom)
-    loss = _reduce(-(logp * onehot).sum(-1), reduction)
+    if group is not None:
+        denom = _mp_allreduce(denom, group)
+    # the target's logit lives on one member: summed over the group
+    tgt = (logits_m * onehot).sum(-1)
+    if group is not None:
+        tgt = _mp_allreduce(tgt, group)
+    logp = (tgt - mx[..., 0]) - torch.log(denom[..., 0])
+    loss = _reduce(-logp, reduction)
     if return_softmax:
         return loss, ex / denom
     return loss

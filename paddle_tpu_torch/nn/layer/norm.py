@@ -1,6 +1,17 @@
 """The norm layers (port of paddle_tpu/nn/layer/norm.py): LayerNorm, the
-batch norms, GroupNorm, the instance norms, LocalResponseNorm and
-SpectralNorm. SyncBatchNorm comes with distributed (ROADMAP A10).
+batch norms, SyncBatchNorm, GroupNorm, the instance norms,
+LocalResponseNorm and SpectralNorm.
+
+SyncBatchNorm normalises a training batch by the statistics of the whole
+data-parallel batch: each rank's per-channel sums go through an
+all-reduce over the mesh's data group, so every rank normalises by what
+one process would compute on the global batch, which is what the
+reference's data-parallel run computes (its batch axis is sharded inside
+one compiled program). Outside a process group, and in eval, it is
+BatchNorm. Its backward sums the gradients of the statistics over the
+group as well, so the input's gradient is that of the ranks' summed
+losses, as in torch's SyncBatchNorm; DataParallel's average of the
+parameter gradients then gives the global batch's (ROADMAP C-ref-21).
 
 The batch norms keep their running statistics in buffers named ``_mean``
 and ``_variance``, as the reference's state dict does, in the layer's
@@ -20,11 +31,13 @@ import torch
 from ...amp.auto_cast import amp_cast
 from .. import functional as F
 from .. import initializer as I
+from ..functional.norm import _bn_axes, update_running_stats
 from .layers import Layer
 
 __all__ = ["LayerNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "GroupNorm", "InstanceNorm1D", "InstanceNorm2D",
-           "InstanceNorm3D", "LocalResponseNorm", "SpectralNorm"]
+           "BatchNorm3D", "SyncBatchNorm", "GroupNorm", "InstanceNorm1D",
+           "InstanceNorm2D", "InstanceNorm3D", "LocalResponseNorm",
+           "SpectralNorm"]
 
 
 class LayerNorm(Layer):
@@ -106,6 +119,77 @@ class BatchNorm3D(_BatchNormBase):
                          bias_attr, data_format, use_global_stats,
                          **factory)
 
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group; its adjoint sums the gradients over the group
+    too (every rank's copy of the sum feeds that rank's loss)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        from ...distributed.collective import all_reduce
+        ctx.group = group
+        return all_reduce(x.clone(), group=group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from ...distributed.collective import all_reduce
+        return all_reduce(grad.clone(), group=ctx.group), None
+
+
+class SyncBatchNorm(_BatchNormBase):
+    """BatchNorm over the whole data-parallel batch (module docstring,
+    ROADMAP C-ref-21)."""
+
+    def forward(self, x):
+        from ...distributed.collective import _dist
+        from ...distributed.mesh import get_mesh
+        use_global = self._use_global_stats
+        if use_global is None:
+            use_global = not self.training
+        if use_global or _dist() is None:
+            return super().forward(x)
+        group = get_mesh().group("data")
+        ch, red, bshape = _bn_axes(x, self._data_format)
+        x, weight, bias = amp_cast("batch_norm", x, self.weight, self.bias)
+        xf = x.float() if x.dtype in (torch.float16, torch.bfloat16) else x
+        n_local = x.numel() // x.shape[ch]
+        sums = _AllReduceSum.apply(torch.cat([
+            xf.sum(dim=red), xf.new_full((1,), float(n_local))]), group)
+        n = sums[-1]
+        mean = sums[:-1] / n
+        centred = xf - mean.reshape(bshape)
+        var = _AllReduceSum.apply((centred * centred).sum(dim=red),
+                                  group) / n
+        out = centred * torch.rsqrt(var.reshape(bshape) + self._epsilon)
+        update_running_stats(self._mean, self._variance, mean.detach(),
+                             var.detach(), int(n.item()), self._momentum)
+        out = out.to(x.dtype)
+        if weight is not None:
+            out = out * weight.reshape(bshape)
+        if bias is not None:
+            out = out + bias.reshape(bshape)
+        return out
+
+    @classmethod
+    def convert_sync_batchnorm(cls, layer):
+        """``layer`` with every batch norm in it replaced by a
+        SyncBatchNorm that shares its parameters and statistics."""
+        if isinstance(layer, _BatchNormBase) and \
+                not isinstance(layer, SyncBatchNorm):
+            sync = cls.__new__(cls)
+            Layer.__init__(sync)
+            for k in ("_num_features", "_momentum", "_epsilon",
+                      "_data_format", "_use_global_stats"):
+                setattr(sync, k, getattr(layer, k))
+            sync.weight, sync.bias = layer.weight, layer.bias
+            sync.register_buffer("_mean", layer._mean)
+            sync.register_buffer("_variance", layer._variance)
+            sync.train(layer.training)
+            return sync
+        for name, sub in layer.named_children():
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-05,

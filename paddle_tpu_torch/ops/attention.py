@@ -5,9 +5,12 @@ the math path (logits, offset-aware causal mask, f32 softmax, optional
 mask and dropout) and flash attention (ops/cuda/), which the selection
 rule takes when the query lies on CUDA, there is no mask and no dropout,
 the sequence is at least 256 long and the kernel's shape contract holds.
-The reference's measured fusion policy is not ported: on CUDA the kernel
-is taken whenever the rule holds, as the reference's checked-in table
-keeps flash for every benched signature.
+Where the rule holds, the measured fusion policy has the last word, as
+in the reference (``_flash_wins``): flash attention is the fused form
+and the math path the unfused one; ``FLAGS_fusion_policy=never`` takes
+the math path, ``auto`` the form the card's measured table names (it
+keeps flash: ``ops/autotune.py``), so on a CUDA tensor the kernels run
+and a kernel that fails to build or launch raises.
 
 When gradients are wanted, flash attention goes through
 ``_FlashAttentionFn``, the counterpart of the reference's
@@ -27,7 +30,9 @@ import torch
 
 from ..amp.auto_cast import amp_cast
 from ..core.random import uniform
-from .cuda.flash_attention import (flash_attention, flash_attention_bwd,
+from . import autotune
+from .cuda.flash_attention import (SOURCES, flash_attention,
+                                   flash_attention_bwd,
                                    flash_attention_fwd_for_grad, supports)
 
 __all__ = ["scaled_dot_product_attention", "flash_selected"]
@@ -99,6 +104,29 @@ def flash_selected(query, key, attn_mask=None, dropout_p=0.0):
             and supports(tuple(query.shape), tuple(key.shape)))
 
 
+def _flash(q, k, v, causal, scale):
+    """Flash attention: through ``_FlashAttentionFn`` when a gradient is
+    wanted, else the forward alone."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionFn.apply(q, k, v, causal, scale)
+    return flash_attention(q, k, v, causal=causal, scale=scale)
+
+
+def _flash_wins(q, k, v, causal, scale):
+    """The measured fusion policy's decision for flash attention (the
+    reference's lines 60-75): the kernels against the math path for this
+    (dtype, direction), or, when searched, this (shape bucket, dtype,
+    direction) signature, versioned by the kernels' CUDA sources."""
+    _, choice = autotune.choose_fused(
+        "flash_attention",
+        lambda q, k, v: _flash(q, k, v, causal, scale),
+        lambda q, k, v: _math_attention(q, k, v, None, scale, causal, 0.0,
+                                        None),
+        (q, k, v), module="paddle_tpu_torch.ops.attention",
+        sources=SOURCES)
+    return choice == "fused"
+
+
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
                                  training=True, use_kernel=None, scale=None,
@@ -106,25 +134,28 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """query/key/value: (B, S, H, D). ``use_kernel`` (the reference's
     ``use_pallas``): None selects by the rule above, False forces the math
     path, True forces flash attention (which runs its plain versions on a
-    CPU tensor)."""
+    CPU tensor). Where the rule selects flash, the fusion policy decides
+    (module docstring)."""
     if scale is None:
         scale = 1.0 / math.sqrt(query.shape[-1])
     if not training:
         dropout_p = 0.0
     if use_kernel is None:
         use_kernel = flash_selected(query, key, attn_mask, dropout_p)
+        if use_kernel:
+            query, key, value = amp_cast("flash_attention", query, key,
+                                         value)
+            pol = autotune.fusion_policy()
+            use_kernel = pol == "always" or (
+                pol == "auto"
+                and _flash_wins(query, key, value, is_causal, scale))
     elif use_kernel and (attn_mask is not None or dropout_p > 0.0):
         raise ValueError(
             "use_kernel=True is incompatible with attn_mask/dropout_p: the "
             "flash kernel computes plain (optionally causal) attention")
     if use_kernel:
         query, key, value = amp_cast("flash_attention", query, key, value)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in (query, key, value)):
-            return _FlashAttentionFn.apply(query, key, value, is_causal,
-                                           scale)
-        return flash_attention(query, key, value, causal=is_causal,
-                               scale=scale)
+        return _flash(query, key, value, is_causal, scale)
     query, key, value, attn_mask = amp_cast("sdpa", query, key, value,
                                             attn_mask)
     return _math_attention(query, key, value, attn_mask, scale, is_causal,

@@ -7,13 +7,16 @@ PyTorch header is compiled, so a build takes seconds. The library name
 carries a hash of the source, of every shared header (``csrc/*.cuh``) and
 of the flags, so an edited source or header is rebuilt and a stale library
 is never loaded. ``build()`` starts one ``nvcc`` per stale source, all at
-once, and waits for them together.
+once, and waits for them together. ptxas's report (registers and spills
+of every instantiated kernel) is kept beside each library, so a later
+process can read it (``kernel_resources``) without compiling again.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -87,10 +90,13 @@ def build(names=SOURCES):
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "ptxas info" in ln or "spill" in ln]
+        # the report first: it exists wherever the library does
+        _ptxas_path(out).write_text("\n".join(ptxas) + "\n")
         os.replace(tmp, out)
         info[name]["seconds"] = time.perf_counter() - t0
-        info[name]["ptxas"] = [ln.strip() for ln in log.splitlines()
-                               if "ptxas info" in ln or "spill" in ln]
+        info[name]["ptxas"] = ptxas
     if failed:
         raise RuntimeError("CUDA build failed:\n" + "\n".join(failed))
     return info
@@ -103,3 +109,45 @@ def library(name):
         if not path.exists():
             build((name,))
         return ctypes.CDLL(str(path))
+
+
+def _ptxas_path(lib_path):
+    return lib_path.with_suffix(".ptxas.txt")
+
+
+_FUNC = re.compile(r"(?:Compiling entry function|Function properties for)"
+                   r" '?([A-Za-z0-9_]+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+# a kernel template's int arguments in its mangled name, as in
+# ..._cu_04de1ea619flash_fwd_tc_kernelILi64ELi128EEEvPK... (the name's
+# length, 19, precedes it; the kernels' names hold no digit)
+_TEMPLATE = re.compile(r"([A-Za-z_]*_kernel)I((?:Li\d+E)+)E")
+
+
+def kernel_resources(name):
+    """{(kernel, template ints): {"registers", "spill_stores",
+    "spill_loads"}} of csrc/<name>.cu's kernels, from the ptxas report
+    kept beside its library (built first if needed)."""
+    library(name)
+    text = _ptxas_path(library_path(name)).read_text()
+    out, current = {}, None
+    for line in text.splitlines():
+        m = _FUNC.search(line)
+        if m:
+            t = _TEMPLATE.search(m.group(1))
+            current = ((t.group(1), tuple(
+                int(x) for x in re.findall(r"Li(\d+)E", t.group(2))))
+                if t else (m.group(1), ()))
+            out.setdefault(current, {})
+            continue
+        if current is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            out[current]["spill_stores"] = int(m.group(1))
+            out[current]["spill_loads"] = int(m.group(2))
+        m = _REGS.search(line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out

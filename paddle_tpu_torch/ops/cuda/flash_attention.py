@@ -14,6 +14,15 @@ wrapper runs the plain PyTorch version instead; on a CUDA tensor it
 launches or raises.
 
 Layout: inputs (B, S, H, D), paddle's convention, as in the reference.
+Tiles: each tensor-core kernel is instantiated at two block sizes (B1
+and B3 at 64 or 128 query rows a block, B2 at 64 or 128 key rows), and
+its C entry point takes the one to run. ``_tuned_fwd_blocks`` and
+``_tuned_bwd_blocks`` choose them per shape, as the reference's
+functions of the same names do: ``ops/autotune.py`` times every candidate
+that ptxas compiled without spilling and that matches the plain version
+(relative L2 2^-7) on the card, and caches the winner; off the card, and
+for the f32 kernels, which keep one tile, the answer is 64 x 64.
+
 The kernels read the batch, sequence and head strides they are given, so
 the strided q/k/v views that GPTAttention slices out of its fused qkv
 projection go in without a copy; D must have unit stride. The tensor-core
@@ -28,15 +37,16 @@ import functools
 
 import torch
 
+from .. import autotune
 from . import launch_counts
-from ._build import library
+from ._build import CSRC, kernel_resources, library
 
 __all__ = ["supports", "flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_for_grad",
            "flash_attention_fwd_reference", "flash_attention_bwd",
            "flash_attention_bwd_reference", "launch_dkv", "launch_dq",
            "bwd_delta", "variant", "variant_counter", "tc_operand",
-           "KERNEL_NAME", "KERNEL_NAMES"]
+           "tile_candidates", "KERNEL_NAME", "KERNEL_NAMES", "SOURCES"]
 
 KERNEL_NAME = "flash_attn_fwd"
 DKV_KERNEL = "flash_attn_bwd_dkv"
@@ -51,12 +61,29 @@ _ENTRY = {(KERNEL_NAME, TC): ("flash_attn_fwd_tc", "pt_flash_attn_fwd_tc"),
           (DKV_KERNEL, SIMT): ("flash_attn_bwd", "pt_flash_attn_bwd_dkv"),
           (DQ_KERNEL, TC): ("flash_attn_dq_tc", "pt_flash_attn_bwd_dq_tc"),
           (DQ_KERNEL, SIMT): ("flash_attn_bwd", "pt_flash_attn_bwd_dq")}
+# every CUDA file of the kernels: a searched decision about them is
+# versioned by their text
+SOURCES = tuple(str(CSRC / f"{src}.cu")
+                for src in sorted({v[0] for v in _ENTRY.values()}))
 # (pointers, ints before the scale, strides after it) of each kernel's
 # entry points, by kernel or by (kernel, variant) where the variants differ
-# (the tensor-core B1 also takes its f32 O's pointer); the strides are
-# (batch, seq, head) of q, k, v (and dout)
-_ARITY = {KERNEL_NAME: (5, 5, 9), (KERNEL_NAME, TC): (6, 5, 9),
-          DKV_KERNEL: (8, 5, 12), DQ_KERNEL: (7, 5, 12)}
+# (the tensor-core kernels also take their tile, and B1's its f32 O's
+# pointer); the strides are (batch, seq, head) of q, k, v (and dout)
+_ARITY = {KERNEL_NAME: (5, 5, 9), (KERNEL_NAME, TC): (6, 6, 9),
+          DKV_KERNEL: (8, 5, 12), (DKV_KERNEL, TC): (8, 6, 12),
+          DQ_KERNEL: (7, 5, 12), (DQ_KERNEL, TC): (7, 6, 12)}
+# the block sizes each tensor-core kernel is instantiated at: query rows a
+# block for B1 and B3, key rows a block for B2
+TILES = (64, 128)
+# the tile of each kernel's template in the ptxas report: (source, kernel
+# function) of the tensor-core variants
+_TC_FUNCTION = {KERNEL_NAME: ("flash_attn_fwd_tc", "flash_fwd_tc_kernel"),
+                DKV_KERNEL: ("flash_attn_dkv_tc", "flash_bwd_dkv_tc_kernel"),
+                DQ_KERNEL: ("flash_attn_dq_tc", "flash_bwd_dq_tc_kernel")}
+# B2's query tile (its loop's step) at each head dim, fixed in the kernel
+_DKV_QUERY_TILE = {64: 64, 128: 32}
+# the relative L2 gap to the plain version a tile must keep to be timed
+TILE_GATE = 2.0 ** -7
 HEAD_DIMS = (64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 # the constants of the reference kernel (_attn_fwd_kernel)
@@ -245,39 +272,47 @@ def _raise_on(err, name, err_str):
                            f"{err_str(err).decode()} ({err})")
 
 
-def _launch(q, k, v, causal, scale, keep_f32=False):
+def _launch(q, k, v, causal, scale, keep_f32=False, tile=None):
     """B1 on checked CUDA inputs: (out, lse, out32), out32 the f32 O when
     ``keep_f32`` (the tensor-core variant writes it beside the bf16 O, the
-    SIMT variant's O is f32 already), else None."""
+    SIMT variant's O is f32 already), else None. ``tile``: the tensor-core
+    variant's query rows a block (default: the tuned one)."""
     b, s, h, d = q.shape
     kind = variant(q.dtype)
     if kind == TC:
         q, k, v = (tc_operand(t) for t in (q, k, v))
+        if tile is None:
+            tile = _tuned_fwd_blocks(b * h, s, s, d, q.dtype, causal,
+                                     q.device)[0]
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     out32 = None
     if keep_f32:
         out32 = out if kind == SIMT else torch.empty(
             (b, s, h, d), dtype=torch.float32, device=q.device)
-    # the tensor-core entry point takes the f32 O's pointer, null for none
+    # the tensor-core entry point takes the f32 O's pointer, null for none,
+    # and its tile
     extra = [] if kind == SIMT else [
         None if out32 is None else out32.data_ptr()]
+    tile_arg = [] if kind == SIMT else [int(tile)]
     fn, err_str = _entry_point(KERNEL_NAME, kind)
     strides = [st for t in (q, k, v) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  *extra, lse.data_ptr(), b, s, h, d, int(bool(causal)),
-                 float(scale), *strides, stream)
+                 *tile_arg, float(scale), *strides, stream)
     _raise_on(err, KERNEL_NAME, err_str)
     _count(KERNEL_NAME, kind)
     return out, lse, out32
 
 
-def _bwd_launch(kernel, q, k, v, do, lse, delta, n_out, causal, scale):
+def _bwd_launch(kernel, q, k, v, do, lse, delta, n_out, causal, scale,
+                tile=None):
     """Launch a backward kernel's variant for q's dtype on checked CUDA
     inputs; returns its ``n_out`` outputs, each (B, S, H, D) in q's
-    dtype."""
+    dtype. ``tile``: the tensor-core variant's block rows (default: the
+    tuned one)."""
     if not all(t.is_cuda for t in (q, k, v, do, lse, delta)):
         raise ValueError("the backward kernels take CUDA tensors")
     kind = variant(q.dtype)
@@ -287,6 +322,13 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, n_out, causal, scale):
     outs = [torch.empty(q.shape, dtype=q.dtype, device=q.device)
             for _ in range(n_out)]
     b, s, h, d = q.shape
+    tile_arg = []
+    if kind == TC:
+        if tile is None:
+            blocks = _tuned_bwd_blocks(b * h, s, s, d, q.dtype, causal,
+                                       q.device)
+            tile = blocks[1] if kernel == DKV_KERNEL else blocks[2]
+        tile_arg = [int(tile)]
     fn, err_str = _entry_point(kernel, kind)
     strides = [st for t in (q, k, v, do) for st in t.stride()[:3]]
     with torch.cuda.device(q.device):
@@ -294,23 +336,25 @@ def _bwd_launch(kernel, q, k, v, do, lse, delta, n_out, causal, scale):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(),
                  *(t.data_ptr() for t in outs), b, s, h, d,
-                 int(bool(causal)), float(scale), *strides, stream)
+                 int(bool(causal)), *tile_arg, float(scale), *strides,
+                 stream)
     _raise_on(err, kernel, err_str)
     _count(kernel, kind)
     return outs
 
 
-def launch_dkv(q, k, v, do, lse, delta, causal, scale):
+def launch_dkv(q, k, v, do, lse, delta, causal, scale, tile=None):
     """B2 on checked CUDA inputs: (dk, dv). lse and delta are contiguous
     (B, H, S) f32 (``bwd_delta`` makes delta)."""
     dk, dv = _bwd_launch(DKV_KERNEL, q, k, v, do, lse, delta, 2, causal,
-                         scale)
+                         scale, tile)
     return dk, dv
 
 
-def launch_dq(q, k, v, do, lse, delta, causal, scale):
+def launch_dq(q, k, v, do, lse, delta, causal, scale, tile=None):
     """B3 on checked CUDA inputs: dq. lse and delta as for launch_dkv."""
-    dq, = _bwd_launch(DQ_KERNEL, q, k, v, do, lse, delta, 1, causal, scale)
+    dq, = _bwd_launch(DQ_KERNEL, q, k, v, do, lse, delta, 1, causal, scale,
+                      tile)
     return dq
 
 
@@ -368,3 +412,129 @@ def flash_attention(q, k, v, causal=False, scale=1.0):
     """(B, S, H, D) -> (B, S, H, D): the output of flash_attention_fwd."""
     out, _ = flash_attention_fwd(q, k, v, causal, scale)
     return out
+
+
+# -- tile choice (the reference's _tuned_fwd_blocks / _tuned_bwd_blocks) ----
+
+DEFAULT_BLOCK_Q = 64
+DEFAULT_BLOCK_K = 64
+
+
+@functools.lru_cache(maxsize=None)
+def tile_candidates(kernel, d):
+    """(kept, dropped) tiles of ``kernel``'s tensor-core variant at head
+    dim ``d``: kept, the tiles ptxas compiled without spilling; dropped,
+    {tile: why} for the others (builds the library first if needed)."""
+    source, function = _TC_FUNCTION[kernel]
+    report = kernel_resources(source)
+    kept, dropped = [], {}
+    for tile in TILES:
+        r = report.get((function, (d, tile)))
+        if r is None:
+            dropped[tile] = "not in ptxas's report"
+        elif r.get("spill_stores", 0) or r.get("spill_loads", 0):
+            dropped[tile] = (f"spills {r['spill_stores']} bytes stored, "
+                             f"{r['spill_loads']} loaded at "
+                             f"{r.get('registers')} registers")
+        else:
+            kept.append(tile)
+    return tuple(kept), dropped
+
+
+def _signature(pass_, bh, s_q, s_k, d, dtype, causal):
+    return "%s|bh%d|s%dx%d|d%d|%s|c%d" % (
+        pass_, autotune.shape_bucket((bh,))[0], s_q, s_k, d,
+        autotune.short_dtype(dtype), int(causal))
+
+
+def _probe_qkv(bh, s, d, dtype, device, n):
+    """``n`` probe operands (1, s, bh, d) of a seeded normal: the grid and
+    the work of a (b, s, h, d) call with b * h = bh."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    return [torch.randn((1, s, bh, d), generator=gen, device=device,
+                        dtype=torch.float32).to(dtype) for _ in range(n)]
+
+
+def _gate(name, got, want):
+    """Raise where a tile's output is further than TILE_GATE (relative L2)
+    from the plain version's: such a tile is no candidate."""
+    gap = float((got.float() - want.float()).norm()
+                / want.float().norm().clamp_min(1e-30))
+    if not gap <= TILE_GATE:
+        raise ValueError(f"{name}: relative L2 {gap:.3g} to the plain "
+                         f"version above {TILE_GATE:.3g}")
+
+
+def _tuned_fwd_blocks(bh, s_q, s_k, d, dtype, causal, device):
+    """(block_q, block_k) of B1: on the card for bf16, the tuned (and
+    cached) tile; otherwise, and for f32's one tile, 64 x 64."""
+    fallback = (DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)
+    if device.type != "cuda" or dtype != torch.bfloat16:
+        return fallback
+    cands = [(t, DEFAULT_BLOCK_K) for t in tile_candidates(KERNEL_NAME, d)[0]]
+    if len(cands) <= 1:
+        return cands[0] if cands else fallback
+    scale = 1.0 / d ** 0.5
+
+    def make_args():
+        return _probe_qkv(bh, s_q, d, dtype, device, 3)
+
+    def build(cand):
+        def run(q, k, v):
+            return _launch(q, k, v, causal, scale, tile=cand[0])
+        q, k, v = make_args()
+        _gate(f"{KERNEL_NAME} tile {cand}", run(q, k, v)[0],
+              _fwd_plain(q, k, v, causal, scale)[0])
+        return run
+
+    return autotune.get_tuner().get(
+        "flash_attention", _signature("fwd", bh, s_q, s_k, d, dtype, causal),
+        candidates=cands, build=build, make_args=make_args,
+        fallback=fallback, device=device,
+        version=autotune.source_version(
+            __name__, str(CSRC / "flash_attn_fwd_tc.cu")))
+
+
+def _tuned_bwd_blocks(bh, s_q, s_k, d, dtype, causal, device):
+    """(block_q_dkv, block_k_dkv, block_q_dq, block_k_dq) of B2 and B3, as
+    the reference's: on the card for bf16 the tuned (and cached) pair of
+    tiles, B2's key rows and B3's query rows, timed together; otherwise,
+    and for f32's one tile, 64 x 64 (B2's query step is fixed by d)."""
+    q_dkv = _DKV_QUERY_TILE.get(d, DEFAULT_BLOCK_Q)
+    fallback = (q_dkv, DEFAULT_BLOCK_K, DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)
+    if device.type != "cuda" or dtype != torch.bfloat16:
+        return fallback
+    cands = [(q_dkv, bk, bq, DEFAULT_BLOCK_K)
+             for bk in tile_candidates(DKV_KERNEL, d)[0]
+             for bq in tile_candidates(DQ_KERNEL, d)[0]]
+    if len(cands) <= 1:
+        return cands[0] if cands else fallback
+    scale = 1.0 / d ** 0.5
+
+    def make_args():
+        q, k, v, do = _probe_qkv(bh, s_q, d, dtype, device, 4)
+        out, lse = _fwd_plain(q, k, v, causal, scale)
+        return [q, k, v, do, lse.contiguous(), bwd_delta(out, do)]
+
+    def build(cand):
+        def run(q, k, v, do, lse, delta):
+            dk, dv = launch_dkv(q, k, v, do, lse, delta, causal, scale,
+                                tile=cand[1])
+            return launch_dq(q, k, v, do, lse, delta, causal, scale,
+                             tile=cand[2]), dk, dv
+        args = make_args()
+        q, k, v, do, lse, _ = args
+        out, _ = _fwd_plain(q, k, v, causal, scale)
+        want = flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
+                                             scale)
+        for name, g, w in zip(("dq", "dk", "dv"), run(*args), want):
+            _gate(f"backward tiles {cand} {name}", g, w)
+        return run
+
+    return autotune.get_tuner().get(
+        "flash_attention", _signature("bwd", bh, s_q, s_k, d, dtype, causal),
+        candidates=cands, build=build, make_args=make_args,
+        fallback=fallback, device=device,
+        version=autotune.source_version(
+            __name__, str(CSRC / "flash_attn_dkv_tc.cu"),
+            str(CSRC / "flash_attn_dq_tc.cu")))

@@ -33,10 +33,12 @@ so it syncs the host once per parameter, in a discovery pass, never
 inside a capture. The eval branch folds the running statistics into a
 per-channel scale and shift after the conv, the inference path.
 
-The reference picks fused or unfused per call by measurement
-(``autotune.choose_fused``); the port has no autotuner yet (ROADMAP A5)
-and, as ``fused_ffn`` does, always takes the fused Function. NHWC input
-is viewed as NCHW with channels_last strides (``conv.nchw_view``).
+When a gradient is wanted in training, the measured fusion policy
+(``ops/autotune.py``, ``FLAGS_fusion_policy``) picks per call between
+the Function and plain autograd of the same forward, as the reference's
+``choose_fused`` does; the degenerate-gamma route comes first. Without a
+gradient the two forms are one forward. NHWC input is viewed as NCHW with
+channels_last strides (``conv.nchw_view``).
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from ..nn.functional.common import pad as _pad
 from ..nn.functional.conv import (conv2d_nchw, conv_args, from_nchw_view,
                                   nchw_view)
 from ..nn.functional.norm import update_running_stats
+from . import autotune
 from ._param_guard import degenerate_below_tol
 
 __all__ = ["fused_conv_bn"]
@@ -152,12 +155,13 @@ def fused_conv_bn(x, weight, bn_weight, bn_bias, running_mean=None,
     Training updates the running statistics in place as batch_norm does;
     eval (``training=False``) folds them into a scale and shift after the
     conv. When a gradient is wanted the Function runs, unless gamma is
-    degenerate; otherwise the same forward runs under plain autograd."""
+    degenerate or the fusion policy picks the plain form; otherwise the
+    same forward runs under plain autograd."""
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, weight, bn_weight, bn_bias))
     # asked before the amp cast makes a new tensor of the parameter: the
     # verdict is cached on the parameter itself
-    fused = training and wants_grad and not _gamma_degenerate(bn_weight)
+    fusable = training and wants_grad and not _gamma_degenerate(bn_weight)
     xc = nchw_view(x, data_format)
     stride_t, sym, pre, dil_t = conv_args(xc, weight, stride, padding,
                                           dilation)
@@ -176,10 +180,20 @@ def fused_conv_bn(x, weight, bn_weight, bn_bias, running_mean=None,
         return from_nchw_view(out.to(z.dtype), data_format)
     xc, weight, g, b = amp_cast("fused_conv_bn", xc, weight, bn_weight,
                                 bn_bias)
-    if fused:
-        y, mean, var = _FusedConvBNFn.apply(xc, weight, g, b, cfg, epsilon)
-    else:
-        y, mean, var, _ = _fwd_impl(xc, weight, g, b, cfg, epsilon)
+
+    def plain(xc, weight, g, b):
+        return _fwd_impl(xc, weight, g, b, cfg, epsilon)[:3]
+
+    def fused(xc, weight, g, b):
+        return _FusedConvBNFn.apply(xc, weight, g, b, cfg, epsilon)
+
+    choice = "unfused"
+    if fusable:
+        # the probes time y alone: mean and var feed only the buffers
+        _, choice = autotune.choose_fused(
+            "fused_conv_bn", lambda *a: fused(*a)[0],
+            lambda *a: plain(*a)[0], (xc, weight, g, b), module=__name__)
+    y, mean, var = (fused if choice == "fused" else plain)(xc, weight, g, b)
     update_running_stats(running_mean, running_var, mean.detach(),
                          var.detach(), y.numel() // y.shape[1], momentum)
     return from_nchw_view(y, data_format)

@@ -9,6 +9,12 @@ and recomputes a = act(h) instead of saving it (a is the widest tensor of
 the block). The activation derivatives are the exact ones of the
 reference's ``_act_fns``. The reference lists the op in neither amp list,
 so under ``amp.auto_cast`` only O2 casts its inputs (to the low dtype).
+
+When a gradient is wanted, the measured fusion policy
+(``ops/autotune.py``, ``FLAGS_fusion_policy``) picks per call between
+that Function and the plain composition under autograd (which saves a),
+as the reference's ``choose_fused`` does. Without one the two forms are
+one forward, so the plain forward runs and nothing is decided.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import math
 import torch
 
 from ..amp.auto_cast import amp_cast
+from . import autotune
 
 __all__ = ["fused_ffn"]
 
@@ -73,15 +80,23 @@ class _FusedFFNFn(torch.autograd.Function):
         return dx, dw1.to(w1.dtype), db1, dw2.to(w2.dtype), db2, None
 
 
+def _plain(x, w1, b1, w2, b2, activation):
+    f, _ = _ACTIVATIONS[activation]
+    return torch.matmul(f(torch.matmul(x, w1) + b1), w2) + b2
+
+
 def fused_ffn(x, w1, b1, w2, b2, activation="gelu"):
     """x: (..., d_model); w1: (d_model, d_ff); w2: (d_ff, d_model);
-    activation: gelu | gelu_tanh | relu. When a gradient is wanted the
-    Function above runs; otherwise the same forward runs plainly."""
+    activation: gelu | gelu_tanh | relu. The fusion policy picks the
+    Function above or the plain composition (module docstring)."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unsupported activation {activation!r}")
     x, w1, b1, w2, b2 = amp_cast("fused_ffn", x, w1, b1, w2, b2)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, w1, b1, w2, b2)):
-        return _FusedFFNFn.apply(x, w1, b1, w2, b2, activation)
-    f, _ = _ACTIVATIONS[activation]
-    return torch.matmul(f(torch.matmul(x, w1) + b1), w2) + b2
+    args = (x, w1, b1, w2, b2)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in args)):
+        return _plain(*args, activation)
+    fn, _ = autotune.choose_fused(
+        "fused_ffn", lambda *a: _FusedFFNFn.apply(*a, activation),
+        lambda *a: _plain(*a, activation), args, module=__name__)
+    return fn(*args)

@@ -13,7 +13,11 @@ from the output:
 Both residual inputs receive dz (plus the incoming dz when z is returned);
 dw and db are in the weight's dtype. A weight with a channel inside the
 1e-6 band (checked once per parameter, ``_param_guard``) runs plain
-autograd through the identical forward instead. ``fuse_enabled()`` is the
+autograd through the identical forward instead; otherwise, when a
+gradient is wanted, the measured fusion policy (``ops/autotune.py``,
+``FLAGS_fusion_policy``) picks the Function or plain autograd per call,
+as the reference's ``choose_fused`` does, the degenerate-weight route
+first. Without a gradient the two forms are one forward. ``fuse_enabled()`` is the
 reference's PADDLE_TPU_FUSED_RESIDUAL_LN escape hatch, read by GPTBlock
 and by ``post_residual_ln``, the post-LN residual write of the
 transformer layers (nn/layer/transformer.py).
@@ -29,6 +33,7 @@ import os
 import torch
 
 from ..amp.auto_cast import amp_cast
+from . import autotune
 from ._param_guard import degenerate_below_tol
 
 __all__ = ["fused_residual_ln", "fuse_enabled", "post_residual_ln"]
@@ -100,21 +105,29 @@ def fused_residual_ln(x, y, weight, bias, epsilon=1e-5,
     """layer_norm(x + y); with return_residual=True returns (z, out).
 
     When a gradient is wanted this runs the no-saved-z Function, unless
-    the weight is degenerate; otherwise (no_grad, inference_mode, or a
-    degenerate weight) it runs the same forward under plain autograd."""
+    the weight is degenerate or the fusion policy picks the plain form;
+    otherwise (no_grad, inference_mode, a degenerate weight, or the plain
+    form) it runs the same forward under plain autograd."""
     wants_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, y, weight, bias))
     # the guard's verdict is cached on the parameter itself, so it is asked
     # before the amp cast makes a new tensor of it
-    fused = wants_grad and not degenerate_below_tol(weight, _W_TOL)
+    fusable = wants_grad and not degenerate_below_tol(weight, _W_TOL)
     stream_dtype = x.dtype
     x, y, weight, bias = amp_cast("fused_residual_ln", x, y, weight, bias)
-    if fused:
-        outs = _FusedResidualLNFn.apply(x, y, weight, bias, epsilon,
-                                        return_residual)
-    else:
+
+    def plain(x, y, weight, bias):
         z, out, _ = _fwd_impl(x, y, weight, bias, epsilon)
-        outs = (z, out) if return_residual else out
+        return (z, out) if return_residual else out
+
+    def fused(x, y, weight, bias):
+        return _FusedResidualLNFn.apply(x, y, weight, bias, epsilon,
+                                        return_residual)
+
+    fn = autotune.choose_fused(
+        "fused_residual_ln", fused, plain, (x, y, weight, bias),
+        module=__name__)[0] if fusable else plain
+    outs = fn(x, y, weight, bias)
     if return_residual:
         return outs[0].to(stream_dtype), outs[1]
     return outs

@@ -9,8 +9,10 @@ step into named phases:
   (jit/compiled_step.py); a steady state that keeps paying this phase is
   a retrace storm;
 - ``step/compute``      — dispatch and execution of the step;
-- ``step/collective_wait``, ``step/optimizer`` — kept for the reference's
-  names (the port's collectives come with ROADMAP A10);
+- ``step/collective_wait`` — blocked in an eager collective
+  (``distributed.collective``) or in the Reducer's wait at the end of a
+  backward;
+- ``step/optimizer`` — kept for the reference's name;
 - ``step/ckpt_io``      — the blocking checkpoint save or restore;
 - ``step/integrity``    — the step guard's finiteness check.
 

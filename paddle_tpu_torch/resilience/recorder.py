@@ -2,8 +2,7 @@
 
 Port of paddle_tpu/resilience/recorder.py, with the same entry and dump
 format. The rank is ``distributed.env.get_rank()``. The signal hook
-(``install_signal_dump``) comes with its only caller,
-``init_parallel_env`` (ROADMAP A10).
+(``install_signal_dump``) is installed by ``init_parallel_env``.
 
 Prior art: PyTorch's NCCL flight recorder and MegaScale's per-rank collective
 tracing. Every eager collective and p2p op logs an entry — op name, group
@@ -190,3 +189,16 @@ def reset():
     with _LOCK:
         _RECORDER[0] = None
 
+
+
+def install_signal_dump():
+    """Register a flight-recorder dump as a preemption emergency action, so
+    SIGTERM leaves a dump next to the emergency checkpoint. Idempotent."""
+    from . import preempt
+    h = preempt.get_handler() or preempt.install()
+    if getattr(h, "_flight_dump_installed", False):
+        return h
+    h.add_action(lambda: get_recorder().dump(reason="sigterm"),
+                 name="flight-recorder-dump")
+    h._flight_dump_installed = True
+    return h

@@ -1874,3 +1874,58 @@ def test_tokenizer_into_bert_predictor_on_card(card):
     assert launch_counts[fa.KERNEL_NAMES[0]] == 2 * cfg.num_layers
     gaps = (torch.tensor(got) - eager).norm(dim=1) / eager.norm(dim=1)
     assert (gaps <= 2 ** -7).all(), gaps
+
+
+# -- the autotuner and the tiles (ops/autotune.py) ----------------------------
+
+@pytest.mark.parametrize("tile", fa.TILES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [64, 128])
+def test_every_tile_matches_plain(card, tile, causal, d):
+    """Each instantiation of B1, B2 and B3 against the plain version,
+    under the relative L2 gate a tile must keep to be timed."""
+    q, k, v = _qkv(2, 512, 4, d, torch.bfloat16, 31)
+    do = _qkv(2, 512, 4, d, torch.bfloat16, 32)[0].contiguous()
+    scale = 1.0 / d ** 0.5
+    out32, lse = fa._fwd_plain(q, k, v, causal, scale)
+    want = fa.flash_attention_bwd_reference(q, k, v, out32, lse, do, causal,
+                                            scale)
+    lse, delta = lse.contiguous(), fa.bwd_delta(out32, do)
+    got_o = fa._launch(q, k, v, causal, scale, tile=tile)[0]
+    dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, causal, scale, tile=tile)
+    dq = fa.launch_dq(q, k, v, do, lse, delta, causal, scale, tile=tile)
+    torch.cuda.synchronize()
+    for got, ref in ((got_o, out32), (dq, want[0]), (dk, want[1]),
+                     (dv, want[2])):
+        gap = ((got.float() - ref.float()).norm() / ref.float().norm())
+        assert gap.item() <= fa.TILE_GATE, (tile, gap.item())
+
+
+def test_tuner_miss_under_capture_raises(card, tmp_path):
+    """A capture cannot hold a timed search: a decision missing from the
+    memo while a CUDA graph is being captured raises, naming the op and
+    the signature, and nothing falls back."""
+    from paddle_tpu_torch.ops import autotune
+    prev = autotune.set_tuner(autotune.Autotuner(cache_dir=str(tmp_path)))
+    try:
+        q, k, v = (t.contiguous() for t in _qkv(1, 256, 2, 64,
+                                                 torch.bfloat16, 33))
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="flash_attention.*fwd|bh"):
+            with torch.cuda.stream(side), torch.cuda.graph(graph,
+                                                           stream=side):
+                fa.flash_attention(q, k, v, causal=True, scale=0.125)
+        # once decided eagerly, the capture hits the memo
+        fa.flash_attention(q, k, v, causal=True, scale=0.125)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fa.flash_attention(q, k, v, causal=True, scale=0.125)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.isfinite(out.float()).all()
+        assert autotune.counters()["mem_hits"] >= 1
+    finally:
+        autotune.set_tuner(prev)

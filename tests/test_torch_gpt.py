@@ -198,7 +198,8 @@ print(json.dumps({
 # BERT/ERNIE slice, the conv net slice, the serving slice (inference,
 # serving, resilience, profiler), the training API slice (io, hapi,
 # metric, losses, vision data) and the script surface (ParamAttr, the
-# regularizers, sparse rows, devices, the tensor API)
+# regularizers, sparse rows, devices, the tensor API), and the autotuner
+# and data parallelism
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -266,6 +267,11 @@ PORT_MODULES = {
     "paddle_tpu_torch.tensor.manipulation", "paddle_tpu_torch.tensor.math",
     "paddle_tpu_torch.tensor.random", "paddle_tpu_torch.tensor.search",
     "paddle_tpu_torch.tensor.stat",
+    # the autotuner and data parallelism
+    "paddle_tpu_torch.ops.autotune", "paddle_tpu_torch.distributed.mesh",
+    "paddle_tpu_torch.distributed.collective",
+    "paddle_tpu_torch.distributed.reducer",
+    "paddle_tpu_torch.distributed.parallel",
 }
 
 

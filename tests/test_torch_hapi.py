@@ -22,9 +22,9 @@ name), the same numpy data and the same numpy seed go through
   ``skip_mismatch=True`` loads a backbone under a new head (ROADMAP
   C-ref-9).
 - The reference's TestHapi cases: fit/evaluate/predict/save/load, the
-  per-rank loader at world size 2 (where the port's ``prepare`` raises,
-  naming ROADMAP A10, also when the launcher's variables or an
-  initialised process group say so), EarlyStopping, summary and flops;
+  per-rank loader at world size 2 (where the port's ``prepare`` wraps in
+  DataParallel, and raises while the launcher's variables say so and no
+  process group was joined), EarlyStopping, summary and flops;
   and the callbacks (LRScheduler, ReduceLROnPlateau, VisualDL,
   ProgBarLogger).
 
@@ -359,13 +359,13 @@ def _launcher_env(monkeypatch, env):
 def test_distributed_loader_shards_and_prepare_raises(monkeypatch, env):
     """Rank 0 of two, as torchrun or the reference's launcher starts it:
     the loader takes its shard, and prepare never trains an
-    unsynchronised replica."""
+    unsynchronised replica (without init_parallel_env it raises)."""
     from paddle_tpu_torch.hapi.model import Model
     from paddle_tpu_torch.io import DataLoader, DistributedBatchSampler
     _launcher_env(monkeypatch, env)
     net = pnn.Linear(4, 3, device="cpu")
     model = Model(net)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(RuntimeError, match="init_parallel_env"):
         model.prepare(
             optimizer=pt.optimizer.SGD(learning_rate=0.1,
                                        parameters=net.parameters()),

@@ -124,8 +124,19 @@ def test_interpolate_unread_arguments_raise():
     # align_mode=1 is moot once align_corners is set, as in paddle
     assert F.interpolate(x, size=[8, 8], mode="bilinear", align_corners=True,
                          align_mode=1).shape == (1, 1, 8, 8)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="out of scope"):
         F.class_center_sample(torch.zeros(4, dtype=torch.int64), 10, 4)
+
+
+def test_class_center_sample_raises_in_both_packages():
+    """Parity, not a gap: the reference raises too (parameter-server
+    oriented, out of its scope)."""
+    import paddle_tpu.nn.functional as RF
+    with pytest.raises(NotImplementedError, match="out of scope"):
+        RF.class_center_sample(ref.to_tensor(np.zeros(4, "int64")), 10, 4)
+    with pytest.raises(NotImplementedError, match="out of scope"):
+        pt.nn.functional.class_center_sample(
+            torch.zeros(4, dtype=torch.int64), 10, 4)
 
 
 def test_area_is_the_antialiased_linear_resize():
@@ -214,11 +225,11 @@ ARTEFACTS = {"annotations", "apply", "builtins", "jax", "jnp", "next_key",
              "np", "operator", "unwrap", "convert_dtype", "Tensor"}
 # what later slices port (ROADMAP A10, A13)
 LATER = {
-    "": {"DataParallel", "NPUPlace", "TPUPlace", "SelectedRows",
+    "": {"NPUPlace", "TPUPlace", "SelectedRows",
          "autograd", "cost_model", "device", "distribution", "fft", "grad",
          "hub", "incubate", "onnx", "signal", "slim", "sparsity", "static",
          "sysconfig", "utils"},
-    ".nn": {"SyncBatchNorm"},
+    ".nn": set(),
     ".nn.functional": set(),
     ".nn.initializer": set(),
     ".vision": set(),

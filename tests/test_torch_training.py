@@ -24,7 +24,7 @@ from paddle_tpu.text.models.gpt import GPTForCausalLM as RefGPT
 
 import paddle_tpu_torch as pt
 import paddle_tpu_torch.nn.functional as PF
-from paddle_tpu_torch.ops import _param_guard
+from paddle_tpu_torch.ops import _param_guard, autotune
 from paddle_tpu_torch.ops import attention as port_attn
 from paddle_tpu_torch.ops import fused_residual_ln as port_rln
 from paddle_tpu_torch.ops.cuda import flash_attention as port_fa
@@ -99,9 +99,13 @@ def test_fused_residual_ln_grads_match_jax_vjp(degenerate, return_residual,
                                       return_residual=return_residual)
     outs = outs if return_residual else (outs,)
     # the plain route keeps z for autograd; the Function keeps only
-    # (w, b, out, rstd)
+    # (w, b, out, rstd). A weight clear of the band takes the Function
+    # where the fusion policy's table keeps the op fused (bf16 training
+    # measured slower fused on the card: ops/autotune.py _POLICY_FALLBACK)
+    fused = not degenerate and autotune.policy_table_choice(
+        "fused_residual_ln", autotune.short_dtype(tdt), "fwd_bwd") == "fused"
     fn_name = type(outs[-1].grad_fn).__name__
-    assert ("FusedResidualLN" in fn_name) != degenerate, fn_name
+    assert ("FusedResidualLN" in fn_name) == fused, fn_name
     assert ts[2]._degen_cache == (port_rln._W_TOL, degenerate)
     torch.autograd.backward(outs, [_tensor(c, tdt, False) for c in cts])
     outs_r = outs_r if return_residual else (outs_r,)
