@@ -12,7 +12,9 @@ Phases, each printing JSON lines:
    and time kernel, plain version and a library yardstick: flash attention
    B1 (causal and not, head dim 64 and 128, bf16 and f32), then its
    backward B2 (dK, dV) and B3 (dQ) at the training shape (4 x 1024, 16
-   heads of 64, bf16, causal) and five more; B1 at translate's encoder
+   heads of 64, bf16, causal) and five more; B1, B2 and B3 at a
+   tensor-parallel 1.3B rank's (2 x 1024, 8 heads of 128, bf16, causal)
+   and B1 at its prefill's (4 x 512); B1 at translate's encoder
    shape (8 x 256, 8 heads of 64, bf16, non-causal); last B1, B2 and B3
    at BERT's shape (8 x 512, 12 heads of 64, bf16, non-causal, q, k and
    v three contiguous tensors). bf16 runs the tensor-core
@@ -275,10 +277,35 @@ them, and the kernels line says so.
    all_reduce (sum, max, bf16), broadcast, all_gather, reduce_scatter and
    alltoall on CUDA tensors over the 2 gloo ranks, and every collective
    over a one-rank NCCL group, against numpy.
+23. hybrid (``--phases hybrid``): fleet's hybrid parallelism, rank
+   processes on the one card over gloo (NCCL refuses two ranks a
+   device), every TP all-reduce through the host. (a) tp_gpt: GPT-3 1.3B
+   (GPTConfig.gpt3_1p3b, vocab 50304, hidden 2048, 24 layers, 16 heads of
+   128) at full width and depth through ``fleet.init`` (mp 2),
+   ``distributed_model`` and ``distributed_optimizer``: each rank draws
+   the full weights from a CUDA generator and keeps its shard
+   (``load_numpy_state_dict``); greedy decode of 4 x 512 plus 16 cached
+   steps in f32 against this process's serial model (a random 1.3B's top
+   two logits sit within bf16's rounding); a bf16 prefill (B1 24 times,
+   at (4, 512, 8, 128)); then 6 eager bf16 steps, AdamW(multi_precision,
+   1e-4), bench's 1.3B batch 2 x 1024 from its permutation stream: the
+   first 4 losses within 2 x the serial bf16 run's relative gap to its
+   f32 run + 1e-3 of the serial bf16 run (both run here first, from the
+   same weights, and freed before the ranks start), the replicated
+   parameters bitwise equal across the ranks after every step, B1-B3 24
+   times a step a rank (tc_bf16, at (2, 1024, 8, 128)); step ms,
+   tokens/s, ``step/collective_wait``, the all-reduces and their bytes a
+   step, busy share, peak memory, the tiles. (b) zero_gpt: GPT-medium
+   bf16 under ZeRO-1 (sharding 2), bench's 4 x 1024 split 2 x 1024 a
+   rank: weights bitwise equal across ranks after every step, the first
+   4 losses within 1e-3 of the serial run, each rank's optimizer-state
+   bytes and peak. (c) hybrid_geometry: the 1.3B layer geometry at 2
+   layers in f32, SGD, dp 2 x mp 2 on 4 processes, 4 x 256 (B1-B3 on
+   their f32 variants): 3 losses within 5e-4 of the serial run.
 
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi, optim, surface, nn_rest, zoo, dist_tune); the kernels
+serving, hapi, optim, surface, nn_rest, zoo, dist_tune, hybrid); the kernels
 line needs every phase and is printed only when all run. Every phase
 runs under the defaults: FLAGS_fusion_policy=auto (the table this card
 measured, which keeps flash attention, fused conv + BN and the fused
@@ -293,6 +320,7 @@ printed. It needs a CUDA card and the repository checkout it lies in.
 """
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -329,6 +357,11 @@ CLS_WEIGHT_DRAWS = 3
 BERT_FLASH_SHAPE = (8, 512, 12, 64)
 # translate's encoder self-attention: Transformer-base at 8 x 256
 TRANSLATE_FLASH_SHAPE = (8, 256, 8, 64)
+# a tensor-parallel rank of GPT-3 1.3B (mp 2: 8 of its 16 heads of 128):
+# the training step's (bench's 2 x 1024) and the prefill's (4 x 512)
+TP_RANK_SHAPE, TP_PREFILL_SHAPE = (2, 1024, 8, 128), (4, 512, 8, 128)
+# a dp 2 x mp 2 rank of hybrid_geometry (f32): 2 of its 4 x 256 rows, 8 heads
+GEOM_RANK_SHAPE = (2, 256, 8, 128)
 BERT_FLASH_REPLAYS = 16
 # eval-mode f32 logits, kernel path against math path (summation order)
 BERT_LOGIT_TOL = 1e-3
@@ -690,6 +723,10 @@ def phase_kernels(torch, seed):
              (2, 1024, 16, 128, torch.bfloat16, False),
              (4, 512, 16, 64, torch.float32, True),
              (2, 512, 16, 128, torch.float32, False),
+             (*TP_RANK_SHAPE, torch.bfloat16, True),
+             (*TP_PREFILL_SHAPE, torch.bfloat16, True),
+             (*TP_PREFILL_SHAPE, torch.float32, True),
+             (*GEOM_RANK_SHAPE, torch.float32, True),
              (*TRANSLATE_FLASH_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
@@ -802,6 +839,8 @@ def phase_kernels_bwd(torch, seed):
              (2, 1024, 16, 128, torch.bfloat16, True),
              (4, 512, 16, 64, torch.float32, True),
              (2, 512, 16, 128, torch.float32, False),
+             (*TP_RANK_SHAPE, torch.bfloat16, True),
+             (*GEOM_RANK_SHAPE, torch.float32, True),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = {"dkv": [], "dq": [], "whole": []}
     for b, s, h, d, dtype, causal in cases:
@@ -6222,6 +6261,29 @@ def param_sha(torch, model):
     return h.hexdigest()
 
 
+def serial_steps(torch, model, make_opt, xs, ys, first_grads=None):
+    """Eager steps of ``model`` on the batches (numpy, one a step) under
+    ``make_opt(parameters=...)``: the serial reference that the
+    data-parallel and hybrid lanes are held to. Returns the losses, step
+    ms and, where ``first_grads`` is given, what it returns on the first
+    step's gradients."""
+    opt = make_opt(parameters=model.parameters())
+    losses, step_ms, first = [], [], None
+    for i, (x, y) in enumerate(zip(xs, ys)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(torch.from_numpy(x).cuda(),
+                     labels=torch.from_numpy(y).cuda())
+        loss.backward()
+        if i == 0 and first_grads is not None:
+            first = first_grads(model)
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": step_ms, "first_grads": first}
+
+
 def serial_gpt_losses(torch, seed):
     """GPT-medium bf16, AdamW(multi_precision), the whole 4 x 1024 batch
     of bench's stream, DP_CHECKED eager steps on this process: the losses
@@ -6234,23 +6296,14 @@ def serial_gpt_losses(torch, seed):
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(seed))
-    model.train()
-    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
-                             parameters=model.parameters())
-    losses = []
-    for i in range(DP_CHECKED):
-        loss = model(torch.from_numpy(xs[i]).cuda(),
-                     labels=torch.from_numpy(ys[i]).cuda())
-        loss.backward()
-        if i == 0:
-            grad_norm = grad_fingerprint(torch, model)["grad_norm"]
-        opt.step()
-        opt.clear_grad()
-        losses.append(loss.item())
-    del model, opt
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"losses": losses, "grad_norm": grad_norm}
+    run = serial_steps(
+        torch, model.train(), functools.partial(
+            pt.optimizer.AdamW, learning_rate=1e-4, multi_precision=True),
+        xs[:DP_CHECKED], ys[:DP_CHECKED],
+        lambda m: grad_fingerprint(torch, m)["grad_norm"])
+    del model
+    free_cuda(torch)
+    return {"losses": run["losses"], "grad_norm": run["first_grads"]}
 
 
 def rank_collectives(torch, dist, rank, world):
@@ -6586,9 +6639,514 @@ def phase_nccl_single(torch):
         tdist.destroy_process_group()
 
 
+# -- hybrid: fleet's tensor parallelism and ZeRO-1 -----------------------------
+
+# tp_gpt: GPT-3 1.3B (GPTConfig.gpt3_1p3b) at mp 2 over HYBRID_WORLD rank
+# processes on the one card (gloo over CUDA tensors), bench's 1.3B batch
+# (bench.py:929-934, 2 x 1024), TP_STEPS steps (the first TP_CHECKED held
+# to the serial run's); greedy decode of PROMPTS x PROMPT_LEN plus
+# TP_DECODE_STEPS cached steps in f32, where a random 1.3B's top two
+# logits sit closer than bf16's rounding of 24 layers
+HYBRID_WORLD, TP_STEPS, TP_CHECKED, TP_BATCH = 2, 6, 4, 2
+TP_DECODE_STEPS = 16
+# hybrid_geometry: the 1.3B layer geometry at GEOM_LAYERS layers in f32,
+# SGD, dp 2 x mp 2 on GEOM_WORLD processes against the serial steps
+# (__graft_entry__.py:160-216, 5e-4 relative); its batch takes B1-B3
+GEOM_WORLD, GEOM_LAYERS, GEOM_BATCH, GEOM_SEQ = 4, 2, 4, 256
+GEOM_STEPS, GEOM_RTOL, GEOM_LR = 3, 5e-4, 1e-3
+# zero_gpt: GPT-medium (the dp_gpt lane's model) at sharding_degree
+# HYBRID_WORLD, bench's 4 x 1024 split 2 x 1024 a rank, DP_STEPS steps; the
+# first DP_CHECKED losses within DP_LOSS_RTOL of the serial run
+
+
+def fleet_init(hybrid):
+    """fleet.init with ``hybrid`` over the strategy's hybrid_configs;
+    returns (fleet, the hybrid communicate group)."""
+    from paddle_tpu_torch.distributed import fleet
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {**strategy.hybrid_configs, **hybrid}
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet, fleet.get_hybrid_communicate_group()
+
+
+def gpt_1p3b(torch, dtype, seed=None, tp=False, layers=None):
+    """GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads of 128)
+    at bench's 1024 positions; ``seed`` draws the weights from a CUDA
+    generator (the same numbers in every process), None from torch's
+    default one (a TP model whose shards are loaded next)."""
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig.gpt3_1p3b(dropout=0.0, max_position_embeddings=TRAIN_SEQ,
+                              tensor_parallel=tp)
+    if layers is not None:
+        cfg.num_layers = layers
+    gen = None if seed is None else \
+        torch.Generator(device="cuda").manual_seed(seed)
+    return GPTForCausalLM(cfg, device="cuda", dtype=dtype, generator=gen)
+
+
+def prompt_ids(torch, seed, vocab):
+    return torch.randint(0, vocab, (PROMPTS, PROMPT_LEN),
+                         generator=torch.Generator().manual_seed(seed + 1)
+                         ).to("cuda")
+
+
+def free_cuda(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def serial_1p3b(torch, seed):
+    """The serial runs tp_gpt is held to, on this process from the same
+    weights: greedy tokens in f32; TP_CHECKED eager steps of bf16 with
+    AdamW(multi_precision) and of f32 with AdamW on bench's stream."""
+    import paddle_tpu_torch as pt
+    full = gpt_1p3b(torch, torch.float32, seed).eval()
+    with torch.inference_mode():
+        tokens = greedy(torch, full, prompt_ids(torch, seed, 50304),
+                        TP_DECODE_STEPS)[0].tolist()
+    model = gpt_1p3b(torch, torch.bfloat16).train()
+    pt.load_numpy_state_dict(model, full.state_dict())
+    xs, ys = bench_stream(seed, TP_CHECKED, TP_BATCH, TRAIN_SEQ)
+    adamw = functools.partial(pt.optimizer.AdamW, learning_rate=1e-4)
+    out = {"tokens": tokens,
+           "bfloat16": serial_steps(torch, model, functools.partial(
+               adamw, multi_precision=True), xs, ys)}
+    del model
+    free_cuda(torch)
+    out["float32"] = serial_steps(torch, full.train(), adamw, xs, ys)
+    del full
+    free_cuda(torch)
+    return out
+
+
+def serial_geometry(torch, seed):
+    """The serial f32 SGD steps hybrid_geometry is held to."""
+    import paddle_tpu_torch as pt
+    model = gpt_1p3b(torch, torch.float32, seed, layers=GEOM_LAYERS).train()
+    xs, ys = bench_stream(seed, GEOM_STEPS, GEOM_BATCH, GEOM_SEQ)
+    run = serial_steps(torch, model, functools.partial(
+        pt.optimizer.SGD, learning_rate=GEOM_LR), xs, ys)
+    del model
+    free_cuda(torch)
+    return run["losses"]
+
+
+def replicated_sha(torch, model):
+    """SHA-1 of the parameters every model rank holds whole."""
+    import hashlib
+    h = hashlib.sha1()
+    for _, p in sorted(model.named_parameters()):
+        if getattr(p, "tp_split", None) is None:
+            h.update(p.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def collective_tally(entries):
+    """{op: [count, bytes]} of the flight recorder's entries."""
+    sizes = {"torch.bfloat16": 2, "torch.float16": 2, "torch.float32": 4,
+             "torch.int64": 8, "torch.int32": 4}
+    out = {}
+    for e in entries:
+        n = sum(int(np.prod(s)) * sizes.get(d, 4)
+                for s, d in zip(e["shapes"] or (), e["dtypes"] or ()))
+        tally = out.setdefault(e["op"], [0, 0])
+        tally[0] += 1
+        tally[1] += n
+    return out
+
+
+def flash_launches(fa, launch_counts):
+    return {k: launch_counts[k] for k in launch_counts
+            if k.split(".")[0] in fa.KERNEL_NAMES}
+
+
+def rank_tp_gpt(torch, seed):
+    """tp_gpt on this rank: the full f32 weights drawn and sharded, greedy
+    decode in f32, a bf16 prefill, then TP_STEPS eager bf16 steps through
+    fleet.distributed_model / distributed_optimizer (AdamW mp, lr 1e-4).
+    Returns the tokens, the losses, the replicated parameters' SHA-1
+    after each step, step ms, step/collective_wait a step, the
+    collectives a step (count and bytes), B1-B3 launches a step and
+    their tiles, peak memory, busy share of one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import steptimer
+    from paddle_tpu_torch.resilience.recorder import get_recorder
+    fleet, hcg = fleet_init({"mp_degree": HYBRID_WORLD})
+    full = gpt_1p3b(torch, torch.float32, seed)
+    tp32 = gpt_1p3b(torch, torch.float32, tp=True).eval()
+    pt.load_numpy_state_dict(tp32, full.state_dict())
+    del full
+    free_cuda(torch)
+    ids = prompt_ids(torch, seed, 50304)
+    launch_counts.clear()
+    with torch.inference_mode():
+        toks, _, ttft, decode_s = greedy(torch, tp32, ids, TP_DECODE_STEPS)
+    greedy_f32_launches = flash_launches(fa, launch_counts)
+    model = gpt_1p3b(torch, torch.bfloat16, tp=True).eval()
+    pt.load_numpy_state_dict(model, tp32.state_dict())
+    del tp32
+    free_cuda(torch)
+    with torch.inference_mode():
+        model(ids, caches=model.gpt.init_decode_caches())     # warm-up
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model(ids, caches=model.gpt.init_decode_caches())
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = flash_launches(fa, launch_counts)
+    model.train()
+    dist_model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, multi_precision=True,
+        parameters=model.parameters()))
+    xs, ys = bench_stream(seed, TP_STEPS, TP_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    rec = get_recorder()
+    losses, shas, step_ms, launches, comms = [], [], [], [], []
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(TP_STEPS):
+        if i == 1:
+            steptimer.reset_steptimer()
+        launch_counts.clear()
+        rec.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = dist_model(xs[i], labels=ys[i])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_launches(fa, launch_counts))
+        comms.append(collective_tally(rec.entries()))
+        shas.append(replicated_sha(torch, model))
+    peak = torch.cuda.max_memory_allocated()
+    wait_ms = steptimer.get_steptimer().breakdown()["phase_ms"].get(
+        "collective_wait", 0.0) / (TP_STEPS - 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        dist_model(xs[0], labels=ys[0]).backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {k: sum(1 for e in prof.events()
+                      if is_kernel(e) and name in e.name)
+               for k, name in TC_KERNEL_NAMES.items()}
+    b, s, h, d = TP_BATCH, TRAIN_SEQ, 16 // HYBRID_WORLD, 128
+    dev = torch.device("cuda")
+    fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    inner = opt._inner
+    local = sum(p.numel() for p in model.parameters())
+    state = sum(t.numel() * t.element_size()
+                for accs in inner._accumulators.values()
+                for t in accs.values())
+    return {"tokens": toks.tolist(), "ttft_s": ttft,
+            "decode_step_ms": decode_s / TP_DECODE_STEPS * 1e3,
+            "prefill_bf16_ms": prefill_ms,
+            "prefill_launches": prefill_launches,
+            "greedy_f32_launches": greedy_f32_launches,
+            "losses": losses, "replicated_sha": shas, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "tokens_per_s": TP_BATCH * TRAIN_SEQ
+            / (float(np.median(step_ms[1:])) / 1e3),
+            "collective_wait_ms_per_step": wait_ms,
+            "collectives_per_step": comms, "launches_per_step": launches,
+            "tiles": {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                      fa.DQ_KERNEL: bwd[2]},
+            "local_params": local, "optimizer_state_bytes": state,
+            "profiled_step_ms": wall,
+            "profiled_tc_launches_by_kernel_name": by_name,
+            "busy_share": device_busy(prof) / wall,
+            "peak_mem_bytes": peak,
+            "wrapped": [type(dist_model).__name__, type(opt).__name__]}
+
+
+def rank_zero_gpt(torch, seed):
+    """zero_gpt on this rank: GPT-medium bf16 under ZeRO-1 (sharding
+    degree HYBRID_WORLD, AdamW mp), this rank's 2 x 1024 of bench's
+    4 x 1024; global losses, the weights' SHA-1 after each step, step ms,
+    optimizer-state bytes, parameters owned, peak memory."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    fleet, hcg = fleet_init({"sharding_degree": HYBRID_WORLD})
+    rank, world = hcg.get_sharding_parallel_rank(), HYBRID_WORLD
+    per = TRAIN_BATCH // world
+    xs, ys = bench_stream(seed, DP_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    xs = torch.from_numpy(xs[:, rank * per:(rank + 1) * per]).cuda()
+    ys = torch.from_numpy(ys[:, rank * per:(rank + 1) * per]).cuda()
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed))
+    model.train()
+    dist_model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, multi_precision=True,
+        parameters=model.parameters()))
+    group = hcg.get_dp_sharding_parallel_group()
+    losses, shas, step_ms, launches = [], [], [], []
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(DP_STEPS):
+        launch_counts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = dist_model(xs[i], labels=ys[i])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        g = loss.detach().float().reshape(1).clone()
+        losses.append(dist.all_reduce(g, op=dist.ReduceOp.AVG,
+                                      group=group).item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_launches(fa, launch_counts))
+        shas.append(param_sha(torch, model))
+    inner = opt._inner._inner
+    state = sum(t.numel() * t.element_size()
+                for accs in inner._accumulators.values()
+                for t in accs.values())
+    owned = opt._inner.owned_parameters
+    return {"losses": losses, "param_sha": shas, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "launches_per_step": launches,
+            "optimizer_state_bytes": state,
+            "owned_params": len(owned),
+            "owned_elements": sum(p.numel() for p in owned),
+            "all_elements": sum(p.numel() for p in model.parameters()),
+            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+            "wrapped": [type(dist_model).__name__, type(opt).__name__,
+                        type(opt._inner).__name__]}
+
+
+def rank_geometry(torch, seed):
+    """hybrid_geometry on this rank: the 1.3B geometry at GEOM_LAYERS
+    layers, f32, SGD, dp 2 x mp 2, this data rank's rows; the global
+    losses and the flash launches of the first step."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    fleet, hcg = fleet_init({"dp_degree": 2, "mp_degree": 2})
+    full = gpt_1p3b(torch, torch.float32, seed, layers=GEOM_LAYERS)
+    model = gpt_1p3b(torch, torch.float32, tp=True, layers=GEOM_LAYERS)
+    pt.load_numpy_state_dict(model, full.state_dict())
+    del full
+    free_cuda(torch)
+    model.train()
+    dist_model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+        learning_rate=GEOM_LR, parameters=model.parameters()))
+    d, per = hcg.get_data_parallel_rank(), GEOM_BATCH // 2
+    xs, ys = bench_stream(seed, GEOM_STEPS, GEOM_BATCH, GEOM_SEQ)
+    losses, launches = [], []
+    for i in range(GEOM_STEPS):
+        launch_counts.clear()
+        loss = dist_model(torch.from_numpy(xs[i, d * per:(d + 1) * per])
+                          .cuda(), labels=torch.from_numpy(
+                              ys[i, d * per:(d + 1) * per]).cuda())
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        g = loss.detach().reshape(1).clone()
+        losses.append(dist.all_reduce(
+            g, op=dist.ReduceOp.AVG,
+            group=hcg.get_data_parallel_group()).item())
+        launches.append(flash_launches(fa, launch_counts))
+    return {"losses": losses, "launches_per_step": launches,
+            "coords": [hcg.get_data_parallel_rank(),
+                       hcg.get_model_parallel_rank()],
+            "wrapped": [type(dist_model).__name__, type(opt).__name__]}
+
+
+def hybrid_rank_main(torch, args):
+    """One rank of the hybrid group's lanes (a child process of
+    phase_hybrid): tp_gpt then zero_gpt, or hybrid_geometry, written to
+    ``args.dist_out`` as JSON."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import env as denv
+    from paddle_tpu_torch.ops import autotune
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
+           "backend": denv.backend(), "device": str(denv.device())}
+    if args.hybrid_lane == "tp_zero":
+        out["tp_gpt"] = rank_tp_gpt(torch, args.seed)
+        free_cuda(torch)
+        out["zero_gpt"] = rank_zero_gpt(torch, args.seed)
+    else:
+        out["geometry"] = rank_geometry(torch, args.seed)
+    out["autotune_counters"] = autotune.counters()
+    with open(args.dist_out, "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(world, seed, lane, cache_dir, timeout=900):
+    """``world`` rank processes of this script on the card (gloo over
+    CUDA tensors), each running hybrid_rank_main's ``lane``; returns
+    their results and the seconds they took."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    addr = f"localhost:{free_port()}"
+    outs = [os.path.join(cache_dir, f"{lane}-rank{r}.json")
+            for r in range(world)]
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            env = {**os.environ, "PADDLE_TRAINER_ID": str(r),
+                   "PADDLE_TRAINERS_NUM": str(world),
+                   "PADDLE_COORDINATOR_ADDR": addr,
+                   "PADDLE_TPU_AUTOTUNE_CACHE": cache_dir}
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--seed",
+                 str(seed), "--hybrid-lane", lane, "--dist-out", outs[r]],
+                cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    failed = [(r, log[-4000:]) for r, (p, log) in enumerate(zip(procs, logs))
+              if p.returncode != 0]
+    assert not failed, failed
+    ranks = []
+    for path in outs:
+        with open(path) as f:
+            ranks.append(json.load(f))
+    return ranks, seconds
+
+
+def phase_hybrid(torch, seed):
+    """tp_gpt, zero_gpt and hybrid_geometry: the serial runs on this
+    process, freed before the rank processes start (HYBRID_WORLD ranks
+    for tp_gpt then zero_gpt, GEOM_WORLD for hybrid_geometry)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    seconds = {}
+    t0 = time.perf_counter()
+    serial = {"tp": serial_1p3b(torch, seed),
+              "zero": serial_gpt_losses(torch, seed),
+              "geometry": serial_geometry(torch, seed)}
+    seconds["serial"] = time.perf_counter() - t0
+    cache_dir = autotune_cache_dir()
+    ranks, seconds["tp_gpt_zero_gpt"] = spawn_ranks(HYBRID_WORLD, seed,
+                                                    "tp_zero", cache_dir)
+    geometry, seconds["hybrid_geometry"] = spawn_ranks(GEOM_WORLD, seed,
+                                                       "geometry", cache_dir)
+    tp = [r["tp_gpt"] for r in ranks]
+    sb, sf = serial["tp"]["bfloat16"], serial["tp"]["float32"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(tp[0]["losses"],
+                                                sb["losses"])]
+    bounds = [BF16_GRAD_FACTOR * abs(b - f) / abs(f) + BF16_GRAD_SLACK
+              for b, f in zip(sb["losses"], sf["losses"])]
+    kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    row = {"phase": "tp_gpt", "world": HYBRID_WORLD,
+           "backend": ranks[0]["backend"],
+           "config": "GPT-3 1.3B v50304 h2048 L24 a16 d128 bf16, AdamW mp, "
+                     "mp 2 (8 heads a rank)",
+           "global_batch": [TP_BATCH, TRAIN_SEQ],
+           "serial_bf16_losses": sb["losses"],
+           "serial_f32_losses": sf["losses"],
+           "serial_bf16_step_ms": sb["step_ms"],
+           "tp_losses": tp[0]["losses"], "loss_rel_gaps": gaps,
+           "loss_bounds": bounds, "serial_tokens": serial["tp"]["tokens"],
+           "seconds": seconds,
+           **{f"rank{r}": {k: v for k, v in d.items() if k != "tokens"}
+              for r, d in enumerate(tp)},
+           "autotune_counters": [r["autotune_counters"] for r in ranks]}
+    emit(row)
+    for d in tp:
+        assert d["wrapped"] == ["TensorParallel", "HybridParallelOptimizer"]
+        assert d["tokens"] == serial["tp"]["tokens"], "greedy tokens differ"
+        assert d["losses"][:TP_CHECKED] == tp[0]["losses"][:TP_CHECKED]
+        for counts in d["launches_per_step"]:
+            for kernel in kernels:
+                assert counts.get(f"{kernel}.{fa.TC}", 0) == 24, counts
+        assert d["prefill_launches"].get(f"{fa.KERNEL_NAME}.{fa.TC}") == 24
+        assert d["greedy_f32_launches"].get(
+            f"{fa.KERNEL_NAME}.{fa.SIMT}", 0) >= 24, d["greedy_f32_launches"]
+    # the replicated parameters see the same summed gradients on every
+    # rank, so they stay equal to the bit after every step
+    assert tp[0]["replicated_sha"] == tp[1]["replicated_sha"], \
+        "replicated parameters differ across ranks"
+    assert all(g <= b for g, b in zip(gaps, bounds)), (gaps, bounds)
+
+    zero = [r["zero_gpt"] for r in ranks]
+    zgaps = [abs(a - b) / abs(b) for a, b in zip(zero[0]["losses"],
+                                                 serial["zero"]["losses"])]
+    row = {"phase": "zero_gpt", "world": HYBRID_WORLD,
+           "config": "GPT-medium v32000 h1024 L24 a16 d64 bf16, AdamW mp, "
+                     "sharding 2 (ZeRO-1)",
+           "global_batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "serial_losses": serial["zero"]["losses"],
+           "zero_losses": zero[0]["losses"], "loss_rel_gaps": zgaps,
+           "loss_rtol": DP_LOSS_RTOL, "dp_gpt_peak_gb_pr14": 9.49,
+           **{f"rank{r}": {k: v for k, v in d.items() if k != "param_sha"}
+              for r, d in enumerate(zero)}}
+    emit(row)
+    for d in zero:
+        assert d["wrapped"] == ["ShardingParallel",
+                                "HybridParallelOptimizer",
+                                "ShardingOptimizerWrapper"], d["wrapped"]
+        for counts in d["launches_per_step"]:
+            for kernel in kernels:
+                assert counts.get(f"{kernel}.{fa.TC}", 0) == 24, counts
+    assert zero[0]["param_sha"] == zero[1]["param_sha"], "weights differ"
+    assert sum(d["owned_elements"] for d in zero) == zero[0]["all_elements"]
+    assert max(zgaps) <= DP_LOSS_RTOL, zgaps
+
+    geo = [r["geometry"] for r in geometry]
+    ggaps = [abs(a - b) / abs(b) for a, b in zip(geo[0]["losses"],
+                                                 serial["geometry"])]
+    row = {"phase": "hybrid_geometry", "world": GEOM_WORLD,
+           "config": f"GPT-3 1.3B geometry, {GEOM_LAYERS} layers, f32, SGD "
+                     f"{GEOM_LR}, dp 2 x mp 2",
+           "global_batch": [GEOM_BATCH, GEOM_SEQ],
+           "serial_losses": serial["geometry"],
+           "hybrid_losses": [g["losses"] for g in geo],
+           "loss_rel_gaps": ggaps, "loss_rtol": GEOM_RTOL,
+           "coords": [g["coords"] for g in geo],
+           "launches_per_step_rank0": geo[0]["launches_per_step"]}
+    emit(row)
+    for g in geo:
+        assert g["wrapped"] == ["TensorParallel", "HybridParallelOptimizer"]
+        assert g["losses"] == geo[0]["losses"], [x["losses"] for x in geo]
+        for counts in g["launches_per_step"]:
+            for kernel in kernels:
+                assert counts.get(f"{kernel}.{fa.SIMT}", 0) == GEOM_LAYERS, \
+                    counts
+    assert len(ggaps) == GEOM_STEPS and max(ggaps) <= GEOM_RTOL, ggaps
+    return {"tp_gpt_per_step_rank0": tp[0]["launches_per_step"][-1],
+            "tp_gpt_per_step_rank1": tp[1]["launches_per_step"][-1],
+            "tp_prefill_rank0": tp[0]["prefill_launches"],
+            "tp_greedy_f32_rank0": tp[0]["greedy_f32_launches"],
+            "zero_gpt_per_step_rank0": zero[0]["launches_per_step"][-1],
+            "zero_gpt_per_step_rank1": zero[1]["launches_per_step"][-1],
+            "hybrid_geometry_per_step_rank0":
+                geo[0]["launches_per_step"][-1],
+            "tp_gpt_tiles": tp[0]["tiles"], "seconds": seconds}
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
-                   dist_tune):
+                   dist_tune, hybrid):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -6621,7 +7179,15 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     launches there. And on the dist_tune group's (``launches_dist_tune``):
     per step on each rank of dp_gpt (GPT-medium bf16 under DataParallel at
     2 ranks on the card), with the tile each kernel ran at, and over
-    dp_fit and the NCCL collectives (0)."""
+    dp_fit and the NCCL collectives (0). And on the hybrid group's
+    (``launches_hybrid``): per step on each rank of tp_gpt (GPT-3 1.3B
+    bf16 at mp 2), in its bf16 prefill, per step on each rank of zero_gpt
+    and on rank 0 of hybrid_geometry (f32), with tp_gpt's tiles; B1, B2
+    and B3 tc_bf16 have rows of their own at a TP rank's training shape
+    (2, 1024, 8, 128) and B1 at its prefill's (4, 512, 8, 128), causal,
+    with their launches there; B1 simt_f32 at the prefill's shape (tp_gpt's
+    f32 greedy decode) and B1, B2 and B3 simt_f32 at a hybrid_geometry
+    rank's (2, 256, 8, 128), causal, likewise."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -6662,6 +7228,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                                     "collectives_nccl")},
                     "dp_fit": dist_tune["dp_fit"][kernel],
                     "dp_gpt_tile": dist_tune["dp_gpt_tiles"][kernel]
+                    if variant.endswith(fa.TC) else None},
+                "launches_hybrid": {
+                    **{lane: counts.get(variant, 0)
+                       for lane, counts in hybrid.items()
+                       if lane != "tp_gpt_tiles"},
+                    "tp_gpt_tile": hybrid["tp_gpt_tiles"][kernel]
                     if variant.endswith(fa.TC) else None},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
@@ -6721,7 +7293,78 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
               rows[-2]["max_abs_err_o"], rel_l2=rows[-2]["rel_l2_o"],
               main_path="Transformer-base bf16 encode at 8 x 256, "
                         "non-causal (translate)"),
-        *bert_entries(fa, entry, rows[-1], bwd_rows, bert, scope)]
+        *bert_entries(fa, entry, rows[-1], bwd_rows, bert, scope),
+        *tp_entries(fa, entry, rows, bwd_rows, hybrid, scope)]
+
+
+def tp_entries(fa, entry, rows, bwd_rows, hybrid, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 at a TP rank's
+    training shape and B1 at its prefill's, with their launches a step
+    (tp_gpt rank 0) and in the prefill; the training step's B1 also
+    writes O in f32, so its time and bound are those. Then the f32 (SIMT)
+    rows: B1 at the prefill's shape, with its launches in tp_gpt's f32
+    greedy decode, and B1, B2 and B3 at a hybrid_geometry rank's
+    (2, 256, 8, 128), with their launches a step there."""
+    tc, simt = fa.TC, fa.SIMT
+
+    def at(found, shape, dtype="bfloat16"):
+        return next(r for r in found if r["shape"] == list(shape)
+                    and r["dtype"] == dtype and r["causal"])
+    fwd, pre = at(rows, TP_RANK_SHAPE), at(rows, TP_PREFILL_SHAPE)
+    dkv, dq = at(bwd_rows["dkv"], TP_RANK_SHAPE), \
+        at(bwd_rows["dq"], TP_RANK_SHAPE)
+    pre32 = at(rows, TP_PREFILL_SHAPE, "float32")
+    geo = {"fwd": at(rows, GEOM_RANK_SHAPE, "float32"),
+           "dkv": at(bwd_rows["dkv"], GEOM_RANK_SHAPE, "float32"),
+           "dq": at(bwd_rows["dq"], GEOM_RANK_SHAPE, "float32")}
+    geo_step = hybrid["hybrid_geometry_per_step_rank0"]
+    geo_main = ("GPT-3 1.3B geometry f32 training step at dp 2 x mp 2, a "
+                "rank's (2, 256, 8, 128), causal (hybrid_geometry)")
+    step = hybrid["tp_gpt_per_step_rank0"]
+    main = ("GPT-3 1.3B bf16 training step at mp 2, a rank's "
+            "(2, 1024, 8, 128), causal (tp_gpt)")
+    return [
+        entry(f"{fa.KERNEL_NAME}.{tc}.tp", "flash_attn_fwd_tc.cu", 114, fwd,
+              step[f"{fa.KERNEL_NAME}.{tc}"], fwd["max_abs_err_o"],
+              rel_l2=fwd["rel_l2_o"], main_path=main,
+              ms=fwd["ms_with_f32_out"],
+              bound_ms=fwd["bound_us_with_f32_out"] / 1e3,
+              bound_by=fwd["bound_by_with_f32_out"],
+              share_of_bound=fwd["bound_us_with_f32_out"] / 1e3
+              / fwd["ms_with_f32_out"],
+              factor_vs_library=fwd["ms_with_f32_out"] / fwd["library_ms"],
+              ms_without_f32_out=fwd["ms"]),
+        entry(f"{fa.KERNEL_NAME}.{tc}.tp_prefill", "flash_attn_fwd_tc.cu",
+              114, pre,
+              hybrid["tp_prefill_rank0"][f"{fa.KERNEL_NAME}.{tc}"],
+              pre["max_abs_err_o"], rel_l2=pre["rel_l2_o"],
+              main_path="GPT-3 1.3B bf16 prefill at mp 2, a rank's "
+                        "(4, 512, 8, 128), causal (tp_gpt)"),
+        entry(f"{fa.DKV_KERNEL}.{tc}.tp", "flash_attn_dkv_tc.cu", 200, dkv,
+              step[f"{fa.DKV_KERNEL}.{tc}"], dkv["max_abs_err"],
+              rel_l2={o: g["rel_l2"]
+                      for o, g in dkv["rel_l2_by_output"].items()},
+              main_path=main, **scope),
+        entry(f"{fa.DQ_KERNEL}.{tc}.tp", "flash_attn_dq_tc.cu", 247, dq,
+              step[f"{fa.DQ_KERNEL}.{tc}"], dq["max_abs_err"],
+              rel_l2={o: g["rel_l2"]
+                      for o, g in dq["rel_l2_by_output"].items()},
+              main_path=main, **scope),
+        entry(f"{fa.KERNEL_NAME}.{simt}.tp_prefill", "flash_attn_fwd.cu",
+              114, pre32,
+              hybrid["tp_greedy_f32_rank0"][f"{fa.KERNEL_NAME}.{simt}"],
+              pre32["max_abs_err_o"],
+              main_path="GPT-3 1.3B f32 greedy decode at mp 2, a rank's "
+                        "(4, 512, 8, 128) prefill, causal (tp_gpt)"),
+        entry(f"{fa.KERNEL_NAME}.{simt}.geometry", "flash_attn_fwd.cu", 114,
+              geo["fwd"], geo_step[f"{fa.KERNEL_NAME}.{simt}"],
+              geo["fwd"]["max_abs_err_o"], main_path=geo_main),
+        entry(f"{fa.DKV_KERNEL}.{simt}.geometry", "flash_attn_bwd.cu", 200,
+              geo["dkv"], geo_step[f"{fa.DKV_KERNEL}.{simt}"],
+              geo["dkv"]["max_abs_err"], main_path=geo_main, **scope),
+        entry(f"{fa.DQ_KERNEL}.{simt}.geometry", "flash_attn_bwd.cu", 247,
+              geo["dq"], geo_step[f"{fa.DQ_KERNEL}.{simt}"],
+              geo["dq"]["max_abs_err"], main_path=geo_main, **scope)]
 
 
 def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
@@ -6765,7 +7408,7 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
                 "to_static_grad", "bert", "vision", "serving", "hapi",
-                "optim", "surface", "nn_rest", "zoo", "dist_tune")
+                "optim", "surface", "nn_rest", "zoo", "dist_tune", "hybrid")
 
 
 def main():
@@ -6779,6 +7422,8 @@ def main():
     ap.add_argument("--dist-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
+    # one rank of the hybrid group's lanes, started by phase_hybrid
+    ap.add_argument("--hybrid-lane", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     run = set(args.phases.split(","))
     unknown = run - set(PHASE_GROUPS)
@@ -6797,6 +7442,9 @@ def main():
     sys.path.insert(0, here)
     if args.dist_rank is not None:
         dist_rank_main(torch, args)
+        return
+    if args.hybrid_lane is not None:
+        hybrid_rank_main(torch, args)
         return
     # the tuner's answers stay inside the checkout (the build directory)
     os.environ["PADDLE_TPU_AUTOTUNE_CACHE"] = autotune_cache_dir()
@@ -7012,13 +7660,19 @@ def main():
         emit({"phase": "dist_tune", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    if "hybrid" in run:
+        t_group = time.perf_counter()
+        out["hybrid"] = phase_hybrid(torch, args.seed)
+        emit({"phase": "hybrid", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": out["hybrid"].pop("seconds")})
+
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
             out["compiled"], out["amp"], out["bert"], out["vision"],
             out["serving"], out["hapi"], out["optim"], out["surface"],
-            out["nn_rest"], out["zoo"], out["dist_tune"])})
+            out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "timing": TIMING})
     print(smi, flush=True)

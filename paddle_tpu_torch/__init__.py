@@ -58,7 +58,8 @@ from .core.random import (get_cuda_rng_state, make_generator, seed,
                           set_cuda_rng_state)
 from .distributed.parallel import DataParallel
 from .framework.flags import get_flags, set_flags
-from .framework.io_utils import load, load_numpy_state_dict, save
+from .framework.io_utils import (full_state_dict, load,
+                                 load_numpy_state_dict, save)
 from .framework.param_attr import ParamAttr, Parameter
 from .hapi import Model, flops, summary
 from .nn.functional.activation import tanh_
@@ -169,7 +170,8 @@ def disable_signal_handler():
 
 __all__ = ["CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "Place",
            "set_device", "get_device", "device_count", "make_generator",
-           "seed", "load", "load_numpy_state_dict", "save", "amp",
+           "seed", "load", "load_numpy_state_dict", "full_state_dict", "save",
+           "amp",
            "callbacks", "distributed", "hapi", "inference", "io", "jit",
            "metric", "nn", "optimizer", "regularizer", "serving", "tensor",
            "text", "vision", "linalg", "Model", "summary", "flops",

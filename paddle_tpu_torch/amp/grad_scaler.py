@@ -11,6 +11,14 @@ each is then selected back where ``found_inf`` is set, including the
 accumulators created by that same step (reset to their initial values;
 a new f32 master to its restored parameter). ``enable=False`` makes every
 method a passthrough.
+
+Under fleet's tensor parallelism and ZeRO-1 each rank checks only its
+shard of the gradients, where the reference's one controller checks them
+all. Such an optimizer names the group its ranks span
+(``_found_inf_group``), and ``found_inf`` is reduced over it with MAX, so
+every rank skips the step, and moves its scale, together. A skipped step
+then restores every trainable parameter, not only the ones this rank
+updated: ZeRO-1's broadcast of the others has run inside the step.
 """
 from __future__ import annotations
 
@@ -66,14 +74,22 @@ class AmpScaler:
         self._unscaled_opts.add(id(optimizer))
         grads = [g for _, g in optimizer._collect_params_grads()
                  if g is not None]
-        if not grads:
+        group = getattr(optimizer, "_found_inf_group", None)
+        if not grads and group is None:
             return
-        self._to(grads[0].device)
+        if grads:
+            self._to(grads[0].device)
         inv = 1.0 / self._scale
         found = torch.zeros((), dtype=torch.bool, device=inv.device)
         for g in grads:
             g.mul_(inv.to(g.dtype))
             found = found | ~torch.isfinite(g).all()
+        if group is not None:
+            # every rank of the group takes the same decision
+            from ..distributed.collective import ReduceOp, all_reduce
+            flag = found.to(torch.float32).reshape(1)
+            all_reduce(flag, op=ReduceOp.MAX, group=group)
+            found = flag[0] > 0
         self._found_inf.copy_(found)
 
     def minimize(self, optimizer, scaled_loss):
@@ -90,7 +106,8 @@ class AmpScaler:
         self.unscale_(optimizer)
         self._unscaled_opts.discard(id(optimizer))
         found = self._found_inf
-        params = [p for p, _ in optimizer._collect_params_grads()]
+        params = [p for p in optimizer._parameter_list or ()
+                  if p.requires_grad]
         state = params + [t for by_param in optimizer._accumulators.values()
                           for t in by_param.values()]
         snapshot = [(t, t.detach().clone()) for t in state]

@@ -7,11 +7,13 @@ below.
 The port runs one process per rank where the reference drives every local
 device from one controller process: ``spawn`` starts ``nprocs``
 processes and runs ``func`` in each, where the reference runs it once
-(ROADMAP, "Differences by design"). The later parts of the reference's
-package (fleet's meta-parallel layers, ``spec_layout``, the pipeline
-engines, sequence and expert parallelism, ``auto_parallel``,
-``launch``, ``ps``, ``p2p``, ...) are absent until their ROADMAP A10
-items.
+(ROADMAP, "Differences by design"). ``fleet`` holds the hybrid-parallel
+entry points (``fleet.init``, ``distributed_model``,
+``distributed_optimizer``), the tensor-parallel layers, ZeRO-1 and
+gradient merge. The later parts of the reference's package
+(``spec_layout`` with ZeRO-3, ``checkpoint``, the pipeline engines,
+sequence and expert parallelism, ``auto_parallel``, ``launch``, ``ps``,
+``p2p``, ...) are absent until their ROADMAP A10 items.
 """
 from __future__ import annotations
 

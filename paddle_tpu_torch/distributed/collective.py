@@ -83,6 +83,10 @@ class Group:
     def is_member(self):
         return self.rank >= 0
 
+    def global_rank(self, member):
+        """The global rank of the group's ``member``-th rank."""
+        return member if self.ranks is None else self.ranks[member]
+
     def __repr__(self):
         return f"Group(axis={self.axis}, ranks={self.ranks})"
 
@@ -353,9 +357,10 @@ def barrier(group=None):
 
 
 def split(x, num_or_sections, axis=0, group=None):
-    """paddle.distributed.split, as the reference's: the tensor split
-    (the layer split helper belongs to fleet.meta_parallel, ROADMAP
-    A10)."""
+    """paddle.distributed.split, as the reference's: the tensor split.
+    The layers split over the model ranks are fleet.meta_parallel's
+    (``ColumnParallelLinear``, ``RowParallelLinear``,
+    ``VocabParallelEmbedding``)."""
     from ..tensor.manipulation import split as _split
     return _split(x, num_or_sections, axis=axis)
 

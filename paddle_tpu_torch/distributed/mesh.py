@@ -10,9 +10,15 @@ does), and each axis has, for this rank, the group of ranks that share
 every other coordinate (``Mesh.group``), created on every rank in one
 order, as ``torch.distributed.new_group`` requires.
 
+fleet's ``HybridCommunicateGroup`` (fleet/base.py) builds its mesh here
+over the data, pipe, sharding and model axes, and the tensor-parallel
+layers and ZeRO-1 (fleet/meta_parallel.py, fleet/sharding_optimizer.py)
+split over its "model" and "sharding" groups.
+
 ``shard_map`` has no counterpart in a process-per-rank design: each rank
 already runs its shard's program. It raises, naming the later A10 items
-whose SPMD regions use it.
+whose SPMD regions use it (the pipeline engines, sequence and expert
+parallelism).
 """
 from __future__ import annotations
 

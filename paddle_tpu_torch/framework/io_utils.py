@@ -6,6 +6,11 @@ are stored as ``{"__tensor__": True, "data": ndarray, "stop_gradient",
 "name"}``. A file written by either package loads in the other. bfloat16
 payloads are ml_dtypes arrays, as JAX writes them; saving one needs
 ml_dtypes, which is imported only then.
+
+A tensor-parallel model (distributed/fleet/meta_parallel.py) takes the
+reference's full arrays by name, each rank its shard
+(``load_numpy_state_dict``), and gives them back gathered
+(``full_state_dict``).
 """
 from __future__ import annotations
 
@@ -17,7 +22,8 @@ import torch
 
 from ..ops._param_guard import recheck
 
-__all__ = ["save", "load", "load_numpy_state_dict", "tensor_from_numpy"]
+__all__ = ["save", "load", "load_numpy_state_dict", "full_state_dict",
+           "unshard", "tensor_from_numpy"]
 
 _PROTO = 4
 
@@ -73,6 +79,19 @@ def load(path):
         return _from_serializable(pickle.load(f))
 
 
+def _shard(full, split):
+    """This rank's shard of a distributed parameter's full array: along
+    ``split.axis``, its piece of each of the axis's ``split.blocks``
+    blocks (distributed/fleet/meta_parallel.py ``TPSplit``)."""
+    axis, blocks, rank, n = split.axis, split.blocks, split.rank, \
+        split.nranks
+    block = full.shape[axis] // blocks
+    piece = block // n
+    parts = [full.narrow(axis, b * block + rank * piece, piece)
+             for b in range(blocks)]
+    return parts[0] if blocks == 1 else torch.cat(parts, dim=axis)
+
+
 def load_numpy_state_dict(module, arrays, strict=True):
     """Copy ``arrays`` ({name: ndarray or tensor}) into ``module``'s
     parameters and buffers by name: no renaming, no transposes. Raises on
@@ -81,10 +100,15 @@ def load_numpy_state_dict(module, arrays, strict=True):
     ``set_state_dict`` does). Values are cast to each parameter's dtype
     and device, in place: the parameter objects, their addresses and
     their memory format stay, so captured steps and optimizer state keep
-    pointing at them. The degenerate-weight guard's cached verdict on each
-    parameter is checked again (ops/_param_guard.py), as the reference's
-    set_value drops it."""
+    pointing at them. A tensor-parallel parameter (``tp_split``) given
+    the full array of the reference's layout takes this rank's shard of
+    it; given an array of its own shape, the array itself. The
+    degenerate-weight guard's cached verdict on each parameter is
+    checked again (ops/_param_guard.py), as the reference's set_value
+    drops it."""
     own = module.state_dict()
+    splits = {name: p.tp_split for name, p in module.named_parameters()
+              if getattr(p, "tp_split", None) is not None}
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
     if strict and (missing or extra):
@@ -96,6 +120,8 @@ def load_numpy_state_dict(module, arrays, strict=True):
         src = arrays[name]
         if not isinstance(src, torch.Tensor):
             src = tensor_from_numpy(np.asarray(src))
+        if name in splits and tuple(src.shape) != tuple(dst.shape):
+            src = _shard(src, splits[name])
         if tuple(src.shape) != tuple(dst.shape):
             raise ValueError(f"{name}: shape {tuple(src.shape)} does not "
                              f"match the module's {tuple(dst.shape)}")
@@ -106,3 +132,28 @@ def load_numpy_state_dict(module, arrays, strict=True):
     for param in module.parameters():
         recheck(param)
     return module
+
+
+def unshard(t, split):
+    """The full tensor of a distributed parameter (or its gradient) from
+    its shards on the members of ``split.group``, in the reference's
+    layout: the inverse of ``_shard``. Every member calls it."""
+    from ..distributed.collective import all_gather
+    parts = []
+    all_gather(parts, t.detach().contiguous(), group=split.group)
+    blocks = [p.chunk(split.blocks, dim=split.axis) for p in parts]
+    return torch.cat([b[i] for i in range(split.blocks) for b in blocks],
+                     dim=split.axis)
+
+
+def full_state_dict(module):
+    """``module``'s state with every tensor-parallel parameter gathered
+    from the ranks of its group into the reference's full layout (the
+    inverse of ``load_numpy_state_dict``'s shard): {name: tensor} on the
+    module's devices, the same on every member of each group. Every
+    member calls it, in one order."""
+    splits = {name: p.tp_split for name, p in module.named_parameters()
+              if getattr(p, "tp_split", None) is not None}
+    return {name: unshard(t, splits[name]) if name in splits
+            else t.detach().clone()
+            for name, t in module.state_dict().items()}

@@ -349,7 +349,6 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5, margin3=0.0,
             f"margin_cross_entropy(group={group!r}): a mesh axis name is the "
             f"reference's shard_map form, which comes with a later ROADMAP "
             f"A10 item; pass a distributed.Group")
-    from ...distributed.collective import ReduceOp, _mp_allreduce, all_reduce
     x = logits.float()
     n_cls = x.shape[-1]
     lb = label.long()
@@ -358,25 +357,66 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5, margin3=0.0,
         lb = lb - max(group.rank, 0) * n_cls
     theta = torch.arccos(x.clamp(-1.0 + 1e-7, 1.0 - 1e-7))
     cos_m = torch.cos(margin1 * theta + margin2) - margin3
-    onehot = ((lb[..., None] == torch.arange(n_cls, device=x.device))
-              .to(x.dtype))
-    logits_m = torch.where(onehot > 0, cos_m, x) * scale
-    mx = logits_m.amax(-1, keepdim=True).detach()
-    if group is not None:
-        mx = all_reduce(mx.clone(), op=ReduceOp.MAX, group=group)
-    ex = torch.exp(logits_m - mx)
-    denom = ex.sum(-1, keepdim=True)
-    if group is not None:
-        denom = _mp_allreduce(denom, group)
-    # the target's logit lives on one member: summed over the group
-    tgt = (logits_m * onehot).sum(-1)
-    if group is not None:
-        tgt = _mp_allreduce(tgt, group)
-    logp = (tgt - mx[..., 0]) - torch.log(denom[..., 0])
-    loss = _reduce(-logp, reduction)
+    onehot = lb[..., None] == torch.arange(n_cls, device=x.device)
+    logits_m = torch.where(onehot, cos_m, x) * scale
+    owned = onehot.any(-1)
+    rows = logits_m.reshape(-1, n_cls)
+    loss, softmax = _ShardedSoftmaxCE.apply(
+        rows, torch.where(owned, lb, -1).reshape(-1),
+        torch.ones(rows.shape[0], dtype=torch.bool, device=x.device), group)
+    loss = _reduce(loss.reshape(x.shape[:-1]), reduction)
     if return_softmax:
-        return loss, ex / denom
+        return loss, softmax.reshape(x.shape)
     return loss
+
+
+class _ShardedSoftmaxCE(torch.autograd.Function):
+    """Softmax cross-entropy of f32 logits ``x`` (N, C) whose classes are
+    sharded over ``group`` (None: all here). ``local`` (N,) is the label's
+    index in this shard, -1 where another member owns it; ``valid`` (N,)
+    False gives a row loss 0 and no gradient. The row max goes through a
+    MAX all-reduce, the softmax denominator and the target's logit
+    through one SUM all-reduce. Returns the row losses and this shard's
+    softmax; the backward of the loss is softmax - one-hot on the local
+    shard (the softmax's own backward sums over the group)."""
+
+    @staticmethod
+    def forward(ctx, x, local, valid, group):
+        from ...distributed.collective import ReduceOp, all_reduce
+        mx = x.amax(-1, keepdim=True)
+        if group is not None:
+            mx = all_reduce(mx, op=ReduceOp.MAX, group=group)
+        ex = torch.exp(x - mx)
+        owned = local >= 0
+        tgt = torch.where(owned, x.gather(-1, local.clamp_min(0)[:, None])
+                          [:, 0], 0.0)
+        sums = torch.stack([ex.sum(-1), tgt], dim=-1)
+        if group is not None:
+            sums = all_reduce(sums, group=group)
+        loss = torch.where(valid, mx[:, 0] + torch.log(sums[:, 0])
+                           - sums[:, 1], 0.0)
+        softmax = ex / sums[:, :1]
+        ctx.group = group
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(softmax, local, valid)
+        return loss, softmax
+
+    @staticmethod
+    def backward(ctx, g_loss, g_softmax):
+        from ...distributed.collective import all_reduce
+        softmax, local, valid = ctx.saved_tensors
+        grad = torch.zeros_like(softmax)
+        if g_loss is not None:
+            g = torch.where(valid, g_loss, 0.0)
+            grad = softmax * g[:, None]
+            grad.scatter_add_(-1, local.clamp_min(0)[:, None],
+                              torch.where(local >= 0, -g, 0.0)[:, None])
+        if g_softmax is not None:
+            dot = (g_softmax * softmax).sum(-1, keepdim=True)
+            if ctx.group is not None:
+                dot = all_reduce(dot, group=ctx.group)
+            grad = grad + softmax * (g_softmax - dot)
+        return grad, None, None, None
 
 
 def hsigmoid_loss(input, label, num_classes, weight, bias=None,  # noqa: A002

@@ -17,7 +17,8 @@ C-ref-14).
 
 ``step()``:
 
-1. collects the (parameter, grad) pairs of the trainable parameters;
+1. collects the (parameter, grad) pairs of the trainable parameters
+   (under ZeRO-1 those this rank owns, ``_owned_ids``);
 2. clips them (``grad_clip``, nn/clip.py); a sparse gradient is merged,
    its value block clipped, and rebuilt, so it stays sparse;
 3. folds the regularizers into the dense grads (``_apply_decay``): a
@@ -140,6 +141,9 @@ def _one_minus(ts):
 class Optimizer:
     # optimizers with the flag set it in __init__
     _multi_precision = False
+    # ZeRO-1 (distributed/fleet/sharding_optimizer.py): the ids of the
+    # parameters this rank updates; None: all of them
+    _owned_ids = None
 
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None, name=None):
@@ -249,7 +253,9 @@ class Optimizer:
         if self._parameter_list is None:
             raise ValueError(
                 "parameters must be passed to the optimizer in eager mode")
-        return [(p, p.grad) for p in self._parameter_list if p.requires_grad]
+        owned = self._owned_ids
+        return [(p, p.grad) for p in self._parameter_list
+                if p.requires_grad and (owned is None or id(p) in owned)]
 
     def _clip(self, pairs):
         """The grad clip over the pairs; a sparse gradient is merged, its

@@ -14,8 +14,22 @@ drawn from it). ``GPTForCausalLM(ids, labels=...)`` returns the f32
 softmax cross-entropy that a training step differentiates; the fused ops
 and flash attention carry their own backwards. ``recompute=True``
 reruns each block's forward in the backward when training
-(distributed/fleet/utils.py), as the reference does. Tensor parallelism
-comes with a later slice. ``use_flash_attention``, stored but unread in
+(distributed/fleet/utils.py), as the reference does.
+
+``tensor_parallel=True`` builds the reference's tensor-parallel branch
+over the model group of ``fleet.init`` (distributed/fleet/
+meta_parallel.py): qkv and fc1 column-parallel, out_proj and fc2
+row-parallel, the token table vocabulary-parallel. Each rank holds
+``num_heads / m`` heads (its heads of q, k and v: the qkv split is block
+by block) and a local hidden of ``hidden / m`` for the attention
+reshapes; its KV cache keeps its heads. The MLP runs unfused,
+``fc2(gelu_tanh(fc1(x)))``, as the reference's TP branch does. The tied
+head multiplies ``_c_identity(h)`` by the local table shard; the loss is
+``ParallelCrossEntropy`` over the local logits in f32, and the logits
+returned without labels are gathered to the full vocabulary. Attention
+dropout under TP draws from the tracker's "model_parallel_rng" where
+``model_parallel_random_seed`` set it (each rank its own masks).
+``use_flash_attention``, stored but unread in
 the reference, chooses here between the automatic selection (True) and
 the math path (False). The head is ``F.linear`` against the tied token
 embedding, as in the reference, so ``amp.auto_cast`` casts it as a
@@ -28,6 +42,8 @@ import math
 import torch
 
 from ... import nn
+from ...distributed.collective import _c_identity
+from ...distributed.fleet import meta_parallel as mpu
 from ...distributed.fleet.utils import recompute
 from ...nn import functional as F
 from ...nn import initializer as I
@@ -68,20 +84,49 @@ class GPTConfig:
                    num_heads=16, **kw)
 
 
+def _linear_cls(cfg, kind):
+    """The TP layer of ``kind`` ("col" or "row") under tensor_parallel,
+    else None (nn.Linear)."""
+    if not cfg.tensor_parallel:
+        return None
+    return mpu.ColumnParallelLinear if kind == "col" \
+        else mpu.RowParallelLinear
+
+
+def _tp_degree(cfg):
+    group = mpu._model_group() if cfg.tensor_parallel else None
+    return mpu._degree(group)
+
+
 class GPTAttention(nn.Layer):
     def __init__(self, cfg, **factory):
         super().__init__(**factory)
-        self.num_heads = cfg.num_heads
+        m = _tp_degree(cfg)
+        if cfg.num_heads % m:
+            raise ValueError(f"{cfg.num_heads} heads do not split over "
+                             f"{m} model ranks")
+        self.num_heads = cfg.num_heads // m
         self.head_dim = cfg.hidden_size // cfg.num_heads
-        self.hidden = cfg.hidden_size
+        self.hidden = cfg.hidden_size // m
         self.dropout = cfg.dropout
         self.use_flash = cfg.use_flash_attention
         fk = self.factory_kwargs()
+        w_in = _normal(INITIALIZER_RANGE)
         w_res = _normal(INITIALIZER_RANGE / math.sqrt(2.0 * cfg.num_layers))
-        self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
-                             weight_attr=_normal(INITIALIZER_RANGE), **fk)
-        self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size,
-                                  weight_attr=w_res, **fk)
+        Col, Row = _linear_cls(cfg, "col"), _linear_cls(cfg, "row")
+        if Col is not None:
+            self.qkv = Col(cfg.hidden_size, 3 * cfg.hidden_size,
+                           weight_attr=w_in, gather_output=False, **fk)
+            mpu.mark_blocks(self.qkv, 3)
+            self.out_proj = Row(cfg.hidden_size, cfg.hidden_size,
+                                weight_attr=w_res, input_is_parallel=True,
+                                **fk)
+        else:
+            self.qkv = nn.Linear(cfg.hidden_size, 3 * cfg.hidden_size,
+                                 weight_attr=w_in, **fk)
+            self.out_proj = nn.Linear(cfg.hidden_size, cfg.hidden_size,
+                                      weight_attr=w_res, **fk)
+        self._tp = Col is not None
 
     def forward(self, x, cache=None):
         """Self-attention; ``cache`` (a (k, v) pair of (b, past, heads, dim)
@@ -101,7 +146,8 @@ class GPTAttention(nn.Layer):
             q, k, v, is_causal=True, dropout_p=self.dropout,
             training=self.training,
             use_kernel=None if self.use_flash else False,
-            generator=self._generator)
+            generator=mpu.get_rng_state_tracker().generator(
+                default=self._generator) if self._tp else self._generator)
         out = self.out_proj(out.reshape(b, s, self.hidden))
         if cache is not None:
             return out, cache
@@ -112,14 +158,26 @@ class GPTMLP(nn.Layer):
     def __init__(self, cfg, **factory):
         super().__init__(**factory)
         fk = self.factory_kwargs()
+        w_in = _normal(INITIALIZER_RANGE)
         w_res = _normal(INITIALIZER_RANGE / math.sqrt(2.0 * cfg.num_layers))
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
-                             weight_attr=_normal(INITIALIZER_RANGE), **fk)
-        self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
-                             weight_attr=w_res, **fk)
+        Col, Row = _linear_cls(cfg, "col"), _linear_cls(cfg, "row")
+        if Col is not None:
+            self.fc1 = Col(cfg.hidden_size, cfg.intermediate_size,
+                           weight_attr=w_in, gather_output=False, **fk)
+            self.fc2 = Row(cfg.intermediate_size, cfg.hidden_size,
+                           weight_attr=w_res, input_is_parallel=True, **fk)
+        else:
+            self.fc1 = nn.Linear(cfg.hidden_size, cfg.intermediate_size,
+                                 weight_attr=w_in, **fk)
+            self.fc2 = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
+                                 weight_attr=w_res, **fk)
+        self._tp = Col is not None
         self.dropout = nn.Dropout(cfg.dropout, **fk)
 
     def forward(self, x):
+        if self._tp:
+            return self.dropout(self.fc2(F.gelu(self.fc1(x),
+                                                approximate=True)))
         out = fused_ffn(x, self.fc1.weight, self.fc1.bias, self.fc2.weight,
                         self.fc2.bias, activation="gelu_tanh")
         return self.dropout(out)
@@ -176,14 +234,15 @@ class GPTModel(nn.Layer):
                  **kwargs):
         super().__init__(device=device, dtype=dtype, generator=generator)
         cfg = config or GPTConfig(**kwargs)
-        if cfg.tensor_parallel:
-            raise NotImplementedError(
-                "tensor-parallel GPT comes with the port's distributed slice")
         self.config = cfg
         fk = self.factory_kwargs()
         w_emb = _normal(INITIALIZER_RANGE)
-        self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
-                                weight_attr=w_emb, **fk)
+        if cfg.tensor_parallel:
+            self.wte = mpu.VocabParallelEmbedding(
+                cfg.vocab_size, cfg.hidden_size, weight_attr=w_emb, **fk)
+        else:
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                    weight_attr=w_emb, **fk)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size,
                                 weight_attr=w_emb, **fk)
         self.drop = nn.Dropout(cfg.dropout, **fk)
@@ -239,6 +298,9 @@ class GPTForCausalLM(nn.Layer):
         """Logits (b, s, vocab); with ``caches`` returns (logits, caches);
         with ``labels`` (b, s) returns the mean f32 softmax cross-entropy
         of the logits against them."""
+        group = getattr(self.gpt.wte, "group", None)
+        if mpu._degree(group) > 1:
+            return self._tp_forward(input_ids, labels, caches, group)
         if caches is not None:
             h, caches = self.gpt(input_ids, caches=caches)
             return F.linear(h, self.gpt.wte.weight.t()), caches
@@ -249,3 +311,19 @@ class GPTForCausalLM(nn.Layer):
                 logits.reshape(-1, self.config.vocab_size).float(),
                 labels.reshape(-1))
         return logits
+
+    def _tp_forward(self, input_ids, labels, caches, group):
+        """The tensor-parallel head: this rank's vocabulary shard of the
+        logits, then the sharded loss or the gathered logits."""
+        if caches is not None:
+            h, caches = self.gpt(input_ids, caches=caches)
+        else:
+            h = self.gpt(input_ids)
+        logits = F.linear(_c_identity(h, group), self.gpt.wte.weight.t())
+        if labels is not None and caches is None:
+            ce = mpu.ParallelCrossEntropy(mp_group=group)
+            per = ce(logits.float(), labels)
+            valid = labels != ce.ignore_index
+            return per.sum() / valid.to(per.dtype).sum().clamp_min(1.0)
+        logits = mpu._GatherLast.apply(logits, group)
+        return (logits, caches) if caches is not None else logits

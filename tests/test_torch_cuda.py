@@ -1929,3 +1929,119 @@ def test_tuner_miss_under_capture_raises(card, tmp_path):
         assert autotune.counters()["mem_hits"] >= 1
     finally:
         autotune.set_tuner(prev)
+
+
+# -- fleet's tensor parallelism on the card ---------------------------------
+
+TP_GPT = dict(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+              max_position_embeddings=256, dropout=0.0, tensor_parallel=True)
+TP_BATCH, TP_SEQ = 2, 256          # s >= 256: attention takes B1-B3
+
+
+def _tp_rank_run(device):
+    """A TP GPT (mp 2) on ``device``: loss, the gathered grads, and the
+    gathered weights after one SGD step through fleet's entry points
+    (AdamW's first step would turn the rounding of the key bias's exact-0
+    gradient into updates of lr); the counts of this rank's flash
+    launches."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.framework.io_utils import unshard
+    model = GPTForCausalLM(GPTConfig(**TP_GPT), device=device,
+                           generator=torch.Generator().manual_seed(0))
+    dist_model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(pt.optimizer.SGD(
+        learning_rate=0.1, parameters=model.parameters()))
+    rng = np.random.RandomState(7)
+    x = torch.tensor(rng.randint(0, 256, (TP_BATCH, TP_SEQ)), device=device)
+    y = torch.tensor(rng.randint(0, 256, (TP_BATCH, TP_SEQ)), device=device)
+    launch_counts.clear()
+    loss = dist_model(x, labels=y)
+    loss.backward()
+    grads = {}
+    for n, p in model.named_parameters():
+        split = getattr(p, "tp_split", None)
+        grads[n] = (unshard(p.grad, split) if split is not None
+                    else p.grad).cpu()
+    launches = {k: launch_counts[k] for k in launch_counts
+                if k.split(".")[0] in fa.KERNEL_NAMES}
+    opt.step()
+    return (loss.item(), grads,
+            {k: v.cpu() for k, v in pt.full_state_dict(model).items()},
+            launches)
+
+
+def _tp_card_worker(out_path):
+    """One of two ranks on the one card (gloo over CUDA tensors): the TP
+    GPT on the card against the same ranks' run on the host."""
+    import json
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env()
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs["mp_degree"] = 2
+    fleet.init(strategy=strategy)
+    card = _tp_rank_run("cuda")
+    host = _tp_rank_run("cpu")
+
+    def worst(a, b):
+        return max(((a[k] - b[k]).abs() / (1e-4 + b[k].abs())).max().item()
+                   for k in b)
+    with open(out_path, "w") as f:
+        json.dump({"loss": [card[0], host[0]],
+                   "grad_worst": worst(card[1], host[1]),
+                   "weight_worst": worst(card[2], host[2]),
+                   "launches": card[3]}, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def test_tp_gpt_on_card_matches_host(card, tmp_path):
+    """A TP GPT (2 layers, hidden 256, 4 heads of 64: 2 a rank) at mp 2,
+    two rank processes on the card: the loss within 1e-5 relative of the
+    same ranks' host run, every gathered grad and the weights after one
+    SGD step within 1e-4 + 1e-4 relative (f32, TF32 off); attention
+    ran B1-B3 (the f32 CUDA-core variants) twice each on the card."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        addr = f"localhost:{s.getsockname()[1]}"
+    here = os.path.abspath(__file__)
+    repo = os.path.dirname(os.path.dirname(here))
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--tp-worker", str(tmp_path / f"r{r}.json")],
+        cwd=repo, env={**os.environ, "PADDLE_TRAINER_ID": str(r),
+                       "PADDLE_TRAINERS_NUM": "2",
+                       "PADDLE_COORDINATOR_ADDR": addr,
+                       "PYTHONPATH": repo},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, (r, log[-3000:])
+    for r in range(2):
+        res = json.loads((tmp_path / f"r{r}.json").read_text())
+        got, want = res["loss"]
+        assert abs(got - want) <= 1e-5 * abs(want), res["loss"]
+        assert res["grad_worst"] <= 1e-4, res
+        assert res["weight_worst"] <= 1e-4, res
+        for kernel in fa.KERNEL_NAMES:
+            assert res["launches"].get(f"{kernel}.{fa.SIMT}", 0) == 2, res
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["--tp-worker"]:
+        _tp_card_worker(sys.argv[2])
