@@ -14,7 +14,9 @@ Phases, each printing JSON lines:
    backward B2 (dK, dV) and B3 (dQ) at the training shape (4 x 1024, 16
    heads of 64, bf16, causal) and five more; B1, B2 and B3 at a
    tensor-parallel 1.3B rank's (2 x 1024, 8 heads of 128, bf16, causal)
-   and B1 at its prefill's (4 x 512); B1 at translate's encoder
+   and B1 at its prefill's (4 x 512); B1, B2 and B3 at a 1.3B pipeline
+   rank's micro-batch (1 x 1024, 8 heads of 128, bf16, causal); B1 at
+   translate's encoder
    shape (8 x 256, 8 heads of 64, bf16, non-causal); last B1, B2 and B3
    at BERT's shape (8 x 512, 12 heads of 64, bf16, non-causal, q, k and
    v three contiguous tensors). bf16 runs the tensor-core
@@ -177,7 +179,7 @@ them, and the kernels line says so.
    loaded into the card's model by set_state_dict(paddle.load(path)),
    bf16, NHWC, batch 128 at 224 x 224 of bench's prototype stream,
    Momentum(0.9) + L2Decay(4e-5) under CosineAnnealingDecay from 0.045,
-   captured, run_steps K = 32, 2 warm-up + 8 timed executions: losses
+   captured, run_steps K = 32, 2 warm-up + 4 timed executions: losses
    finite and falling (last 32 below first 32), 1 compile in the warm-up
    and none timed; step ms, images/s, peak memory, a replay's device time
    by kernel class, launches and busy share; then one epoch (96 steps) of
@@ -303,9 +305,40 @@ them, and the kernels line says so.
    layers in f32, SGD, dp 2 x mp 2 on 4 processes, 4 x 256 (B1-B3 on
    their f32 variants): 3 losses within 5e-4 of the serial run.
 
+24. pipeline (``--phases pipeline``): the 1F1B pipeline and the hybrid
+   checkpoint, rank processes on the one card over gloo. (a) pp_gpt:
+   GPT-3 1.3B at full width and depth as a PipelineLayer (the token table
+   shared with the head through SharedLayerDesc, positions, the 24 GPT
+   blocks on (x, pending), the final LayerNorm, ParallelCrossEntropy) at
+   pp 2 x mp 2 on 4 processes, each rank holding its stage's 12 blocks
+   with 8 heads of 128, bf16, AdamW(multi_precision, 1e-4), bench's 1.3B
+   batch 2 x 1024 in 2 micro-batches of 1 x 1024, 6 steps: the first 4
+   losses within hybrid's tp_gpt bf16 rule of the serial 1.3B (the same
+   weights and data), the replicated parameters bitwise equal across
+   each stage's model ranks and the tied table's two copies bitwise
+   equal across the stages after every step, B1 48 and B2, B3 24 times a
+   step a rank (tc_bf16, at (1, 1024, 8, 128); the forward and its
+   recompute), by wrapper and by kernel name in a profiled step; step
+   ms, tokens/s, the point-to-point wait apart from the tensor-parallel
+   all-reduces' (``step/collective_wait``), the bytes of each, busy
+   share, peak memory, tiles. (b) pp_compiled: GPT-medium at pp 2 on 2
+   processes, bench's 4 x 1024 in 4 micro-batches, 4 steps eager and 4
+   with each stage's directions captured (CompiledStageProgram): the
+   losses equal within 1e-5, no compile in the steps after the first,
+   both stages captured, the losses within 1e-3 of the serial GPT-medium
+   run; step ms of both and graph replays a step. (c) hybrid_ckpt: the
+   1.3B layers at 2 of 24, bf16, AdamW with f32 masters, pp 2 x mp 2: 2
+   steps, save_hybrid_checkpoint, 2 more steps; then fleet.init at dp 2 x
+   mp 2, load_hybrid_checkpoint into the model built whole and 2 steps:
+   the gathered weights and masters after the load equal those saved
+   (sha256), the resumed losses within 1e-3 of the uninterrupted ones,
+   a flipped byte raises CorruptCheckpointError; the file's bytes and the
+   save's and load's seconds.
+
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi, optim, surface, nn_rest, zoo, dist_tune, hybrid); the kernels
+serving, hapi, optim, surface, nn_rest, zoo, dist_tune, hybrid,
+pipeline); the kernels
 line needs every phase and is printed only when all run. Every phase
 runs under the defaults: FLAGS_fusion_policy=auto (the table this card
 measured, which keeps flash attention, fused conv + BN and the fused
@@ -362,6 +395,8 @@ TRANSLATE_FLASH_SHAPE = (8, 256, 8, 64)
 TP_RANK_SHAPE, TP_PREFILL_SHAPE = (2, 1024, 8, 128), (4, 512, 8, 128)
 # a dp 2 x mp 2 rank of hybrid_geometry (f32): 2 of its 4 x 256 rows, 8 heads
 GEOM_RANK_SHAPE = (2, 256, 8, 128)
+# a pipeline rank's micro-batch of the 1.3B at pp 2 x mp 2 (pp_gpt)
+PP_RANK_SHAPE = (1, 1024, 8, 128)
 BERT_FLASH_REPLAYS = 16
 # eval-mode f32 logits, kernel path against math path (summation order)
 BERT_LOGIT_TOL = 1e-3
@@ -727,6 +762,7 @@ def phase_kernels(torch, seed):
              (*TP_PREFILL_SHAPE, torch.bfloat16, True),
              (*TP_PREFILL_SHAPE, torch.float32, True),
              (*GEOM_RANK_SHAPE, torch.float32, True),
+             (*PP_RANK_SHAPE, torch.bfloat16, True),
              (*TRANSLATE_FLASH_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
@@ -841,6 +877,7 @@ def phase_kernels_bwd(torch, seed):
              (2, 512, 16, 128, torch.float32, False),
              (*TP_RANK_SHAPE, torch.bfloat16, True),
              (*GEOM_RANK_SHAPE, torch.float32, True),
+             (*PP_RANK_SHAPE, torch.bfloat16, True),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = {"dkv": [], "dq": [], "whole": []}
     for b, s, h, d, dtype, causal in cases:
@@ -4126,15 +4163,16 @@ def phase_recompute_dropout(torch, seed):
 
 # MobileNetV2 (scale 1.0, 1000 classes) in bf16, NHWC, batch 128 at 224 x
 # 224 of bench's prototype stream (as resnet_train), run_steps K = 32: 2
-# warm-up + 8 timed executions over 3 staged stacks (320 recorded steps);
+# warm-up + 4 timed executions over 3 staged stacks (192 recorded steps;
+# 8 timed, 320 steps, until the pipeline group needed the script's time);
 # Momentum(0.9) with L2Decay(4e-5) under CosineAnnealingDecay from 0.045
 # (the MobileNetV2 paper's rate and decay, as PaddleClas's ImageNet recipe
 # takes them). The cosine spans a whole training, MOBILE_T_MAX steps (240
 # epochs of ImageNet-1k's 1,281,167 images at batch 128), of which the
-# lane runs the first 320: the scheduler advances 32 steps after each
+# lane runs the first 192: the scheduler advances 32 steps after each
 # execution, and the rate stays 0.045 within 1e-5 relative
 MOBILE_BATCH, MOBILE_HW, MOBILE_SPE, MOBILE_STACKS = 128, 224, 32, 3
-MOBILE_WARMUP_EXEC, MOBILE_TIMED_EXEC, MOBILE_WINDOW = 2, 8, 32
+MOBILE_WARMUP_EXEC, MOBILE_TIMED_EXEC, MOBILE_WINDOW = 2, 4, 32
 MOBILE_LR, MOBILE_MOMENTUM, MOBILE_DECAY = 0.045, 0.9, 4e-5
 MOBILE_T_MAX = 240 * (1281167 // 128)
 MOBILE_FIT_SPE = 4
@@ -4185,7 +4223,7 @@ def phase_mobilenet_train(torch, seed):
     0.045 (the schedule of a whole training, of which the lane runs the
     start); batch 128 at 224 x 224 of bench's prototype stream (made on
     the card); the step captured and driven by run_steps K = 32 (2
-    warm-up and 8 timed executions over 3 staged stacks). Gates: the load reports no
+    warm-up and 4 timed executions over 3 staged stacks). Gates: the load reports no
     missing or unexpected key and gives the host's values, every loss
     finite, the last-32 mean below the first-32 mean, 1 compile in the
     warm-up and none timed, no flash kernel launched. Reported: step ms,
@@ -6170,7 +6208,9 @@ POLICY_SETTINGS = (
     ("fused", "always", False),
     ("auto", "auto", False),
     ("searched", "auto", True))
-POLICY_STEPS = 10
+# timed steps a setting and mode (10 until the pipeline group needed the
+# script's time)
+POLICY_STEPS = 5
 
 
 def phase_policy_steps(torch, seed):
@@ -6659,12 +6699,14 @@ GEOM_STEPS, GEOM_RTOL, GEOM_LR = 3, 5e-4, 1e-3
 # first DP_CHECKED losses within DP_LOSS_RTOL of the serial run
 
 
-def fleet_init(hybrid):
-    """fleet.init with ``hybrid`` over the strategy's hybrid_configs;
-    returns (fleet, the hybrid communicate group)."""
+def fleet_init(hybrid, micro=1):
+    """fleet.init with ``hybrid`` over the strategy's hybrid_configs and
+    ``micro`` micro-batches a pipeline batch; returns (fleet, the hybrid
+    communicate group)."""
     from paddle_tpu_torch.distributed import fleet
     strategy = fleet.DistributedStrategy()
     strategy.hybrid_configs = {**strategy.hybrid_configs, **hybrid}
+    strategy.pipeline_configs = {"accumulate_steps": micro}
     fleet.init(is_collective=True, strategy=strategy)
     return fleet, fleet.get_hybrid_communicate_group()
 
@@ -6972,8 +7014,9 @@ def rank_geometry(torch, seed):
 
 
 def hybrid_rank_main(torch, args):
-    """One rank of the hybrid group's lanes (a child process of
-    phase_hybrid): tp_gpt then zero_gpt, or hybrid_geometry, written to
+    """One rank of the hybrid and pipeline groups' lanes (a child process
+    of phase_hybrid or phase_pipeline): tp_gpt then zero_gpt,
+    hybrid_geometry, pp_gpt then hybrid_ckpt, or pp_compiled, written to
     ``args.dist_out`` as JSON."""
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.distributed import env as denv
@@ -6987,8 +7030,15 @@ def hybrid_rank_main(torch, args):
         out["tp_gpt"] = rank_tp_gpt(torch, args.seed)
         free_cuda(torch)
         out["zero_gpt"] = rank_zero_gpt(torch, args.seed)
-    else:
+    elif args.hybrid_lane == "geometry":
         out["geometry"] = rank_geometry(torch, args.seed)
+    elif args.hybrid_lane == "pp_ckpt":
+        out["pp_gpt"] = rank_pp_gpt(torch, args.seed)
+        free_cuda(torch)
+        out["hybrid_ckpt"] = rank_hybrid_ckpt(
+            torch, args.seed, os.environ["PADDLE_TPU_AUTOTUNE_CACHE"])
+    else:
+        out["pp_compiled"] = rank_pp_compiled(torch, args.seed)
     out["autotune_counters"] = autotune.counters()
     with open(args.dist_out, "w") as f:
         json.dump(out, f)
@@ -7141,12 +7191,492 @@ def phase_hybrid(torch, seed):
             "zero_gpt_per_step_rank1": zero[1]["launches_per_step"][-1],
             "hybrid_geometry_per_step_rank0":
                 geo[0]["launches_per_step"][-1],
-            "tp_gpt_tiles": tp[0]["tiles"], "seconds": seconds}
+            "tp_gpt_tiles": tp[0]["tiles"], "seconds": seconds,
+            "serial": {"tp": serial["tp"], "zero": serial["zero"]}}
+
+
+# the pipeline group: pp_gpt (GPT-3 1.3B at pp 2 x mp 2), pp_compiled
+# (GPT-medium at pp 2, its stages captured) and hybrid_ckpt (the 1.3B
+# layers at 2 of 24, saved at pp 2 x mp 2 and resumed at dp 2 x mp 2)
+PP_WORLD, PP_STEPS, PP_MICRO = 4, 6, 2
+PPC_WORLD, PPC_STEPS, PPC_MICRO, PPC_RTOL = 2, 4, 4, 1e-5
+CKPT_LAYERS, CKPT_STEPS, CKPT_RTOL = 2, 2, BF16_GRAD_SLACK
+
+
+def gpt_pipeline_descs(cfg, dtype):
+    """GPT as pipeline descriptions built from the port's GPT modules: the
+    token table (shared with the head, whose call multiplies by it), the
+    positions, the blocks on (x, pending), the final LayerNorm. Under mp
+    the table is vocabulary-parallel and the head's input goes through
+    ``_c_identity``, as GPTForCausalLM's TP head does."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.collective import _c_identity
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpu
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.fused_residual_ln import fused_residual_ln
+    from paddle_tpu_torch.text.models.gpt import GPTBlock
+
+    class Positions(nn.Embedding):
+        def forward(self, x):
+            pos = torch.arange(x.shape[1], device=x.device)[None, :]
+            return x + super().forward(pos), None
+
+    class Block(GPTBlock):
+        def forward(self, xp):
+            return super().forward(*xp)
+
+    class Final(nn.LayerNorm):
+        def forward(self, xp):
+            x, pending = xp
+            if pending is None:
+                return super().forward(x)
+            return fused_residual_ln(x, pending, self.weight, self.bias,
+                                     epsilon=self._epsilon)
+
+    def head(table, h):
+        group = mpu._model_group()
+        if mpu._degree(group) > 1:
+            h = _c_identity(h, group)
+        return F.linear(h, table.weight.t())
+    kw = {"device": "cuda", "dtype": dtype}
+    table = mpu.VocabParallelEmbedding if cfg.tensor_parallel \
+        else nn.Embedding
+    return ([mpu.SharedLayerDesc("wte", table, None, "weight",
+                                 cfg.vocab_size, cfg.hidden_size, **kw),
+             mpu.LayerDesc(Positions, cfg.max_position_embeddings,
+                           cfg.hidden_size, **kw)]
+            + [mpu.LayerDesc(Block, cfg, **kw)
+               for _ in range(cfg.num_layers)]
+            + [mpu.LayerDesc(Final, cfg.hidden_size, **kw),
+               mpu.SharedLayerDesc("wte", table, head, "weight",
+                                   cfg.vocab_size, cfg.hidden_size, **kw)])
+
+
+def gpt_pipeline_names(state, layers):
+    """A GPTForCausalLM state under the pipeline descriptions' names."""
+    out = {}
+    for k, v in state.items():
+        if k == "gpt.wte.weight":
+            out["run_function.0.weight"] = v
+        elif k == "gpt.wpe.weight":
+            out["run_function.1.weight"] = v
+        elif k.startswith("gpt.h."):
+            i, rest = k[len("gpt.h."):].split(".", 1)
+            out[f"run_function.{2 + int(i)}.{rest}"] = v
+        elif k.startswith("gpt.ln_f."):
+            out[f"run_function.{2 + layers}.{k[len('gpt.ln_f.'):]}"] = v
+    return out
+
+
+def gpt_pipeline_loss():
+    """The mean f32 softmax cross-entropy of the (local) logits, as
+    GPTForCausalLM's loss."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        ParallelCrossEntropy
+    ce = ParallelCrossEntropy()
+    return lambda logits, y: ce(logits.float(), y).mean()
+
+
+def gpt_pipeline(torch, cfg, full, stages, dtype=None):
+    """The PipelineLayer of ``cfg`` (this rank's stage where the pipe axis
+    has ``stages`` ranks) holding ``full``'s weights (a GPTForCausalLM
+    state), each rank its shard."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+    pl = PipelineLayer(gpt_pipeline_descs(cfg, dtype or torch.bfloat16),
+                       num_stages=stages, loss_fn=gpt_pipeline_loss())
+    names = gpt_pipeline_names(full, cfg.num_layers)
+    pt.load_numpy_state_dict(pl, {k: names[k] for k in pl.state_dict()})
+    return pl
+
+
+def tied_sha(torch, pl):
+    import hashlib
+    return hashlib.sha1(pl.run_function[0].weight.detach().contiguous()
+                        .view(torch.uint8).cpu().numpy().tobytes()
+                        ).hexdigest()
+
+
+def rank_pp_gpt(torch, seed):
+    """pp_gpt on this rank: every rank draws the full f32 1.3B (as
+    tp_gpt's ranks do) and keeps its stage's shard; PP_STEPS eager 1F1B
+    bf16 steps through fleet.distributed_model / distributed_optimizer
+    (AdamW mp, 1e-4) on bench's 2 x 1024 in PP_MICRO micro-batches.
+    Returns the losses, the replicated parameters' and the tied table's
+    SHA-1 after each step, step ms, the point-to-point wait and bytes and
+    the all-reduces' wait and bytes a step, B1-B3 launches a step and in
+    a profiled step by kernel name, tiles, busy share, peak memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import steptimer
+    from paddle_tpu_torch.resilience.recorder import get_recorder
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+    fleet, hcg = fleet_init({"pp_degree": 2, "mp_degree": 2}, PP_MICRO)
+    cfg = GPTConfig.gpt3_1p3b(dropout=0.0, max_position_embeddings=TRAIN_SEQ,
+                              tensor_parallel=True)
+    full = gpt_1p3b(torch, torch.float32, seed)
+    pl = gpt_pipeline(torch, cfg, full.state_dict(), 2)
+    del full
+    free_cuda(torch)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, multi_precision=True,
+        parameters=pl.parameters()))
+    engine = model._engine
+    xs, ys = bench_stream(seed, PP_STEPS, TP_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    rec = get_recorder()
+    losses, shas, tied, step_ms, launches, comms, p2p = ([] for _ in
+                                                          range(7))
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(PP_STEPS):
+        if i == 1:
+            steptimer.reset_steptimer()
+        launch_counts.clear()
+        rec.clear()
+        engine.reset_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model.train_batch((xs[i], ys[i]), opt)
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_launches(fa, launch_counts))
+        comms.append(collective_tally(rec.entries()))
+        st = engine.stats()
+        p2p.append({"wait_ms": st["p2p_wait_s"] * 1e3,
+                    "bytes_sent": st["p2p_bytes_sent"]})
+        shas.append(replicated_sha(torch, pl))
+        tied.append(tied_sha(torch, pl))
+    peak = torch.cuda.max_memory_allocated()
+    wait_ms = steptimer.get_steptimer().breakdown()["phase_ms"].get(
+        "collective_wait", 0.0) / (PP_STEPS - 1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_batch((xs[0], ys[0]), opt)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name = {k: sum(1 for e in prof.events()
+                      if is_kernel(e) and name in e.name)
+               for k, name in TC_KERNEL_NAMES.items()}
+    b, s, h, d = PP_RANK_SHAPE
+    dev = torch.device("cuda")
+    fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    st = engine.stats()
+    return {"coords": [hcg.get_stage_id(), hcg.get_model_parallel_rank()],
+            "losses": losses, "replicated_sha": shas, "tied_sha": tied,
+            "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "tokens_per_s": TP_BATCH * TRAIN_SEQ
+            / (float(np.median(step_ms[1:])) / 1e3),
+            "collective_wait_ms_per_step": wait_ms,
+            "collectives_per_step": comms, "p2p_per_step": p2p,
+            "launches_per_step": launches,
+            "profiled_step_ms": wall,
+            "profiled_tc_launches_by_kernel_name": by_name,
+            "busy_share": device_busy(prof) / wall,
+            "tiles": {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                      fa.DQ_KERNEL: bwd[2]},
+            "local_params": sum(p.numel() for p in pl.parameters()),
+            "compiled_stages": st["compiled_stages"],
+            "eager_reason": st["eager_reason"],
+            "max_stashed": st["max_stashed"],
+            "peak_mem_bytes": peak,
+            "wrapped": [type(model).__name__, type(opt).__name__]}
+
+
+def rank_pp_compiled(torch, seed):
+    """pp_compiled on this rank: GPT-medium (the serial lane's weights) at
+    pp 2, PPC_STEPS steps with eager stages, then PPC_STEPS from the same
+    weights with every stage direction a CompiledStageProgram (a CUDA
+    graph per signature): the losses, step ms, compiles after the first
+    step, graph replays a step, the stages captured."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.jit.compiled_step import compile_stats
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    fleet, hcg = fleet_init({"pp_degree": 2}, PPC_MICRO)
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+                    num_heads=16, max_position_embeddings=1024, dropout=0.0)
+    full = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                          generator=torch.Generator().manual_seed(seed))
+    state = {k: v.detach().clone() for k, v in full.state_dict().items()}
+    del full
+    xs, ys = bench_stream(seed, PPC_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    out = {"stage": hcg.get_stage_id()}
+    for mode in ("eager", "compiled"):
+        pt.set_flags({"FLAGS_compiled_step": mode == "compiled"})
+        pl = gpt_pipeline(torch, cfg, state, 2)
+        model = fleet.distributed_model(pl)
+        opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+            learning_rate=1e-4, multi_precision=True,
+            parameters=pl.parameters()))
+        engine = model._engine
+        losses, step_ms, compiles, replays, launches = [], [], [], [], []
+        for i in range(PPC_STEPS):
+            c0 = compile_stats()["compiles"]
+            r0 = sum(p["hits"] for p in engine.stats()["programs"].values())
+            launch_counts.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(model.train_batch((xs[i], ys[i]), opt).item())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            compiles.append(compile_stats()["compiles"] - c0)
+            replays.append(sum(p["hits"] for p in engine.stats()[
+                "programs"].values()) - r0)
+            launches.append(flash_launches(fa, launch_counts))
+        st = engine.stats()
+        out[mode] = {"losses": losses, "step_ms": step_ms,
+                     "step_ms_median": float(np.median(step_ms[1:])),
+                     "compiles_per_step": compiles,
+                     "graph_replays_per_step": replays,
+                     "launches_per_step": launches,
+                     "compiled_stages": st["compiled_stages"],
+                     "programs": st["programs"]}
+        del model, opt, pl, engine
+        free_cuda(torch)
+    pt.set_flags({"FLAGS_compiled_step": True})
+    return out
+
+
+def rank_hybrid_ckpt(torch, seed, cache_dir):
+    """hybrid_ckpt on this rank: the 1.3B layers at CKPT_LAYERS of 24,
+    bf16, AdamW with f32 masters, pp 2 x mp 2: CKPT_STEPS steps, the
+    hybrid save, CKPT_STEPS more; then fleet.init at dp 2 x mp 2, the
+    model built whole, the load and CKPT_STEPS steps (each data rank its
+    row). Returns both runs' losses, the sha256 of the gathered weights
+    and masters at the save and after the load (rank 0), the file's
+    bytes, the seconds of the save and the load, and the corrupted
+    file's outcome."""
+    import hashlib
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    def digest(model, opt):
+        state = ckpt.gather_hybrid_state(model, opt)
+        if state is None:
+            return None
+        h = hashlib.sha256()
+        arrays = list(state[0].items()) + sorted(
+            (k, v) for k, v in state[1].items()
+            if k.endswith("__master_weight"))
+        for k, v in arrays:
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(v).view(np.uint8).tobytes())
+        return h.hexdigest()
+    fleet, hcg = fleet_init({"pp_degree": 2, "mp_degree": 2}, 2)
+    cfg = GPTConfig.gpt3_1p3b(dropout=0.0, max_position_embeddings=TRAIN_SEQ,
+                              tensor_parallel=True)
+    cfg.num_layers = CKPT_LAYERS
+    full = gpt_1p3b(torch, torch.float32, seed, layers=CKPT_LAYERS)
+    state = full.state_dict()
+    pl = gpt_pipeline(torch, cfg, state, 2)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, multi_precision=True,
+        parameters=pl.parameters()))
+    xs, ys = bench_stream(seed, 2 * CKPT_STEPS, TP_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    launch_counts.clear()
+    losses = [model.train_batch((xs[i], ys[i]), opt).item()
+              for i in range(CKPT_STEPS)]
+    launches = flash_launches(fa, launch_counts)
+    path = os.path.join(cache_dir, "hybrid_ckpt.pdparams")
+    saved = digest(model, opt)
+    t0 = time.perf_counter()
+    dist.save_hybrid_checkpoint(path, model, opt, meta={"step": CKPT_STEPS})
+    save_s = time.perf_counter() - t0
+    straight = [model.train_batch((xs[i], ys[i]), opt).item()
+                for i in range(CKPT_STEPS, 2 * CKPT_STEPS)]
+    del model, opt, pl
+    free_cuda(torch)
+    fleet, hcg = fleet_init({"dp_degree": 2, "mp_degree": 2})
+    pl = gpt_pipeline(torch, cfg, state, 1)     # whole: no pipe axis
+    del full, state
+    free_cuda(torch)
+    model = fleet.distributed_model(pl)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, multi_precision=True,
+        parameters=pl.parameters()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    meta = dist.load_hybrid_checkpoint(path, model, opt)
+    load_s = time.perf_counter() - t0
+    loaded = digest(model, opt)
+    d = hcg.get_data_parallel_rank()
+    resumed = []
+    for i in range(CKPT_STEPS, 2 * CKPT_STEPS):
+        loss = pl.loss_fn(model(xs[i, d:d + 1]), ys[i, d:d + 1])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        g = loss.detach().float().reshape(1).clone()
+        resumed.append(dist.all_reduce(
+            g, op=dist.ReduceOp.AVG,
+            group=hcg.get_data_parallel_group()).item())
+    out = {"losses": losses, "straight": straight, "resumed": resumed,
+           "meta_step": meta.get("step"), "launches_first_steps": launches,
+           "saved_sha": saved, "loaded_sha": loaded, "save_s": save_s,
+           "load_s": load_s, "wrapped": [type(model).__name__,
+                                         type(opt).__name__]}
+    dist.barrier()
+    if dist.get_rank() == 0:
+        out["file_bytes"] = os.path.getsize(path)
+        with open(path, "r+b") as f:      # one flipped byte, no .old
+            f.seek(out["file_bytes"] // 2)
+            b = f.read(1)
+            f.seek(out["file_bytes"] // 2)
+            f.write(bytes([b[0] ^ 0xFF]))
+        try:
+            dist.load_hybrid_checkpoint(path, model, opt)
+            out["corrupt"] = "loaded"
+        except ckpt.CorruptCheckpointError as e:
+            out["corrupt"] = f"CorruptCheckpointError: {e}"
+        for f in (path, path + ".sha256"):
+            os.remove(f)
+    dist.barrier()
+    return out
+
+
+def phase_pipeline(torch, seed, serial=None):
+    """pp_gpt, pp_compiled and hybrid_ckpt: the serial runs (the hybrid
+    group's, or run here first), then PP_WORLD rank processes for pp_gpt
+    and then hybrid_ckpt, and PPC_WORLD for pp_compiled. Returns each
+    lane's B1-B3 launches a step."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    seconds = {}
+    t0 = time.perf_counter()
+    if serial is None:
+        serial = {"tp": serial_1p3b(torch, seed),
+                  "zero": serial_gpt_losses(torch, seed)}
+        seconds["serial"] = time.perf_counter() - t0
+    cache_dir = autotune_cache_dir()
+    ranks, seconds["pp_gpt_hybrid_ckpt"] = spawn_ranks(
+        PP_WORLD, seed, "pp_ckpt", cache_dir, timeout=600)
+    ppc, seconds["pp_compiled"] = spawn_ranks(PPC_WORLD, seed, "pp_compiled",
+                                              cache_dir, timeout=600)
+    kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    per_step = {fa.KERNEL_NAME: 48, fa.DKV_KERNEL: 24, fa.DQ_KERNEL: 24}
+
+    pp = [r["pp_gpt"] for r in ranks]
+    by = {tuple(r["coords"]): r for r in pp}
+    sb, sf = serial["tp"]["bfloat16"], serial["tp"]["float32"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(pp[0]["losses"],
+                                                sb["losses"])]
+    bounds = [BF16_GRAD_FACTOR * abs(b - f) / abs(f) + BF16_GRAD_SLACK
+              for b, f in zip(sb["losses"], sf["losses"])]
+    row = {"phase": "pp_gpt", "world": PP_WORLD,
+           "config": "GPT-3 1.3B v50304 h2048 L24 a16 d128 bf16, AdamW mp, "
+                     "pp 2 x mp 2 (12 blocks, 8 heads a rank), 1F1B",
+           "global_batch": [TP_BATCH, TRAIN_SEQ], "micro_batches": PP_MICRO,
+           "serial_bf16_losses": sb["losses"],
+           "serial_f32_losses": sf["losses"],
+           "pp_losses": pp[0]["losses"], "loss_rel_gaps": gaps,
+           "loss_bounds": bounds, "seconds": seconds,
+           **{f"rank{r}": {k: v for k, v in d.items()
+                           if k not in ("replicated_sha", "tied_sha")}
+              for r, d in enumerate(pp)}}
+    emit(row)
+    for d in pp:
+        assert d["wrapped"] == ["PipelineParallel",
+                                "HybridParallelOptimizer"], d["wrapped"]
+        assert d["losses"] == pp[0]["losses"], [x["losses"] for x in pp]
+        assert d["compiled_stages"] == [] and "mp_degree 2" in \
+            d["eager_reason"], d["eager_reason"]
+        for counts in d["launches_per_step"]:
+            for kernel in kernels:
+                assert counts.get(f"{kernel}.{fa.TC}", 0) == \
+                    per_step[kernel], counts
+        assert d["profiled_tc_launches_by_kernel_name"] == {
+            k: per_step[k] for k in kernels}, \
+            d["profiled_tc_launches_by_kernel_name"]
+        assert d["max_stashed"] <= 2 - d["coords"][0]
+    for s in range(2):
+        assert by[s, 0]["replicated_sha"] == by[s, 1]["replicated_sha"], \
+            f"replicated parameters differ across stage {s}'s model ranks"
+    for m in range(2):
+        assert by[0, m]["tied_sha"] == by[1, m]["tied_sha"], \
+            f"the tied table's two copies differ (model rank {m})"
+    assert len(gaps) == TP_CHECKED and all(
+        g <= b for g, b in zip(gaps, bounds)), (gaps, bounds)
+
+    ppc = [r["pp_compiled"] for r in ppc]
+    ref = serial["zero"]["losses"]
+    eager, comp = ppc[0]["eager"], ppc[0]["compiled"]
+    cgaps = [abs(a - b) / abs(b) for a, b in zip(comp["losses"],
+                                                 eager["losses"])]
+    sgaps = [abs(a - b) / abs(b) for a, b in zip(comp["losses"], ref)]
+    row = {"phase": "pp_compiled", "world": PPC_WORLD,
+           "config": "GPT-medium v32000 h1024 L24 a16 d64 bf16, AdamW mp, "
+                     "pp 2 (12 blocks a stage), stages captured",
+           "global_batch": [TRAIN_BATCH, TRAIN_SEQ],
+           "micro_batches": PPC_MICRO, "serial_losses": ref,
+           "compiled_vs_eager_rel_gaps": cgaps, "rtol": PPC_RTOL,
+           "compiled_vs_serial_rel_gaps": sgaps,
+           "serial_rtol": DP_LOSS_RTOL,
+           **{f"rank{r}": d for r, d in enumerate(ppc)}}
+    emit(row)
+    for d in ppc:
+        c = d["compiled"]
+        assert c["compiled_stages"] == [0, 1], c["compiled_stages"]
+        assert all(p["captured"] >= 1 for k, p in c["programs"].items()
+                   if k != "fwd_out"), c["programs"]
+        assert sum(c["compiles_per_step"][1:]) == 0, c["compiles_per_step"]
+        assert d["eager"]["compiled_stages"] == []
+    assert max(cgaps) <= PPC_RTOL, cgaps
+    assert len(sgaps) == DP_CHECKED and max(sgaps) <= DP_LOSS_RTOL, sgaps
+
+    ck = [r["hybrid_ckpt"] for r in ranks]
+    c0 = ck[0]
+    rgaps = [abs(a - b) / abs(b) for a, b in zip(c0["resumed"],
+                                                 c0["straight"])]
+    row = {"phase": "hybrid_ckpt", "world": PP_WORLD,
+           "config": f"GPT-3 1.3B layers at {CKPT_LAYERS} of 24, bf16, "
+                     f"AdamW mp, saved at pp 2 x mp 2, resumed at dp 2 x mp 2",
+           "losses": c0["losses"], "uninterrupted": c0["straight"],
+           "resumed": c0["resumed"], "resumed_rel_gaps": rgaps,
+           "rtol": CKPT_RTOL, "file_bytes": c0["file_bytes"],
+           "save_s": [d["save_s"] for d in ck],
+           "load_s": [d["load_s"] for d in ck],
+           "saved_sha": c0["saved_sha"], "loaded_sha": c0["loaded_sha"],
+           "corrupt": c0["corrupt"],
+           "launches_first_steps_rank0": c0["launches_first_steps"]}
+    emit(row)
+    assert c0["saved_sha"] is not None and \
+        c0["saved_sha"] == c0["loaded_sha"], (c0["saved_sha"],
+                                              c0["loaded_sha"])
+    assert c0["corrupt"].startswith("CorruptCheckpointError"), c0["corrupt"]
+    for d in ck:
+        assert d["meta_step"] == CKPT_STEPS
+        assert d["resumed"] == c0["resumed"]
+        assert d["wrapped"] == ["TensorParallel", "HybridParallelOptimizer"]
+    assert max(rgaps) <= CKPT_RTOL, rgaps
+    return {"pp_gpt_per_step_rank0": pp[0]["launches_per_step"][-1],
+            "pp_gpt_per_step_rank3": pp[-1]["launches_per_step"][-1],
+            "pp_compiled_per_step_rank0":
+                ppc[0]["compiled"]["launches_per_step"][0],
+            "hybrid_ckpt_first_steps_rank0": c0["launches_first_steps"],
+            "pp_gpt_tiles": pp[0]["tiles"], "seconds": seconds}
 
 
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
-                   dist_tune, hybrid):
+                   dist_tune, hybrid, pipeline):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -7187,7 +7717,13 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     (2, 1024, 8, 128) and B1 at its prefill's (4, 512, 8, 128), causal,
     with their launches there; B1 simt_f32 at the prefill's shape (tp_gpt's
     f32 greedy decode) and B1, B2 and B3 simt_f32 at a hybrid_geometry
-    rank's (2, 256, 8, 128), causal, likewise."""
+    rank's (2, 256, 8, 128), causal, likewise. And on the pipeline group's
+    (``launches_pipeline``): per step on ranks 0 and 3 of pp_gpt (GPT-3
+    1.3B bf16 at pp 2 x mp 2), per step (the first, eager discovery and
+    capture) on rank 0 of pp_compiled, and over the first steps of
+    hybrid_ckpt, with pp_gpt's tiles; B1, B2 and B3 tc_bf16 have rows of
+    their own at a pp_gpt rank's micro-batch (1, 1024, 8, 128), causal,
+    with their launches a step there."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -7234,6 +7770,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                        for lane, counts in hybrid.items()
                        if lane != "tp_gpt_tiles"},
                     "tp_gpt_tile": hybrid["tp_gpt_tiles"][kernel]
+                    if variant.endswith(fa.TC) else None},
+                "launches_pipeline": {
+                    **{lane: counts.get(variant, 0)
+                       for lane, counts in pipeline.items()
+                       if lane != "pp_gpt_tiles"},
+                    "pp_gpt_tile": pipeline["pp_gpt_tiles"][kernel]
                     if variant.endswith(fa.TC) else None},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
@@ -7294,7 +7836,45 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
               main_path="Transformer-base bf16 encode at 8 x 256, "
                         "non-causal (translate)"),
         *bert_entries(fa, entry, rows[-1], bwd_rows, bert, scope),
-        *tp_entries(fa, entry, rows, bwd_rows, hybrid, scope)]
+        *tp_entries(fa, entry, rows, bwd_rows, hybrid, scope),
+        *pp_entries(fa, entry, rows, bwd_rows, pipeline, scope)]
+
+
+def pp_entries(fa, entry, rows, bwd_rows, pipeline, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 at a pp_gpt rank's
+    micro-batch (1, 1024, 8, 128), causal, with their launches a step
+    (rank 0). The recompute's B1 also writes O in f32; the forward's does
+    not, and both are half of B1's launches: the row times the one with
+    the f32 O, beside the other."""
+    def at(found):
+        return next(r for r in found if r["shape"] == list(PP_RANK_SHAPE)
+                    and r["dtype"] == "bfloat16" and r["causal"])
+    fwd, dkv, dq = at(rows), at(bwd_rows["dkv"]), at(bwd_rows["dq"])
+    step = pipeline["pp_gpt_per_step_rank0"]
+    tc = fa.TC
+    main = ("GPT-3 1.3B bf16 1F1B step at pp 2 x mp 2, a rank's micro-batch "
+            "(1, 1024, 8, 128), causal (pp_gpt)")
+    return [
+        entry(f"{fa.KERNEL_NAME}.{tc}.pp", "flash_attn_fwd_tc.cu", 114, fwd,
+              step[f"{fa.KERNEL_NAME}.{tc}"], fwd["max_abs_err_o"],
+              rel_l2=fwd["rel_l2_o"], main_path=main,
+              ms=fwd["ms_with_f32_out"],
+              bound_ms=fwd["bound_us_with_f32_out"] / 1e3,
+              bound_by=fwd["bound_by_with_f32_out"],
+              share_of_bound=fwd["bound_us_with_f32_out"] / 1e3
+              / fwd["ms_with_f32_out"],
+              factor_vs_library=fwd["ms_with_f32_out"] / fwd["library_ms"],
+              ms_without_f32_out=fwd["ms"]),
+        entry(f"{fa.DKV_KERNEL}.{tc}.pp", "flash_attn_dkv_tc.cu", 200, dkv,
+              step[f"{fa.DKV_KERNEL}.{tc}"], dkv["max_abs_err"],
+              rel_l2={o: g["rel_l2"]
+                      for o, g in dkv["rel_l2_by_output"].items()},
+              main_path=main, **scope),
+        entry(f"{fa.DQ_KERNEL}.{tc}.pp", "flash_attn_dq_tc.cu", 247, dq,
+              step[f"{fa.DQ_KERNEL}.{tc}"], dq["max_abs_err"],
+              rel_l2={o: g["rel_l2"]
+                      for o, g in dq["rel_l2_by_output"].items()},
+              main_path=main, **scope)]
 
 
 def tp_entries(fa, entry, rows, bwd_rows, hybrid, scope):
@@ -7408,7 +7988,8 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
                 "to_static_grad", "bert", "vision", "serving", "hapi",
-                "optim", "surface", "nn_rest", "zoo", "dist_tune", "hybrid")
+                "optim", "surface", "nn_rest", "zoo", "dist_tune", "hybrid",
+                "pipeline")
 
 
 def main():
@@ -7464,29 +8045,44 @@ def main():
 
     t0 = time.perf_counter()
     out = {}
+    group_seconds, last = {}, [t0]
+
+    def clock(group):
+        """The seconds since the previous group ended, for ``group``."""
+        now = time.perf_counter()
+        if group in run:
+            group_seconds[group] = now - last[0]
+        last[0] = now
     if "build" in run:
         phase_build()
+    clock("build")
     if "kernels" in run:
         out["rows"] = phase_kernels(torch, args.seed)
         out["bwd_rows"] = phase_kernels_bwd(torch, args.seed)
+    clock("kernels")
     # every phase runs under the defaults: FLAGS_fusion_policy auto (the
     # measured table) and the tile search on
     if "reference" in run:
         phase_reference(torch, args.seed)
         phase_reference_train(torch, args.seed)
+    clock("reference")
     if "serve" in run:
         out["serve"] = phase_serve(torch, args.seed)
+    clock("serve")
     if "train" in run:
         out["train"] = phase_train(torch, args.seed)
         out["compiled"] = phase_compiled_train(torch, args.seed,
                                                out["train"])
         out["amp"] = phase_amp_train(torch, args.seed)
+    clock("train")
     if "to_static_grad" in run:
         phase_to_static_grad(torch, args.seed)
+    clock("to_static_grad")
     if "bert" in run:
         phase_cls_train(torch, args.seed, "bert")
         phase_cls_train(torch, args.seed, "ernie")
         out["bert"] = phase_bert_flash(torch, args.seed)
+    clock("bert")
     if "vision" in run:
         phase_vision_reference(torch, args.seed)
         resnet, trained = phase_resnet_train(torch, args.seed)
@@ -7497,6 +8093,7 @@ def main():
         out["vision"] = {"resnet50_train": resnet["flash_launches"],
                          "resnet50_eval": eval_flash,
                          "lenet_train": lenet["flash_launches"]}
+    clock("vision")
     if "serving" in run:
         bert_row, srv = phase_serving_bert(torch, args.seed)
         decode_row = phase_serving_decode(torch, srv)
@@ -7509,6 +8106,7 @@ def main():
                 "flash_variant_launches_warmup_and_capture"],
             "resnet_server": resnet_row["flash_launches"],
             "decode": decode_row["flash_launches"]}
+    clock("serving")
     if "hapi" in run:
         with cudnn_deterministic(torch):
             lenet_row = phase_hapi_lenet(torch, args.seed)
@@ -7521,6 +8119,7 @@ def main():
             r["phase"]: r["seconds"]
             for r in (lenet_row, resnet_row, bert_row)}})
 
+    clock("hapi")
     if "optim" in run:
         from paddle_tpu_torch.ops.cuda import launch_counts
         from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
@@ -7539,6 +8138,7 @@ def main():
         out["optim"] = lanes
         emit({"phase": "optim", "seconds": time.perf_counter() - t_group})
 
+    clock("optim")
     if "surface" in run:
         from paddle_tpu_torch.ops.cuda import launch_counts
         from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
@@ -7571,6 +8171,7 @@ def main():
         emit({"phase": "surface", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    clock("surface")
     if "nn_rest" in run:
         from paddle_tpu_torch.ops.cuda import launch_counts
         from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
@@ -7597,6 +8198,7 @@ def main():
         emit({"phase": "nn_rest", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    clock("nn_rest")
     if "zoo" in run:
         from paddle_tpu_torch.ops.cuda import launch_counts
         from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
@@ -7624,6 +8226,7 @@ def main():
         emit({"phase": "zoo", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    clock("zoo")
     if "dist_tune" in run:
         from paddle_tpu_torch.ops.cuda import launch_counts
         from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
@@ -7660,21 +8263,34 @@ def main():
         emit({"phase": "dist_tune", "seconds": time.perf_counter() - t_group,
               "lane_seconds": seconds})
 
+    serial = None
+    clock("dist_tune")
     if "hybrid" in run:
         t_group = time.perf_counter()
         out["hybrid"] = phase_hybrid(torch, args.seed)
+        serial = out["hybrid"].pop("serial")
         emit({"phase": "hybrid", "seconds": time.perf_counter() - t_group,
               "lane_seconds": out["hybrid"].pop("seconds")})
 
+    clock("hybrid")
+    if "pipeline" in run:
+        # pp_gpt and pp_compiled are held to the hybrid group's serial runs
+        t_group = time.perf_counter()
+        out["pipeline"] = phase_pipeline(torch, args.seed, serial)
+        emit({"phase": "pipeline", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": out["pipeline"].pop("seconds")})
+
+    clock("pipeline")
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
             fa, out["rows"], out["bwd_rows"], out["serve"], out["train"],
             out["compiled"], out["amp"], out["bert"], out["vision"],
             out["serving"], out["hapi"], out["optim"], out["surface"],
-            out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"])})
+            out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"],
+            out["pipeline"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
-          "timing": TIMING})
+          "group_seconds": group_seconds, "timing": TIMING})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -9,17 +9,21 @@ device from one controller process: ``spawn`` starts ``nprocs``
 processes and runs ``func`` in each, where the reference runs it once
 (ROADMAP, "Differences by design"). ``fleet`` holds the hybrid-parallel
 entry points (``fleet.init``, ``distributed_model``,
-``distributed_optimizer``), the tensor-parallel layers, ZeRO-1 and
-gradient merge. The later parts of the reference's package
-(``spec_layout`` with ZeRO-3, ``checkpoint``, the pipeline engines,
-sequence and expert parallelism, ``auto_parallel``, ``launch``, ``ps``,
-``p2p``, ...) are absent until their ROADMAP A10 items.
+``distributed_optimizer``), the tensor-parallel layers, the 1F1B
+pipeline, ZeRO-1 and gradient merge; ``checkpoint`` the hybrid save and
+load with resharding. The later parts of the reference's package
+(``spec_layout`` with ZeRO-3, the SPMD pipeline, sequence and expert
+parallelism, ``auto_parallel``, ``launch``, ``ps``, ``p2p``, ...) are
+absent until their ROADMAP A10 items.
 """
 from __future__ import annotations
 
 import os
 
-from . import fleet  # noqa: F401
+from . import checkpoint, fleet  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    CorruptCheckpointError, load_hybrid_checkpoint, reshard_model,
+    save_hybrid_checkpoint)
 from .collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     get_group, new_group, recv, reduce, reduce_scatter, scatter, send, split)
@@ -36,7 +40,8 @@ __all__ = [
     "ReduceOp", "DataParallel", "fleet", "get_mesh", "set_mesh", "spawn",
     "ParallelEnv", "gloo_init_parallel_env", "gloo_barrier", "gloo_release",
     "wait", "CountFilterEntry", "ProbabilityEntry", "is_initialized",
-    "parallel_device_count", "global_mesh"]
+    "parallel_device_count", "global_mesh", "save_hybrid_checkpoint",
+    "load_hybrid_checkpoint", "reshard_model", "CorruptCheckpointError"]
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False,

@@ -3,22 +3,28 @@ __init__.py): the module-level entry points over one ``Fleet``
 (``init``, ``distributed_model``, ``distributed_optimizer``,
 ``get_hybrid_communicate_group``, the worker queries), the strategy and
 topology (``base.py``), the tensor-parallel layers and wrappers
-(``meta_parallel.py``), ZeRO-1 (``sharding_optimizer.py``), gradient
-merge (``meta_optimizers.py``), ``utils.recompute``, ``Role``,
-``UtilBase`` and the slot data generators.
+(``meta_parallel.py``), the 1F1B pipeline engine
+(``pipeline_engine.py``, behind ``PipelineParallel``), ZeRO-1
+(``sharding_optimizer.py``), gradient merge (``meta_optimizers.py``),
+``utils.recompute``, the hybrid checkpoint's save and load
+(distributed/checkpoint.py), ``Role``, ``UtilBase`` and the slot data
+generators.
 
 The reference also exports sequence parallelism, the SPMD pipeline,
-elastic training, expert parallelism, ``fs``, ``dataset``, ``metrics``
-and the hybrid checkpoint functions; each comes with its ROADMAP A10
-item.
+elastic training, expert parallelism, ``fs``, ``dataset`` and
+``metrics``; each comes with its ROADMAP A10 item.
 """
 from __future__ import annotations
 
-from . import meta_optimizers, meta_parallel, sharding_optimizer, utils  # noqa: F401
+from . import (meta_optimizers, meta_parallel, pipeline_engine,  # noqa: F401
+               sharding_optimizer, utils)
+from ..checkpoint import (  # noqa: F401
+    load_hybrid_checkpoint, save_hybrid_checkpoint)
 from .base import (  # noqa: F401
     CommunicateTopology, DistributedStrategy, Fleet, HybridCommunicateGroup,
     PaddleCloudRoleMaker, UserDefinedRoleMaker,
 )
+from .meta_parallel import PipelineParallel  # noqa: F401
 from .utils import recompute  # noqa: F401
 
 _fleet = Fleet()
@@ -115,4 +121,5 @@ __all__ = ["Role", "UtilBase", "MultiSlotDataGenerator",
            "is_worker", "worker_endpoints", "distributed_model",
            "distributed_optimizer", "get_hybrid_communicate_group",
            "recompute", "utils", "meta_parallel", "meta_optimizers",
-           "sharding_optimizer"]
+           "sharding_optimizer", "pipeline_engine", "PipelineParallel",
+           "save_hybrid_checkpoint", "load_hybrid_checkpoint"]

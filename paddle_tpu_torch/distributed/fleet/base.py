@@ -31,8 +31,6 @@ STORED_ONLY = {
     "amp": "paddle.amp.auto_cast and GradScaler",
     "recompute": "fleet.utils.recompute",
     "sharding": "hybrid_configs['sharding_degree']",
-    "pipeline": "hybrid_configs['pp_degree'] (ROADMAP A10's "
-                "pipeline_engine.py)",
     "tensor_parallel": "hybrid_configs['mp_degree']",
     "lamb": "paddle.optimizer.Lamb",
     "lars": "paddle.optimizer.Lars",

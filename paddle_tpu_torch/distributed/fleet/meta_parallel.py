@@ -40,11 +40,19 @@ the model and sharding groups (and every parameter over the data group),
 and reduce the gradients over the data and sharding ranks with the
 ported ``Reducer``. ``HybridParallelOptimizer`` makes a
 ``ClipGradByGlobalNorm`` take the global norm: squares of the shards
-summed over the model group, replicated parameters counted once, and
-over the sharding group where ZeRO-1 splits the parameters.
-``PipelineParallel`` with ``PipelineLayer`` runs the whole layer list on
-each rank with micro-batch accumulation; ``num_stages > 1`` or
-``pp_degree > 1`` raises (ROADMAP A10's ``pipeline_engine.py``).
+summed over the model group, replicated parameters counted once, over
+the sharding group where ZeRO-1 splits the parameters and over the pipe
+group, each shared (tied) parameter counted on its first stage only; a
+``ClipGradByNorm`` takes each parameter's full norm, a shard's squares
+summed over the model group.
+
+``PipelineLayer`` under ``fleet.init`` with ``pp_degree == num_stages >
+1`` builds only this rank's segment of the layer list (its stage: the
+rank's pipe coordinate), each layer named by its index in the whole list
+(``run_function.{i}``), so a stage's state carries the names of a
+one-stage ``PipelineLayer`` of the same descriptions. ``PipelineParallel``
+runs it with the 1F1B engine (pipeline_engine.py); a whole
+``PipelineLayer`` trains by micro-batch accumulation, as before.
 """
 from __future__ import annotations
 
@@ -55,9 +63,9 @@ import torch
 
 from ...nn import functional as F
 from ...nn import initializer as I
-from ...nn.clip import ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm
+from ...nn.clip import (ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm,
+                        _f32_norms)
 from ...nn.functional.loss import _ShardedSoftmaxCE
-from ...nn.layer.container import LayerList
 from ...nn.layer.layers import Layer
 from ..collective import (_c_identity, _mp_allreduce, all_gather,
                           all_reduce, broadcast, get_group)
@@ -71,9 +79,6 @@ __all__ = [
     "SharedLayerDesc", "PipelineLayer", "get_rng_state_tracker",
     "RNGStatesTracker", "model_parallel_random_seed", "mark_blocks",
 ]
-
-PIPELINE_LATER = ("pipeline stages (num_stages > 1 or pp_degree > 1) come "
-                  "with ROADMAP A10's pipeline_engine.py")
 
 # how a distributed parameter is split: along ``axis``, which holds
 # ``blocks`` equal blocks, each cut in ``nranks`` pieces, ``rank``'s kept
@@ -362,7 +367,7 @@ def _is_distributed(p):
 
 
 class _ParallelWrapper(Layer):
-    def __init__(self, layers, hcg, strategy=None):
+    def __init__(self, layers, hcg, strategy=None, reducer=True):
         super().__init__()
         self._layers = layers
         self._hcg = hcg
@@ -381,7 +386,7 @@ class _ParallelWrapper(Layer):
                      if which == "all" or not _is_distributed(p)],
                     group.global_rank(0), group)
         group = hcg.get_dp_sharding_parallel_group()
-        if group.nranks > 1:
+        if reducer and group.nranks > 1:
             from ..reducer import Reducer
             mb = getattr(strategy, "fuse_grad_size_in_MB", 25) \
                 if strategy is not None else 25
@@ -444,35 +449,162 @@ class SharedLayerDesc(LayerDesc):
         self.shared_weight_attr = shared_weight_attr
 
 
+class _GlobalLayers(Layer):
+    """A PipelineLayer's layers, each under its index in the whole list:
+    ``layers[i]`` is the layer of description i (a shared layer under the
+    index of its key's first description)."""
+
+    def __getitem__(self, i):
+        return self._modules[str(i)]
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def __len__(self):
+        return len(self._modules)
+
+
+def _pipe_stage(num_stages):
+    """(this rank's stage, the pipe group) where the mesh's pipe axis has
+    ``num_stages`` ranks (> 1), else (None, None): the layer is built
+    whole."""
+    if num_stages <= 1:
+        return None, None
+    mesh = get_mesh()
+    if mesh.shape.get("pipe", 1) != num_stages:
+        return None, None
+    group = mesh.group("pipe")
+    return group.rank, group
+
+
+def _stage_groups(stages):
+    """For every other coordinate of the mesh, the group of the ranks of
+    ``stages`` on the pipe axis; every rank creates all of them, in one
+    order. Returns this rank's (None where it holds none of the
+    stages)."""
+    import numpy as np
+
+    from ..collective import new_group
+    from ..env import get_rank
+    mesh = get_mesh()
+    axis = mesh.axis_names.index("pipe")
+    rows = np.moveaxis(mesh.ranks, axis, -1).reshape(-1,
+                                                     mesh.shape["pipe"])
+    mine = None
+    for row in rows:
+        g = new_group([int(row[s]) for s in stages], axis="pipe_shared")
+        if get_rank() in g.ranks:
+            mine = g
+    return mine
+
+
 class PipelineLayer(Layer):
-    """A model declared as a list of layers, descriptions and callables,
-    built whole on this rank. ``num_stages > 1`` raises
-    (``PIPELINE_LATER``)."""
+    """A model declared as a list of layers, descriptions and callables.
+    Built whole where the mesh's pipe axis does not have ``num_stages``
+    ranks (then ``num_stages > 1`` is refused by ``PipelineParallel``'s
+    engine); under ``fleet.init`` with ``pp_degree == num_stages > 1``,
+    only this rank's segment (``seg_method`` "uniform" cuts the
+    description list; "layer:param" builds every layer once to count its
+    parameters, as the reference cuts the built list, and keeps its
+    segment's). A ``SharedLayerDesc`` is built once a stage; a later
+    appearance calls ``forward_func(layer, x)`` where given. The shared
+    parameter (``shared_weight_attr``) of a key used on several stages is
+    listed in ``_shared`` as (key, parameter, the group of the ranks that
+    hold it)."""
 
     def __init__(self, layers, num_stages=None, topology=None, loss_fn=None,
                  seg_method="uniform", recompute_interval=0, **kwargs):
         super().__init__()
-        if (num_stages or 1) > 1:
-            raise NotImplementedError(PIPELINE_LATER)
-        self.descs = layers
+        from .pipeline_engine import _segment_by_params, _segment_uniform
+        self.descs = list(layers)
         self.loss_fn = loss_fn
-        self.num_stages = 1
+        self.num_stages = int(num_stages or 1)
         self.seg_method = seg_method
-        built, self._calls, shared = [], [], {}
-        for d in layers:
-            if isinstance(d, SharedLayerDesc) and d.layer_name in shared:
-                layer = shared[d.layer_name]
+        n = len(self.descs)
+        if self.num_stages > n:
+            raise ValueError(f"num_stages ({self.num_stages}) exceeds layer "
+                             f"count ({n})")
+        first = {}
+        for i, d in enumerate(self.descs):
+            if isinstance(d, SharedLayerDesc):
+                first.setdefault(d.layer_name, i)
+        self.stage_id, group = _pipe_stage(self.num_stages)
+        built = None
+        if group is None:
+            bounds = [(0, n)]
+        else:
+            if str(seg_method).endswith("param"):
+                built = self._build_all()
+                segs = _segment_by_params(built, self.num_stages)
+                lengths = [len(seg) for seg in segs]
+            else:
+                lengths = [len(seg) for seg in _segment_uniform(
+                    list(range(n)), self.num_stages)]
+            starts = [sum(lengths[:s]) for s in range(self.num_stages)]
+            bounds = [(a, a + b) for a, b in zip(starts, lengths)]
+        lo, hi = bounds[self.stage_id or 0]
+        self.segment = (lo, hi)
+        self.run_function = _GlobalLayers()
+        self._calls, shared = [], {}
+        for i in range(lo, hi):
+            d = self.descs[i]
+            if isinstance(d, SharedLayerDesc):
+                key = d.layer_name
+                layer = shared.get(key)
+                if layer is None:
+                    layer = built[i] if built else d.build_layer()
+                    shared[key] = layer
+                    self.run_function.add_module(str(first[key]), layer)
                 fn = d.forward_func
                 self._calls.append(
-                    (lambda x, m=layer, f=fn: f(m, x)) if fn else layer)
+                    (lambda x, m=layer, f=fn: f(m, x))
+                    if fn is not None and i != first[key] else layer)
                 continue
-            layer = d.build_layer() if isinstance(d, LayerDesc) else d
-            if isinstance(d, SharedLayerDesc):
-                shared[d.layer_name] = layer
+            layer = (built[i] if built else d.build_layer()) \
+                if isinstance(d, LayerDesc) else d
             if isinstance(layer, torch.nn.Module):
-                built.append(layer)
+                self.run_function.add_module(str(i), layer)
             self._calls.append(layer)
-        self.run_function = LayerList(built)
+        self._shared = []
+        if group is not None:
+            self._share(first, bounds, shared)
+
+    def _build_all(self):
+        """Every description built once, a shared key's later appearances
+        the same layer (the reference's built list)."""
+        built, by_key = [], {}
+        for d in self.descs:
+            if isinstance(d, SharedLayerDesc):
+                if d.layer_name not in by_key:
+                    by_key[d.layer_name] = d.build_layer()
+                built.append(by_key[d.layer_name])
+            else:
+                built.append(d.build_layer() if isinstance(d, LayerDesc)
+                             else d)
+        return built
+
+    def _share(self, first, bounds, shared):
+        """The groups of the ranks that hold each key used on several
+        stages, and this stage's shared parameters among them."""
+        import functools
+        stage_of = [s for s, (a, b) in enumerate(bounds)
+                    for _ in range(a, b)]
+        uses = {}
+        for i, d in enumerate(self.descs):
+            if isinstance(d, SharedLayerDesc):
+                uses.setdefault(d.layer_name, set()).add(stage_of[i])
+        for key in sorted(uses, key=first.get):
+            stages = sorted(uses[key])
+            if len(stages) < 2:
+                continue
+            group = _stage_groups(stages)
+            if key in shared:
+                attr = self.descs[first[key]].shared_weight_attr
+                param = functools.reduce(getattr, attr.split("."),
+                                         shared[key])
+                # counted once by the global-norm clip: on its first stage
+                param.pp_shared_copy = self.stage_id != stages[0]
+                self._shared.append((key, param, group))
 
     def forward(self, x):
         for call in self._calls:
@@ -481,19 +613,29 @@ class PipelineLayer(Layer):
 
 
 class PipelineParallel(_ParallelWrapper):
-    """``train_batch``/``eval_batch`` over a model built whole: the batch
-    cut into ``pipeline_configs["accumulate_steps"]`` micro-batches whose
-    gradients accumulate before one optimizer step. ``pp_degree > 1``
-    raises (``PIPELINE_LATER``)."""
+    """``train_batch``/``eval_batch``: a ``PipelineLayer`` of several
+    stages through the 1F1B engine (pipeline_engine.py), each rank its
+    stage; a model built whole with the batch cut into
+    ``pipeline_configs["accumulate_steps"]`` micro-batches whose gradients
+    accumulate before one optimizer step. ``pp_degree > 1`` needs a
+    ``PipelineLayer`` of as many stages."""
 
     def __init__(self, layers, hcg, strategy=None):
-        if hcg is not None and hcg.get_pipe_parallel_world_size() > 1:
-            raise NotImplementedError(PIPELINE_LATER)
-        if getattr(layers, "num_stages", 1) > 1:
-            raise NotImplementedError(PIPELINE_LATER)
-        super().__init__(layers, hcg, strategy)
+        pp = hcg.get_pipe_parallel_world_size() if hcg is not None else 1
+        staged = isinstance(layers, PipelineLayer) and layers.num_stages > 1
+        if pp > 1 and not staged:
+            raise ValueError(
+                f"pp_degree {pp} needs a PipelineLayer with num_stages="
+                f"{pp}: each rank runs its stage")
+        super().__init__(layers, hcg, strategy, reducer=not staged)
         cfgs = getattr(strategy, "pipeline_configs", {}) or {}
         self.accumulate_steps = cfgs.get("accumulate_steps", 1)
+        self._engine = None
+        if staged:
+            from .pipeline_engine import PipelineEngine
+            self._engine = PipelineEngine(
+                layers, num_microbatches=max(self.accumulate_steps, 1),
+                seg_method=layers.seg_method, hcg=hcg)
 
     def _loss(self, x, y):
         out = self._layers(x)
@@ -501,10 +643,27 @@ class PipelineParallel(_ParallelWrapper):
         loss = loss_fn(out, y) if loss_fn is not None else out
         return loss.mean() if loss.ndim > 0 else loss
 
+    def _step(self, optimizer, lr_scheduler, scaler):
+        if scaler is not None:
+            scaler.step(optimizer)
+        else:
+            optimizer.step()
+        optimizer.clear_grad()
+        if lr_scheduler is not None:
+            lr_scheduler.step()
+
     def train_batch(self, data, optimizer, lr_scheduler=None, scaler=None):
         """One optimizer step over the batch; returns the mean of the
-        micro-batches' losses."""
+        micro-batches' losses. Through the engine a GradScaler's scale
+        seeds the backward (its ``step`` then unscales), as in the
+        reference."""
         inputs, labels = data
+        if self._engine is not None:
+            scale = scaler._scale if scaler is not None and \
+                scaler.is_enable() else None
+            loss = self._engine.train_batch(inputs, labels, scale=scale)
+            self._step(optimizer, lr_scheduler, scaler)
+            return loss
         micro = self.accumulate_steps
         xs = inputs.chunk(micro) if micro > 1 else [inputs]
         ys = labels.chunk(micro) if micro > 1 else [labels]
@@ -517,34 +676,35 @@ class PipelineParallel(_ParallelWrapper):
             else:
                 scaled.backward()
             total = loss.detach() if total is None else total + loss.detach()
-        if scaler is not None:
-            scaler.step(optimizer)
-        else:
-            optimizer.step()
-        optimizer.clear_grad()
-        if lr_scheduler is not None:
-            lr_scheduler.step()
+        self._step(optimizer, lr_scheduler, scaler)
         return total / micro
 
     @torch.no_grad()
     def eval_batch(self, data, compute_loss=True):
         inputs, labels = data
+        if self._engine is not None:
+            return self._engine.eval_batch(inputs, labels,
+                                           compute_loss=compute_loss)
         if compute_loss and getattr(self._layers, "loss_fn", None):
             return self._loss(inputs, labels)
         return self._layers(inputs)
 
 
 class _HybridGlobalNormClip(ClipGradBase):
-    """A ``ClipGradByGlobalNorm`` over shards: the squares of distributed
-    parameters' grads summed over the model group, the replicated ones
-    counted once, and the sum over the sharding group where each rank
-    updates only its own parameters."""
+    """A ``ClipGradByGlobalNorm`` over shards and stages: the squares of
+    distributed parameters' grads summed over the model group, the
+    replicated ones counted once, and the sum over the sharding group
+    (each rank updates only its own parameters) and over the pipe group
+    (each stage holds its own), a shared parameter counted on its first
+    stage only."""
 
-    def __init__(self, clip, model_group, sharding_group=None):
+    def __init__(self, clip, model_group, sharding_group=None,
+                 pipe_group=None):
         self.clip_norm = clip.clip_norm
         self.inner = clip
         self.model_group = model_group
         self.sharding_group = sharding_group
+        self.pipe_group = pipe_group
 
     def _clip(self, params_grads):
         picked = [(p, g) for p, g in params_grads
@@ -552,17 +712,48 @@ class _HybridGlobalNormClip(ClipGradBase):
         dev = picked[0][1].device if picked else torch.device("cpu")
         sq = torch.zeros(2, dtype=torch.float32, device=dev)
         for p, g in picked:
-            sq[int(_is_distributed(p))] += g.float().pow(2).sum()
+            if not getattr(p, "pp_shared_copy", False):
+                sq[int(_is_distributed(p))] += g.float().pow(2).sum()
         if _degree(self.model_group) > 1:
             dist_sq = all_reduce(sq[1:].clone(), group=self.model_group)
             sq = torch.cat([sq[:1], dist_sq])
         total = sq.sum().reshape(1)
-        if _degree(self.sharding_group) > 1:
-            total = all_reduce(total, group=self.sharding_group)
+        for group in (self.sharding_group, self.pipe_group):
+            if _degree(group) > 1:
+                total = all_reduce(total, group=group)
         scale = self.clip_norm / torch.clamp(total[0].sqrt(),
                                              min=self.clip_norm)
         return [(p, g * scale.to(g.dtype)
                  if g is not None and getattr(p, "need_clip", True) else g)
+                for p, g in params_grads]
+
+
+class _HybridNormClip(ClipGradBase):
+    """A ``ClipGradByNorm`` over shards: each parameter clipped by its
+    full norm, a distributed parameter's squares summed over the model
+    group (one all-reduce of all of them)."""
+
+    def __init__(self, clip, model_group):
+        self.clip_norm = clip.clip_norm
+        self.inner = clip
+        self.model_group = model_group
+
+    def _clip(self, params_grads):
+        picked = [(p, g) for p, g in params_grads
+                  if g is not None and getattr(p, "need_clip", True)]
+        if not picked:
+            return params_grads
+        norms = list(_f32_norms([g for _, g in picked]))
+        split = [i for i, (p, _) in enumerate(picked) if _is_distributed(p)]
+        if split:
+            sq = torch.stack([norms[i] for i in split]).pow(2)
+            all_reduce(sq, group=self.model_group)
+            for j, i in enumerate(split):
+                norms[i] = sq[j].sqrt()
+        scales = {id(p): torch.clamp(self.clip_norm / n.clamp_min(1e-12),
+                                     max=1.0)
+                  for (p, _), n in zip(picked, norms)}
+        return [(p, g * scales[id(p)].to(g.dtype) if id(p) in scales else g)
                 for p, g in params_grads]
 
 
@@ -574,9 +765,9 @@ def _innermost(opt):
 
 class HybridParallelOptimizer:
     """Wraps the (ZeRO / gradient-merge wrapped) optimizer; its global-norm
-    clip takes the norm over every shard (``_HybridGlobalNormClip``). A
-    ``ClipGradByNorm`` over distributed parameters raises: each rank
-    would clip its shard by the shard's norm. A GradScaler reduces its
+    clip takes the norm over every shard and stage
+    (``_HybridGlobalNormClip``), its per-parameter clip each parameter's
+    full norm (``_HybridNormClip``). A GradScaler reduces its
     ``found_inf`` over every rank of the job (``_found_inf_group``,
     amp/grad_scaler.py), since each rank checks only its shards."""
 
@@ -589,15 +780,13 @@ class HybridParallelOptimizer:
         base = _innermost(optimizer)
         clip = getattr(base, "_grad_clip", None)
         mp = hcg.get_model_parallel_group() if hcg is not None else None
+        pipe = hcg.get_pipe_parallel_group() if hcg is not None else None
         sharded = getattr(optimizer, "_sharding_group", None)
-        if isinstance(clip, ClipGradByGlobalNorm) and (
-                _degree(mp) > 1 or _degree(sharded) > 1):
-            base._grad_clip = _HybridGlobalNormClip(clip, mp, sharded)
-        elif isinstance(clip, ClipGradByNorm) and _degree(mp) > 1 and any(
-                _is_distributed(p) for p in base._parameter_list or ()):
-            raise NotImplementedError(
-                "ClipGradByNorm over tensor-parallel shards would clip each "
-                "shard by its own norm; use ClipGradByGlobalNorm")
+        if isinstance(clip, ClipGradByGlobalNorm) and any(
+                _degree(g) > 1 for g in (mp, sharded, pipe)):
+            base._grad_clip = _HybridGlobalNormClip(clip, mp, sharded, pipe)
+        elif isinstance(clip, ClipGradByNorm) and _degree(mp) > 1:
+            base._grad_clip = _HybridNormClip(clip, mp)
 
     def __getattr__(self, name):
         # step, minimize, clear_grad and the rest: the wrapped optimizer's

@@ -29,11 +29,14 @@ _PROTO = 4
 
 
 def tensor_from_numpy(arr):
-    """CPU tensor with the array's dtype and values (bfloat16 included)."""
+    """CPU tensor with the array's dtype, shape (0-d included) and values
+    (bfloat16 included)."""
+    shape = np.shape(arr)
     arr = np.ascontiguousarray(arr)
     if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(arr.copy())
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).reshape(shape)
+    return torch.from_numpy(arr.copy()).reshape(shape)
 
 
 def _numpy_from_tensor(t):

@@ -22,10 +22,15 @@ card (jit/to_static.py), and counts its lifecycle:
   ``enable_to_static(False)`` makes the wrapper a passthrough to the eager
   step, with no counters.
 
+``CompiledStageProgram`` is the same lifecycle for one direction of a
+pipeline stage (distributed/fleet/pipeline_engine.py: the forward, the
+forward with the loss, the recompute backward): a CUDA graph per input
+signature, the same counters, builds under ``step/compile``. The engine
+decides whether a stage is captured, so a stage program captures
+whatever ``FLAGS_compiled_step`` says.
+
 Not ported yet: the flight-recorder entry of a retrace storm comes with
-the observability modules (ROADMAP A11); ``CompiledStageProgram``
-(pipeline and ring-attention stage programs) with the distributed slice
-(ROADMAP A10).
+the observability modules (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -37,8 +42,8 @@ from ..profiler import metrics as _metrics
 from ..profiler import steptimer as _steptimer
 from .to_static import StaticFunction, _sig_of, _sig_of_step
 
-__all__ = ["CompiledTrainStep", "compiled_step_enabled", "compile_stats",
-           "reset_compile_stats"]
+__all__ = ["CompiledTrainStep", "CompiledStageProgram",
+           "compiled_step_enabled", "compile_stats", "reset_compile_stats"]
 
 _STATS = {"compiles": 0, "cache_hits": 0, "retrace_warnings": 0}
 _stats_lock = threading.Lock()
@@ -139,3 +144,27 @@ class CompiledTrainStep:
             return st.run_steps(*args, **kwargs)
         key = st._key(_sig_of_step(args), _sig_of_step(kwargs))
         return self._counted(key, lambda: st.run_steps(*args, **kwargs))
+
+
+class CompiledStageProgram(CompiledTrainStep):
+    """One direction of a pipeline stage as a signature-keyed program (a
+    CUDA graph per signature on the card; on the host the body, with the
+    same keys and counters). ``label`` names it (``pp.s{stage}.{dir}``)
+    in the retrace warning."""
+
+    def __init__(self, fn, label="stage"):
+        super().__init__(fn, label=label)
+
+    def __call__(self, *args):
+        st = self._static
+        key = st._key(_sig_of(args), _sig_of({}))
+        return self._counted(key, lambda: st._call(key, args, {}))
+
+    def stats(self):
+        """Signatures seen, programs built, and calls that found theirs
+        built (each a graph replay on the card)."""
+        progs = self._static._programs.values()
+        return {"label": self._label, "signatures": len(self._seen_sigs),
+                "built": sum(p.built for p in progs),
+                "hits": sum(p.hits for p in progs),
+                "captured": sum(p.graph is not None for p in progs)}

@@ -20,8 +20,25 @@ the rest wait for ROADMAP A11.
 """
 from . import (faults, guard, health, preempt, recorder,  # noqa: F401
                recovery, snapshot, watchdog)
-from .watchdog import DistributedError, DistributedTimeout  # noqa: F401
+from .faults import (  # noqa: F401
+    FaultInjected, fault_point, maybe_inject, should_inject,
+)
+from .guard import BadStepError, StepGuard  # noqa: F401
+from .health import PreflightFailure, preflight_kat, serving_preflight  # noqa: F401
+from .preempt import Preempted, PreemptionCallback, PreemptionHandler  # noqa: F401
+from .recorder import FlightRecorder, get_recorder  # noqa: F401
+from .recovery import current_generation  # noqa: F401
+from .watchdog import (  # noqa: F401
+    DistributedError, DistributedTimeout, PeerAbort, StaleGeneration,
+    Watchdog, watch_section,
+)
 
 __all__ = ["faults", "guard", "health", "preempt", "recorder", "recovery",
            "snapshot", "watchdog",
-           "DistributedError", "DistributedTimeout"]
+           "maybe_inject", "should_inject", "fault_point", "FaultInjected",
+           "StepGuard", "BadStepError", "Preempted", "PreemptionHandler",
+           "PreemptionCallback", "FlightRecorder", "get_recorder",
+           "Watchdog", "watch_section", "DistributedError",
+           "DistributedTimeout", "PeerAbort", "StaleGeneration",
+           "current_generation", "PreflightFailure", "preflight_kat",
+           "serving_preflight"]

@@ -41,6 +41,11 @@ when the copy is held back on its stream; a spawned DataLoader worker
 sees no CUDA device while its parent holds a context; and ``Model.save``
 and ``load`` round-trip a LeNet's parameters and Adam state on the card
 to the bit.
+
+The pipeline slice: a stage's forward and recompute backward as
+CompiledStagePrograms, each captured on its second call, replay the
+eager bodies' outputs and add the same gradients into the stage's
+accumulators (chip_smoke.py's pipeline group runs the engine itself).
 """
 import threading
 
@@ -2045,3 +2050,42 @@ if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["--tp-worker"]:
         _tp_card_worker(sys.argv[2])
+
+
+def test_compiled_stage_program_captures_a_stage_on_card(card):
+    """A pipeline stage's two directions as CompiledStagePrograms on the
+    card: each captured as a CUDA graph on its second call and replayed
+    after; the replays give the eager bodies' outputs and input grads and
+    add the same parameter gradients into the stage's accumulators, by
+    address (three calls: three times the eager gradients)."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        PipelineLayer
+    from paddle_tpu_torch.distributed.fleet.pipeline_engine import _Stage
+    from paddle_tpu_torch.jit.compiled_step import CompiledStageProgram
+    gen = torch.Generator().manual_seed(7)
+    pl = PipelineLayer([pt.nn.Linear(32, 64, device="cuda", generator=gen),
+                        pt.nn.GELU(),
+                        pt.nn.Linear(64, 32, device="cuda", generator=gen)])
+    st = _Stage(pl, is_last=False)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(8, 32, device="cuda", generator=g)
+    dy = torch.randn(8, 32, device="cuda", generator=g)
+    with torch.no_grad():
+        want_y = st.run(x)
+        want_dx = st.backward(x, dy)
+    want = [a.clone() for a in st.acc]
+    st.acc = [torch.zeros_like(p) for p in st.params]
+    fwd = CompiledStageProgram(st.run, label="pp.s0.fwd")
+    bwd = CompiledStageProgram(st.backward, label="pp.s0.bwd")
+    with torch.no_grad():
+        for _ in range(3):
+            y = fwd(x)
+            dx = bwd(x, dy)
+    torch.cuda.synchronize()
+    for prog in (fwd, bwd):
+        stats = prog.stats()
+        assert stats["captured"] == 1 and stats["hits"] == 1, stats
+    torch.testing.assert_close(y, want_y, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(dx, want_dx, rtol=1e-6, atol=1e-6)
+    for acc, w in zip(st.acc, want):
+        torch.testing.assert_close(acc, 3 * w, rtol=1e-5, atol=1e-6)

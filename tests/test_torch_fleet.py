@@ -322,13 +322,17 @@ def test_shared_layer_desc_builds_once():
 
 
 def test_pipeline_stages_raise_naming_their_item():
-    with pytest.raises(NotImplementedError, match="pipeline_engine"):
+    """Stages are checked where they are declared: more stages than
+    layers, and a pipe axis whose ranks a model built whole cannot
+    split (tests/test_torch_pipeline.py runs the stages)."""
+    with pytest.raises(ValueError, match="exceeds layer count"):
         pmp.PipelineLayer([pt.nn.Tanh()], num_stages=2)
 
     class TwoStages:
         def get_pipe_parallel_world_size(self):
             return 2
-    with pytest.raises(NotImplementedError, match="pipeline_engine"):
+    with pytest.raises(ValueError, match="needs a PipelineLayer with "
+                                         "num_stages=2"):
         pmp.PipelineParallel(pt.nn.Tanh(), TwoStages())
 
 

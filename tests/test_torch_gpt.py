@@ -198,8 +198,8 @@ print(json.dumps({
 # BERT/ERNIE slice, the conv net slice, the serving slice (inference,
 # serving, resilience, profiler), the training API slice (io, hapi,
 # metric, losses, vision data) and the script surface (ParamAttr, the
-# regularizers, sparse rows, devices, the tensor API), and the autotuner
-# and data parallelism
+# regularizers, sparse rows, devices, the tensor API), the autotuner
+# and data parallelism, and fleet with its pipeline and checkpoint
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -272,6 +272,10 @@ PORT_MODULES = {
     "paddle_tpu_torch.distributed.collective",
     "paddle_tpu_torch.distributed.reducer",
     "paddle_tpu_torch.distributed.parallel",
+    # fleet's hybrid parallelism, the pipeline and the hybrid checkpoint
+    "paddle_tpu_torch.distributed.fleet.meta_parallel",
+    "paddle_tpu_torch.distributed.fleet.pipeline_engine",
+    "paddle_tpu_torch.distributed.checkpoint",
 }
 
 

@@ -222,7 +222,8 @@ def test_default_dtype_reaches_creation_layers_and_draws(default_dtypes):
 # -- the remaining names of each namespace -----------------------------------------
 # names the reference's modules bind that are not API (imports, helpers)
 ARTEFACTS = {"annotations", "apply", "builtins", "jax", "jnp", "next_key",
-             "np", "operator", "unwrap", "convert_dtype", "Tensor"}
+             "np", "operator", "unwrap", "convert_dtype", "Tensor",
+             "contextlib", "json", "os", "threading", "time"}
 # what later slices port (ROADMAP A10, A13)
 LATER = {
     "": {"NPUPlace", "TPUPlace", "SelectedRows",
@@ -242,8 +243,46 @@ LATER = {
     ".distributed.fleet": {
         "sequence_parallel", "spmd_pipeline",
         "expert_parallel", "ExpertParallelEngine", "ExpertPlacement",
-        "load_hybrid_checkpoint", "save_hybrid_checkpoint",
         "elastic", "dataset", "fs", "HDFSClient", "LocalFS", "metrics"},
+    # ROADMAP A10: spec_layout.py with ZeRO-3; auto_parallel/; the host
+    # transport and launch code; fleet/dataset.py
+    ".distributed": {
+        "spec_layout", "SpecLayout", "shard_batch", "shard_params",
+        "shard_stacked_batch", "unshard",
+        "auto_parallel", "ProcessMesh", "dtensor_from_fn", "reshard",
+        "shard_op", "shard_tensor",
+        "fleet_executor", "launch", "launch_utils", "ps", "transpiler",
+        "utils", "wire",
+        "InMemoryDataset", "QueueDataset"},
+    # ROADMAP A11: retry.py, integrity.py, the rest of health.py and of
+    # recovery.py
+    ".resilience": {
+        "retry", "retry_call",
+        "integrity", "ConsensusChecker", "IntegrityError",
+        "StepReplayBuffer", "checksum_state", "classify_replay",
+        "QUARANTINE_EXIT_CODE", "Quarantined", "StragglerDetector",
+        "run_preflight",
+        "MembershipChange", "RecoveryExhausted", "RecoveryJournal",
+        "RecoveryManager", "RendezvousTimeout"},
+    # ROADMAP A11: the profiler's host API
+    ".profiler": {
+        "profiler", "Profiler", "ProfilerState", "ProfilerTarget",
+        "RecordEvent", "counter_samples", "export_chrome_tracing",
+        "export_rank_trace", "record_counter", "reset_profiler",
+        "start_profiler", "stop_profiler", "summary"},
+    # ROADMAP A12: client.py, SocketFrontend, rollout.py, autoscaler.py;
+    # the quantized decode model
+    ".serving": {
+        "client", "InferenceClient", "RemoteInferenceError",
+        "SocketFrontend",
+        "rollout", "GoldenMismatch", "ManifestWatcher", "RolloutConfig",
+        "RolloutController", "RolloutError",
+        "autoscaler", "Autoscaler", "AutoscalerConfig"},
+    ".serving.decode": {"load_decode_model"},
+    # ROADMAP A13: ast_transform.py and convert_operators.py; A12: the
+    # serialized program's functionalized_call
+    ".jit": {"ProgramTranslator", "TracedLayer", "not_to_static",
+             "set_code_level", "set_verbosity", "functionalized_call"},
 }
 
 
@@ -275,6 +314,35 @@ def test_missing_names_are_only_later_slices(ns, fresh_names):
         - set(port_names)
     assert missing - ARTEFACTS == LATER[ns], sorted(missing - ARTEFACTS
                                                     ^ LATER[ns])
+
+
+# the names the resilience package binds from its ported submodules
+RESILIENCE_NAMES = {
+    "faults": ("FaultInjected", "fault_point", "maybe_inject",
+               "should_inject"),
+    "guard": ("StepGuard", "BadStepError"),
+    "health": ("PreflightFailure", "preflight_kat", "serving_preflight"),
+    "preempt": ("Preempted", "PreemptionCallback", "PreemptionHandler"),
+    "recorder": ("FlightRecorder", "get_recorder"),
+    "recovery": ("current_generation",),
+    "watchdog": ("PeerAbort", "StaleGeneration", "Watchdog",
+                 "watch_section"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for names in RESILIENCE_NAMES.values() for n in names))
+def test_resilience_binds_its_submodules_names(name):
+    import importlib
+
+    import paddle_tpu.resilience as ref_res
+    import paddle_tpu_torch.resilience as res
+    module = next(m for m, names in RESILIENCE_NAMES.items()
+                  if name in names)
+    sub = importlib.import_module(f"paddle_tpu_torch.resilience.{module}")
+    assert getattr(res, name) is getattr(sub, name)
+    assert name in res.__all__
+    assert hasattr(ref_res, name)
 
 
 # -- the nn.Layer API (step 2.1) ---------------------------------------------------

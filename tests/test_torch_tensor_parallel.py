@@ -20,9 +20,9 @@ tests (tests/test_hybrid_parallel.py:175-214, __graft_entry__.py:120-158):
   AdamW steps' losses at mp 2 and at dp 2 x mp 2 (5e-4 relative, as
   __graft_entry__.py:151-155), the first step's gathered gradients, the
   replicated parameters bitwise equal across ranks; prefill plus 4
-  cached greedy steps token for token; a global-norm clip under TP
-  against the serial clip; the shard and gather of the reference's full
-  arrays, bitwise;
+  cached greedy steps token for token; a global-norm clip and a
+  per-parameter norm clip under TP against the serial clips; the shard
+  and gather of the reference's full arrays, bitwise;
 - ZeRO-1 with Adam and with bf16 parameters and f32 masters against the
   reference's unsharded runs, each rank holding state only for its
   partition;
@@ -249,21 +249,22 @@ def _decode(out, arrays, hcg):
     out["decode_cache_heads"] = caches[0][0].shape[2]
 
 
-def _clip(out, arrays, fleet, hcg):
-    """One SGD step under ClipGradByGlobalNorm through fleet: the full
-    weights' change."""
+def _clip(out, arrays, fleet, hcg, clip="ClipGradByGlobalNorm",
+          key="clip_delta"):
+    """One SGD step under ``clip`` through fleet: the full weights'
+    change."""
     import paddle_tpu_torch as pt
     model = _gpt(arrays, hcg)
     dist_model = fleet.distributed_model(model)
     opt = fleet.distributed_optimizer(pt.optimizer.SGD(
         learning_rate=CLIP_LR, parameters=model.parameters(),
-        grad_clip=pt.nn.ClipGradByGlobalNorm(CLIP_NORM)))
+        grad_clip=getattr(pt.nn, clip)(CLIP_NORM)))
     xs, ys = _gpt_stream()
     dist_model(torch.tensor(xs[0]), labels=torch.tensor(ys[0])).backward()
     opt.step()
     after = pt.full_state_dict(model)
-    out["clip_delta"] = {k: (after[k].numpy() - arrays[k]).tolist()
-                         for k in arrays}
+    out[key] = {k: (after[k].numpy() - arrays[k]).tolist()
+                for k in arrays}
 
 
 def _scaler_steps(out, tag, net, loss_fn, opt, planted, rank):
@@ -407,6 +408,8 @@ def _worker(world):
         _wrap_broadcast(out, fleet, rank)
         _decode(out, arrays["gpt"], hcg)
         _clip(out, arrays["gpt"], fleet, hcg)
+        _clip(out, arrays["gpt"], fleet, hcg, "ClipGradByNorm",
+              "clip_norm_delta")
         _scaler_tp(out, arrays["cls"], fleet, rank)
         fleet, hcg = _fleet({"sharding_degree": 2})
         _zero(out, arrays["mlp"], fleet, hcg, "zero")
@@ -560,6 +563,14 @@ def _reference():
     opt.step()
     res["clip_delta"] = {k: v - arrays["gpt"][k]
                          for k, v in _arrays(ref).items()}
+    ref = _ref_gpt()
+    opt = paddle.optimizer.SGD(learning_rate=CLIP_LR,
+                               parameters=ref.parameters(),
+                               grad_clip=nn.ClipGradByNorm(CLIP_NORM))
+    ref(paddle.to_tensor(xs[0]), labels=paddle.to_tensor(ys[0])).backward()
+    opt.step()
+    res["clip_norm_delta"] = {k: v - arrays["gpt"][k]
+                              for k, v in _arrays(ref).items()}
     # the unclipped step's norm, so that the clip is known to bind
     ref = _ref_gpt()
     ref(paddle.to_tensor(xs[0]), labels=paddle.to_tensor(ys[0])).backward()
@@ -794,6 +805,20 @@ def test_global_norm_clip_under_tp_matches_the_serial_clip(two, reference):
     for r in range(2):
         for k, want in ref["clip_delta"].items():
             np.testing.assert_allclose(two[r]["clip_delta"][k], want,
+                                       rtol=1e-4, atol=1e-7, err_msg=k)
+
+
+def test_clip_by_norm_under_tp_clips_each_parameter_by_its_full_norm(
+        two, reference):
+    """ROADMAP C5: each parameter clipped by its full norm, a shard's
+    squares summed over the model group; held to the reference's serial
+    ClipGradByNorm step (no update moves further than lr x clip_norm)."""
+    ref = reference[0]
+    moved = [np.abs(d).max() for d in ref["clip_norm_delta"].values()]
+    assert max(moved) <= CLIP_LR * CLIP_NORM * (1 + 1e-5)
+    for r in range(2):
+        for k, want in ref["clip_norm_delta"].items():
+            np.testing.assert_allclose(two[r]["clip_norm_delta"][k], want,
                                        rtol=1e-4, atol=1e-7, err_msg=k)
 
 
