@@ -33,7 +33,8 @@ Phases, each printing JSON lines:
 3. reference: a small GPT on the card is held against the same model on
    the host (whose math path the host tests hold against paddle_tpu):
    greedy decode, and 3 AdamW training steps in f32.
-4. serve: GPT-medium at full width (vocab 32000, hidden 1024, 24 layers,
+4. serve: GPT-medium at full width (vocab 32000, hidden 1024, 12 of its
+   24 layers, as in every GPT-medium lane here,
    16 heads, random weights from --seed) serves 4 x 512-token prompts and
    64 greedy KV-cached decode steps in bf16 through the port's entry point,
    with the launch counts reset just before and read just after. The
@@ -45,7 +46,7 @@ Phases, each printing JSON lines:
    trains on bench.py's permutation stream, batch 4 x 1024, through
    ``jit.to_static`` on the eager path (FLAGS_compiled_step=0): 4 warm-up
    steps, then 16 timed steps with the launch counts reset just before
-   and read just after (24 launches each of B1, B2 and B3 per step, all
+   and read just after (12 launches each of B1, B2 and B3 per step, all
    on the tensor cores). Then one bf16 step is profiled, bwd_delta's
    kernels summed apart; one f32 step at full width holds the kernel
    path's loss and grads against the math path's (the SIMT variants), and
@@ -57,14 +58,14 @@ Phases, each printing JSON lines:
    hits in the 16 timed steps, the loss curve within 2e-2 of the eager
    run's step by step, step time, tokens/s and peak memory beside the
    eager run's, and one replayed step profiled (one graph launch; B1, B2
-   and B3 24 times each, counted by kernel name, since a replay does not
+   and B3 12 times each, counted by kernel name, since a replay does not
    pass through the wrappers' Python counts).
 7. amp_train: GPT-medium with f32 parameters under auto_cast(bf16),
    recompute, AdamW + ClipGradByGlobalNorm(1.0) + LinearWarmup, captured
    and driven through run_steps (K = 4, three executions, the scheduler
    stepping between them): the lr read back at each step equals the
    scheduler's, the last execution's mean loss is below the first's; the
-   second execution is profiled (B1 48 times a step, B2 and B3 24).
+   second execution is profiled (B1 24 times a step, B2 and B3 12).
 8. to_static_grad: the captured step's repaired faults on BERT-base in
    f32 at 4 x 256 (B1, B2 and B3 in its graphs): a forward-only ``to_static(model)`` under an outer
    backward gives eager's grads on its calls 1-3 (its forward and backward
@@ -137,7 +138,7 @@ them, and the kernels line says so.
    (b) hapi_resnet50: ResNet-50 f32 on Flowers behind RandomResizedCrop
    (224), a flip and Normalize, batch 64, 4 spawned workers, Momentum
    under a cosine schedule the LRScheduler callback steps; images/s, the
-   StepTimer's phases and the card's busy share over 16 timed steps
+   StepTimer's phases and the card's busy share over 8 timed steps
    with cuDNN's default algorithms, a hand captured step's time beside
    fit's, and a deterministic fit of 4 steps against a hand-written
    captured loop on the same batches (within 1e-4). (c) hapi_bert:
@@ -272,7 +273,7 @@ them, and the kernels line says so.
    first 4 global losses within DP_LOSS_RTOL of its losses, the weights
    after the steps bitwise equal on both ranks; step ms, buckets, flushes
    and ``step/collective_wait`` a step, B1-B3 launches a step per rank
-   (24 each) and their tiles, busy share and peak memory; neither rank
+   (12 each) and their tiles, busy share and peak memory; neither rank
    searches (the autotune lane's cache holds a rank's shape). (d)
    dp_fit: LeNet through Model.fit at world size 2 against one process's
    fit on the same global batches. (e) collectives:
@@ -282,19 +283,19 @@ them, and the kernels line says so.
 23. hybrid (``--phases hybrid``): fleet's hybrid parallelism, rank
    processes on the one card over gloo (NCCL refuses two ranks a
    device), every TP all-reduce through the host. (a) tp_gpt: GPT-3 1.3B
-   (GPTConfig.gpt3_1p3b, vocab 50304, hidden 2048, 24 layers, 16 heads of
-   128) at full width and depth through ``fleet.init`` (mp 2),
+   (GPTConfig.gpt3_1p3b, vocab 50304, hidden 2048, 16 heads of 128) at
+   full width and 12 of its 24 layers through ``fleet.init`` (mp 2),
    ``distributed_model`` and ``distributed_optimizer``: each rank draws
    the full weights from a CUDA generator and keeps its shard
-   (``load_numpy_state_dict``); greedy decode of 4 x 512 plus 16 cached
+   (``load_numpy_state_dict``); greedy decode of 4 x 512 plus 8 cached
    steps in f32 against this process's serial model (a random 1.3B's top
-   two logits sit within bf16's rounding); a bf16 prefill (B1 24 times,
-   at (4, 512, 8, 128)); then 6 eager bf16 steps, AdamW(multi_precision,
+   two logits sit within bf16's rounding); a bf16 prefill (B1 12 times,
+   at (4, 512, 8, 128)); then 4 eager bf16 steps, AdamW(multi_precision,
    1e-4), bench's 1.3B batch 2 x 1024 from its permutation stream: the
-   first 4 losses within 2 x the serial bf16 run's relative gap to its
+   4 losses within 2 x the serial bf16 run's relative gap to its
    f32 run + 1e-3 of the serial bf16 run (both run here first, from the
    same weights, and freed before the ranks start), the replicated
-   parameters bitwise equal across the ranks after every step, B1-B3 24
+   parameters bitwise equal across the ranks after every step, B1-B3 12
    times a step a rank (tc_bf16, at (2, 1024, 8, 128)); step ms,
    tokens/s, ``step/collective_wait``, the all-reduces and their bytes a
    step, busy share, peak memory, the tiles. (b) zero_gpt: GPT-medium
@@ -307,16 +308,17 @@ them, and the kernels line says so.
 
 24. pipeline (``--phases pipeline``): the 1F1B pipeline and the hybrid
    checkpoint, rank processes on the one card over gloo. (a) pp_gpt:
-   GPT-3 1.3B at full width and depth as a PipelineLayer (the token table
-   shared with the head through SharedLayerDesc, positions, the 24 GPT
-   blocks on (x, pending), the final LayerNorm, ParallelCrossEntropy) at
-   pp 2 x mp 2 on 4 processes, each rank holding its stage's 12 blocks
+   GPT-3 1.3B at full width and 12 of its 24 layers as a PipelineLayer
+   (the token table shared with the head through SharedLayerDesc,
+   positions, the 12 GPT blocks on (x, pending), the final LayerNorm,
+   ParallelCrossEntropy) at pp 2 x mp 2 on 4 processes, each rank
+   holding its stage's 6 blocks
    with 8 heads of 128, bf16, AdamW(multi_precision, 1e-4), bench's 1.3B
-   batch 2 x 1024 in 2 micro-batches of 1 x 1024, 6 steps: the first 4
+   batch 2 x 1024 in 2 micro-batches of 1 x 1024, 4 steps: the 4
    losses within hybrid's tp_gpt bf16 rule of the serial 1.3B (the same
    weights and data), the replicated parameters bitwise equal across
    each stage's model ranks and the tied table's two copies bitwise
-   equal across the stages after every step, B1 48 and B2, B3 24 times a
+   equal across the stages after every step, B1 24 and B2, B3 12 times a
    step a rank (tc_bf16, at (1, 1024, 8, 128); the forward and its
    recompute), by wrapper and by kernel name in a profiled step; step
    ms, tokens/s, the point-to-point wait apart from the tensor-parallel
@@ -335,10 +337,38 @@ them, and the kernels line says so.
    a flipped byte raises CorruptCheckpointError; the file's bytes and the
    save's and load's seconds.
 
+25. layouts (``--phases layouts``): the declarative layouts, ring
+   sequence parallelism and the SPMD pipeline, 2 rank processes on the
+   one card over gloo (one spawn, the lanes in turn). (a) zero3_gpt:
+   bench's GPT-3 1.3B slice (6 layers, hidden 2048, 16 heads of 128,
+   vocab 50304, batch 2 x 1024) in bf16, AdamW(multi_precision), trained
+   through Model.prepare(spec_layout=SpecLayout(shard_params=True)) on
+   {"sharding": 2}, 1 + 4 steps: the losses within hybrid's bf16 rule of
+   the serial slice, half the parameter and optimizer-state bytes a rank
+   (within 1 %), B1, B2 and B3 6 times a step a rank, by wrapper and by
+   kernel name; step ms, the gathers and gradient reductions a step and
+   their bytes, ``step/collective_wait``, busy share, peak against the
+   serial slice's and fleet's ZeRO-1's (2 steps); the slice at 1 layer
+   saved at sharding 2 and loaded into the serial slice gives back the
+   same weights and f32 masters (sha256). (b) ring_attn: ring_attention
+   on {"sep": 2} at (1, 16384, 16, 128) bf16, causal, (1, 8192, 16, 128)
+   a rank, forward and backward: B1, B2 and B3 once on rank 0 and twice
+   on rank 1, the gathered output and grads within relative L2 2^-7 of
+   one rank's B1, B2 and B3 over the whole sequence, an f32 run at (1,
+   2048, 4, 64), causal and not, within 1e-5 of the plain version; the
+   ring's ms, p2p bytes and wait, device ms by kernel. (c) spmd_pipe: a
+   PipelineStageStack of 2 stages of 3 of the 1.3B's blocks on {"pipe":
+   2}, the tables, final LN and tied head replicated, bf16, AdamW mp,
+   4 x 1024 in 4 micro-batches, 4 steps: the losses within the bf16 rule
+   of the sequential stack (the same weights), the replicated
+   parameters bitwise equal across the stages after every step, B1, B2
+   and B3 12 times a step a rank, 4 ticks run and 1 bubble tick skipped
+   a step; p2p bytes and wait, step ms, busy share, peak.
+
 ``--phases`` runs only the named phases (comma-separated: build,
 kernels, reference, serve, train, to_static_grad, bert, vision,
 serving, hapi, optim, surface, nn_rest, zoo, dist_tune, hybrid,
-pipeline); the kernels
+pipeline, layouts); the kernels
 line needs every phase and is printed only when all run. Every phase
 runs under the defaults: FLAGS_fusion_policy=auto (the table this card
 measured, which keeps flash attention, fused conv + BN and the fused
@@ -373,6 +403,9 @@ PROMPTS, PROMPT_LEN, DECODE_STEPS = 4, 512, 64
 # bench.py's GPT training lane: batch 4 x 1024, AdamW lr 1e-4, a 512-token
 # permutation stream, 4 warm-up steps
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_WARMUP, TRAIN_STEPS = 4, 1024, 4, 16
+# GPT-medium's layers in every lane that builds it: 12 of its 24, at full
+# width (cut from 24 for the script's time, PERF.md section 4)
+GPT_LAYERS = 12
 # bench.py's BERT lane (bench_bert): batch 16 x 128, run_steps with 64
 # steps per execution, 2 warm-up executions; its chance-floor gate: the
 # mean loss of the last 32 recorded steps below 0.62 (ln 2 = 0.693 is
@@ -460,8 +493,8 @@ HAPI_ACC_BAR = 0.5
 # deterministic fit of HAPI_HAND_STEPS against a hand-written captured loop
 # on the same collated batches
 HAPI_RESNET_BATCH, HAPI_RESNET_WORKERS = 64, 4
-HAPI_RESNET_WARMUP, HAPI_RESNET_TIMED, HAPI_RESNET_PROFILED = 4, 16, 4
-HAPI_RESNET_LR, HAPI_HAND_STEPS, HAPI_HAND_TIMED = 0.005, 4, 8
+HAPI_RESNET_WARMUP, HAPI_RESNET_TIMED, HAPI_RESNET_PROFILED = 4, 8, 4
+HAPI_RESNET_LR, HAPI_HAND_STEPS, HAPI_HAND_TIMED = 0.005, 4, 4
 HAPI_RESNET_RTOL = 1e-4
 # hapi_bert: BERT-base bf16 at 8 x 512 through fit with
 # steps_per_execution=4: 2 warm-up and 4 timed executions, every step's
@@ -763,6 +796,9 @@ def phase_kernels(torch, seed):
              (*TP_PREFILL_SHAPE, torch.float32, True),
              (*GEOM_RANK_SHAPE, torch.float32, True),
              (*PP_RANK_SHAPE, torch.bfloat16, True),
+             (*RING_RANK_SHAPE, torch.bfloat16, True),
+             (*RING_RANK_SHAPE, torch.bfloat16, False),
+             (*SP_RANK_SHAPE, torch.bfloat16, True),
              (*TRANSLATE_FLASH_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
@@ -878,6 +914,9 @@ def phase_kernels_bwd(torch, seed):
              (*TP_RANK_SHAPE, torch.bfloat16, True),
              (*GEOM_RANK_SHAPE, torch.float32, True),
              (*PP_RANK_SHAPE, torch.bfloat16, True),
+             (*RING_RANK_SHAPE, torch.bfloat16, True),
+             (*RING_RANK_SHAPE, torch.bfloat16, False),
+             (*SP_RANK_SHAPE, torch.bfloat16, True),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = {"dkv": [], "dq": [], "whole": []}
     for b, s, h, d, dtype, causal in cases:
@@ -1054,7 +1093,8 @@ def phase_serve(torch, seed):
     from paddle_tpu_torch.ops.cuda.flash_attention import (KERNEL_NAME,
                                                            variant_counter)
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     ids = torch.randint(0, cfg.vocab_size, (PROMPTS, PROMPT_LEN),
                         generator=torch.Generator().manual_seed(seed + 1))
@@ -1093,7 +1133,7 @@ def phase_serve(torch, seed):
         gap = (logits.float() - m_logits.float()).abs().max().item()
         agree = int((toks == m_toks).sum().item())
         row = {"phase": "serve", "dtype": dname,
-               "config": "GPT-medium v32000 h1024 L24 a16 d64",
+               "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64",
                "prompts": PROMPTS, "prompt_len": PROMPT_LEN,
                "decode_steps": DECODE_STEPS, "model_build_s": build_s,
                "ttft_ms": ttft * 1e3,
@@ -1286,7 +1326,8 @@ def phase_train(torch, seed):
     # the counters of each kernel's variant for each dtype
     variants = {dt: [fa.variant_counter(n, dt) for n in KERNEL_NAMES]
                 for dt in (torch.bfloat16, torch.float32)}
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     total = TRAIN_WARMUP + TRAIN_STEPS + 1
     xs, ys = bench_stream(seed, total, TRAIN_BATCH, TRAIN_SEQ)
@@ -1319,7 +1360,7 @@ def phase_train(torch, seed):
     peak = torch.cuda.max_memory_allocated()
     losses = [loss.item() for loss in losses]
     row = {"phase": "train", "dtype": "bfloat16",
-           "config": "GPT-medium v32000 h1024 L24 a16 d64",
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64",
            "optimizer": "AdamW lr 1e-4 multi_precision (f32 masters)",
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "warmup_steps": TRAIN_WARMUP,
            "timed_steps": TRAIN_STEPS,
@@ -1379,7 +1420,8 @@ def phase_train(torch, seed):
     m_loss, m_grads = loss_and_grads(model, xs[0], ys[0])
     gaps = grad_gaps(torch, k_grads, m_grads)
     check = {"phase": "train_check", "dtype": "float32",
-             "config": "GPT-medium v32000 h1024 L24 a16 d64 (full depth)",
+             "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 "
+                       f"(full width)",
              "batch": [TRAIN_BATCH, TRAIN_SEQ],
              "loss_kernel_path": k_loss, "loss_math_path": m_loss,
              "loss_rel_gap": abs(k_loss - m_loss) / abs(m_loss),
@@ -1409,7 +1451,8 @@ def phase_train(torch, seed):
 
 def bf16_check(torch, model, x, y, f32_loss, f32_grads, variants,
                path=set_flash, n_layers=None,
-               config="GPT-medium v32000 h1024 L24 a16 d64 (full depth)",
+               config=f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 "
+                      f"(full width)",
                gaps=grad_gaps, zero_share=None):
     """One bf16 step at full width from the f32 check's weights cast to
     bf16, on the kernel path (tensor-core B1, B2 and B3) and on the math
@@ -1568,7 +1611,8 @@ def phase_compiled_train(torch, seed, eager):
                                                     compile_stats,
                                                     reset_compile_stats)
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     total = TRAIN_WARMUP + TRAIN_STEPS + 1
     xs, ys = bench_stream(seed, total, TRAIN_BATCH, TRAIN_SEQ)
@@ -1605,7 +1649,7 @@ def phase_compiled_train(torch, seed, eager):
     step_ms = seconds / TRAIN_STEPS * 1e3
     gaps = [abs(a - b) / abs(b) for a, b in zip(losses, eager["losses"])]
     row = {"phase": "compiled_train", "dtype": "bfloat16",
-           "config": "GPT-medium v32000 h1024 L24 a16 d64",
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64",
            "optimizer": "AdamW lr 1e-4 multi_precision (f32 masters)",
            "batch": [TRAIN_BATCH, TRAIN_SEQ], "warmup_steps": TRAIN_WARMUP,
            "timed_steps": TRAIN_STEPS,
@@ -1656,15 +1700,16 @@ def phase_amp_train(torch, seed):
     the scheduler steps between executions. The step returns the lr tensor
     beside the loss, so each step's lr is read back. The first execution
     holds the discovery pass and the capture, the second is profiled (B1
-    runs 48 times a step, the forward and its rerun in the backward; B2 and
-    B3 24), the third is timed unprofiled."""
+    runs twice a layer a step, the forward and its rerun in the backward;
+    B2 and B3 once), the third is timed unprofiled."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.jit.compiled_step import (CompiledTrainStep,
                                                     compile_stats,
                                                     reset_compile_stats)
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
     k_steps, executions = 4, 3
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0,
                     recompute=True)
     xs, ys = bench_stream(seed, k_steps * executions, TRAIN_BATCH,
@@ -1718,7 +1763,8 @@ def phase_amp_train(torch, seed):
         sched.step()
     peak = torch.cuda.max_memory_allocated()
     row = {"phase": "amp_train",
-           "config": "GPT-medium v32000 h1024 L24 a16 d64, f32 params, "
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64, "
+                     f"f32 params, "
                      "auto_cast bf16 (O1), recompute",
            "optimizer": "AdamW + ClipGradByGlobalNorm(1.0) + LinearWarmup "
                         "(5e-5 -> 1e-4 over 2 executions)",
@@ -3273,7 +3319,7 @@ def phase_hapi_resnet50(torch, seed):
         weights, its losses within HAPI_RESNET_RTOL of fit's: the
         comparison reads the API, not the order of atomic sums;
     (b) with cuDNN's default algorithms, as a PaddleClas run has them:
-        4 warm-up steps, 16 timed on the host clock (images/s, the
+        4 warm-up steps, 8 timed on the host clock (images/s, the
         StepTimer's phases), then 4 under torch.profiler. Every step
         replays one graph, so the device ms a profiled step takes over
         the timed steps' ms is the card's busy share over the timed
@@ -5951,7 +5997,7 @@ TUNE_SHAPES = (("gpt", (4, 1024, 16, 64), True),
                ("gpt_dp_rank", (2, 1024, 16, 64), True))
 # dp_gpt: ranks on the one card, steps (the first DP_CHECKED held to the
 # serial step's losses), and the steps timed after the first
-DIST_WORLD, DP_STEPS, DP_CHECKED = 2, 6, 4
+DIST_WORLD, DP_STEPS, DP_CHECKED = 2, 4, 4
 # dp_gpt's bounds against the serial step from the same weights: the
 # first step's reduced gradient norm, and each of the first DP_CHECKED
 # losses (relative). The losses' worst gap measured 1.7e-5 on an H100
@@ -6208,9 +6254,9 @@ POLICY_SETTINGS = (
     ("fused", "always", False),
     ("auto", "auto", False),
     ("searched", "auto", True))
-# timed steps a setting and mode (10 until the pipeline group needed the
-# script's time)
-POLICY_STEPS = 5
+# timed steps a setting and mode (10 until the pipeline group, 5 until
+# the layouts group needed the script's time)
+POLICY_STEPS = 3
 
 
 def phase_policy_steps(torch, seed):
@@ -6223,7 +6269,8 @@ def phase_policy_steps(torch, seed):
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.ops import autotune
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     xs, ys = bench_stream(seed, 1, TRAIN_BATCH, TRAIN_SEQ)
     x, y = torch.from_numpy(xs[0]).cuda(), torch.from_numpy(ys[0]).cuda()
@@ -6324,15 +6371,17 @@ def serial_steps(torch, model, make_opt, xs, ys, first_grads=None):
     return {"losses": losses, "step_ms": step_ms, "first_grads": first}
 
 
+@functools.lru_cache(maxsize=None)
 def serial_gpt_losses(torch, seed):
     """GPT-medium bf16, AdamW(multi_precision), the whole 4 x 1024 batch
     of bench's stream, DP_CHECKED eager steps on this process: the losses
     and the first step's gradient norm the data-parallel run is held
-    to."""
+    to. Run once a seed: dp_gpt, zero_gpt and pp_compiled share it."""
     import paddle_tpu_torch as pt
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
     xs, ys = bench_stream(seed, DP_STEPS, TRAIN_BATCH, TRAIN_SEQ)
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(seed))
@@ -6391,7 +6440,8 @@ def rank_dp_gpt(torch, pt, dist, seed, rank, world):
     xs, ys = bench_stream(seed, DP_STEPS, TRAIN_BATCH, TRAIN_SEQ)
     xs = torch.from_numpy(xs[:, rank * per:(rank + 1) * per]).cuda()
     ys = torch.from_numpy(ys[:, rank * per:(rank + 1) * per]).cuda()
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(seed))
@@ -6570,8 +6620,8 @@ def phase_dist(torch, seed, cache_dir):
 def check_dist(serial, serial_fit, ranks, seconds):
     """The dist lanes' rows and gates: collectives against numpy; dp_gpt's
     reduced gradients and weights the same on both ranks, its gradient
-    norm and losses against the serial step's, B1-B3 24 a step on every
-    rank; dp_fit against the serial fit."""
+    norm and losses against the serial step's, B1-B3 once a layer a step
+    on every rank; dp_fit against the serial fit."""
     world = len(ranks)
     base = np.arange(6, dtype="float32").reshape(2, 3)
     want = {
@@ -6601,7 +6651,8 @@ def check_dist(serial, serial_fit, ranks, seconds):
     grad_gap = abs(dp[0]["grad_norm"] - serial["grad_norm"]) \
         / serial["grad_norm"]
     row = {"phase": "dp_gpt", "world": world, "backend": ranks[0]["backend"],
-           "config": "GPT-medium v32000 h1024 L24 a16 d64 bf16, AdamW mp",
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 bf16, "
+                     f"AdamW mp",
            "global_batch": [TRAIN_BATCH, TRAIN_SEQ],
            "serial_losses": serial["losses"], "dp_losses": dp[0]["losses"],
            "loss_rel_gaps": gaps, "loss_rtol": DP_LOSS_RTOL,
@@ -6621,7 +6672,8 @@ def check_dist(serial, serial_fit, ranks, seconds):
         for counts in d["launches_per_step"]:
             for kernel in ("flash_attn_fwd", "flash_attn_bwd_dkv",
                            "flash_attn_bwd_dq"):
-                assert counts.get(f"{kernel}.tc_bf16", 0) == 24, counts
+                assert counts.get(f"{kernel}.tc_bf16", 0) == GPT_LAYERS, \
+                    counts
         assert d["tiles"] == dp[0]["tiles"], (d["tiles"], dp[0]["tiles"])
     # the autotune lane's cache answered every rank's tiles
     for res in ranks:
@@ -6687,8 +6739,12 @@ def phase_nccl_single(torch):
 # to the serial run's); greedy decode of PROMPTS x PROMPT_LEN plus
 # TP_DECODE_STEPS cached steps in f32, where a random 1.3B's top two
 # logits sit closer than bf16's rounding of 24 layers
-HYBRID_WORLD, TP_STEPS, TP_CHECKED, TP_BATCH = 2, 6, 4, 2
-TP_DECODE_STEPS = 16
+HYBRID_WORLD, TP_STEPS, TP_CHECKED, TP_BATCH = 2, 4, 4, 2
+TP_DECODE_STEPS = 8
+# tp_gpt, pp_gpt and their serial runs take the 1.3B at HYBRID_LAYERS of
+# its 24 layers, at full width (cut from 24 for the script's time, PERF.md
+# section 4)
+HYBRID_LAYERS = 12
 # hybrid_geometry: the 1.3B layer geometry at GEOM_LAYERS layers in f32,
 # SGD, dp 2 x mp 2 on GEOM_WORLD processes against the serial steps
 # (__graft_entry__.py:160-216, 5e-4 relative); its batch takes B1-B3
@@ -6711,16 +6767,16 @@ def fleet_init(hybrid, micro=1):
     return fleet, fleet.get_hybrid_communicate_group()
 
 
-def gpt_1p3b(torch, dtype, seed=None, tp=False, layers=None):
-    """GPT-3 1.3B (vocab 50304, hidden 2048, 24 layers, 16 heads of 128)
-    at bench's 1024 positions; ``seed`` draws the weights from a CUDA
+def gpt_1p3b(torch, dtype, seed=None, tp=False, layers=HYBRID_LAYERS):
+    """GPT-3 1.3B (vocab 50304, hidden 2048, 16 heads of 128) at ``layers``
+    of its 24 layers and bench's 1024 positions; ``seed`` draws the
+    weights from a CUDA
     generator (the same numbers in every process), None from torch's
     default one (a TP model whose shards are loaded next)."""
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
     cfg = GPTConfig.gpt3_1p3b(dropout=0.0, max_position_embeddings=TRAIN_SEQ,
                               tensor_parallel=tp)
-    if layers is not None:
-        cfg.num_layers = layers
+    cfg.num_layers = layers
     gen = None if seed is None else \
         torch.Generator(device="cuda").manual_seed(seed)
     return GPTForCausalLM(cfg, device="cuda", dtype=dtype, generator=gen)
@@ -6929,7 +6985,8 @@ def rank_zero_gpt(torch, seed):
     xs, ys = bench_stream(seed, DP_STEPS, TRAIN_BATCH, TRAIN_SEQ)
     xs = torch.from_numpy(xs[:, rank * per:(rank + 1) * per]).cuda()
     ys = torch.from_numpy(ys[:, rank * per:(rank + 1) * per]).cuda()
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(seed))
@@ -7014,10 +7071,11 @@ def rank_geometry(torch, seed):
 
 
 def hybrid_rank_main(torch, args):
-    """One rank of the hybrid and pipeline groups' lanes (a child process
-    of phase_hybrid or phase_pipeline): tp_gpt then zero_gpt,
-    hybrid_geometry, pp_gpt then hybrid_ckpt, or pp_compiled, written to
-    ``args.dist_out`` as JSON."""
+    """One rank of the hybrid, pipeline and layouts groups' lanes (a child
+    process of phase_hybrid, phase_pipeline or phase_layouts): tp_gpt then
+    zero_gpt, hybrid_geometry, pp_gpt then hybrid_ckpt, pp_compiled, or
+    zero3_gpt, ring_attn and spmd_pipe, written to ``args.dist_out`` as
+    JSON."""
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch.distributed import env as denv
     from paddle_tpu_torch.ops import autotune
@@ -7037,6 +7095,13 @@ def hybrid_rank_main(torch, args):
         free_cuda(torch)
         out["hybrid_ckpt"] = rank_hybrid_ckpt(
             torch, args.seed, os.environ["PADDLE_TPU_AUTOTUNE_CACHE"])
+    elif args.hybrid_lane == "layouts":
+        out["zero3_gpt"] = rank_zero3_gpt(
+            torch, args.seed, os.environ["PADDLE_TPU_AUTOTUNE_CACHE"])
+        free_cuda(torch)
+        out["ring_attn"] = rank_ring_attn(torch, args.seed)
+        free_cuda(torch)
+        out["spmd_pipe"] = rank_spmd_pipe(torch, args.seed)
     else:
         out["pp_compiled"] = rank_pp_compiled(torch, args.seed)
     out["autotune_counters"] = autotune.counters()
@@ -7050,6 +7115,11 @@ def spawn_ranks(world, seed, lane, cache_dir, timeout=900):
     """``world`` rank processes of this script on the card (gloo over
     CUDA tensors), each running hybrid_rank_main's ``lane``; returns
     their results and the seconds they took."""
+    return join_ranks(start_ranks(world, seed, lane, cache_dir), timeout)
+
+
+def start_ranks(world, seed, lane, cache_dir):
+    """spawn_ranks' first half: the processes started, not waited for."""
     here = os.path.dirname(os.path.abspath(__file__))
     addr = f"localhost:{free_port()}"
     outs = [os.path.join(cache_dir, f"{lane}-rank{r}.json")
@@ -7067,6 +7137,20 @@ def spawn_ranks(world, seed, lane, cache_dir, timeout=900):
                  str(seed), "--hybrid-lane", lane, "--dist-out", outs[r]],
                 cwd=here, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True))
+    except BaseException:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise
+    return procs, outs, t0
+
+
+def join_ranks(started, timeout=900):
+    """spawn_ranks' second half: wait for the processes (killing any left
+    at the timeout or on an error) and read their results."""
+    procs, outs, t0 = started
+    logs = []
+    try:
         logs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
         for p in procs:
@@ -7109,8 +7193,8 @@ def phase_hybrid(torch, seed):
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
     row = {"phase": "tp_gpt", "world": HYBRID_WORLD,
            "backend": ranks[0]["backend"],
-           "config": "GPT-3 1.3B v50304 h2048 L24 a16 d128 bf16, AdamW mp, "
-                     "mp 2 (8 heads a rank)",
+           "config": f"GPT-3 1.3B v50304 h2048 L{HYBRID_LAYERS} of 24 a16 "
+                     f"d128 bf16, AdamW mp, mp 2 (8 heads a rank)",
            "global_batch": [TP_BATCH, TRAIN_SEQ],
            "serial_bf16_losses": sb["losses"],
            "serial_f32_losses": sf["losses"],
@@ -7128,10 +7212,13 @@ def phase_hybrid(torch, seed):
         assert d["losses"][:TP_CHECKED] == tp[0]["losses"][:TP_CHECKED]
         for counts in d["launches_per_step"]:
             for kernel in kernels:
-                assert counts.get(f"{kernel}.{fa.TC}", 0) == 24, counts
-        assert d["prefill_launches"].get(f"{fa.KERNEL_NAME}.{fa.TC}") == 24
+                assert counts.get(f"{kernel}.{fa.TC}", 0) == HYBRID_LAYERS, \
+                    counts
+        assert d["prefill_launches"].get(f"{fa.KERNEL_NAME}.{fa.TC}") == \
+            HYBRID_LAYERS
         assert d["greedy_f32_launches"].get(
-            f"{fa.KERNEL_NAME}.{fa.SIMT}", 0) >= 24, d["greedy_f32_launches"]
+            f"{fa.KERNEL_NAME}.{fa.SIMT}", 0) >= HYBRID_LAYERS, \
+            d["greedy_f32_launches"]
     # the replicated parameters see the same summed gradients on every
     # rank, so they stay equal to the bit after every step
     assert tp[0]["replicated_sha"] == tp[1]["replicated_sha"], \
@@ -7142,7 +7229,7 @@ def phase_hybrid(torch, seed):
     zgaps = [abs(a - b) / abs(b) for a, b in zip(zero[0]["losses"],
                                                  serial["zero"]["losses"])]
     row = {"phase": "zero_gpt", "world": HYBRID_WORLD,
-           "config": "GPT-medium v32000 h1024 L24 a16 d64 bf16, AdamW mp, "
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 bf16, AdamW mp, "
                      "sharding 2 (ZeRO-1)",
            "global_batch": [TRAIN_BATCH, TRAIN_SEQ],
            "serial_losses": serial["zero"]["losses"],
@@ -7157,7 +7244,8 @@ def phase_hybrid(torch, seed):
                                 "ShardingOptimizerWrapper"], d["wrapped"]
         for counts in d["launches_per_step"]:
             for kernel in kernels:
-                assert counts.get(f"{kernel}.{fa.TC}", 0) == 24, counts
+                assert counts.get(f"{kernel}.{fa.TC}", 0) == GPT_LAYERS, \
+                    counts
     assert zero[0]["param_sha"] == zero[1]["param_sha"], "weights differ"
     assert sum(d["owned_elements"] for d in zero) == zero[0]["all_elements"]
     assert max(zgaps) <= DP_LOSS_RTOL, zgaps
@@ -7198,7 +7286,7 @@ def phase_hybrid(torch, seed):
 # the pipeline group: pp_gpt (GPT-3 1.3B at pp 2 x mp 2), pp_compiled
 # (GPT-medium at pp 2, its stages captured) and hybrid_ckpt (the 1.3B
 # layers at 2 of 24, saved at pp 2 x mp 2 and resumed at dp 2 x mp 2)
-PP_WORLD, PP_STEPS, PP_MICRO = 4, 6, 2
+PP_WORLD, PP_STEPS, PP_MICRO = 4, 4, 2
 PPC_WORLD, PPC_STEPS, PPC_MICRO, PPC_RTOL = 2, 4, 4, 1e-5
 CKPT_LAYERS, CKPT_STEPS, CKPT_RTOL = 2, 2, BF16_GRAD_SLACK
 
@@ -7320,6 +7408,7 @@ def rank_pp_gpt(torch, seed):
     fleet, hcg = fleet_init({"pp_degree": 2, "mp_degree": 2}, PP_MICRO)
     cfg = GPTConfig.gpt3_1p3b(dropout=0.0, max_position_embeddings=TRAIN_SEQ,
                               tensor_parallel=True)
+    cfg.num_layers = HYBRID_LAYERS
     full = gpt_1p3b(torch, torch.float32, seed)
     pl = gpt_pipeline(torch, cfg, full.state_dict(), 2)
     del full
@@ -7405,7 +7494,8 @@ def rank_pp_compiled(torch, seed):
     from paddle_tpu_torch.ops.cuda import launch_counts
     from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
     fleet, hcg = fleet_init({"pp_degree": 2}, PPC_MICRO)
-    cfg = GPTConfig(vocab_size=32000, hidden_size=1024, num_layers=24,
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS,
                     num_heads=16, max_position_embeddings=1024, dropout=0.0)
     full = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                           generator=torch.Generator().manual_seed(seed))
@@ -7571,7 +7661,10 @@ def phase_pipeline(torch, seed, serial=None):
     ppc, seconds["pp_compiled"] = spawn_ranks(PPC_WORLD, seed, "pp_compiled",
                                               cache_dir, timeout=600)
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
-    per_step = {fa.KERNEL_NAME: 48, fa.DKV_KERNEL: 24, fa.DQ_KERNEL: 24}
+    # a stage's layers x PP_MICRO micro-batches, B1 twice (the recompute)
+    per_layer = HYBRID_LAYERS // 2 * PP_MICRO
+    per_step = {fa.KERNEL_NAME: 2 * per_layer, fa.DKV_KERNEL: per_layer,
+                fa.DQ_KERNEL: per_layer}
 
     pp = [r["pp_gpt"] for r in ranks]
     by = {tuple(r["coords"]): r for r in pp}
@@ -7581,8 +7674,9 @@ def phase_pipeline(torch, seed, serial=None):
     bounds = [BF16_GRAD_FACTOR * abs(b - f) / abs(f) + BF16_GRAD_SLACK
               for b, f in zip(sb["losses"], sf["losses"])]
     row = {"phase": "pp_gpt", "world": PP_WORLD,
-           "config": "GPT-3 1.3B v50304 h2048 L24 a16 d128 bf16, AdamW mp, "
-                     "pp 2 x mp 2 (12 blocks, 8 heads a rank), 1F1B",
+           "config": f"GPT-3 1.3B v50304 h2048 L{HYBRID_LAYERS} of 24 a16 "
+                     f"d128 bf16, AdamW mp, pp 2 x mp 2 "
+                     f"({HYBRID_LAYERS // 2} blocks, 8 heads a rank), 1F1B",
            "global_batch": [TP_BATCH, TRAIN_SEQ], "micro_batches": PP_MICRO,
            "serial_bf16_losses": sb["losses"],
            "serial_f32_losses": sf["losses"],
@@ -7622,8 +7716,9 @@ def phase_pipeline(torch, seed, serial=None):
                                                  eager["losses"])]
     sgaps = [abs(a - b) / abs(b) for a, b in zip(comp["losses"], ref)]
     row = {"phase": "pp_compiled", "world": PPC_WORLD,
-           "config": "GPT-medium v32000 h1024 L24 a16 d64 bf16, AdamW mp, "
-                     "pp 2 (12 blocks a stage), stages captured",
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 bf16, AdamW mp, "
+                     f"pp 2 ({GPT_LAYERS // 2} blocks a stage), stages "
+                     f"captured",
            "global_batch": [TRAIN_BATCH, TRAIN_SEQ],
            "micro_batches": PPC_MICRO, "serial_losses": ref,
            "compiled_vs_eager_rel_gaps": cgaps, "rtol": PPC_RTOL,
@@ -7674,9 +7769,751 @@ def phase_pipeline(torch, seed, serial=None):
             "pp_gpt_tiles": pp[0]["tiles"], "seconds": seconds}
 
 
+# the layouts group (rank processes on the one card over gloo, one spawn of
+# LAYOUT_WORLD): zero3_gpt, bench's GPT-3 1.3B slice (bench.py:929-954: 6
+# layers, hidden 2048, vocab 50304, batch 2 x 1024) in bf16 under
+# Model.prepare(spec_layout=SpecLayout(shard_params=True)) on {"sharding":
+# 2}, 1 warm-up and Z3_STEPS timed steps, then its ZeRO-1 peak over
+# Z1_STEPS steps and a checkpoint of the slice cut to Z3_CKPT_LAYERS layers;
+# ring_attn at the 1.3B's heads, (1, 16384, 16, 128) on {"sep": 2}; spmd_pipe,
+# 2 stages of 3 of the 1.3B's blocks on {"pipe": 2}, 4 x 1024 in 4
+# micro-batches, SP_STEPS steps
+LAYOUT_WORLD = 2
+Z3_LAYERS, Z3_BATCH, Z3_STEPS, Z1_STEPS, Z3_CKPT_LAYERS = 6, 2, 4, 1, 1
+RING_SHAPE = (1, 16384, 16, 128)
+RING_RANK_SHAPE = (1, 8192, 16, 128)
+RING_F32_SHAPE, RING_F32_RTOL = (1, 2048, 4, 64), 1e-5
+RING_REPS = 1
+SP_BLOCKS, SP_BATCH, SP_MICRO, SP_STEPS = 3, 4, 4, 4
+SP_RANK_SHAPE = (1, 1024, 16, 128)
+
+
+def slice_1p3b(torch, dtype, seed=None, layers=Z3_LAYERS):
+    """bench's GPT-3 1.3B slice: gpt_1p3b at ``layers`` layers."""
+    return gpt_1p3b(torch, dtype, seed, layers=layers)
+
+
+def state_bytes(opt):
+    """The bytes of an optimizer's accumulators (moments, masters, beta
+    powers) under any wrappers."""
+    while hasattr(opt, "_inner"):
+        opt = opt._inner
+    return sum(t.numel() * t.element_size()
+               for accs in opt._accumulators.values() for t in accs.values())
+
+
+def param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def serial_slice(torch, seed):
+    """The serial runs zero3_gpt is held to: the slice in bf16 (AdamW mp)
+    and in f32 (AdamW), 1 + Z3_STEPS eager steps on bench's stream at
+    Z3_BATCH x 1024; the bf16 run's peak (over what this process held
+    before it), parameter and optimizer-state bytes."""
+    import paddle_tpu_torch as pt
+    free_cuda(torch)
+    before = torch.cuda.memory_allocated()
+    full = slice_1p3b(torch, torch.float32, seed)
+    model = slice_1p3b(torch, torch.bfloat16).train()
+    pt.load_numpy_state_dict(model, full.state_dict())
+    del full
+    xs, ys = bench_stream(seed, 1 + Z3_STEPS, Z3_BATCH, TRAIN_SEQ)
+    adamw = functools.partial(pt.optimizer.AdamW, learning_rate=1e-4)
+    opts = []
+
+    def make_mp(**kw):
+        opts.append(adamw(multi_precision=True, **kw))
+        return opts[-1]
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"bfloat16": serial_steps(torch, model, make_mp, xs, ys),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated() - before,
+           "param_bytes": param_bytes(model),
+           "optimizer_state_bytes": state_bytes(opts[0]),
+           "params": sum(p.numel() for p in model.parameters())}
+    del model, opts
+    free_cuda(torch)
+    # the same weights drawn again, for the f32 run
+    full = slice_1p3b(torch, torch.float32, seed).train()
+    out["float32"] = serial_steps(torch, full, adamw, xs, ys)
+    del full
+    free_cuda(torch)
+    return out
+
+
+def pipe_gpt(torch, dtype, seed):
+    """The spmd_pipe model: the 1.3B's token and position tables, a
+    PipelineStageStack of 2 stages of SP_BLOCKS blocks over the "pipe"
+    axis (the stages in turn where it has degree 1), the final LayerNorm
+    and the head tied to the table; the weights drawn in f32 from a CUDA
+    generator in one order (the same numbers in every process), then
+    cast to ``dtype``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.nn as nn
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.distributed.fleet.spmd_pipeline import \
+        PipelineStageStack
+    from paddle_tpu_torch.text.models.gpt import GPTBlock, GPTConfig
+
+    class GPTStage(nn.Layer):
+        """SP_BLOCKS of the 1.3B's blocks, x -> x: the blocks' carried
+        residual added back at the end."""
+
+        def __init__(self, cfg, **factory):
+            super().__init__(**factory)
+            self.h = nn.LayerList([GPTBlock(cfg, **factory)
+                                   for _ in range(SP_BLOCKS)])
+
+        def forward(self, x):
+            pending = None
+            for block in self.h:
+                x, pending = block(x, pending)
+            return x if pending is None else x + pending
+
+    class PipeGPT(nn.Layer):
+        def __init__(self, dt, gen):
+            super().__init__(device="cuda", dtype=dt, generator=gen)
+            cfg = GPTConfig.gpt3_1p3b(dropout=0.0,
+                                      max_position_embeddings=TRAIN_SEQ)
+            fk = self.factory_kwargs()
+            init = nn.initializer.Normal(0.0, 0.02)
+            self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size,
+                                    weight_attr=init, **fk)
+            self.wpe = nn.Embedding(TRAIN_SEQ, cfg.hidden_size,
+                                    weight_attr=init, **fk)
+            self.stack = PipelineStageStack(
+                lambda: GPTStage(cfg, **fk), num_stages=2,
+                num_microbatches=SP_MICRO)
+            self.ln_f = nn.LayerNorm(cfg.hidden_size, **fk)
+            self.vocab = cfg.vocab_size
+
+        def forward(self, ids, labels):
+            pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+            h = self.ln_f(self.stack(self.wte(ids) + self.wpe(pos)))
+            logits = F.linear(h, self.wte.weight.t())
+            return F.cross_entropy(logits.reshape(-1, self.vocab).float(),
+                                   labels.reshape(-1))
+    full = PipeGPT(torch.float32,
+                   torch.Generator(device="cuda").manual_seed(seed + 17))
+    if dtype == torch.float32:
+        return full
+    model = PipeGPT(dtype, None)
+    pt.load_numpy_state_dict(model, full.state_dict())
+    del full
+    return model
+
+
+def serial_pipe(torch, seed):
+    """The sequential stack spmd_pipe is held to (pipe degree 1, the same
+    weights): SP_STEPS eager steps in bf16 (AdamW mp) and in f32."""
+    import paddle_tpu_torch as pt
+    xs, ys = bench_stream(seed + 3, SP_STEPS, SP_BATCH, TRAIN_SEQ)
+    adamw = functools.partial(pt.optimizer.AdamW, learning_rate=1e-4)
+    out = {}
+    for dtype, make in ((torch.bfloat16, functools.partial(
+            adamw, multi_precision=True)), (torch.float32, adamw)):
+        model = pipe_gpt(torch, dtype, seed).train()
+        out[str(dtype).split(".")[-1]] = serial_steps(torch, model, make,
+                                                      xs, ys)
+        del model
+        free_cuda(torch)
+    return out
+
+
+def profiled_step(torch, fn, expect, lead=None):
+    """One call of ``fn`` under the profiler, through ``profiled`` (a
+    lead-in absorbs what a profile loses at its start, ``lead`` or one
+    small kernel; a window short of ``expect``, {kernel: launches}, is
+    taken again): its ms, the share of it the device spent in kernels,
+    and the tensor-core flash kernels launched and their device ms, by
+    kernel name."""
+    prof, wall_s, _, per = profiled(
+        torch, fn, 1, expect=expect,
+        lead=lead or (lambda: torch.ones(1, device="cuda").add_(1)))
+    kernels = kernel_times(prof, per["after_us"])
+    wall = wall_s * 1e3
+    return {"profiled_step_ms": wall, "busy_share": per["device_ms"] / wall,
+            "profiled_tc_launches_by_kernel_name": {
+                k: int(v) for k, v in per["flash_launches"].items()},
+            "profiled_device_ms_by_kernel": {
+                n: sum(k[0] for k in kernels if tc in k[2]) / 1e3
+                for n, tc in TC_KERNEL_NAMES.items()},
+            "profile_tries": per["profile_tries"]}
+
+
+def rank_zero3_gpt(torch, seed, cache_dir):
+    """zero3_gpt on this rank: the slice trained through
+    Model.prepare(spec_layout=SpecLayout(shard_params=True)) on
+    {"sharding": 2}; then fleet's ZeRO-1 on the same slice for its peak;
+    then the checkpoint of the slice at Z3_CKPT_LAYERS layers, saved at
+    sharding 2 and loaded on rank 0 into the serial slice."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import spec_layout
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import steptimer
+    from paddle_tpu_torch.resilience.recorder import get_recorder
+    build_mesh({"sharding": LAYOUT_WORLD})
+    full = slice_1p3b(torch, torch.float32, seed)
+    model = slice_1p3b(torch, torch.bfloat16).train()
+    pt.load_numpy_state_dict(model, full.state_dict())
+    del full
+    free_cuda(torch)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    m = pt.Model(model)
+    m.prepare(opt, loss=lambda loss: loss,
+              spec_layout=dist.SpecLayout(shard_params=True))
+    xs, ys = bench_stream(seed, 1 + Z3_STEPS, Z3_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    rec = get_recorder()
+    losses, step_ms, launches, comms, collectives = [], [], [], [], []
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + Z3_STEPS):
+        if i == 1:
+            steptimer.reset_steptimer()
+        launch_counts.clear()
+        spec_layout.reset_stats()
+        rec.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(m.train_batch([xs[i], ys[i]])[0])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_launches(fa, launch_counts))
+        comms.append(spec_layout.stats())
+        collectives.append(collective_tally(rec.entries()))
+    peak = torch.cuda.max_memory_allocated()
+    wait_ms = steptimer.get_steptimer().breakdown()["phase_ms"].get(
+        "collective_wait", 0.0) / Z3_STEPS
+    prof = profiled_step(torch, lambda: m.train_batch([xs[1], ys[1]]),
+                         {k: float(Z3_LAYERS) for k in TC_KERNEL_NAMES})
+    dev = torch.device("cuda")
+    b, s, h, d = Z3_BATCH, TRAIN_SEQ, 16, 128
+    fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    out = {"losses": losses, "step_ms": step_ms,
+           "step_ms_median": float(np.median(step_ms[1:])),
+           "tokens_per_s": Z3_BATCH * TRAIN_SEQ
+           / (float(np.median(step_ms[1:])) / 1e3),
+           "collective_wait_ms_per_step": wait_ms,
+           "zero3_collectives_per_step": comms,
+           "collectives_per_step": collectives,
+           "launches_per_step": launches,
+           "tiles": {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                     fa.DQ_KERNEL: bwd[2]},
+           "local_params": sum(p.numel() for p in model.parameters()),
+           "param_bytes": param_bytes(model),
+           "optimizer_state_bytes": state_bytes(opt),
+           "peak_mem_bytes": peak, **prof,
+           "sharded": sum(1 for p in model.parameters()
+                          if getattr(p, "fsdp_split", None) is not None),
+           "captures": m._captures(),
+           "wrapped": type(m.network).__name__}
+    del m, model, opt
+    free_cuda(torch)
+    # fleet's ZeRO-1 on the same slice and batch: its peak a rank
+    fleet, hcg = fleet_init({"sharding_degree": LAYOUT_WORLD})
+    before = torch.cuda.memory_allocated()
+    model = slice_1p3b(torch, torch.bfloat16, seed).train()
+    dist_model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(pt.optimizer.AdamW(
+        learning_rate=1e-4, multi_precision=True,
+        parameters=model.parameters()))
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    z1_ms = []
+    for i in range(Z1_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist_model(xs[i], labels=ys[i]).backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        z1_ms.append((time.perf_counter() - t0) * 1e3)
+    out["zero1"] = {"peak_mem_bytes": torch.cuda.max_memory_allocated()
+                    - before,
+                    "optimizer_state_bytes": state_bytes(opt),
+                    "step_ms": z1_ms}
+    del dist_model, model, opt
+    free_cuda(torch)
+    out["checkpoint"] = zero3_checkpoint(torch, seed, cache_dir, xs, ys)
+    return out
+
+
+def zero3_checkpoint(torch, seed, cache_dir, xs, ys):
+    """The slice at Z3_CKPT_LAYERS layers under ZeRO-3 (shard_params on
+    {"sharding": 2}), one step, save_hybrid_checkpoint; rank 0 loads it
+    into the serial slice and its optimizer. The sha256 of the gathered
+    weights and f32 masters at the save and of the serial ones after the
+    load, the file's bytes, the seconds of each."""
+    import hashlib
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.framework.io_utils import (full_state_dict,
+                                                     param_split, unshard)
+
+    def digest(named, masters):
+        h = hashlib.sha256()
+        for k, v in named:
+            h.update(k.encode())
+            h.update(v.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        for v in masters:
+            h.update(v.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    def masters(model, opt):
+        accs = opt._accumulators["master_weight"]
+        out = []
+        for p in model.parameters():
+            t = accs[id(p)]
+            split = param_split(p)
+            out.append(unshard(t, split) if split is not None else t)
+        return out
+    build_mesh({"sharding": LAYOUT_WORLD})
+    model = slice_1p3b(torch, torch.bfloat16, seed,
+                       layers=Z3_CKPT_LAYERS).train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    dist.shard_params(model, dist.SpecLayout(shard_params=True))
+    model(xs[0], labels=ys[0]).backward()
+    opt.step()
+    opt.clear_grad()
+    saved = digest(sorted(full_state_dict(model).items()),
+                   masters(model, opt))
+    path = os.path.join(cache_dir, "zero3.pdckpt")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dist.save_hybrid_checkpoint(path, model, opt, meta={"step": 1})
+    save_s = time.perf_counter() - t0
+    del model, opt
+    free_cuda(torch)
+    out = {"saved_sha": saved, "save_s": save_s, "layers": Z3_CKPT_LAYERS}
+    if dist.get_rank() == 0:
+        out["file_bytes"] = os.path.getsize(path)
+        serial = slice_1p3b(torch, torch.bfloat16,
+                            layers=Z3_CKPT_LAYERS).train()
+        sopt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                                  parameters=serial.parameters())
+        t0 = time.perf_counter()
+        meta = dist.load_hybrid_checkpoint(path, serial, sopt)
+        out["load_s"] = time.perf_counter() - t0
+        out["meta_step"] = meta.get("step")
+        out["loaded_sha"] = digest(sorted(serial.state_dict().items()),
+                                   masters(serial, sopt))
+        del serial, sopt
+    dist.barrier()
+    if dist.get_rank() == 0:
+        for f in (path, path + ".sha256"):
+            if os.path.exists(f):
+                os.remove(f)
+    free_cuda(torch)
+    return out
+
+
+def rel_l2_t(a, b):
+    return float((a.float() - b.float()).norm()
+                 / b.float().norm().clamp_min(1e-30))
+
+
+def rank_ring_attn(torch, seed):
+    """ring_attn on this rank: {"sep": 2}, its (1, 8192, 16, 128) bf16
+    slice of (1, 16384, 16, 128), causal, forward and backward; the
+    gathered output and grads against one rank's B1, B2 and B3 over the
+    whole sequence; then an f32 run at RING_F32_SHAPE, causal and not,
+    against the plain version."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.fleet import sequence_parallel as sp
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.ops import attention
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    build_mesh({"sep": LAYOUT_WORLD})
+    rank = dist.get_rank()
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+
+    def whole(shape, dtype):
+        return [torch.randn(shape, generator=gen, device="cuda",
+                            dtype=torch.float32).to(dtype)
+                for _ in range(4)]
+    q, k, v, do = whole(RING_SHAPE, torch.bfloat16)
+    scale = 1.0 / RING_SHAPE[-1] ** 0.5
+
+    def local():
+        return [sp.split_sequence(t).clone().requires_grad_()
+                for t in (q, k, v)]
+    do_l = sp.split_sequence(do).contiguous()
+
+    def ring():
+        ts = local()
+        o = sp.ring_attention(*ts, is_causal=True)
+        o.backward(do_l)
+        return o, ts
+    ring()                               # warm-up: the tile search
+    launch_counts.clear()
+    sp.reset_stats()
+    paths = dict(attention.block_paths)
+    ts = local()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = sp.ring_attention(*ts, is_causal=True)
+    torch.cuda.synchronize()
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd_launches = flash_launches(fa, launch_counts)
+    fwd_stats = sp.stats()
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    o.backward(do_l)
+    torch.cuda.synchronize()
+    bwd_ms = (time.perf_counter() - t0) * 1e3
+    bwd_launches = flash_launches(fa, launch_counts)
+    stats = sp.stats()
+    block_paths = {k: attention.block_paths[k] - paths[k] for k in paths}
+    times = []
+    for _ in range(RING_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ring()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    prof = profiled_step(torch, ring,
+                         {k: float(rank + 1) for k in TC_KERNEL_NAMES},
+                         lead=ring)
+    gathered = sp.gather_sequence(o.detach())
+    grads = [sp.gather_sequence(t.grad) for t in ts]
+    # B1, B2 and B3 over the whole sequence, on the 64-row tiles: a tile
+    # search at s = 16384 would gate its candidates on the plain
+    # versions' 16 GiB score matrices
+    _, lse, out32 = fa._launch(q, k, v, True, scale, keep_f32=True, tile=64)
+    ref_o = out32.to(q.dtype)
+    delta = fa.bwd_delta(out32, do)
+    dk, dv = fa.launch_dkv(q, k, v, do, lse, delta, True, scale, tile=64)
+    ref_g = (fa.launch_dq(q, k, v, do, lse, delta, True, scale, tile=64),
+             dk, dv)
+    gaps = {"out": rel_l2_t(gathered, ref_o),
+            **{f"d{n}": rel_l2_t(g, w)
+               for n, g, w in zip("qkv", grads, ref_g)}}
+    del q, k, v, do, do_l, ts, o, gathered, grads, ref_o, ref_g, out32, lse
+    del delta, dk, dv
+    free_cuda(torch)
+    f32 = {}
+    for causal in (True, False):
+        q, k, v, do = whole(RING_F32_SHAPE, torch.float32)
+        ts = [sp.split_sequence(t).clone().requires_grad_()
+              for t in (q, k, v)]
+        o = sp.ring_attention(*ts, is_causal=causal)
+        o.backward(sp.split_sequence(do).contiguous())
+        s32 = 1.0 / RING_F32_SHAPE[-1] ** 0.5
+        ref_o, ref_lse = fa.flash_attention_fwd_reference(q, k, v, causal,
+                                                          s32)
+        ref_g = fa.flash_attention_bwd_reference(q, k, v, ref_o, ref_lse,
+                                                 do, causal, s32)
+        f32[f"causal={causal}"] = {
+            "out": rel_l2_t(sp.gather_sequence(o.detach()), ref_o),
+            **{f"d{n}": rel_l2_t(sp.gather_sequence(t.grad), w)
+               for n, t, w in zip("qkv", ts, ref_g)}}
+    return {"rank": rank, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+            "ring_ms": times, "fwd_launches": fwd_launches,
+            "bwd_launches": bwd_launches, "block_paths": block_paths,
+            "fwd_p2p_bytes": fwd_stats["p2p_bytes"],
+            "p2p_bytes": stats["p2p_bytes"],
+            "bwd_p2p_bytes": stats["p2p_bytes"] - fwd_stats["p2p_bytes"],
+            "fwd_p2p_wait_ms": fwd_stats["p2p_wait_s"] * 1e3,
+            "p2p_wait_ms": stats["p2p_wait_s"] * 1e3,
+            "blocks": stats["blocks"], "skipped": stats["skipped_blocks"],
+            "eager_reason": stats["eager_reason"], **prof,
+            "gaps_bf16": gaps,
+            "gaps_f32": f32}
+
+
+def rank_spmd_pipe(torch, seed):
+    """spmd_pipe on this rank: the PipeGPT of pipe_gpt on {"pipe": 2},
+    bf16, AdamW mp, SP_STEPS steps on bench's stream at SP_BATCH x 1024
+    in SP_MICRO micro-batches: losses, the replicated parameters' SHA-1
+    after each step, B1-B3 a step, p2p bytes and wait, step ms, busy
+    share, peak."""
+    import hashlib
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import steptimer
+    build_mesh({"pipe": LAYOUT_WORLD})
+    model = pipe_gpt(torch, torch.bfloat16, seed).train()
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    xs, ys = bench_stream(seed + 3, SP_STEPS, SP_BATCH, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    replicated = [p for n, p in sorted(model.named_parameters())
+                  if not n.startswith("stack.")]
+    losses, step_ms, launches, shas, p2p = [], [], [], [], []
+    free_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(SP_STEPS):
+        if i == 1:
+            steptimer.reset_steptimer()
+        launch_counts.clear()
+        before = dict(model.stack.stats())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(xs[i], ys[i])
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(flash_launches(fa, launch_counts))
+        st = model.stack.stats()
+        p2p.append({k: st[k] - before[k] for k in ("ticks",
+                    "bubble_ticks_skipped", "p2p_bytes", "p2p_wait_s")})
+        h = hashlib.sha1()
+        for p in replicated:
+            h.update(p.detach().contiguous().reshape(-1).view(torch.uint8)
+                     .cpu().numpy().tobytes())
+        shas.append(h.hexdigest())
+    peak = torch.cuda.max_memory_allocated()
+    wait_ms = steptimer.get_steptimer().breakdown()["phase_ms"].get(
+        "collective_wait", 0.0) / (SP_STEPS - 1)
+
+    def step():
+        model(xs[0], ys[0]).backward()
+        opt.clear_grad()
+    prof = profiled_step(torch, step, {k: float(SP_MICRO * SP_BLOCKS)
+                                       for k in TC_KERNEL_NAMES}, lead=step)
+    return {"losses": losses, "step_ms": step_ms,
+            "step_ms_median": float(np.median(step_ms[1:])),
+            "tokens_per_s": SP_BATCH * TRAIN_SEQ
+            / (float(np.median(step_ms[1:])) / 1e3),
+            "launches_per_step": launches, "p2p_per_step": p2p,
+            "collective_wait_ms_per_step": wait_ms,
+            "replicated_sha": shas, "peak_mem_bytes": peak,
+            "local_params": sum(p.numel() for p in model.parameters()),
+            **prof}
+
+
+def phase_layouts(torch, seed):
+    """zero3_gpt, ring_attn and spmd_pipe: the LAYOUT_WORLD rank processes
+    (one spawn, the three lanes in turn) started, then the serial runs on
+    this process while the ranks import. Returns each lane's B1-B3
+    launches and the seconds."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    seconds = {}
+    # the ranks read the tile answers this process found (the kernels
+    # phase's, at the ring's and the micro-batch's shapes); they start
+    # first and import while this process runs the serial references
+    # (whose step times the imports' host load may stretch)
+    started = start_ranks(LAYOUT_WORLD, seed, "layouts",
+                          os.environ["PADDLE_TPU_AUTOTUNE_CACHE"])
+    try:
+        t0 = time.perf_counter()
+        serial = {"zero3": serial_slice(torch, seed),
+                  "pipe": serial_pipe(torch, seed)}
+        seconds["serial"] = time.perf_counter() - t0
+    except BaseException:
+        for p in started[0]:
+            p.kill()
+            p.communicate()
+        raise
+    ranks, seconds["serial_and_ranks"] = join_ranks(started, timeout=600)
+    kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    tc = fa.TC
+
+    def bf16_rule(got, ser):
+        sb, sf = ser["bfloat16"]["losses"], ser["float32"]["losses"]
+        gaps = [abs(a - b) / abs(b) for a, b in zip(got, sb)]
+        bounds = [BF16_GRAD_FACTOR * abs(b - f) / abs(f) + BF16_GRAD_SLACK
+                  for b, f in zip(sb, sf)]
+        return gaps, bounds
+
+    z3 = [r["zero3_gpt"] for r in ranks]
+    ser = serial["zero3"]
+    gaps, bounds = bf16_rule(z3[0]["losses"], ser)
+    ck = z3[0]["checkpoint"]
+    row = {"phase": "zero3_gpt", "world": LAYOUT_WORLD,
+           "config": f"GPT-3 1.3B slice v50304 h2048 L{Z3_LAYERS} a16 d128 "
+                     f"bf16, AdamW mp, Model.prepare(spec_layout="
+                     f"SpecLayout(shard_params=True)), sharding 2",
+           "global_batch": [Z3_BATCH, TRAIN_SEQ],
+           "serial_bf16_losses": ser["bfloat16"]["losses"],
+           "serial_f32_losses": ser["float32"]["losses"],
+           "serial_bf16_step_ms": ser["bfloat16"]["step_ms"],
+           "serial_peak_mem_bytes": ser["peak_mem_bytes"],
+           "serial_param_bytes": ser["param_bytes"],
+           "serial_optimizer_state_bytes": ser["optimizer_state_bytes"],
+           "serial_params": ser["params"],
+           "zero3_losses": z3[0]["losses"], "loss_rel_gaps": gaps,
+           "loss_bounds": bounds,
+           "param_bytes_share": [d["param_bytes"] / ser["param_bytes"]
+                                 for d in z3],
+           "state_bytes_share": [d["optimizer_state_bytes"]
+                                 / ser["optimizer_state_bytes"] for d in z3],
+           **{f"rank{r}": d for r, d in enumerate(z3)}}
+    emit(row)
+    for d in z3:
+        assert d["wrapped"] != "DataParallel" and not d["captures"], d
+        assert d["losses"] == z3[0]["losses"], [x["losses"] for x in z3]
+        for counts in d["launches_per_step"]:
+            for kernel in kernels:
+                assert counts.get(f"{kernel}.{tc}", 0) == Z3_LAYERS, counts
+        assert d["profiled_tc_launches_by_kernel_name"] == {
+            k: Z3_LAYERS for k in kernels}, \
+            d["profiled_tc_launches_by_kernel_name"]
+    assert sum(d["local_params"] for d in z3) == ser["params"]
+    assert all(abs(s - 0.5) <= 0.01 for s in row["param_bytes_share"]), row
+    assert all(abs(s - 0.5) <= 0.01 for s in row["state_bytes_share"]), row
+    assert len(gaps) == 1 + Z3_STEPS and all(
+        g <= b for g, b in zip(gaps, bounds)), (gaps, bounds)
+    assert ck["saved_sha"] == ck["loaded_sha"] and ck["meta_step"] == 1, ck
+
+    ring = sorted((r["ring_attn"] for r in ranks), key=lambda d: d["rank"])
+    row = {"phase": "ring_attn", "world": LAYOUT_WORLD,
+           "config": "ring_attention on {'sep': 2}, (1, 16384, 16, 128) "
+                     "bf16 causal, (1, 8192, 16, 128) a rank",
+           "rel_l2_bound": 2.0 ** -7, "f32_rtol": RING_F32_RTOL,
+           **{f"rank{d['rank']}": d for d in ring}}
+    emit(row)
+    for d in ring:
+        r = d["rank"]
+        for kernel in kernels:
+            assert d["fwd_launches" if kernel == fa.KERNEL_NAME
+                     else "bwd_launches"].get(f"{kernel}.{tc}", 0) == r + 1, d
+        assert d["block_paths"] == {"kernel": 2 * (r + 1), "math": 0}, d
+        assert all(g <= 2.0 ** -7 for g in d["gaps_bf16"].values()), d
+        for gaps32 in d["gaps_f32"].values():
+            assert all(g <= RING_F32_RTOL for g in gaps32.values()), d
+        assert d["profiled_tc_launches_by_kernel_name"] == {
+            k: r + 1 for k in kernels}, d
+
+    pipe = [r["spmd_pipe"] for r in ranks]
+    gaps, bounds = bf16_rule(pipe[0]["losses"], serial["pipe"])
+    row = {"phase": "spmd_pipe", "world": LAYOUT_WORLD,
+           "config": "PipelineStageStack of 2 stages of 3 GPT-3 1.3B blocks "
+                     "(h2048, 16 heads of 128) bf16 on {'pipe': 2}, tables, "
+                     "final LN and tied head replicated, AdamW mp",
+           "global_batch": [SP_BATCH, TRAIN_SEQ], "micro_batches": SP_MICRO,
+           "serial_bf16_losses": serial["pipe"]["bfloat16"]["losses"],
+           "serial_f32_losses": serial["pipe"]["float32"]["losses"],
+           "serial_bf16_step_ms": serial["pipe"]["bfloat16"]["step_ms"],
+           "pipe_losses": pipe[0]["losses"], "loss_rel_gaps": gaps,
+           "loss_bounds": bounds,
+           **{f"rank{r}": {k: v for k, v in d.items()
+                           if k != "replicated_sha"}
+              for r, d in enumerate(pipe)}}
+    emit(row)
+    for d in pipe:
+        assert d["losses"] == pipe[0]["losses"], [x["losses"] for x in pipe]
+        assert d["replicated_sha"] == pipe[0]["replicated_sha"], \
+            "replicated parameters differ across the stages"
+        for counts in d["launches_per_step"]:
+            for kernel in kernels:
+                assert counts.get(f"{kernel}.{tc}", 0) == \
+                    SP_MICRO * SP_BLOCKS, counts
+        for st in d["p2p_per_step"]:
+            assert st["ticks"] == SP_MICRO and \
+                st["bubble_ticks_skipped"] == 1, st
+    assert len(gaps) == SP_STEPS and all(
+        g <= b for g, b in zip(gaps, bounds)), (gaps, bounds)
+    return {"zero3_gpt_per_step_rank0": z3[0]["launches_per_step"][-1],
+            "zero3_gpt_per_step_rank1": z3[1]["launches_per_step"][-1],
+            "ring_attn_fwd_rank0": ring[0]["fwd_launches"],
+            "ring_attn_fwd_rank1": ring[1]["fwd_launches"],
+            "ring_attn_bwd_rank0": ring[0]["bwd_launches"],
+            "ring_attn_bwd_rank1": ring[1]["bwd_launches"],
+            "spmd_pipe_per_step_rank0": pipe[0]["launches_per_step"][-1],
+            "spmd_pipe_per_step_rank1": pipe[1]["launches_per_step"][-1],
+            "zero3_gpt_tiles": z3[0]["tiles"], "seconds": seconds}
+
+
+def layout_entries(fa, entry, rows, bwd_rows, layouts, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 at the layouts
+    group's shapes: a ring rank's (1, 8192, 16, 128), causal and not, with
+    their launches in one ring call on rank 1 (its diagonal block causal,
+    the one below it full), zero3_gpt's (2, 1024, 16, 128) with its launches a step,
+    and spmd_pipe's micro-batch (1, 1024, 16, 128) with its launches a
+    step, all causal. Each forward writes O in f32 too: its time and
+    bound are those."""
+    tc = fa.TC
+
+    def at(found, shape, causal=True):
+        return next(r for r in found if r["shape"] == list(shape)
+                    and r["dtype"] == "bfloat16" and r["causal"] == causal)
+
+    def at_full(found, shape):
+        return at(found, shape, causal=False)
+
+    def fwd_entry(suffix, row, launches, main):
+        return entry(f"{fa.KERNEL_NAME}.{tc}.{suffix}",
+                     "flash_attn_fwd_tc.cu", 114, row, launches,
+                     row["max_abs_err_o"], rel_l2=row["rel_l2_o"],
+                     main_path=main, ms=row["ms_with_f32_out"],
+                     bound_ms=row["bound_us_with_f32_out"] / 1e3,
+                     bound_by=row["bound_by_with_f32_out"],
+                     share_of_bound=row["bound_us_with_f32_out"] / 1e3
+                     / row["ms_with_f32_out"],
+                     factor_vs_library=row["ms_with_f32_out"]
+                     / row["library_ms"], ms_without_f32_out=row["ms"])
+
+    def bwd_entries(suffix, shape, counts, main, causal=True):
+        out = []
+        for kernel, source, line in ((fa.DKV_KERNEL, "flash_attn_dkv_tc.cu",
+                                      200),
+                                     (fa.DQ_KERNEL, "flash_attn_dq_tc.cu",
+                                      247)):
+            key = "dkv" if kernel == fa.DKV_KERNEL else "dq"
+            row = at(bwd_rows[key], shape, causal)
+            out.append(entry(f"{kernel}.{tc}.{suffix}", source, line, row,
+                             counts.get(f"{kernel}.{tc}", 0),
+                             row["max_abs_err"],
+                             rel_l2={o: g["rel_l2"] for o, g in
+                                     row["rel_l2_by_output"].items()},
+                             main_path=main, **scope))
+        return out
+    ring_main = ("ring_attention bf16 causal on {'sep': 2}, a rank's "
+                 "(1, 8192, 16, 128) slice of (1, 16384, 16, 128) "
+                 "(ring_attn, rank 1)")
+    z3_main = ("GPT-3 1.3B 6-layer slice bf16 step under ZeRO-3 "
+               "(sharding 2), a rank's (2, 1024, 16, 128) (zero3_gpt)")
+    sp_main = ("GPT-3 1.3B blocks in a PipelineStageStack on {'pipe': 2}, "
+               "a micro-batch (1, 1024, 16, 128) (spmd_pipe)")
+    z3_step = layouts["zero3_gpt_per_step_rank0"]
+    sp_step = layouts["spmd_pipe_per_step_rank0"]
+    # rank 1 runs one causal block (its diagonal) and the rest full
+    fwd1 = layouts["ring_attn_fwd_rank1"]
+    bwd1 = layouts["ring_attn_bwd_rank1"]
+    diag = {k: min(v, 1) for k, v in {**fwd1, **bwd1}.items()}
+    full = {k: v - min(v, 1) for k, v in {**fwd1, **bwd1}.items()}
+    full_main = ring_main.replace("(ring_attn, rank 1)",
+                                  "its full block below the diagonal "
+                                  "(ring_attn, rank 1)")
+    return [
+        fwd_entry("ring", at(rows, RING_RANK_SHAPE),
+                  diag[f"{fa.KERNEL_NAME}.{tc}"], ring_main),
+        *bwd_entries("ring", RING_RANK_SHAPE, diag, ring_main),
+        fwd_entry("ring_full", at_full(rows, RING_RANK_SHAPE),
+                  full[f"{fa.KERNEL_NAME}.{tc}"], full_main),
+        *bwd_entries("ring_full", RING_RANK_SHAPE, full, full_main,
+                     causal=False),
+        fwd_entry("zero3", at(rows, (Z3_BATCH, TRAIN_SEQ, 16, 128)),
+                  z3_step[f"{fa.KERNEL_NAME}.{tc}"], z3_main),
+        *bwd_entries("zero3", (Z3_BATCH, TRAIN_SEQ, 16, 128), z3_step,
+                     z3_main),
+        fwd_entry("spmd_pipe", at(rows, SP_RANK_SHAPE),
+                  sp_step[f"{fa.KERNEL_NAME}.{tc}"], sp_main),
+        *bwd_entries("spmd_pipe", SP_RANK_SHAPE, sp_step, sp_main)]
+
+
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
-                   dist_tune, hybrid, pipeline):
+                   dist_tune, hybrid, pipeline, layouts):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -7723,7 +8560,14 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     capture) on rank 0 of pp_compiled, and over the first steps of
     hybrid_ckpt, with pp_gpt's tiles; B1, B2 and B3 tc_bf16 have rows of
     their own at a pp_gpt rank's micro-batch (1, 1024, 8, 128), causal,
-    with their launches a step there."""
+    with their launches a step there. And on the layouts group's
+    (``launches_layouts``): per step on each rank of zero3_gpt and of
+    spmd_pipe, and in one ring_attention forward and backward on each
+    rank of ring_attn, with zero3_gpt's tiles; B1, B2 and B3 tc_bf16 have
+    rows of their own at a ring rank's (1, 8192, 16, 128), causal (its
+    diagonal block) and not (the block below it), at zero3_gpt's (2,
+    1024, 16, 128) and at spmd_pipe's micro-batch (1, 1024, 16, 128)
+    (``layout_entries``)."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -7776,6 +8620,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                        for lane, counts in pipeline.items()
                        if lane != "pp_gpt_tiles"},
                     "pp_gpt_tile": pipeline["pp_gpt_tiles"][kernel]
+                    if variant.endswith(fa.TC) else None},
+                "launches_layouts": {
+                    **{lane: counts.get(variant, 0)
+                       for lane, counts in layouts.items()
+                       if lane != "zero3_gpt_tiles"},
+                    "zero3_gpt_tile": layouts["zero3_gpt_tiles"][kernel]
                     if variant.endswith(fa.TC) else None},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
@@ -7837,7 +8687,8 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                         "non-causal (translate)"),
         *bert_entries(fa, entry, rows[-1], bwd_rows, bert, scope),
         *tp_entries(fa, entry, rows, bwd_rows, hybrid, scope),
-        *pp_entries(fa, entry, rows, bwd_rows, pipeline, scope)]
+        *pp_entries(fa, entry, rows, bwd_rows, pipeline, scope),
+        *layout_entries(fa, entry, rows, bwd_rows, layouts, scope)]
 
 
 def pp_entries(fa, entry, rows, bwd_rows, pipeline, scope):
@@ -7989,7 +8840,7 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 PHASE_GROUPS = ("build", "kernels", "reference", "serve", "train",
                 "to_static_grad", "bert", "vision", "serving", "hapi",
                 "optim", "surface", "nn_rest", "zoo", "dist_tune", "hybrid",
-                "pipeline")
+                "pipeline", "layouts")
 
 
 def main():
@@ -8281,6 +9132,13 @@ def main():
               "lane_seconds": out["pipeline"].pop("seconds")})
 
     clock("pipeline")
+    if "layouts" in run:
+        t_group = time.perf_counter()
+        out["layouts"] = phase_layouts(torch, args.seed)
+        emit({"phase": "layouts", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": out["layouts"].pop("seconds")})
+
+    clock("layouts")
     if run == set(PHASE_GROUPS):
         from paddle_tpu_torch.ops.cuda import flash_attention as fa
         emit({"kernels": kernel_entries(
@@ -8288,7 +9146,7 @@ def main():
             out["compiled"], out["amp"], out["bert"], out["vision"],
             out["serving"], out["hapi"], out["optim"], out["surface"],
             out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"],
-            out["pipeline"])})
+            out["pipeline"], out["layouts"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "group_seconds": group_seconds, "timing": TIMING})
     print(smi, flush=True)

@@ -10,9 +10,11 @@ processes and runs ``func`` in each, where the reference runs it once
 (ROADMAP, "Differences by design"). ``fleet`` holds the hybrid-parallel
 entry points (``fleet.init``, ``distributed_model``,
 ``distributed_optimizer``), the tensor-parallel layers, the 1F1B
-pipeline, ZeRO-1 and gradient merge; ``checkpoint`` the hybrid save and
-load with resharding. The later parts of the reference's package
-(``spec_layout`` with ZeRO-3, the SPMD pipeline, sequence and expert
+pipeline, ZeRO-1 and gradient merge, ring attention and the SPMD
+pipeline; ``checkpoint`` the hybrid save and load with resharding;
+``spec_layout`` the declarative layouts with ZeRO-3 (``SpecLayout``,
+``shard_params``, ``shard_batch``, ``shard_stacked_batch``,
+``unshard``). The later parts of the reference's package (expert
 parallelism, ``auto_parallel``, ``launch``, ``ps``, ``p2p``, ...) are
 absent until their ROADMAP A10 items.
 """
@@ -20,7 +22,7 @@ from __future__ import annotations
 
 import os
 
-from . import checkpoint, fleet  # noqa: F401
+from . import checkpoint, fleet, spec_layout  # noqa: F401
 from .checkpoint import (  # noqa: F401
     CorruptCheckpointError, load_hybrid_checkpoint, reshard_model,
     save_hybrid_checkpoint)
@@ -32,6 +34,8 @@ from .env import (  # noqa: F401
     parallel_device_count)
 from .mesh import get_mesh, global_mesh, set_mesh  # noqa: F401
 from .parallel import DataParallel  # noqa: F401
+from .spec_layout import (  # noqa: F401
+    SpecLayout, shard_batch, shard_params, shard_stacked_batch, unshard)
 
 __all__ = [
     "init_parallel_env", "get_rank", "get_world_size", "all_reduce",
@@ -41,7 +45,9 @@ __all__ = [
     "ParallelEnv", "gloo_init_parallel_env", "gloo_barrier", "gloo_release",
     "wait", "CountFilterEntry", "ProbabilityEntry", "is_initialized",
     "parallel_device_count", "global_mesh", "save_hybrid_checkpoint",
-    "load_hybrid_checkpoint", "reshard_model", "CorruptCheckpointError"]
+    "load_hybrid_checkpoint", "reshard_model", "CorruptCheckpointError",
+    "spec_layout", "SpecLayout", "shard_params", "shard_batch",
+    "shard_stacked_batch", "unshard"]
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False,

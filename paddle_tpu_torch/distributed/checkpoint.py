@@ -35,6 +35,12 @@ part in the save and the load:
   own, gathered, by default) re-applied to its current layout in place:
   each rank its shards, each stage the first stage's shared parameters.
 
+A ZeRO-3 model (distributed/spec_layout.py) saves and loads the same way:
+its shards are gathered like tensor-parallel ones (``param_split``), its
+optimizer state too, and a load gives each rank its fsdp shard, so a
+checkpoint written at one sharding degree loads at another, or into the
+serial model.
+
 ``meta`` is stamped with the collective generation where it is not 0.
 ``FLAGS_async_checkpoint`` raises (the background committer is ROADMAP
 A11's), and so the reference's ``corrupt_restore`` journal entry waits
@@ -51,6 +57,7 @@ import torch
 
 from ..framework.io_utils import (_numpy_from_tensor, _shard,
                                   full_state_dict, load_numpy_state_dict,
+                                  local_state_dict, param_split,
                                   tensor_from_numpy, unshard)
 
 __all__ = ["save_hybrid_checkpoint", "load_hybrid_checkpoint",
@@ -154,7 +161,7 @@ def _local_part(inner, base):
             t = base._accumulators[acc_name].get(id(p))
             if t is None:
                 continue
-            split = getattr(p, "tp_split", None)
+            split = param_split(p)
             if split is not None and tuple(t.shape) == tuple(p.shape):
                 t = unshard(t, split)
             part["optimizer"].setdefault(name, {})[acc_name] = \
@@ -190,9 +197,10 @@ def _merge(parts, inner):
     return model, optimizer
 
 
-def _gather_parts(part):
-    """Rank 0's list of the parts of every rank whose data and model
-    coordinates are 0 (each stage, each ZeRO rank); None elsewhere."""
+def _gather_parts(part, replicas):
+    """Rank 0's list of the parts of every rank whose coordinates on the
+    ``replicas`` axes are 0 (each stage, each ZeRO-1 rank); None
+    elsewhere."""
     import torch.distributed as dist
 
     from .env import get_rank, get_world_size
@@ -201,7 +209,7 @@ def _gather_parts(part):
                                      and dist.is_initialized()):
         return [part]
     mesh = get_mesh()
-    keep = [a for a in ("data", "model") if a in mesh.axis_names]
+    keep = [a for a in replicas if a in mesh.axis_names]
     ranks = np.moveaxis(mesh.ranks, [mesh.axis_names.index(a) for a in keep],
                         list(range(len(keep))))[(0,) * len(keep)].reshape(-1)
     senders = sorted(int(r) for r in ranks)
@@ -228,9 +236,15 @@ def gather_hybrid_state(model, optimizer=None):
     base = _unwrap_optimizer(optimizer)[0] if optimizer is not None \
         else None
     part = _local_part(inner, base)
-    if _coord("data") or _coord("model"):
+    # the ranks whose part another rank sends: its data and model peers,
+    # and its sharding peers unless ZeRO-1 split the optimizer's state
+    # (ZeRO-3's shards were gathered whole into every part)
+    zero1 = optimizer is not None and _unwrap_optimizer(optimizer)[1] \
+        is not None and not _unwrap_optimizer(optimizer)[1].shards_params
+    replicas = ("data", "model") if zero1 else ("data", "model", "sharding")
+    if any(_coord(a) for a in replicas):
         part = None     # a replica of what another rank sends
-    parts = _gather_parts(part)
+    parts = _gather_parts(part, replicas)
     if get_rank() != 0:
         return None
     model_arrays, opt_arrays = _merge(parts, inner)
@@ -278,12 +292,12 @@ def _check_layout(inner, saved):
     """The reference's checks: every key present, every shape the
     model's; a distributed parameter's axis must tile its ranks
     (C-ref-23)."""
-    own = inner.state_dict()
+    own = local_state_dict(inner)
     missing = set(own) - set(saved)
     if missing:
         raise KeyError(f"checkpoint missing keys: {sorted(missing)[:5]}...")
-    splits = {n: p.tp_split for n, p in inner.named_parameters()
-              if getattr(p, "tp_split", None) is not None}
+    splits = {n: param_split(p) for n, p in inner.named_parameters()
+              if param_split(p) is not None}
     for k, t in own.items():
         shape = tuple(saved[k].shape)
         want = list(t.shape)
@@ -327,7 +341,7 @@ def _apply_optimizer(blob, inner, optimizer):
         if name is None or (owned is not None and id(p) not in owned):
             continue
         pname = getattr(p, "name", None) or f"param_{index[name]}"
-        split = getattr(p, "tp_split", None)
+        split = param_split(p)
         for acc, val in by_prefix.get(pname, ()):
             t = val if isinstance(val, torch.Tensor) else \
                 tensor_from_numpy(np.asarray(val))
@@ -346,7 +360,8 @@ def _apply_blob(blob, model, optimizer=None):
     inner = _unwrap_model(model)
     saved = blob["model"]
     _check_layout(inner, saved)
-    load_numpy_state_dict(inner, {k: saved[k] for k in inner.state_dict()})
+    load_numpy_state_dict(inner, {k: saved[k]
+                                  for k in local_state_dict(inner)})
     if optimizer is not None and "optimizer" in blob:
         _apply_optimizer(blob, inner, optimizer)
     return blob.get("meta", {})
@@ -362,7 +377,7 @@ def reshard_model(model, full_state=None):
         full_state = full_state_dict(inner)
     _check_layout(inner, full_state)
     load_numpy_state_dict(inner, {k: full_state[k]
-                                  for k in inner.state_dict()})
+                                  for k in local_state_dict(inner)})
     engine = getattr(model, "_engine", None)
     if engine is not None:
         engine._sync_shared_params()

@@ -23,6 +23,7 @@ abort to the peers over its p2p channel, which comes with ROADMAP A10's
 """
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
 
 import torch
@@ -345,6 +346,55 @@ def recv(tensor, src=0, group=None, sync_op=True):
     with _watched("recv", g, tensor), _staged(g, tensor) as (t,):
         _dist().recv(t, src=src, group=g.pg)
     return tensor
+
+
+class Exchange:
+    """Point-to-point transfers over ``group`` started together and
+    waited for together: a ring step's sends and receives
+    (fleet/sequence_parallel.py) or a pipeline tick's
+    (fleet/spmd_pipeline.py). Every send and receive is asynchronous
+    (``isend``/``irecv``), so a ring of them cannot deadlock as a ring of
+    blocking sends does; ``wait()`` returns the received tensors, in the
+    order they were asked for, on their devices. On gloo a CUDA tensor
+    goes through the host. ``peer`` is a member index of ``group``.
+    ``bytes`` counts what this rank sent, ``wait_s`` the seconds
+    ``wait()`` blocked."""
+
+    def __init__(self, group):
+        self.group = group
+        dist = _dist()
+        self._host = dist is not None and \
+            dist.get_backend(group.pg) == "gloo"
+        self._works, self._recvs = [], []
+        self.bytes, self.wait_s = 0, 0.0
+
+    def _buf(self, t):
+        return t.detach().cpu() if self._host and t.is_cuda \
+            else t.detach().contiguous()
+
+    def send(self, tensor, peer):
+        buf = self._buf(tensor)
+        self._works.append((_dist().isend(
+            buf, self.group.global_rank(peer), group=self.group.pg), buf))
+        self.bytes += buf.numel() * buf.element_size()
+
+    def recv(self, shape, dtype, device, peer):
+        on_host = self._host and torch.device(device).type == "cuda"
+        buf = torch.empty(shape, dtype=dtype,
+                          device="cpu" if on_host else device)
+        self._works.append((_dist().irecv(
+            buf, self.group.global_rank(peer), group=self.group.pg), buf))
+        self._recvs.append((buf, device))
+
+    def wait(self):
+        t0 = time.perf_counter()
+        with _watched("p2p", self.group):
+            for work, _ in self._works:
+                work.wait()
+        self.wait_s += time.perf_counter() - t0
+        got = [buf.to(device) for buf, device in self._recvs]
+        self._works, self._recvs = [], []
+        return got
 
 
 def barrier(group=None):

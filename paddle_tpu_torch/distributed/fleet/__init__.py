@@ -7,17 +7,17 @@ topology (``base.py``), the tensor-parallel layers and wrappers
 (``pipeline_engine.py``, behind ``PipelineParallel``), ZeRO-1
 (``sharding_optimizer.py``), gradient merge (``meta_optimizers.py``),
 ``utils.recompute``, the hybrid checkpoint's save and load
-(distributed/checkpoint.py), ``Role``, ``UtilBase`` and the slot data
-generators.
+(distributed/checkpoint.py), ring attention (``sequence_parallel.py``),
+the SPMD circular pipeline (``spmd_pipeline.py``), ``Role``,
+``UtilBase`` and the slot data generators.
 
-The reference also exports sequence parallelism, the SPMD pipeline,
-elastic training, expert parallelism, ``fs``, ``dataset`` and
-``metrics``; each comes with its ROADMAP A10 item.
+The reference also exports elastic training, expert parallelism, ``fs``,
+``dataset`` and ``metrics``; each comes with its ROADMAP A10 item.
 """
 from __future__ import annotations
 
 from . import (meta_optimizers, meta_parallel, pipeline_engine,  # noqa: F401
-               sharding_optimizer, utils)
+               sequence_parallel, sharding_optimizer, spmd_pipeline, utils)
 from ..checkpoint import (  # noqa: F401
     load_hybrid_checkpoint, save_hybrid_checkpoint)
 from .base import (  # noqa: F401
@@ -122,4 +122,5 @@ __all__ = ["Role", "UtilBase", "MultiSlotDataGenerator",
            "distributed_optimizer", "get_hybrid_communicate_group",
            "recompute", "utils", "meta_parallel", "meta_optimizers",
            "sharding_optimizer", "pipeline_engine", "PipelineParallel",
+           "sequence_parallel", "spmd_pipeline",
            "save_hybrid_checkpoint", "load_hybrid_checkpoint"]

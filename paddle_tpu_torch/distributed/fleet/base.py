@@ -238,15 +238,20 @@ class Fleet:
 
     def init(self, role_maker=None, is_collective=True, strategy=None):
         """Join the process group and lay out the ranks. Every rank calls
-        it with the same strategy. ``sep_degree > 1`` raises: sequence
-        parallelism comes with ROADMAP A10's ``sequence_parallel.py``."""
+        it with the same strategy. ``sep_degree > 1`` raises (ROADMAP
+        C-ref-24): the reference stores it and builds no sep axis from
+        it; ring attention takes its group from
+        ``build_mesh({"sep": n})``."""
         self._role_maker = role_maker or PaddleCloudRoleMaker(is_collective)
         self._strategy = strategy or DistributedStrategy()
         hc = self._strategy.hybrid_configs
-        if hc.get("sep_degree", 1) > 1:
+        sep = hc.get("sep_degree", 1)
+        if sep > 1:
             raise NotImplementedError(
-                "sep_degree > 1: sequence parallelism comes with ROADMAP "
-                "A10's sequence_parallel.py")
+                f"sep_degree {sep}: fleet builds no sep axis from it (nor "
+                f"does the reference, which only stores it; ROADMAP "
+                f"C-ref-24); lay out the sequence_parallel ranks with "
+                f"distributed.mesh.build_mesh({{'sep': {sep}}})")
         _warn_stored_only(self._strategy)
         init_parallel_env()
         topo = CommunicateTopology(

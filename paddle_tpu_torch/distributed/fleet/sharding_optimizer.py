@@ -15,8 +15,16 @@ where dp > 1 (``ShardingParallel``'s Reducer over the group of both), so
 every rank sees every parameter's reduced gradient. A GradScaler checks
 only the owned gradients on each rank, so it reduces its ``found_inf``
 over the sharding group (``_found_inf_group``, amp/grad_scaler.py).
-``shard_params=True`` (ZeRO-3, the parameters themselves split) raises:
-it comes with ROADMAP A10's ``spec_layout.py``.
+
+``shard_params=True`` is ZeRO-3, the parameters themselves split, as the
+reference's ``shard_params`` branch does: each parameter keeps this
+rank's slice of its first dim that the sharding degree divides (the
+reference's ``_shard_spec_for``), through the same code as
+``spec_layout.shard_params`` (``shard_parameters``); the optimizer then
+updates every local slice, and its moments and masters are born from
+them. A model's forward gathers the slices where it uses them and its
+backward averages their gradients over the sharding group
+(distributed/spec_layout.py), so no broadcast follows the step.
 """
 from __future__ import annotations
 
@@ -27,8 +35,14 @@ from .meta_parallel import _broadcast_params
 __all__ = ["ShardingOptimizerWrapper", "shard_optimizer_states",
            "partition_parameters"]
 
-ZERO3_LATER = ("shard_params=True (ZeRO-3, parameters split over the "
-               "sharding ranks) comes with ROADMAP A10's spec_layout.py")
+
+def _shard_dim(shape, degree):
+    """The reference's choice: the first dim that ``degree`` divides, or
+    None."""
+    for i, size in enumerate(shape):
+        if size >= degree and size % degree == 0:
+            return i
+    return None
 
 
 def partition_parameters(params, nranks):
@@ -60,13 +74,15 @@ class ShardingOptimizerWrapper:
 
     def __init__(self, optimizer, hcg=None, axis="sharding",
                  shard_params=False):
-        if shard_params:
-            raise NotImplementedError(ZERO3_LATER)
         self._inner = optimizer
         group = _sharding_group(hcg, axis)
         self._sharding_group = group
         params = list(optimizer._parameter_list or ())
         n = group.nranks if group is not None else 1
+        self.shards_params = bool(shard_params)
+        if shard_params:
+            self._shard(params, group, n)
+            return
         self._parts = partition_parameters(params, n)
         rank = max(group.rank, 0) if group is not None else 0
         self._owned = self._parts[rank]
@@ -75,6 +91,28 @@ class ShardingOptimizerWrapper:
             owned = {id(p) for p in self._owned}
             # the rule, its accumulators and masters see the owned ones
             optimizer._owned_ids = owned
+
+    def _shard(self, params, group, n):
+        """ZeRO-3: every parameter with a dim the degree divides keeps
+        its slice; each rank updates all of its slices."""
+        self._parts, self._owned = [params], params
+        self._found_inf_group = group if n > 1 else None
+        if n <= 1:
+            return
+        from ..mesh import get_mesh
+        from ..spec_layout import _replicas, shard_parameters
+        items = []
+        for p in params:
+            if getattr(p, "fsdp_split", None) is not None or \
+                    getattr(p, "tp_split", None) is not None:
+                continue
+            dim = _shard_dim(tuple(p.shape), n)
+            if dim is not None:
+                spec = [None] * p.dim()
+                spec[dim] = group.axis
+                p.sharding_spec = tuple(spec)
+                items.append((p, dim))
+        shard_parameters(items, group, _replicas(get_mesh(), "data"))
 
     @property
     def owned_parameters(self):
@@ -87,7 +125,7 @@ class ShardingOptimizerWrapper:
     def step(self):
         self._inner.step()
         g = self._sharding_group
-        if g is None or g.nranks == 1:
+        if g is None or g.nranks == 1 or self.shards_params:
             return
         for r, part in enumerate(self._parts):
             if part:

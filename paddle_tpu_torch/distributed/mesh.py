@@ -13,12 +13,16 @@ order, as ``torch.distributed.new_group`` requires.
 fleet's ``HybridCommunicateGroup`` (fleet/base.py) builds its mesh here
 over the data, pipe, sharding and model axes, and the tensor-parallel
 layers and ZeRO-1 (fleet/meta_parallel.py, fleet/sharding_optimizer.py)
-split over its "model" and "sharding" groups.
+split over its "model" and "sharding" groups. ``build_mesh({"sep": n})``
+gives ring attention its group (fleet/sequence_parallel.py),
+``build_mesh({"pipe": n})`` the SPMD pipeline its (fleet/spmd_pipeline.py)
+and ``{"data": d, "sharding": s}`` a SpecLayout's
+(distributed/spec_layout.py).
 
 ``shard_map`` has no counterpart in a process-per-rank design: each rank
-already runs its shard's program. It raises, naming the later A10 items
-whose SPMD regions use it (the pipeline engines, sequence and expert
-parallelism).
+already runs its shard's program, and the port's ring attention and SPMD
+pipeline write their schedules out per rank. It raises, naming the
+reference's use still to come (expert parallelism).
 """
 from __future__ import annotations
 
@@ -114,6 +118,6 @@ def axis_degree(axis):
 def shard_map(fn, mesh, in_specs, out_specs, check_rep=True):
     raise NotImplementedError(
         "shard_map: the port runs one process per rank, so each rank "
-        "already runs its shard's program; the SPMD regions that use it "
-        "(the pipeline engines, sequence and expert parallelism) come with "
-        "their ROADMAP A10 items")
+        "already runs its shard's program; the reference's remaining SPMD "
+        "region that uses it (expert parallelism) comes with its ROADMAP "
+        "A10 item")

@@ -24,15 +24,36 @@ backward / step / clear_grad loop needs no explicit call; the reference
 runs it from its engine's post-backward callbacks. ``pause``/``resume``
 turn the hooks off and on (``DataParallel.no_sync``); ``detach`` removes
 them.
+
+A ZeRO-3 shard (distributed/spec_layout.py) has its gradient averaged
+over its fsdp group already; the Reducer averages it over the group its
+shard is replicated on (``p.fsdp_replicas``, the data ranks), or not at
+all where that is None, so its buckets group parameters by reduction
+group too. Sharding parameters re-arms every live Reducer
+(``rearm_reducers``): their shapes and groups changed.
 """
 from __future__ import annotations
+
+import weakref
 
 import torch
 
 from ..resilience.faults import maybe_inject
 from .collective import ReduceOp, _all_reduce_start, _watched
 
-__all__ = ["Reducer", "reducer_bucket_bytes"]
+__all__ = ["Reducer", "reducer_bucket_bytes", "rearm_reducers"]
+
+_LIVE = weakref.WeakSet()
+# a shard whose replicas group is None is reduced by nobody
+_NOBODY = object()
+
+
+def rearm_reducers():
+    """Rebuild every live Reducer's buckets over its parameters (their
+    shapes or reduction groups changed: ZeRO-3 sharded them)."""
+    for r in list(_LIVE):
+        if r._hooks:
+            r._arm(r._params)
 
 
 def reducer_bucket_bytes():
@@ -42,8 +63,9 @@ def reducer_bucket_bytes():
 
 
 class _Bucket:
-    def __init__(self, params):
+    def __init__(self, params, group=None):
         self.params = params
+        self.group = group
         self.ready = set()
         self.flushed = False
 
@@ -68,40 +90,54 @@ class Reducer:
         self._hooks = []
         self.flushes = 0   # fused all_reduces started (chip_smoke reads it)
         self._arm([p for p in parameters if p.requires_grad])
+        _LIVE.add(self)
+
+    def _group_of(self, p):
+        """The group ``p``'s gradient is averaged over: the Reducer's,
+        or for a ZeRO-3 shard its replicas' (_NOBODY: none)."""
+        if getattr(p, "fsdp_split", None) is None:
+            return self.group
+        replicas = p.fsdp_replicas
+        return _NOBODY if replicas is None else replicas
 
     def _arm(self, params):
         """(Re)build the buckets over ``params`` and hook them."""
         for h in self._hooks:
             h.remove()
         self._params = params
-        self.buckets = self._build_buckets(params, self._cap_bytes,
-                                           self._last_cap_bytes)
+        reduced = [p for p in params if self._group_of(p) is not _NOBODY]
+        self.buckets = self._build_buckets(reduced, self._cap_bytes,
+                                           self._last_cap_bytes,
+                                           self._group_of)
         self._bucket_of = {id(p): b for b in self.buckets for p in b.params}
         self._pending = []   # (bucket, flat buffer, handle), in fire order
         self._extras = {}    # id(p) -> (p, local gradient after the flush)
         self._queued = False
-        self._hooks = [h for p in params
+        self._hooks = [h for p in reduced
                        for h in (p.register_hook(self._incoming(p)),
                                  p.register_post_accumulate_grad_hook(
                                      self._hook))]
 
     @staticmethod
-    def _build_buckets(params, cap_bytes, last_cap_bytes):
-        """Reversed order, grouped by (device, dtype), size-capped; the
-        first bucket at the smaller cap."""
+    def _build_buckets(params, cap_bytes, last_cap_bytes, group_of=None):
+        """Reversed order, grouped by (device, dtype, reduction group),
+        size-capped; the first bucket at the smaller cap."""
+        def group(p):
+            return None if group_of is None else group_of(p)
+
+        def kind(p):
+            return p.device, p.dtype, id(group(p))
         buckets, cur, cur_bytes = [], [], 0
         cap = last_cap_bytes
         for p in reversed(params):
             nbytes = p.numel() * p.element_size()
-            if cur and (cur_bytes + nbytes > cap
-                        or (p.device, p.dtype) != (cur[0].device,
-                                                   cur[0].dtype)):
-                buckets.append(_Bucket(cur))
+            if cur and (cur_bytes + nbytes > cap or kind(p) != kind(cur[0])):
+                buckets.append(_Bucket(cur, group(cur[0])))
                 cur, cur_bytes, cap = [], 0, cap_bytes
             cur.append(p)
             cur_bytes += nbytes
         if cur:
-            buckets.append(_Bucket(cur))
+            buckets.append(_Bucket(cur, group(cur[0])))
         return buckets
 
     def _incoming(self, p):
@@ -140,14 +176,14 @@ class Reducer:
         if self.comm_dtype is not None:
             flat = flat.to(self.comm_dtype)
         self._pending.append((b, flat, _all_reduce_start(flat, self.op,
-                                                         self.group)))
+                                                         b.group)))
         self.flushes += 1
 
-    def _reduce(self, t):
+    def _reduce(self, t, group):
         """A synchronous all_reduce of one gradient (in comm_dtype)."""
         buf = t.to(self.comm_dtype) if self.comm_dtype is not None \
             else t.clone()
-        _all_reduce_start(buf, self.op, self.group).wait()
+        _all_reduce_start(buf, self.op, group).wait()
         return buf.to(t.dtype)
 
     def finalize(self):
@@ -171,14 +207,15 @@ class Reducer:
                     if extra is not None:
                         # the local gradient holds the pre-flush value
                         # and the late delta: each averaged on its own
-                        piece = piece + self._reduce(extra[1]).to(p.dtype)
+                        piece = piece + self._reduce(
+                            extra[1], b.group).to(p.dtype)
                     p.grad = piece if p.grad is None or p.grad.is_sparse \
                         else p.grad.copy_(piece)
             for b in self.buckets:
                 if not b.flushed and b.ready:
                     for p in b.params:
                         if p.grad is not None:
-                            p.grad = self._reduce(_dense(p.grad))
+                            p.grad = self._reduce(_dense(p.grad), b.group)
                     b.flushed = True
         self.reset()
 

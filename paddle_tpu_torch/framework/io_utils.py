@@ -10,12 +10,18 @@ ml_dtypes, which is imported only then.
 A tensor-parallel model (distributed/fleet/meta_parallel.py) takes the
 reference's full arrays by name, each rank its shard
 (``load_numpy_state_dict``), and gives them back gathered
-(``full_state_dict``).
+(``full_state_dict``); so do a ZeRO-3 model's shards
+(distributed/spec_layout.py, ``p.fsdp_split``) and a PipelineStageStack's
+stages (``p.stage_split``): ``param_split`` names a parameter's split.
+These readers take each module's own shards (``local_state_dict``): the
+state dict of a ZeRO-3 module gathers them.
 """
 from __future__ import annotations
 
 import os
 import pickle
+import threading
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -23,9 +29,42 @@ import torch
 from ..ops._param_guard import recheck
 
 __all__ = ["save", "load", "load_numpy_state_dict", "full_state_dict",
-           "unshard", "tensor_from_numpy"]
+           "unshard", "tensor_from_numpy", "param_split", "local_state_dict"]
 
 _PROTO = 4
+_LOCAL = threading.local()
+
+
+def param_split(p):
+    """How a distributed parameter is split over ranks: its
+    tensor-parallel, ZeRO-3 or pipeline-stage split (a ``TPSplit``), or
+    None for a whole one."""
+    for attr in ("tp_split", "fsdp_split", "stage_split"):
+        split = getattr(p, attr, None)
+        if split is not None:
+            return split
+    return None
+
+
+def reading_local_state():
+    """Whether this thread reads a module's own shards (inside
+    ``local_state_dict``)."""
+    return getattr(_LOCAL, "depth", 0) > 0
+
+
+@contextmanager
+def _local_state():
+    _LOCAL.depth = getattr(_LOCAL, "depth", 0) + 1
+    try:
+        yield
+    finally:
+        _LOCAL.depth -= 1
+
+
+def local_state_dict(module):
+    """``module.state_dict()`` as this rank holds it: shards as shards."""
+    with _local_state():
+        return module.state_dict()
 
 
 def tensor_from_numpy(arr):
@@ -109,9 +148,9 @@ def load_numpy_state_dict(module, arrays, strict=True):
     degenerate-weight guard's cached verdict on each parameter is
     checked again (ops/_param_guard.py), as the reference's set_value
     drops it."""
-    own = module.state_dict()
-    splits = {name: p.tp_split for name, p in module.named_parameters()
-              if getattr(p, "tp_split", None) is not None}
+    own = local_state_dict(module)
+    splits = {name: param_split(p) for name, p in module.named_parameters()
+              if param_split(p) is not None}
     missing = sorted(set(own) - set(arrays))
     extra = sorted(set(arrays) - set(own))
     if strict and (missing or extra):
@@ -155,8 +194,8 @@ def full_state_dict(module):
     inverse of ``load_numpy_state_dict``'s shard): {name: tensor} on the
     module's devices, the same on every member of each group. Every
     member calls it, in one order."""
-    splits = {name: p.tp_split for name, p in module.named_parameters()
-              if getattr(p, "tp_split", None) is not None}
+    splits = {name: param_split(p) for name, p in module.named_parameters()
+              if param_split(p) is not None}
     return {name: unshard(t, splits[name]) if name in splits
             else t.detach().clone()
-            for name, t in module.state_dict().items()}
+            for name, t in local_state_dict(module).items()}

@@ -19,8 +19,20 @@ reference does (ROADMAP C-ref-7). At world size > 1 ``prepare`` wraps
 the network in ``DataParallel``, as the reference does, and the loaders
 take this rank's shard (``DistributedBatchSampler``); such a step runs
 eagerly, since its collectives cannot be captured in a CUDA graph
-(``DataParallel.captures``). ``spec_layout`` raises NotImplementedError
-until ROADMAP A10's ``spec_layout.py`` item.
+(``DataParallel.captures``).
+
+``prepare(spec_layout=...)`` takes a ``distributed.SpecLayout`` over the
+current mesh: its ``shard_params`` shards the network's parameters
+(ZeRO-3, distributed/spec_layout.py), and every batch of ``train_batch``
+and every ``run_steps`` group is cut to this data rank's slice at the
+host-to-device seam (``shard_batch``, ``shard_stacked_batch``), the
+loaders handing every rank the whole batch, as the reference's single
+controller sees it; the loss is averaged over the data ranks, the
+reference's one logical loss. At world size > 1 the network's
+``DataParallel`` Reducer then averages over the data group only (none
+where the data axis has degree 1): a shard's gradient is averaged over
+its fsdp group by its own backward. Such a step runs eagerly, as a
+data-parallel one does.
 """
 from __future__ import annotations
 
@@ -80,21 +92,32 @@ class Model:
         self.stop_training = False
         self._compiled_train_step = None
         self._step_guard = None  # set by fit() under FLAGS_check_nan_inf
+        self._spec_layout = None  # set by prepare(spec_layout=...)
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None, spec_layout=None):
         """Set the optimizer, the loss (a layer or a function of the
         outputs and labels) and the metrics. ``amp_configs`` is accepted
-        and not read, as in the reference."""
-        if spec_layout is not None:
-            raise NotImplementedError(
-                "prepare(spec_layout=...): sharded parameters and batches "
-                "come with ROADMAP A10's spec_layout.py item")
+        and not read, as in the reference. ``spec_layout``: a SpecLayout
+        (module docstring)."""
         from ..distributed import env as _dist_env
         from ..distributed.parallel import DataParallel
-        if _dist_env.get_world_size() > 1 and \
-                not isinstance(self.network, DataParallel):
-            self.network = DataParallel(self.network)
+        wrap, group = _dist_env.get_world_size() > 1, None
+        if spec_layout is not None:
+            from ..distributed.mesh import get_mesh
+            from ..distributed.spec_layout import SpecLayout, shard_params
+            if not isinstance(spec_layout, SpecLayout):
+                raise TypeError(f"spec_layout must be a "
+                                f"distributed.SpecLayout, got "
+                                f"{type(spec_layout).__name__}")
+            self._spec_layout = spec_layout
+            shard_params(self.network, spec_layout)
+            mesh = get_mesh()
+            axis = spec_layout.data_axis
+            wrap = wrap and mesh.shape.get(axis, 1) > 1
+            group = mesh.group(axis) if wrap else None
+        if wrap and not isinstance(self.network, DataParallel):
+            self.network = DataParallel(self.network, group=group)
         self._optimizer = optimizer
         self._loss = loss
         self._metrics = _to_list(metrics)
@@ -105,6 +128,37 @@ class Model:
     @property
     def _device(self):
         return _network_device(self.network)
+
+    def _captures(self):
+        """Whether the step may be captured: not while it communicates."""
+        from ..distributed import env as _dist_env
+        if self._spec_layout is not None and \
+                _dist_env.get_world_size() > 1:
+            return False
+        return getattr(self.network, "captures", True)
+
+    def _data_slice(self, tensors, stacked=False):
+        """This data rank's slice of each tensor's batch dim under the
+        layout (dim 1 of a stacked group); the tensors without one."""
+        if self._spec_layout is None or not tensors:
+            return tensors
+        from ..distributed import spec_layout as _sl
+        fn = _sl.shard_stacked_batch if stacked else _sl.shard_batch
+        out = fn(self._spec_layout, *tensors)
+        return [out] if len(tensors) == 1 else list(out)
+
+    def _global_loss(self, loss):
+        """The loss averaged over the layout's data ranks (the reference's
+        one logical loss); the loss itself without a layout."""
+        if self._spec_layout is None:
+            return loss
+        from ..distributed.collective import ReduceOp, all_reduce
+        from ..distributed.mesh import get_mesh
+        mesh, axis = get_mesh(), self._spec_layout.data_axis
+        if mesh.shape.get(axis, 1) <= 1:
+            return loss
+        return all_reduce(loss.detach().clone(), op=ReduceOp.AVG,
+                          group=mesh.group(axis))
 
     # -- single-batch entry points ---------------------------------------
     def _build_train_step(self):
@@ -120,15 +174,13 @@ class Model:
             return total
         from ..jit.compiled_step import CompiledTrainStep, \
             compiled_step_enabled
-        if compiled_step_enabled() and getattr(self.network, "captures",
-                                               True):
+        if compiled_step_enabled() and self._captures():
             self._compiled_train_step = CompiledTrainStep(
                 _step, label="hapi.train_step")
         else:
             self._compiled_train_step = StaticFunction(_step)
-            # a data-parallel step's collectives run eagerly
-            self._compiled_train_step._enabled = getattr(
-                self.network, "captures", True)
+            # a data-parallel or sharded step's collectives run eagerly
+            self._compiled_train_step._enabled = self._captures()
 
     def train_batch(self, inputs, labels=None, update=True):
         """One optimizer step on one batch; returns [loss]."""
@@ -138,10 +190,12 @@ class Model:
         st = _steptimer.get_steptimer()
         device = self._device
         with st.phase("step/h2d"):
-            ins = [_as_tensor(i, device) for i in _to_list(inputs)]
-            labs = [_as_tensor(lab, device) for lab in _to_list(labels)]
+            ins = self._data_slice([_as_tensor(i, device)
+                                    for i in _to_list(inputs)])
+            labs = self._data_slice([_as_tensor(lab, device)
+                                     for lab in _to_list(labels)])
         with st.phase("step/compute"):
-            loss = self._compiled_train_step(ins, labs)
+            loss = self._global_loss(self._compiled_train_step(ins, labs))
             st.sync(loss)
         # the scalar is read outside the compute phase: .item() waits for
         # the card, which would charge the phase with execution time
@@ -169,9 +223,11 @@ class Model:
                            for j in range(len(pairs[0][0]))]
             labs_stacked = [torch.stack([p[1][j] for p in pairs])
                             for j in range(len(pairs[0][1]))]
+            ins_stacked = self._data_slice(ins_stacked, stacked=True)
+            labs_stacked = self._data_slice(labs_stacked, stacked=True)
         with st.phase("step/compute"):
-            losses = self._compiled_train_step.run_steps(ins_stacked,
-                                                         labs_stacked)
+            losses = self._global_loss(self._compiled_train_step.run_steps(
+                ins_stacked, labs_stacked))
             st.sync(losses)
         return head + [[float(v)]
                        for v in losses.detach().float().cpu().reshape(-1)]
@@ -214,7 +270,8 @@ class Model:
         batches differ in shape runs step by step."""
         from .callbacks import CallbackList, ProgBarLogger
         loader = self._make_loader(train_data, batch_size, shuffle, drop_last,
-                                   num_workers)
+                                   num_workers,
+                                   whole=self._spec_layout is not None)
         # save() captures this loader's cursor, so that a restored run
         # replays no batch (resilience/snapshot.py)
         self._active_loader = loader
@@ -482,18 +539,23 @@ class Model:
 
     # -- helpers -----------------------------------------------------------
     @staticmethod
-    def _make_loader(data, batch_size, shuffle, drop_last, num_workers):
+    def _make_loader(data, batch_size, shuffle, drop_last, num_workers,
+                     whole=False):
         """A DataLoader over ``data`` (a DataLoader passes through). At
         world size > 1 it takes this rank's shard through a
-        DistributedBatchSampler, as the reference's does."""
+        DistributedBatchSampler, as the reference's does; with ``whole``
+        (under a layout) every rank takes the whole batch, in one order
+        (the sampler's epoch seeds it), and train_batch cuts its data
+        slice."""
         if isinstance(data, DataLoader):
             return data
         from ..distributed import env as _dist_env
         if _dist_env.get_world_size() > 1:
             from ..io import DistributedBatchSampler
+            one = {"num_replicas": 1, "rank": 0} if whole else {}
             sampler = DistributedBatchSampler(
                 data, batch_size=batch_size, shuffle=shuffle,
-                drop_last=drop_last)
+                drop_last=drop_last, **one)
             return DataLoader(data, batch_sampler=sampler,
                               num_workers=num_workers)
         return DataLoader(data, batch_size=batch_size, shuffle=shuffle,

@@ -69,10 +69,22 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.group_name = group_name
 
     def _clip(self, params_grads):
-        picked = [g for p, g in params_grads if _clipped(p, g)]
+        picked = [(p, g) for p, g in params_grads if _clipped(p, g)]
         if not picked:
             return params_grads
-        global_norm = torch.linalg.vector_norm(torch.stack(_f32_norms(picked)))
+        squares = torch.stack(_f32_norms([g for _, g in picked])).pow(2)
+        total = squares.sum()
+        shards = [i for i, (p, _) in enumerate(picked)
+                  if getattr(p, "fsdp_split", None) is not None]
+        if shards:
+            # a ZeRO-3 shard holds a slice of its gradient: its squares
+            # are summed over the fsdp group (distributed/spec_layout.py)
+            from ..distributed.collective import all_reduce
+            part = squares[shards].sum()
+            whole = all_reduce(part.reshape(1).clone(),
+                               group=picked[shards[0]][0].fsdp_split.group)
+            total = total - part + whole[0]
+        global_norm = total.sqrt()
         scale = self.clip_norm / torch.clamp(global_norm, min=self.clip_norm)
         return [(p, g * scale.to(g.dtype) if _clipped(p, g) else g)
                 for p, g in params_grads]

@@ -18,6 +18,14 @@ When gradients are wanted, flash attention goes through
 lse), its backward runs B2 and B3. Under no_grad/inference_mode the
 forward is called directly and saves nothing.
 
+``attention_block_fwd`` and ``attention_block_bwd`` are one (query
+block, key block) pair of a blockwise attention, for ring attention
+(distributed/fleet/sequence_parallel.py): the forward returns the f32 O
+and LSE for the caller to merge, the backward takes the merged LSE and
+D. They take flash attention (B1, then B2 and B3) by the rule above,
+fusion policy included, and the math block otherwise; ``block_paths``
+counts which path each call took.
+
 Under ``amp.auto_cast`` the inputs are cast as the reference casts its
 ops ``flash_attention`` (the kernel path) and ``sdpa`` (the math path),
 both white-listed: to bf16 at O1, so the tensor-core kernels run.
@@ -31,11 +39,14 @@ import torch
 from ..amp.auto_cast import amp_cast
 from ..core.random import uniform
 from . import autotune
-from .cuda.flash_attention import (SOURCES, flash_attention,
+from .cuda.flash_attention import (SOURCES, _bwd_plain, _fwd_plain,
+                                   flash_attention, flash_attention_block_bwd,
+                                   flash_attention_block_fwd,
                                    flash_attention_bwd,
                                    flash_attention_fwd_for_grad, supports)
 
-__all__ = ["scaled_dot_product_attention", "flash_selected"]
+__all__ = ["scaled_dot_product_attention", "flash_selected",
+           "attention_block_fwd", "attention_block_bwd", "block_paths"]
 
 NEG_BIG = -1e30
 
@@ -160,3 +171,37 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                             attn_mask)
     return _math_attention(query, key, value, attn_mask, scale, is_causal,
                            dropout_p, generator)
+
+
+# which path each block call took: "kernel" (B1, or B2 and B3) or "math"
+block_paths = {"kernel": 0, "math": 0}
+
+
+def _block_kernel(q, k):
+    """The selection rule of scaled_dot_product_attention for one block
+    pair (no mask, no dropout): flash attention where it holds and the
+    fusion policy does not say never."""
+    if not flash_selected(q, k):
+        return False
+    return autotune.fusion_policy() != "never"
+
+
+def attention_block_fwd(q, k, v, causal, scale):
+    """One block pair's (out, lse): out (B, S, H, D) in f32 (the math
+    dtype), lse (B, H, S), unmerged."""
+    if _block_kernel(q, k):
+        block_paths["kernel"] += 1
+        return flash_attention_block_fwd(q, k, v, causal, scale)
+    block_paths["math"] += 1
+    return _fwd_plain(q, k, v, causal, scale)
+
+
+def attention_block_bwd(q, k, v, do, lse, delta, causal, scale):
+    """One block pair's (dq, dk, dv) under the merged ``lse`` and ``delta``
+    (B, H, S) f32; the kernels' in q's dtype, the math block's in f32."""
+    if _block_kernel(q, k):
+        block_paths["kernel"] += 1
+        return flash_attention_block_bwd(q, k, v, do, lse, delta, causal,
+                                         scale)
+    block_paths["math"] += 1
+    return _bwd_plain(q, k, v, do, lse, delta, causal, scale)

@@ -44,7 +44,8 @@ from ._build import CSRC, kernel_resources, library
 __all__ = ["supports", "flash_attention", "flash_attention_fwd",
            "flash_attention_fwd_for_grad",
            "flash_attention_fwd_reference", "flash_attention_bwd",
-           "flash_attention_bwd_reference", "launch_dkv", "launch_dq",
+           "flash_attention_bwd_reference", "flash_attention_block_fwd",
+           "flash_attention_block_bwd", "launch_dkv", "launch_dq",
            "bwd_delta", "variant", "variant_counter", "tc_operand",
            "tile_candidates", "KERNEL_NAME", "KERNEL_NAMES", "SOURCES"]
 
@@ -157,6 +158,13 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
     formed at once and the reference's formulas applied with its
     constants: P = exp(S - LSE) with S = -1e30 where masked, dS =
     P * (dO V^T - D), dK against q * scale, dQ scaled once at the end."""
+    grads = _bwd_plain(q, k, v, do, lse, _delta(out, do), causal, scale)
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (q, k, v)))
+
+
+def _bwd_plain(q, k, v, do, lse, delta, causal, scale):
+    """B2 and B3's plain version on a given LSE and D, (dq, dk, dv) left
+    in the math dtype, each (B, S, H, D) contiguous."""
     dt = _math_dtype(q)
     qf = q.to(dt).transpose(1, 2) * scale
     kf = k.to(dt).transpose(1, 2)
@@ -164,11 +172,10 @@ def flash_attention_bwd_reference(q, k, v, out, lse, do, causal=False,
     dof = do.to(dt).transpose(1, 2)
     p = torch.exp(_scores(qf, kf, causal) - lse.to(dt)[..., None])
     dv = p.transpose(-1, -2) @ dof
-    ds = p * (dof @ vf.transpose(-1, -2) - _delta(out, do)[..., None])
+    ds = p * (dof @ vf.transpose(-1, -2) - delta.to(dt)[..., None])
     dk = ds.transpose(-1, -2) @ qf
     dq = (ds @ kf) * scale
-    return tuple(g.transpose(1, 2).to(t.dtype).contiguous()
-                 for g, t in ((dq, q), (dk, k), (dv, v)))
+    return tuple(g.transpose(1, 2).contiguous() for g in (dq, dk, dv))
 
 
 def _check(q, k, v):
@@ -405,6 +412,49 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=1.0):
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, out, lse, do, causal,
                                              scale)
+    raise ValueError(f"no flash-attention path for device {q.device}")
+
+
+def flash_attention_block_fwd(q, k, v, causal=False, scale=1.0):
+    """One (query block, key block) pair of a blockwise attention (ring
+    attention, fleet/sequence_parallel.py): (out, lse), out (B, S, H, D)
+    unrounded in the math dtype (f32) and lse (B, H, S) f32, for the
+    caller to merge with other blocks by their LSEs. On a CUDA tensor
+    this launches B1 (which writes the f32 O beside its bf16 one), or
+    raises; on a CPU tensor it runs the plain version."""
+    _check(q, k, v)
+    if q.device.type == "cuda":
+        _, lse, out32 = _launch(q, k, v, causal, scale, keep_f32=True)
+        return out32, lse
+    if q.device.type == "cpu":
+        return _fwd_plain(q, k, v, causal, scale)
+    raise ValueError(f"no flash-attention path for device {q.device}")
+
+
+def flash_attention_block_bwd(q, k, v, do, lse, delta, causal=False,
+                              scale=1.0):
+    """One block pair's (dq, dk, dv), each (B, S, H, D), under a given
+    LSE and D (B, H, S) f32: the merged row statistics of the whole
+    attention the block is part of, so that the blocks' gradients add
+    up to the whole's. On a CUDA tensor this launches B2 (dk, dv) and B3
+    (dq), each in q's dtype, or raises; on a CPU tensor it runs the plain
+    version (in the math dtype)."""
+    _check(q, k, v)
+    b, s, h, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if tuple(t.shape) != (b, h, s) or t.dtype != _math_dtype(q):
+            raise ValueError(f"{name} must be ({b}, {h}, {s}) "
+                             f"{_math_dtype(q)}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if do.shape != q.shape or do.dtype != q.dtype or do.stride(-1) != 1:
+        raise ValueError(f"dout must be {tuple(q.shape)} {q.dtype} with a "
+                         f"unit-stride head dim")
+    if q.device.type == "cuda":
+        lse, delta = lse.contiguous(), delta.contiguous()
+        dk, dv = launch_dkv(q, k, v, do, lse, delta, causal, scale)
+        return launch_dq(q, k, v, do, lse, delta, causal, scale), dk, dv
+    if q.device.type == "cpu":
+        return _bwd_plain(q, k, v, do, lse, delta, causal, scale)
     raise ValueError(f"no flash-attention path for device {q.device}")
 
 

@@ -46,6 +46,12 @@ The pipeline slice: a stage's forward and recompute backward as
 CompiledStagePrograms, each captured on its second call, replay the
 eager bodies' outputs and add the same gradients into the stage's
 accumulators (chip_smoke.py's pipeline group runs the engine itself).
+
+The layouts slice: ring attention's block entry points (B1's f32 O and
+LSE; B2 and B3 under a given LSE and D) against their plain versions,
+the math block off the kernels' contract, the LSE merge against
+logsumexp of the whole row; and two rank processes on the card running
+a ring on {"sep": 2} and a ZeRO-3 step on {"sharding": 2}.
 """
 import threading
 
@@ -2046,10 +2052,185 @@ def test_tp_gpt_on_card_matches_host(card, tmp_path):
             assert res["launches"].get(f"{kernel}.{fa.SIMT}", 0) == 2, res
 
 
+# -- the layouts slice: ring attention's blocks, ZeRO-3 ------------------------
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_block_entry_points_match_plain_on_card(card, dtype, causal):
+    """One block pair of ring attention on the card: B1's f32 O and LSE,
+    and B2 and B3 under a given LSE and D, against their plain versions
+    (f32 elementwise, bf16 by the tensor-core rule's 2^-7); a block off
+    the kernels' contract (s = 96) takes the math block, counted."""
+    from paddle_tpu_torch.ops import attention
+    q, k, v = _qkv(1, 1024, 4, 64, dtype, 11)
+    do = torch.randn(q.shape, device="cuda",
+                     generator=torch.Generator(device="cuda")
+                     .manual_seed(12)).to(dtype)
+    scale = 0.125
+    before = dict(attention.block_paths)
+    launch_counts.clear()
+    out, lse = attention.attention_block_fwd(q, k, v, causal, scale)
+    want_o, want_l = fa._fwd_plain(q, k, v, causal, scale)
+    assert out.dtype == torch.float32 and lse.dtype == torch.float32
+    delta = fa.bwd_delta(out, do)
+    got = attention.attention_block_bwd(q, k, v, do, lse, delta, causal,
+                                        scale)
+    want = fa._bwd_plain(q, k, v, do, lse, delta, causal, scale)
+    assert attention.block_paths["kernel"] - before["kernel"] == 2
+    for kernel in fa.KERNEL_NAMES:
+        assert launch_counts[fa.variant_counter(kernel, dtype)] == 1
+    torch.testing.assert_close(lse, want_l, rtol=1e-4, atol=1e-4)
+    pairs = [(out, want_o)] + list(zip(got, want))
+    for g, w in pairs:
+        if dtype == torch.float32:
+            torch.testing.assert_close(g.float(), w, rtol=BWD_RTOL,
+                                       atol=BWD_ATOL)
+        else:
+            assert _rel_l2(g, w) <= TC_REL_L2
+    q, k, v = _qkv(1, 96, 4, 64, dtype, 13)
+    attention.attention_block_fwd(q, k, v, causal, scale)
+    assert attention.block_paths["math"] - before["math"] == 1
+
+
+def test_ring_merged_lse_is_logsumexp_of_the_row(card):
+    """Two blocks of keys merged by their LSEs (the ring's merge): the
+    LSE is logsumexp of each whole row of scale * q . k, and the output
+    the whole attention's (f32, the CUDA-core kernels)."""
+    from paddle_tpu_torch.distributed.fleet.sequence_parallel import \
+        merge_blocks
+    q, k, v = _qkv(1, 512, 4, 64, torch.float32, 21)
+    k2, v2 = _qkv(1, 512, 4, 64, torch.float32, 22)[:2]
+    scale = 0.125
+    parts = [fa.flash_attention_block_fwd(q, kk, vv, False, scale)
+             for kk, vv in ((k, v), (k2, v2))]
+    out, lse = merge_blocks(None, None, *parts[0])
+    out, lse = merge_blocks(out, lse, *parts[1])
+    keys = torch.cat([k, k2], dim=1)
+    vals = torch.cat([v, v2], dim=1)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, keys) * scale
+    torch.testing.assert_close(lse, torch.logsumexp(scores, dim=-1),
+                               rtol=1e-5, atol=1e-5)
+    want = torch.einsum("bhqk,bkhd->bqhd", scores.softmax(-1), vals)
+    torch.testing.assert_close(out, want, rtol=2e-5, atol=2e-5)
+
+
+def _layout_card_worker(out_path):
+    """One of two ranks on the one card (gloo over CUDA tensors): a ring
+    on {"sep": 2} at (1, 512, 4, 64) bf16 causal against one rank's B1,
+    B2 and B3 over the whole; then a ZeRO-3 step on {"sharding": 2}
+    (Model.prepare with SpecLayout(shard_params=True)) of a small f32 GPT
+    against the same step of the whole model on this rank."""
+    import json
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.fleet import sequence_parallel as sp
+    from paddle_tpu_torch.distributed.mesh import build_mesh
+    from paddle_tpu_torch.framework.io_utils import full_state_dict
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env()
+    build_mesh({"sep": 2})
+    q, k, v, do = (t.contiguous() for t in
+                   _qkv(1, 512, 4, 64, torch.bfloat16, 31) + (_qkv(
+                       1, 512, 4, 64, torch.bfloat16, 32)[0],))
+    ts = [sp.split_sequence(t).clone().requires_grad_() for t in (q, k, v)]
+    launch_counts.clear()
+    o = sp.ring_attention(*ts, is_causal=True)
+    o.backward(sp.split_sequence(do).contiguous())
+    launches = {kk: launch_counts[kk] for kk in launch_counts
+                if kk.split(".")[0] in fa.KERNEL_NAMES}
+    _, lse, out32 = fa.flash_attention_fwd_for_grad(q, k, v, True, 0.125)
+    ref = [out32] + list(fa.flash_attention_bwd(q, k, v, out32, lse, do,
+                                                True, 0.125))
+    got = [sp.gather_sequence(o.detach())] + [sp.gather_sequence(t.grad)
+                                              for t in ts]
+    gaps = [_rel_l2(g, w) for g, w in zip(got, ref)]
+    build_mesh({"sharding": 2})
+    rng = np.random.RandomState(5)
+    x = torch.tensor(rng.randint(0, 256, (2, 256)), device="cuda")
+    y = torch.tensor(rng.randint(0, 256, (2, 256)), device="cuda")
+    cfg = dict(vocab_size=256, hidden_size=256, num_layers=2, num_heads=4,
+               max_position_embeddings=256, dropout=0.0)
+
+    def gpt():
+        return GPTForCausalLM(GPTConfig(**cfg), device="cuda",
+                              generator=torch.Generator().manual_seed(0))
+    whole = gpt()
+    wopt = pt.optimizer.AdamW(learning_rate=1e-3,
+                              parameters=whole.parameters())
+    wloss = whole(x, labels=y)
+    wloss.backward()
+    wopt.step()
+    model = gpt()
+    m = pt.Model(model)
+    m.prepare(pt.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters()),
+              loss=lambda loss: loss,
+              spec_layout=dist.SpecLayout(shard_params=True))
+    loss = m.train_batch([x, y])[0]
+    got = full_state_dict(model)
+    worst = max(((got[n] - p).abs() / (1e-4 + p.abs())).max().item()
+                for n, p in whole.state_dict().items())
+    with open(out_path, "w") as f:
+        json.dump({"ring_gaps": gaps, "launches": launches,
+                   "loss": [loss, wloss.item()], "weight_worst": worst,
+                   "sharded": sum(1 for p in model.parameters()
+                                  if getattr(p, "fsdp_split", None)
+                                  is not None)}, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def test_ring_and_zero3_on_card(card, tmp_path):
+    """Two rank processes on the card: the ring's gathered output and
+    grads within relative L2 2^-7 of one rank's kernels over the whole
+    sequence, B1, B2 and B3 r + 1 times on rank r; the ZeRO-3 step's loss
+    within 1e-5 relative and its gathered weights within 1e-4 + 1e-4
+    relative of the whole model's step (f32, TF32 off)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        addr = f"localhost:{sock.getsockname()[1]}"
+    here = os.path.abspath(__file__)
+    repo = os.path.dirname(os.path.dirname(here))
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--layout-worker",
+         str(tmp_path / f"r{r}.json")],
+        cwd=repo, env={**os.environ, "PADDLE_TRAINER_ID": str(r),
+                       "PADDLE_TRAINERS_NUM": "2",
+                       "PADDLE_COORDINATOR_ADDR": addr,
+                       "PYTHONPATH": repo},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=600)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, (r, log[-3000:])
+    for r in range(2):
+        res = json.loads((tmp_path / f"r{r}.json").read_text())
+        assert max(res["ring_gaps"]) <= TC_REL_L2, res
+        for kernel in fa.KERNEL_NAMES:
+            assert res["launches"].get(f"{kernel}.{fa.TC}", 0) == r + 1, res
+        got, want = res["loss"]
+        assert abs(got - want) <= 1e-5 * abs(want), res["loss"]
+        assert res["weight_worst"] <= 1e-4 and res["sharded"] > 0, res
+
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["--tp-worker"]:
         _tp_card_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--layout-worker"]:
+        _layout_card_worker(sys.argv[2])
 
 
 def test_compiled_stage_program_captures_a_stage_on_card(card):

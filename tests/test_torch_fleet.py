@@ -135,9 +135,13 @@ def test_init_with_the_default_strategy_does_not_warn():
 
 
 def test_sequence_parallel_degree_raises_naming_its_item():
+    """ROADMAP C-ref-24: fleet builds no sep axis from sep_degree; the
+    message names the mesh call that lays out sequence_parallel's
+    ranks."""
     strategy = pfleet.DistributedStrategy()
     strategy.hybrid_configs["sep_degree"] = 2
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
+    with pytest.raises(NotImplementedError,
+                       match=r"sequence_parallel ranks with .*build_mesh"):
         pfleet.Fleet().init(strategy=strategy)
 
 
@@ -349,12 +353,19 @@ def test_zero_partition_is_greedy_by_size():
 
 
 def test_zero3_raises_naming_spec_layout():
-    from paddle_tpu_torch.distributed.fleet.sharding_optimizer import \
-        ShardingOptimizerWrapper
-    opt = pt.optimizer.Adam(parameters=_port_mlp(_state(_ref_mlp()))
-                            .parameters())
-    with pytest.raises(NotImplementedError, match="spec_layout"):
-        ShardingOptimizerWrapper(opt, shard_params=True)
+    """ZeRO-3 no longer raises: it shards through spec_layout's code
+    (which the wrapper's docstring names); at one rank every parameter
+    stays whole and the wrapper steps as the plain optimizer."""
+    from paddle_tpu_torch.distributed.fleet import sharding_optimizer
+    net = _port_mlp(_state(_ref_mlp()))
+    shapes = [tuple(p.shape) for p in net.parameters()]
+    opt = sharding_optimizer.ShardingOptimizerWrapper(
+        pt.optimizer.Adam(parameters=net.parameters()), shard_params=True)
+    assert "spec_layout" in sharding_optimizer.__doc__
+    assert opt.shards_params and opt.owned_parameters == list(
+        net.parameters())
+    assert [tuple(p.shape) for p in net.parameters()] == shapes
+    assert not any(hasattr(p, "fsdp_split") for p in net.parameters())
 
 
 def test_zero_at_one_rank_is_the_plain_optimizer():

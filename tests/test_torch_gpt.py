@@ -276,6 +276,10 @@ PORT_MODULES = {
     "paddle_tpu_torch.distributed.fleet.meta_parallel",
     "paddle_tpu_torch.distributed.fleet.pipeline_engine",
     "paddle_tpu_torch.distributed.checkpoint",
+    # the declarative layouts, ring attention and the SPMD pipeline
+    "paddle_tpu_torch.distributed.spec_layout",
+    "paddle_tpu_torch.distributed.fleet.sequence_parallel",
+    "paddle_tpu_torch.distributed.fleet.spmd_pipeline",
 }
 
 

@@ -416,10 +416,17 @@ def test_an_initialised_group_comes_before_torchs_variables(monkeypatch):
 
 
 def test_spec_layout_raises():
+    """A spec_layout that is no SpecLayout raises; a SpecLayout at world
+    size 1 shards nothing and wraps nothing."""
     net = pnn.Linear(4, 3, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(TypeError, match="SpecLayout"):
         pt.Model(net).prepare(loss=pnn.CrossEntropyLoss(),
                               spec_layout=object())
+    from paddle_tpu_torch.distributed import SpecLayout
+    m = pt.Model(net).prepare(loss=pnn.CrossEntropyLoss(),
+                              spec_layout=SpecLayout(shard_params=True))
+    assert m.network is net and m._captures()
+    assert tuple(net.weight.shape) == (4, 3)
 
 
 def test_amp_configs_accepted_and_not_read():

@@ -237,18 +237,14 @@ LATER = {
     ".vision.models": set(),
     ".vision.ops": set(),
     ".text": set(),
-    # ROADMAP A10, item by item: sequence_parallel.py; pipeline_engine.py
-    # and spmd_pipeline.py; expert_parallel.py; checkpoint.py (the hybrid
-    # save and load); fleet/elastic.py; fleet/{dataset,fs,metrics}.py
+    # ROADMAP A10, item by item: expert_parallel.py; fleet/elastic.py;
+    # fleet/{dataset,fs,metrics}.py
     ".distributed.fleet": {
-        "sequence_parallel", "spmd_pipeline",
         "expert_parallel", "ExpertParallelEngine", "ExpertPlacement",
         "elastic", "dataset", "fs", "HDFSClient", "LocalFS", "metrics"},
-    # ROADMAP A10: spec_layout.py with ZeRO-3; auto_parallel/; the host
-    # transport and launch code; fleet/dataset.py
+    # ROADMAP A10: auto_parallel/; the host transport and launch code;
+    # fleet/dataset.py
     ".distributed": {
-        "spec_layout", "SpecLayout", "shard_batch", "shard_params",
-        "shard_stacked_batch", "unshard",
         "auto_parallel", "ProcessMesh", "dtensor_from_fn", "reshard",
         "shard_op", "shard_tensor",
         "fleet_executor", "launch", "launch_utils", "ps", "transpiler",
