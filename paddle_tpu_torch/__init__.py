@@ -44,9 +44,9 @@ reference's patched Tensor methods are functions here (``cast`` for
 import torch
 from torch import enable_grad, no_grad, set_grad_enabled
 
-from . import (amp, callbacks, distributed, hapi, inference, io, jit,
-               metric, nn, optimizer, regularizer, serving, tensor, text,
-               vision)
+from . import (amp, callbacks, distributed, hapi, incubate, inference,
+               io, jit, metric, nn, optimizer, regularizer, serving, tensor,
+               text, vision)
 from .core.device import (CPUPlace, CUDAPlace, Place, device_count,
                           get_device, set_device)
 from .core.dtypes import (bfloat16, complex64, complex128, convert_dtype,

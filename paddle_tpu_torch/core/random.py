@@ -31,10 +31,10 @@ import contextlib
 
 import torch
 
-__all__ = ["make_generator", "seed", "uniform", "collect_generators",
-           "api_generator", "note_draw", "RerunPlan", "record_reruns",
-           "play_reruns", "rerun_region", "get_cuda_rng_state",
-           "set_cuda_rng_state"]
+__all__ = ["make_generator", "seed", "uniform", "normal",
+           "collect_generators", "api_generator", "note_draw", "RerunPlan",
+           "record_reruns", "play_reruns", "rerun_region",
+           "get_cuda_rng_state", "set_cuda_rng_state"]
 
 # the sets of generators that running discovery passes collect
 _collectors: list = []
@@ -211,10 +211,10 @@ def collect_generators(into):
         _collectors.remove(into)
 
 
-def uniform(shape, generator, device):
-    """Uniform [0, 1) f32 draws of ``shape`` on ``device`` from
-    ``generator`` (None: torch's default generator of ``device``). A CPU
-    generator draws on the host and the draws are copied to ``device``."""
+def _draw_device(generator, device):
+    """Where ``generator`` (None: torch's default one of ``device``)
+    draws, noted for the running discovery passes; a CPU generator's draw
+    for a step captured on the card is refused."""
     if generator is not None:
         note_draw(generator)
     gen_dev = generator.device if generator is not None else device
@@ -224,4 +224,18 @@ def uniform(shape, generator, device):
             "a random draw from a CPU generator inside a step captured as "
             "a CUDA graph would be fixed at capture: give the layers a CUDA "
             "generator (or none) to train with dropout under to_static")
-    return torch.rand(shape, generator=generator, device=gen_dev).to(device)
+    return gen_dev
+
+
+def uniform(shape, generator, device):
+    """Uniform [0, 1) f32 draws of ``shape`` on ``device`` from
+    ``generator`` (None: torch's default generator of ``device``). A CPU
+    generator draws on the host and the draws are copied to ``device``."""
+    return torch.rand(shape, generator=generator,
+                      device=_draw_device(generator, device)).to(device)
+
+
+def normal(shape, generator, device, dtype=torch.float32):
+    """Standard normal draws of ``shape``, as ``uniform`` draws."""
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=_draw_device(generator, device)).to(device)

@@ -14,15 +14,20 @@ pipeline, ZeRO-1 and gradient merge, ring attention and the SPMD
 pipeline; ``checkpoint`` the hybrid save and load with resharding;
 ``spec_layout`` the declarative layouts with ZeRO-3 (``SpecLayout``,
 ``shard_params``, ``shard_batch``, ``shard_stacked_batch``,
-``unshard``). The later parts of the reference's package (expert
-parallelism, ``auto_parallel``, ``launch``, ``ps``, ``p2p``, ...) are
-absent until their ROADMAP A10 items.
+``unshard``); ``auto_parallel`` the semi-automatic API (``ProcessMesh``,
+``shard_tensor``, ``Engine`` with ZeRO and gradient merge); ``utils`` the
+expert-parallel token exchange of ``incubate.MoELayer``. The later parts
+of the reference's package (``launch``, ``ps``, ``p2p``, the wire codec,
+...) are absent until their ROADMAP A10 items.
 """
 from __future__ import annotations
 
 import os
 
-from . import checkpoint, fleet, spec_layout  # noqa: F401
+from . import (auto_parallel, checkpoint, fleet, spec_layout,  # noqa: F401
+               utils)
+from .auto_parallel import (  # noqa: F401
+    ProcessMesh, dtensor_from_fn, reshard, shard_op, shard_tensor)
 from .checkpoint import (  # noqa: F401
     CorruptCheckpointError, load_hybrid_checkpoint, reshard_model,
     save_hybrid_checkpoint)
@@ -47,7 +52,8 @@ __all__ = [
     "parallel_device_count", "global_mesh", "save_hybrid_checkpoint",
     "load_hybrid_checkpoint", "reshard_model", "CorruptCheckpointError",
     "spec_layout", "SpecLayout", "shard_params", "shard_batch",
-    "shard_stacked_batch", "unshard"]
+    "shard_stacked_batch", "unshard", "auto_parallel", "ProcessMesh",
+    "dtensor_from_fn", "reshard", "shard_op", "shard_tensor", "utils"]
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False,

@@ -73,15 +73,26 @@ class ShardingOptimizerWrapper:
     parameter list stays whole)."""
 
     def __init__(self, optimizer, hcg=None, axis="sharding",
-                 shard_params=False):
+                 shard_params=False, group=None):
+        """``group``: the ranks to shard over, given by the caller where
+        they are its data axis (auto_parallel's Engine): each then holds
+        its own part of the batch, and a slice's gradient is averaged over
+        them once, in its gathering. Else the hybrid group's sharding
+        ranks, or the mesh's ``axis``."""
         self._inner = optimizer
-        group = _sharding_group(hcg, axis)
+        replicas = None
+        if group is None:
+            group = _sharding_group(hcg, axis)
+            if shard_params:
+                from ..mesh import get_mesh
+                from ..spec_layout import _replicas
+                replicas = _replicas(get_mesh(), "data")
         self._sharding_group = group
         params = list(optimizer._parameter_list or ())
         n = group.nranks if group is not None else 1
         self.shards_params = bool(shard_params)
         if shard_params:
-            self._shard(params, group, n)
+            self._shard(params, group, n, axis, replicas)
             return
         self._parts = partition_parameters(params, n)
         rank = max(group.rank, 0) if group is not None else 0
@@ -92,15 +103,15 @@ class ShardingOptimizerWrapper:
             # the rule, its accumulators and masters see the owned ones
             optimizer._owned_ids = owned
 
-    def _shard(self, params, group, n):
+    def _shard(self, params, group, n, axis, replicas):
         """ZeRO-3: every parameter with a dim the degree divides keeps
-        its slice; each rank updates all of its slices."""
+        its slice; each rank updates all of its slices. ``replicas``: the
+        group the Reducer averages the slices' gradients over."""
         self._parts, self._owned = [params], params
         self._found_inf_group = group if n > 1 else None
         if n <= 1:
             return
-        from ..mesh import get_mesh
-        from ..spec_layout import _replicas, shard_parameters
+        from ..spec_layout import shard_parameters
         items = []
         for p in params:
             if getattr(p, "fsdp_split", None) is not None or \
@@ -109,10 +120,10 @@ class ShardingOptimizerWrapper:
             dim = _shard_dim(tuple(p.shape), n)
             if dim is not None:
                 spec = [None] * p.dim()
-                spec[dim] = group.axis
+                spec[dim] = axis
                 p.sharding_spec = tuple(spec)
                 items.append((p, dim))
-        shard_parameters(items, group, _replicas(get_mesh(), "data"))
+        shard_parameters(items, group, replicas)
 
     @property
     def owned_parameters(self):

@@ -20,9 +20,11 @@ and ``{"data": d, "sharding": s}`` a SpecLayout's
 (distributed/spec_layout.py).
 
 ``shard_map`` has no counterpart in a process-per-rank design: each rank
-already runs its shard's program, and the port's ring attention and SPMD
-pipeline write their schedules out per rank. It raises, naming the
-reference's use still to come (expert parallelism).
+already runs its shard's program. The reference's uses of it became
+per-rank code: the MoE's token exchange (``incubate.MoELayer`` over
+``distributed.utils``' all-to-alls), ring attention's schedule
+(fleet/sequence_parallel.py) and the SPMD pipeline's
+(fleet/spmd_pipeline.py). It raises, naming them.
 """
 from __future__ import annotations
 
@@ -118,6 +120,9 @@ def axis_degree(axis):
 def shard_map(fn, mesh, in_specs, out_specs, check_rep=True):
     raise NotImplementedError(
         "shard_map: the port runs one process per rank, so each rank "
-        "already runs its shard's program; the reference's remaining SPMD "
-        "region that uses it (expert parallelism) comes with its ROADMAP "
-        "A10 item")
+        "already runs its shard's program; the reference's SPMD regions "
+        "are per-rank code here: the MoE's token exchange "
+        "(incubate.MoELayer with expert_axis, distributed.utils."
+        "expert_dispatch/expert_combine), ring attention "
+        "(fleet.sequence_parallel) and the SPMD pipeline "
+        "(fleet.spmd_pipeline)")

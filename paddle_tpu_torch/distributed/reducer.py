@@ -29,8 +29,10 @@ A ZeRO-3 shard (distributed/spec_layout.py) has its gradient averaged
 over its fsdp group already; the Reducer averages it over the group its
 shard is replicated on (``p.fsdp_replicas``, the data ranks), or not at
 all where that is None, so its buckets group parameters by reduction
-group too. Sharding parameters re-arms every live Reducer
-(``rearm_reducers``): their shapes and groups changed.
+group too. An expert slice of ``incubate.MoELayer`` likewise
+(``p.ep_replicas``): the exchange gave it every rank's contribution.
+Sharding parameters re-arms every live Reducer (``rearm_reducers``):
+their shapes and groups changed.
 """
 from __future__ import annotations
 
@@ -94,10 +96,14 @@ class Reducer:
 
     def _group_of(self, p):
         """The group ``p``'s gradient is averaged over: the Reducer's,
-        or for a ZeRO-3 shard its replicas' (_NOBODY: none)."""
-        if getattr(p, "fsdp_split", None) is None:
+        or for a ZeRO-3 shard or an expert slice its replicas' (_NOBODY:
+        none)."""
+        if getattr(p, "fsdp_split", None) is not None:
+            replicas = p.fsdp_replicas
+        elif getattr(p, "ep_split", None) is not None:
+            replicas = p.ep_replicas
+        else:
             return self.group
-        replicas = p.fsdp_replicas
         return _NOBODY if replicas is None else replicas
 
     def _arm(self, params):

@@ -37,9 +37,9 @@ _LOCAL = threading.local()
 
 def param_split(p):
     """How a distributed parameter is split over ranks: its
-    tensor-parallel, ZeRO-3 or pipeline-stage split (a ``TPSplit``), or
-    None for a whole one."""
-    for attr in ("tp_split", "fsdp_split", "stage_split"):
+    tensor-parallel, ZeRO-3, pipeline-stage or expert split (a
+    ``TPSplit``), or None for a whole one."""
+    for attr in ("tp_split", "fsdp_split", "stage_split", "ep_split"):
         split = getattr(p, attr, None)
         if split is not None:
             return split

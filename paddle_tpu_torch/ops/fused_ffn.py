@@ -9,6 +9,9 @@ and recomputes a = act(h) instead of saving it (a is the widest tensor of
 the block). The activation derivatives are the exact ones of the
 reference's ``_act_fns``. The reference lists the op in neither amp list,
 so under ``amp.auto_cast`` only O2 casts its inputs (to the low dtype).
+Mixed dtypes compute in their promoted dtype, as ``jnp.dot`` does (an f32
+LayerNorm output into bf16 weights under O1 runs in f32); torch.matmul
+would refuse them.
 
 When a gradient is wanted, the measured fusion policy
 (``ops/autotune.py``, ``FLAGS_fusion_policy``) picks per call between
@@ -18,6 +21,7 @@ one forward, so the plain forward runs and nothing is decided.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -91,8 +95,9 @@ def fused_ffn(x, w1, b1, w2, b2, activation="gelu"):
     Function above or the plain composition (module docstring)."""
     if activation not in _ACTIVATIONS:
         raise ValueError(f"unsupported activation {activation!r}")
-    x, w1, b1, w2, b2 = amp_cast("fused_ffn", x, w1, b1, w2, b2)
-    args = (x, w1, b1, w2, b2)
+    args = amp_cast("fused_ffn", x, w1, b1, w2, b2)
+    dtype = functools.reduce(torch.promote_types, [t.dtype for t in args])
+    args = tuple(t.to(dtype) for t in args)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in args)):
         return _plain(*args, activation)

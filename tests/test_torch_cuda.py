@@ -2225,14 +2225,6 @@ def test_ring_and_zero3_on_card(card, tmp_path):
         assert res["weight_worst"] <= 1e-4 and res["sharded"] > 0, res
 
 
-if __name__ == "__main__":
-    import sys
-    if sys.argv[1:2] == ["--tp-worker"]:
-        _tp_card_worker(sys.argv[2])
-    elif sys.argv[1:2] == ["--layout-worker"]:
-        _layout_card_worker(sys.argv[2])
-
-
 def test_compiled_stage_program_captures_a_stage_on_card(card):
     """A pipeline stage's two directions as CompiledStagePrograms on the
     card: each captured as a CUDA graph on its second call and replayed
@@ -2270,3 +2262,184 @@ def test_compiled_stage_program_captures_a_stage_on_card(card):
     torch.testing.assert_close(dx, want_dx, rtol=1e-6, atol=1e-6)
     for acc, w in zip(st.acc, want):
         torch.testing.assert_close(acc, 3 * w, rtol=1e-5, atol=1e-6)
+
+
+# -- auto_parallel and incubate (the auto_moe slice) --------------------------
+
+EXCHANGE_SHAPE = (8, 96, 64)   # (experts, capacity, width)
+
+
+def _moe_card_worker(out_path):
+    """One of two ranks on the card (gloo over CUDA tensors): the expert
+    exchange's autograd Functions against their plain versions. Each rank
+    draws every rank's inputs and cotangents from their seeds, so it
+    computes the plain dispatch (each owner's block summed over the
+    senders) and combine (every owner's block to every rank) and their
+    gradients by autograd over all of them, and compares its own share."""
+    import json
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import utils
+    from paddle_tpu_torch.distributed.collective import get_group
+    dist.init_parallel_env()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    e, c, d = EXCHANGE_SHAPE
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+
+        def draw(seed, shape):
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+        bufs = [draw(10 + r, (e, c, d)).requires_grad_() for r in range(n)]
+        cot = [draw(20 + r, (e // n, c, d)) for r in range(n)]
+        plain = [torch.stack([b[o * e // n:(o + 1) * e // n]
+                              for b in bufs]).sum(0) for o in range(n)]
+        torch.autograd.backward(plain, cot)
+        mine = bufs[rank].detach().clone().requires_grad_()
+        utils.reset_exchange_stats()
+        got = utils.expert_dispatch(mine, get_group(0))
+        got.backward(cot[rank])
+        res[f"dispatch.{name}"] = [
+            bool(torch.equal(got, plain[rank])),
+            bool(torch.equal(mine.grad, bufs[rank].grad))]
+        res[f"bytes.{name}"] = utils.exchange_stats()["bytes"]
+        locs = [draw(30 + r, (e // n, c, d)).requires_grad_()
+                for r in range(n)]
+        cot = [draw(40 + r, (e, c, d)) for r in range(n)]
+        whole = torch.cat(locs)
+        torch.autograd.backward([whole] * n, cot)
+        mine = locs[rank].detach().clone().requires_grad_()
+        got = utils.expert_combine(mine, get_group(0))
+        got.backward(cot[rank])
+        res[f"combine.{name}"] = [bool(torch.equal(got, whole)),
+                                  bool(torch.equal(mine.grad,
+                                                   locs[rank].grad))]
+    with open(out_path, "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    torch.distributed.destroy_process_group()
+
+
+def test_moe_exchange_functions_match_plain_on_card(card, tmp_path):
+    """The MoE exchange's dispatch and combine Functions on two rank
+    processes on the card, forward and backward, in f32 and bf16: equal
+    to their plain versions to the bit (each sums the same values in the
+    same order), and the bytes a rank sends counted."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        addr = f"localhost:{sock.getsockname()[1]}"
+    here = os.path.abspath(__file__)
+    repo = os.path.dirname(os.path.dirname(here))
+    procs = [subprocess.Popen(
+        [sys.executable, here, "--moe-worker", str(tmp_path / f"r{r}.json")],
+        cwd=repo, env={**os.environ, "PADDLE_TRAINER_ID": str(r),
+                       "PADDLE_TRAINERS_NUM": "2",
+                       "PADDLE_COORDINATOR_ADDR": addr,
+                       "PYTHONPATH": repo},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0].decode(errors="replace")
+                for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, (r, log[-3000:])
+    e, c, d = EXCHANGE_SHAPE
+    for r in range(2):
+        res = json.loads((tmp_path / f"r{r}.json").read_text())
+        for name in ("float32", "bfloat16"):
+            assert res[f"dispatch.{name}"] == [True, True], res
+            assert res[f"combine.{name}"] == [True, True], res
+            size = 4 if name == "float32" else 2
+            # forward and backward, each (2 ranks x E/2 x C x d)
+            assert res[f"bytes.{name}"] == 2 * e * c * d * size, res
+
+
+def test_moe_layer_on_card_matches_host(card):
+    """MoELayer at one rank in f32 (TF32 off), top 2 with a capacity that
+    drops tokens: the card's output, aux loss and every gradient within
+    1e-5 relative of the host's, the dropped tokens equal."""
+    gen = torch.Generator().manual_seed(3)
+    host = pt.incubate.MoELayer(64, 128, 8, top_k=2, capacity_factor=0.5,
+                                device="cpu", generator=gen)
+    dev = pt.incubate.MoELayer(64, 128, 8, top_k=2, capacity_factor=0.5,
+                               device="cuda")
+    pt.load_numpy_state_dict(dev, host.state_dict())
+    x = torch.randn(4, 96, 64, generator=torch.Generator().manual_seed(4))
+    outs = []
+    for layer, device in ((host, "cpu"), (dev, "cuda")):
+        # a leaf of its own on each device (x.to("cpu") is x itself)
+        xt = x.detach().clone().to(device).requires_grad_()
+        y = layer(xt)
+        ((y ** 2).mean() + 0.1 * layer.aux_loss).backward()
+        outs.append([y.detach().cpu(), layer.aux_loss.detach().cpu(),
+                     xt.grad.cpu()] + [p.grad.cpu()
+                                       for p in layer.parameters()])
+    assert dev.dropped_tokens.tolist() == host.dropped_tokens.tolist()
+    assert sum(host.dropped_tokens.tolist()) > 0
+    for got, want in zip(outs[1], outs[0]):
+        assert _rel_l2(got, want) <= 1e-5
+
+
+def test_auto_engine_at_one_rank_captures_its_merged_step_on_card(card):
+    """auto_parallel's Engine at world size 1 on the card: its step under
+    gradient merge (k 2) captured through to_static (an accumulating and a
+    stepping program) gives the eager run's losses and weights
+    (FLAGS_compiled_step=0), a small f32 GPT at s 256 with B1-B3 on their
+    f32 variants."""
+    from paddle_tpu_torch.distributed.auto_parallel import Engine, Strategy
+    cfg = dict(vocab_size=256, hidden_size=128, num_layers=2, num_heads=2,
+               max_position_embeddings=256, dropout=0.0)
+    rng = np.random.RandomState(6)
+    batches = [(rng.randint(0, 256, (2, 256)), rng.randint(0, 256, (2, 256)))
+               for _ in range(6)]
+
+    def loss_fn(logits, labels):
+        return pt.nn.functional.cross_entropy(
+            logits.reshape(-1, 256), labels.reshape(-1))
+    runs = []
+    for compiled in (True, False):
+        pt.set_flags({"FLAGS_compiled_step": compiled})
+        try:
+            model = GPTForCausalLM(GPTConfig(**cfg), device="cuda",
+                                   generator=torch.Generator().manual_seed(0))
+            s = Strategy()
+            s.gradient_merge.enable, s.gradient_merge.k_steps = True, 2
+            engine = Engine(model, loss=loss_fn, strategy=s,
+                            optimizer=pt.optimizer.AdamW(
+                                learning_rate=1e-3,
+                                parameters=model.parameters()))
+            launch_counts.clear()
+            losses = [engine.fit([b])["loss"][0] for b in batches]
+            runs.append((losses, [p.detach().clone()
+                                  for p in model.parameters()],
+                         launch_counts.get(f"{fa.KERNEL_NAME}.{fa.SIMT}", 0)))
+        finally:
+            pt.set_flags({"FLAGS_compiled_step": True})
+    (got, gw, captured), (want, ww, eager) = runs
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    for a, b in zip(gw, ww):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+    # eager: 2 layers a micro-step; captured: each program's discovery
+    # and capture calls launch (4 calls), its replays do not (2)
+    assert eager == 12 and captured == 8, (captured, eager)
+
+
+if __name__ == "__main__":
+    import sys
+    if sys.argv[1:2] == ["--tp-worker"]:
+        _tp_card_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--layout-worker"]:
+        _layout_card_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--moe-worker"]:
+        _moe_card_worker(sys.argv[2])

@@ -576,7 +576,9 @@ def test_mesh_axes_are_groups_of_ranks(four):
         assert names == ["data", "model"] and degree == 2
         assert data == [m, m + 2] and model == [2 * d, 2 * d + 1]
         assert summed == [4.0 * d + 1.0]
-        assert "A10" in four[r]["shard_map"]
+        # shard_map raises, naming what the reference's uses became
+        for use in ("MoELayer", "sequence_parallel", "spmd_pipeline"):
+            assert use in four[r]["shard_map"], four[r]["shard_map"]
 
 
 def test_c_identity_backward_sums_against_the_math(four):

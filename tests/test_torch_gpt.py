@@ -280,6 +280,11 @@ PORT_MODULES = {
     "paddle_tpu_torch.distributed.spec_layout",
     "paddle_tpu_torch.distributed.fleet.sequence_parallel",
     "paddle_tpu_torch.distributed.fleet.spmd_pipeline",
+    # auto_parallel, the expert exchange and incubate with the MoE layer
+    "paddle_tpu_torch.distributed.auto_parallel",
+    "paddle_tpu_torch.distributed.utils",
+    "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.moe",
+    "paddle_tpu_torch.incubate.nn", "paddle_tpu_torch.incubate.optimizer",
 }
 
 

@@ -228,7 +228,7 @@ ARTEFACTS = {"annotations", "apply", "builtins", "jax", "jnp", "next_key",
 LATER = {
     "": {"NPUPlace", "TPUPlace", "SelectedRows",
          "autograd", "cost_model", "device", "distribution", "fft", "grad",
-         "hub", "incubate", "onnx", "signal", "slim", "sparsity", "static",
+         "hub", "onnx", "signal", "slim", "sparsity", "static",
          "sysconfig", "utils"},
     ".nn": set(),
     ".nn.functional": set(),
@@ -237,19 +237,18 @@ LATER = {
     ".vision.models": set(),
     ".vision.ops": set(),
     ".text": set(),
-    # ROADMAP A10, item by item: expert_parallel.py; fleet/elastic.py;
-    # fleet/{dataset,fs,metrics}.py
+    # ROADMAP A11: expert_parallel.py (beside the recovery journal and
+    # AsyncCheckpointer); A10: fleet/elastic.py; fleet/{dataset,fs,metrics}.py
     ".distributed.fleet": {
         "expert_parallel", "ExpertParallelEngine", "ExpertPlacement",
         "elastic", "dataset", "fs", "HDFSClient", "LocalFS", "metrics"},
-    # ROADMAP A10: auto_parallel/; the host transport and launch code;
-    # fleet/dataset.py
+    # ROADMAP A10: the host transport and launch code; fleet/dataset.py
     ".distributed": {
-        "auto_parallel", "ProcessMesh", "dtensor_from_fn", "reshard",
-        "shard_op", "shard_tensor",
         "fleet_executor", "launch", "launch_utils", "ps", "transpiler",
-        "utils", "wire",
-        "InMemoryDataset", "QueueDataset"},
+        "wire", "InMemoryDataset", "QueueDataset"},
+    # ROADMAP A13: the sparsity package; A10: fleet/fs.py's LocalFS, which
+    # incubate.checkpoint needs
+    ".incubate": {"asp", "checkpoint"},
     # ROADMAP A11: retry.py, integrity.py, the rest of health.py and of
     # recovery.py
     ".resilience": {
