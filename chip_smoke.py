@@ -78,8 +78,8 @@ Phases, each printing JSON lines:
 9. bert_train, ernie_train: bench.py's BERT lane (bench_bert): BERT-base
    (then ERNIE-base) with dropout 0 in bf16, AdamW(1e-4,
    multi_precision), the parity-label stream at 16 x 128, the step
-   captured and driven through run_steps with 64 steps an execution, 512
-   (256) recorded steps, once for each of three weight draws (seeds
+   captured and driven through run_steps with 64 steps an execution, 192
+   recorded steps, once for each of three weight draws (seeds
    --seed, +1, +2) on the one data stream; the median of their last-32
    means below bench's chance floor 0.62; each run 1 compile in the
    warm-up, 0 timed, and a replay profiled.
@@ -142,7 +142,7 @@ them, and the kernels line says so.
    under a cosine schedule the LRScheduler callback steps; images/s, the
    StepTimer's phases and the card's busy share over 4 timed steps
    with cuDNN's default algorithms, a hand captured step's time beside
-   fit's, and a deterministic fit of 4 steps against a hand-written
+   fit's, and a deterministic fit of 2 steps against a hand-written
    captured loop on the same batches (within 1e-4). (c) hapi_bert:
    BERT-base bf16 at 8 x 512 through fit with steps_per_execution=4,
    every loss within 1e-3 of a hand-written CompiledTrainStep loop, one
@@ -272,7 +272,7 @@ them, and the kernels line says so.
    bench's 4 x 1024 batch: the first step's reduced gradients bitwise
    equal on both ranks and their norm within DP_GRAD_RTOL of this
    process's serial step on the whole batch from the same weights, the
-   first 4 global losses within DP_LOSS_RTOL of its losses, the weights
+   first 3 global losses within DP_LOSS_RTOL of its losses, the weights
    after the steps bitwise equal on both ranks; step ms, buckets, flushes
    and ``step/collective_wait`` a step, B1-B3 launches a step per rank
    (12 each) and their tiles, busy share and peak memory; neither rank
@@ -284,49 +284,52 @@ them, and the kernels line says so.
    over a one-rank NCCL group, against numpy.
 23. hybrid (``--phases hybrid``): fleet's hybrid parallelism, rank
    processes on the one card over gloo (NCCL refuses two ranks a
-   device), every TP all-reduce through the host. (a) tp_gpt: GPT-3 1.3B
+   device), every TP all-reduce through the host (the surface group's
+   phases run on this process beside tp_gpt's ranks). (a) tp_gpt: GPT-3 1.3B
    (GPTConfig.gpt3_1p3b, vocab 50304, hidden 2048, 16 heads of 128) at
-   full width and 12 of its 24 layers through ``fleet.init`` (mp 2),
+   full width and 6 of its 24 layers through ``fleet.init`` (mp 2),
    ``distributed_model`` and ``distributed_optimizer``: each rank draws
    the full weights from a CUDA generator and keeps its shard
    (``load_numpy_state_dict``); greedy decode of 4 x 512 plus 8 cached
    steps in f32 against this process's serial model (a random 1.3B's top
-   two logits sit within bf16's rounding); a bf16 prefill (B1 12 times,
+   two logits sit within bf16's rounding); a bf16 prefill (B1 6 times,
    at (4, 512, 8, 128)); then 3 eager bf16 steps, AdamW(multi_precision,
    1e-4), bench's 1.3B batch 2 x 1024 from its permutation stream: the
    3 losses within 2 x the serial bf16 run's relative gap to its
    f32 run + 1e-3 of the serial bf16 run (both run here first, from the
    same weights, and freed before the ranks start), the replicated
-   parameters bitwise equal across the ranks after every step, B1-B3 12
+   parameters bitwise equal across the ranks after every step, B1-B3 6
    times a step a rank (tc_bf16, at (2, 1024, 8, 128)); step ms,
    tokens/s, ``step/collective_wait``, the all-reduces and their bytes a
    step, busy share, peak memory, the tiles. (b) zero_gpt: GPT-medium
    bf16 under ZeRO-1 (sharding 2), bench's 4 x 1024 split 2 x 1024 a
    rank: weights bitwise equal across ranks after every step, the first
-   4 losses within 1e-3 of the serial run, each rank's optimizer-state
+   3 losses within 1e-3 of the serial run, each rank's optimizer-state
    bytes and peak. (c) hybrid_geometry: the 1.3B layer geometry at 2
    layers in f32, SGD, dp 2 x mp 2 on 4 processes, 4 x 256 (B1-B3 on
-   their f32 variants): 3 losses within 5e-4 of the serial run.
+   their f32 variants): 2 losses within 5e-4 of the serial run.
 
 24. pipeline (``--phases pipeline``): the 1F1B pipeline and the hybrid
-   checkpoint, rank processes on the one card over gloo. (a) pp_gpt:
-   GPT-3 1.3B at full width and 12 of its 24 layers as a PipelineLayer
+   checkpoint, rank processes on the one card over gloo (the bert
+   group's phases run on this process beside pp_gpt's ranks: their
+   captured replays share the card with the ranks' steps). (a) pp_gpt:
+   GPT-3 1.3B at full width and 6 of its 24 layers as a PipelineLayer
    (the token table shared with the head through SharedLayerDesc,
-   positions, the 12 GPT blocks on (x, pending), the final LayerNorm,
+   positions, the 6 GPT blocks on (x, pending), the final LayerNorm,
    ParallelCrossEntropy) at pp 2 x mp 2 on 4 processes, each rank
-   holding its stage's 6 blocks
+   holding its stage's 3 blocks
    with 8 heads of 128, bf16, AdamW(multi_precision, 1e-4), bench's 1.3B
    batch 2 x 1024 in 2 micro-batches of 1 x 1024, 3 steps: the 3
    losses within hybrid's tp_gpt bf16 rule of the serial 1.3B (the same
    weights and data), the replicated parameters bitwise equal across
    each stage's model ranks and the tied table's two copies bitwise
-   equal across the stages after every step, B1 24 and B2, B3 12 times a
+   equal across the stages after every step, B1 12 and B2, B3 6 times a
    step a rank (tc_bf16, at (1, 1024, 8, 128); the forward and its
    recompute), by wrapper and by kernel name in a profiled step; step
    ms, tokens/s, the point-to-point wait apart from the tensor-parallel
    all-reduces' (``step/collective_wait``), the bytes of each, busy
    share, peak memory, tiles. (b) pp_compiled: GPT-medium at pp 2 on 2
-   processes, bench's 4 x 1024 in 4 micro-batches, 4 steps eager and 4
+   processes, bench's 4 x 1024 in 4 micro-batches, 3 steps eager and 3
    with each stage's directions captured (CompiledStageProgram): the
    losses equal within 1e-5, no compile in the steps after the first,
    both stages captured, the losses within 1e-3 of the serial GPT-medium
@@ -341,11 +344,12 @@ them, and the kernels line says so.
 
 25. layouts (``--phases layouts``): the declarative layouts, ring
    sequence parallelism and the SPMD pipeline, 2 rank processes on the
-   one card over gloo (one spawn, the lanes in turn). (a) zero3_gpt:
-   bench's GPT-3 1.3B slice (6 layers, hidden 2048, 16 heads of 128,
+   one card over gloo (one spawn, the lanes in turn; the optim group's
+   phases run on this process beside them). (a) zero3_gpt:
+   bench's GPT-3 1.3B slice (4 of its 6 layers, hidden 2048, 16 heads of 128,
    vocab 50304, batch 2 x 1024) in bf16, AdamW(multi_precision), trained
    through Model.prepare(spec_layout=SpecLayout(shard_params=True)) on
-   {"sharding": 2}, 1 + 3 steps: the losses within hybrid's bf16 rule of
+   {"sharding": 2}, 1 + 2 steps: the losses within hybrid's bf16 rule of
    the serial slice, half the parameter and optimizer-state bytes a rank
    (within 1 %), B1, B2 and B3 6 times a step a rank, by wrapper and by
    kernel name; step ms, the gathers and gradient reductions a step and
@@ -361,7 +365,7 @@ them, and the kernels line says so.
    ring's ms, p2p bytes and wait, device ms by kernel. (c) spmd_pipe: a
    PipelineStageStack of 2 stages of 3 of the 1.3B's blocks on {"pipe":
    2}, the tables, final LN and tied head replicated, bf16, AdamW mp,
-   4 x 1024 in 4 micro-batches, 4 steps: the losses within the bf16 rule
+   4 x 1024 in 4 micro-batches, 3 steps: the losses within the bf16 rule
    of the sequential stack (the same weights), the replicated
    parameters bitwise equal across the stages after every step, B1, B2
    and B3 12 times a step a rank, 4 ticks run and 1 bubble tick skipped
@@ -374,18 +378,18 @@ them, and the kernels line says so.
    GPT-3 1.3B slice in bf16, AdamW(multi_precision), through
    ``auto_parallel.Engine`` under ProcessMesh([0, 1], dim_names=["dp"])
    with amp (bf16, O1), gradient merge (k 2, avg) and sharding at stage 3,
-   then at stage 1: 4 micro-steps of 2 x 1024 (1 x 1024 a rank), then
+   then at stage 1: 2 micro-steps of 2 x 1024 (1 x 1024 a rank), then
    evaluate over 2 batches and predict over 1: the losses, the eval loss
    and the predicted logits within the bf16 rule of the serial Engine at
    world size 1 (the step captured through to_static; bf16 and f32 runs),
    stage 3 half the parameter and optimizer-state bytes a rank (within 1
-   %), B1, B2 and B3 6 times a micro-step a rank by wrapper and by kernel
+   %), B1, B2 and B3 4 times a micro-step a rank by wrapper and by kernel
    name; step ms, ``collective_wait``, busy share, peak. (b) moe_ep: a
    user model of 4 blocks of FusedMultiHeadAttention(1024, 16), a
    LayerNorm and an incubate.MoELayer(1024, 4096, 8 experts, top 2,
    capacity factor 1.25, expert_axis "ep") with a residual, GPT-medium's
    tied token table, bf16 under amp, AdamW mp, on {"ep": 2}: 2 x 1024
-   tokens and 4 experts a rank, 4 steps, held to the same model whole on
+   tokens and 4 experts a rank, 3 steps, held to the same model whole on
    the whole 4 x 1024 batch: the first step's last-block output and the
    gradients of each rank's expert slices, the gates and an attention
    weight within relative L2 2^-7, the dropped tokens equal, the losses
@@ -398,10 +402,50 @@ them, and the kernels line says so.
    variants, 12 each), and in bf16 at 8 x 512, 3 AdamW mp steps, B1, B2
    and B3 12 times a step by wrapper and by kernel name.
 
+27. elastic (``--phases elastic``; it runs right after auto_moe, and the
+   vision group's phases run on this process beside its launches: their
+   captured replays share the card with the launches' steps): launch
+   and in-job recovery. GPT-medium bf16 (AdamW mp, 12 of its 24 layers)
+   under DataParallel over 2 ranks on the card (gloo), each rank in a
+   RecoveryManager with an ElasticManager on a FileStore, started by
+   ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+   --max_restarts 1``: 6 steps of 2 x 1024 a rank of bench's 4 x 1024
+   stream, a hybrid checkpoint after every second step. Two launches
+   side by side (for the script's time; each one's step times carry the
+   other's load): an uninterrupted one, with the other ranks' tools after
+   its steps
+   (p2p's group_all_reduce, group_all_gather, group_broadcast and
+   group_barrier on tensors from the card against numpy; fleet.metrics'
+   acc, auc, rmse and sum over both ranks' statistics against numpy on
+   their sum; an abort: rank 1 fails inside an all_reduce through an
+   injected fault while rank 0 waits in it, and rank 0 must raise the
+   PeerAbort naming rank 1 within ELASTIC_ABORT_S), and the recovered
+   one, while this process runs elastic_lenet
+   (incubate.checkpoint.train_epoch_range with LeNet: a crash after epoch
+   1 of 3, the resumed weights equal to an uninterrupted run's). In the
+   recovered launch rank 1 dies at step 3
+   by os._exit through a fault site of its first incarnation, the
+   launcher relaunches it (PADDLE_TPU_GENERATION 1), the survivor tears
+   its group down, both meet at generation 2 and restore the step-2
+   checkpoint: the 6 losses equal the uninterrupted launch's to the bit,
+   the journal names the launcher's worker_restart (rank 1, exit 9,
+   generation 1) and the survivor's restart (its cause, generation 2, np
+   2), B1, B2 and B3 run 12 times a step on every rank before and after
+   the restart (by wrapper). Recorded: the seconds from the death to the
+   survivor's error and to its first resumed step, the checkpoint's
+   bytes and its save and load seconds, step ms and collective_wait
+   before and after the restart, the group's seconds.
+
+Four groups whose ranks keep this process waiting each host a group of
+this process's (GUESTS): vision beside elastic, surface beside hybrid,
+bert beside pipeline, optim beside layouts, when both run; the guests'
+captured replays share the card with the ranks' steps, so the times of
+both carry the other's load.
+
 ``--phases`` runs only the named phases (comma-separated: build,
-kernels, reference, serve, train, to_static_grad, bert, vision,
-serving, hapi, optim, surface, nn_rest, zoo, dist_tune, hybrid,
-pipeline, layouts, auto_moe); the kernels
+kernels, auto_moe, elastic, reference, serve, train, to_static_grad,
+bert, vision, serving, hapi, optim, surface, nn_rest, zoo, dist_tune,
+hybrid, pipeline, layouts); the kernels
 line needs every phase and is printed only when all run. Every phase
 runs under the defaults: FLAGS_fusion_policy=auto (the table this card
 measured, which keeps flash attention, fused conv + BN and the fused
@@ -446,7 +490,7 @@ GPT_LAYERS = 12
 # chance), judged on at least 512 recorded steps for BERT and 256 for
 # ERNIE (bench.py:1241-1242)
 CLS_BATCH, CLS_SEQ, CLS_SPE, CLS_FLOOR, CLS_WINDOW = 16, 128, 64, 0.62, 32
-CLS_STEPS = {"bert": 512, "ernie": 256}
+CLS_STEPS = {"bert": 192, "ernie": 192}
 # the floor is judged on the median of the last-32 means of this many
 # weight draws (seeds --seed, --seed + 1, ...) on the one data stream: one
 # fine-tuning run from one draw can stay at chance, as ERNIE-base from
@@ -527,8 +571,8 @@ HAPI_ACC_BAR = 0.5
 # deterministic fit of HAPI_HAND_STEPS against a hand-written captured loop
 # on the same collated batches
 HAPI_RESNET_BATCH, HAPI_RESNET_WORKERS = 64, 4
-HAPI_RESNET_WARMUP, HAPI_RESNET_TIMED, HAPI_RESNET_PROFILED = 4, 4, 2
-HAPI_RESNET_LR, HAPI_HAND_STEPS, HAPI_HAND_TIMED = 0.005, 4, 4
+HAPI_RESNET_WARMUP, HAPI_RESNET_TIMED, HAPI_RESNET_PROFILED = 4, 2, 2
+HAPI_RESNET_LR, HAPI_HAND_STEPS, HAPI_HAND_TIMED = 0.005, 2, 2
 HAPI_RESNET_RTOL = 1e-4
 # hapi_bert: BERT-base bf16 at 8 x 512 through fit with
 # steps_per_execution=4: 2 warm-up and 4 timed executions, every step's
@@ -834,6 +878,7 @@ def phase_kernels(torch, seed):
              (*RING_RANK_SHAPE, torch.bfloat16, False),
              (*SP_RANK_SHAPE, torch.bfloat16, True),
              (*MOE_RANK_SHAPE, torch.bfloat16, False),
+             (*ELASTIC_RANK_SHAPE, torch.bfloat16, True),
              (*TRANSLATE_FLASH_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
@@ -953,6 +998,7 @@ def phase_kernels_bwd(torch, seed):
              (*RING_RANK_SHAPE, torch.bfloat16, False),
              (*SP_RANK_SHAPE, torch.bfloat16, True),
              (*MOE_RANK_SHAPE, torch.bfloat16, False),
+             (*ELASTIC_RANK_SHAPE, torch.bfloat16, True),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = {"dkv": [], "dq": [], "whole": []}
     for b, s, h, d, dtype, causal in cases:
@@ -4254,7 +4300,7 @@ def phase_recompute_dropout(torch, seed):
 # lane runs the first 192: the scheduler advances 32 steps after each
 # execution, and the rate stays 0.045 within 1e-5 relative
 MOBILE_BATCH, MOBILE_HW, MOBILE_SPE, MOBILE_STACKS = 128, 224, 32, 3
-MOBILE_WARMUP_EXEC, MOBILE_TIMED_EXEC, MOBILE_WINDOW = 2, 4, 32
+MOBILE_WARMUP_EXEC, MOBILE_TIMED_EXEC, MOBILE_WINDOW = 2, 2, 32
 MOBILE_LR, MOBILE_MOMENTUM, MOBILE_DECAY = 0.045, 0.9, 4e-5
 MOBILE_T_MAX = 240 * (1281167 // 128)
 MOBILE_FIT_SPE = 4
@@ -5245,7 +5291,7 @@ ZOO_NOISE_FACTOR, ZOO_F64_TOL = 4.0, 1e-9
 # stacks; the first DENSE_PARITY captured losses within DENSE_LOSS_RTOL
 # of an eager run's from the same weights and batches
 DENSE_BATCH, DENSE_HW, DENSE_SPE, DENSE_STACKS = 128, 224, 4, 4
-DENSE_WARMUP_EXEC, DENSE_TIMED_EXEC, DENSE_PARITY = 1, 8, 8
+DENSE_WARMUP_EXEC, DENSE_TIMED_EXEC, DENSE_PARITY = 1, 4, 8
 DENSE_LR, DENSE_MOMENTUM, DENSE_DECAY = 0.1, 0.9, 1e-4
 DENSE_LOSS_RTOL = 2e-2
 # zoo_eval: each family served by inference.Predictor at 1000 classes,
@@ -5253,7 +5299,7 @@ DENSE_LOSS_RTOL = 2e-2
 ZOO_EVAL = (("alexnet", 224), ("vgg16", 224), ("squeezenet1_1", 224),
             ("googlenet", 224), ("inception_v3", 299), ("densenet121", 224),
             ("resnext50_32x4d", 224))
-ZOO_EVAL_BATCH, ZOO_EVAL_REPLAYS = 64, 10
+ZOO_EVAL_BATCH, ZOO_EVAL_REPLAYS = 64, 5
 # vision_ops: the detectors' sizes. Faster R-CNN with an FPN on an 800 x
 # 1344 input: the stride-4 map is 200 x 336 with 256 channels, 512 RoIs
 # an image, 7 x 7 bins; R-FCN: 7 x 7 x 21 classes on the stride-16 map
@@ -6033,7 +6079,7 @@ TUNE_SHAPES = (("gpt", (4, 1024, 16, 64), True),
                ("gpt_dp_rank", (2, 1024, 16, 64), True))
 # dp_gpt: ranks on the one card, steps (the first DP_CHECKED held to the
 # serial step's losses), and the steps timed after the first
-DIST_WORLD, DP_STEPS, DP_CHECKED = 2, 4, 4
+DIST_WORLD, DP_STEPS, DP_CHECKED = 2, 3, 3
 # dp_gpt's bounds against the serial step from the same weights: the
 # first step's reduced gradient norm, and each of the first DP_CHECKED
 # losses (relative). The losses' worst gap measured 1.7e-5 on an H100
@@ -6292,14 +6338,15 @@ POLICY_SETTINGS = (
     ("searched", "auto", True))
 # timed steps a setting and mode (10 until the pipeline group, 5 until
 # the layouts group needed the script's time)
-POLICY_STEPS = 2
+POLICY_STEPS, POLICY_WARMUP = 2, 2
 
 
 def phase_policy_steps(torch, seed):
     """GPT-medium's bf16 training step (bench's 4 x 1024, AdamW mp) under
     each of POLICY_SETTINGS: the fused forms everywhere, auto (the
     table's answers) and the searched auto; POLICY_STEPS eager and
-    POLICY_STEPS captured steps after 4 of warm-up each, every step's ms
+    POLICY_STEPS captured steps after POLICY_WARMUP of warm-up each (the
+    second captures), every step's ms
     (the eager step is host-bound, so its spread is shown), the peak of
     the eager steps."""
     import paddle_tpu_torch as pt
@@ -6330,7 +6377,7 @@ def phase_policy_steps(torch, seed):
                                          parameters=model.parameters())
                 pt.set_flags({"FLAGS_compiled_step": captured})
                 step = train_step_fn(model, opt)
-                for _ in range(4):
+                for _ in range(POLICY_WARMUP):
                     step(x, y)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -6778,14 +6825,14 @@ def phase_nccl_single(torch):
 HYBRID_WORLD, TP_STEPS, TP_CHECKED, TP_BATCH = 2, 3, 3, 2
 TP_DECODE_STEPS = 8
 # tp_gpt, pp_gpt and their serial runs take the 1.3B at HYBRID_LAYERS of
-# its 24 layers, at full width (cut from 24 for the script's time, PERF.md
-# section 4)
-HYBRID_LAYERS = 12
+# its 24 layers, at full width (cut from 24, then 12, for the script's
+# time, PERF.md section 4)
+HYBRID_LAYERS = 6
 # hybrid_geometry: the 1.3B layer geometry at GEOM_LAYERS layers in f32,
 # SGD, dp 2 x mp 2 on GEOM_WORLD processes against the serial steps
 # (__graft_entry__.py:160-216, 5e-4 relative); its batch takes B1-B3
 GEOM_WORLD, GEOM_LAYERS, GEOM_BATCH, GEOM_SEQ = 4, 2, 4, 256
-GEOM_STEPS, GEOM_RTOL, GEOM_LR = 3, 5e-4, 1e-3
+GEOM_STEPS, GEOM_RTOL, GEOM_LR = 2, 5e-4, 1e-3
 # zero_gpt: GPT-medium (the dp_gpt lane's model) at sharding_degree
 # HYBRID_WORLD, bench's 4 x 1024 split 2 x 1024 a rank, DP_STEPS steps; the
 # first DP_CHECKED losses within DP_LOSS_RTOL of the serial run
@@ -7226,10 +7273,11 @@ def join_ranks(started, timeout=900):
     return ranks, seconds
 
 
-def phase_hybrid(torch, seed):
+def phase_hybrid(torch, seed, beside=None):
     """tp_gpt, zero_gpt and hybrid_geometry: the serial runs on this
     process, freed before the rank processes start (HYBRID_WORLD ranks
-    for tp_gpt then zero_gpt, GEOM_WORLD for hybrid_geometry)."""
+    for tp_gpt then zero_gpt, with ``beside()`` (the surface group) on
+    this process while they run, GEOM_WORLD for hybrid_geometry)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     seconds = {}
     t0 = time.perf_counter()
@@ -7238,8 +7286,9 @@ def phase_hybrid(torch, seed):
               "geometry": serial_geometry(torch, seed)}
     seconds["serial"] = time.perf_counter() - t0
     cache_dir = autotune_cache_dir()
-    ranks, seconds["tp_gpt_zero_gpt"] = spawn_ranks(HYBRID_WORLD, seed,
-                                                    "tp_zero", cache_dir)
+    started = start_ranks(HYBRID_WORLD, seed, "tp_zero", cache_dir)
+    besides, seconds["beside"] = run_beside(started, beside)
+    ranks, seconds["tp_gpt_zero_gpt"] = join_ranks(started)
     geometry, seconds["hybrid_geometry"] = spawn_ranks(GEOM_WORLD, seed,
                                                        "geometry", cache_dir)
     tp = [r["tp_gpt"] for r in ranks]
@@ -7338,6 +7387,7 @@ def phase_hybrid(torch, seed):
             "hybrid_geometry_per_step_rank0":
                 geo[0]["launches_per_step"][-1],
             "tp_gpt_tiles": tp[0]["tiles"], "seconds": seconds,
+            "beside": besides,
             "serial": {"tp": serial["tp"], "zero": serial["zero"]}}
 
 
@@ -7345,7 +7395,7 @@ def phase_hybrid(torch, seed):
 # (GPT-medium at pp 2, its stages captured) and hybrid_ckpt (the 1.3B
 # layers at 2 of 24, saved at pp 2 x mp 2 and resumed at dp 2 x mp 2)
 PP_WORLD, PP_STEPS, PP_MICRO = 4, 3, 2
-PPC_WORLD, PPC_STEPS, PPC_MICRO, PPC_RTOL = 2, 4, 4, 1e-5
+PPC_WORLD, PPC_STEPS, PPC_MICRO, PPC_RTOL = 2, 3, 4, 1e-5
 CKPT_LAYERS, CKPT_STEPS, CKPT_RTOL = 2, 2, BF16_GRAD_SLACK
 
 
@@ -7701,11 +7751,12 @@ def rank_hybrid_ckpt(torch, seed, cache_dir):
     return out
 
 
-def phase_pipeline(torch, seed, serial=None):
+def phase_pipeline(torch, seed, serial=None, beside=None):
     """pp_gpt, pp_compiled and hybrid_ckpt: the serial runs (the hybrid
     group's, or run here first), then PP_WORLD rank processes for pp_gpt
-    and then hybrid_ckpt, and PPC_WORLD for pp_compiled. Returns each
-    lane's B1-B3 launches a step."""
+    and then hybrid_ckpt, with ``beside()`` (the bert group) on this
+    process while they run, and PPC_WORLD for pp_compiled. Returns each
+    lane's B1-B3 launches a step and what ``beside`` returned."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     seconds = {}
     t0 = time.perf_counter()
@@ -7714,8 +7765,9 @@ def phase_pipeline(torch, seed, serial=None):
                   "zero": serial_gpt_losses(torch, seed)}
         seconds["serial"] = time.perf_counter() - t0
     cache_dir = autotune_cache_dir()
-    ranks, seconds["pp_gpt_hybrid_ckpt"] = spawn_ranks(
-        PP_WORLD, seed, "pp_ckpt", cache_dir, timeout=600)
+    started = start_ranks(PP_WORLD, seed, "pp_ckpt", cache_dir)
+    besides, seconds["beside"] = run_beside(started, beside)
+    ranks, seconds["pp_gpt_hybrid_ckpt"] = join_ranks(started, timeout=600)
     ppc, seconds["pp_compiled"] = spawn_ranks(PPC_WORLD, seed, "pp_compiled",
                                               cache_dir, timeout=600)
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
@@ -7824,7 +7876,8 @@ def phase_pipeline(torch, seed, serial=None):
             "pp_compiled_per_step_rank0":
                 ppc[0]["compiled"]["launches_per_step"][0],
             "hybrid_ckpt_first_steps_rank0": c0["launches_first_steps"],
-            "pp_gpt_tiles": pp[0]["tiles"], "seconds": seconds}
+            "pp_gpt_tiles": pp[0]["tiles"], "seconds": seconds,
+            "beside": besides}
 
 
 # the layouts group (rank processes on the one card over gloo, one spawn of
@@ -7837,12 +7890,12 @@ def phase_pipeline(torch, seed, serial=None):
 # 2 stages of 3 of the 1.3B's blocks on {"pipe": 2}, 4 x 1024 in 4
 # micro-batches, SP_STEPS steps
 LAYOUT_WORLD = 2
-Z3_LAYERS, Z3_BATCH, Z3_STEPS, Z1_STEPS, Z3_CKPT_LAYERS = 6, 2, 3, 1, 1
+Z3_LAYERS, Z3_BATCH, Z3_STEPS, Z1_STEPS, Z3_CKPT_LAYERS = 4, 2, 2, 1, 1
 RING_SHAPE = (1, 8192, 16, 128)
 RING_RANK_SHAPE = (1, 4096, 16, 128)
 RING_F32_SHAPE, RING_F32_RTOL = (1, 2048, 4, 64), 1e-5
 RING_REPS = 1
-SP_BLOCKS, SP_BATCH, SP_MICRO, SP_STEPS = 3, 4, 4, 4
+SP_BLOCKS, SP_BATCH, SP_MICRO, SP_STEPS = 3, 4, 4, 3
 SP_RANK_SHAPE = (1, 1024, 16, 128)
 
 
@@ -8358,11 +8411,12 @@ def rank_spmd_pipe(torch, seed):
             **prof}
 
 
-def phase_layouts(torch, seed):
+def phase_layouts(torch, seed, beside=None):
     """zero3_gpt, ring_attn and spmd_pipe: the LAYOUT_WORLD rank processes
     (one spawn, the three lanes in turn) started, then the serial runs on
-    this process while the ranks import. Returns each lane's B1-B3
-    launches and the seconds."""
+    this process while the ranks import, then ``beside()`` (the optim
+    group) while they run. Returns each lane's B1-B3 launches, the
+    seconds and what ``beside`` returned."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     seconds = {}
     # the ranks read the tile answers this process found (the kernels
@@ -8381,6 +8435,7 @@ def phase_layouts(torch, seed):
             p.kill()
             p.communicate()
         raise
+    besides, seconds["beside"] = run_beside(started, beside)
     ranks, seconds["serial_and_ranks"] = join_ranks(started, timeout=600)
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
     tc = fa.TC
@@ -8488,7 +8543,8 @@ def phase_layouts(torch, seed):
             "ring_attn_bwd_rank1": ring[1]["bwd_launches"],
             "spmd_pipe_per_step_rank0": pipe[0]["launches_per_step"][-1],
             "spmd_pipe_per_step_rank1": pipe[1]["launches_per_step"][-1],
-            "zero3_gpt_tiles": z3[0]["tiles"], "seconds": seconds}
+            "zero3_gpt_tiles": z3[0]["tiles"], "seconds": seconds,
+            "beside": besides}
 
 
 def layout_entries(fa, entry, rows, bwd_rows, layouts, scope):
@@ -8571,7 +8627,7 @@ def layout_entries(fa, entry, rows, bwd_rows, layouts, scope):
 
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
-                   dist_tune, hybrid, pipeline, layouts, auto_moe):
+                   dist_tune, hybrid, pipeline, layouts, auto_moe, elastic):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -8692,6 +8748,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                     **{lane: auto_moe[lane][kernel]
                        if variant.endswith(fa.TC) else None
                        for lane in ("auto_engine_tiles", "moe_ep_tiles")}},
+                "launches_elastic": {
+                    **{lane: counts.get(variant, 0)
+                       for lane, counts in elastic.items()
+                       if not lane.endswith("_tiles")},
+                    "elastic_tile": elastic["elastic_tiles"][kernel]
+                    if variant.endswith(fa.TC) else None},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -8754,7 +8816,8 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
         *tp_entries(fa, entry, rows, bwd_rows, hybrid, scope),
         *pp_entries(fa, entry, rows, bwd_rows, pipeline, scope),
         *layout_entries(fa, entry, rows, bwd_rows, layouts, scope),
-        *auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope)]
+        *auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope),
+        *elastic_entries(fa, entry, rows, bwd_rows, elastic, scope)]
 
 
 def pp_entries(fa, entry, rows, bwd_rows, pipeline, scope):
@@ -8917,12 +8980,12 @@ def bert_entries(fa, entry, fwd, bwd_rows, bert, scope):
 # MOE_STEPS steps; incubate_cases, the incubate ops card against host and a
 # stack of ENC_LAYERS FusedTransformerEncoderLayers at BERT-base's width
 AUTO_WORLD = 2
-AE_BATCH, AE_MICRO, AE_MERGE, AE_EVAL = 2, 4, 2, 2
+AE_BATCH, AE_MICRO, AE_MERGE, AE_EVAL = 2, 2, 2, 2
 AE_RANK_SHAPE = (1, 1024, 16, 128)
 AE_PREDICT_COLS = 4096
 MOE_BLOCKS, MOE_D, MOE_HEADS, MOE_FF = 4, 1024, 16, 4096
 MOE_EXPERTS, MOE_TOPK, MOE_CF, MOE_VOCAB = 8, 2, 1.25, 32000
-MOE_RANK_BATCH, MOE_STEPS, MOE_AUX = 2, 4, 0.01
+MOE_RANK_BATCH, MOE_STEPS, MOE_AUX = 2, 3, 0.01
 MOE_RANK_SHAPE = (2, 1024, 16, 64)
 MOE_RTOL = 2.0 ** -7
 ENC_LAYERS, ENC_D, ENC_HEADS, ENC_FF = 12, 768, 12, 3072
@@ -9662,8 +9725,689 @@ def auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope):
               "training step at 8 x 512, non-causal (incubate_cases)")]
 
 
-PHASE_GROUPS = ("build", "kernels", "auto_moe", "reference", "serve",
-                "train", "to_static_grad", "bert", "vision", "serving",
+# -- elastic: launch and in-job recovery (the launcher, the wire and p2p,
+# ElasticManager, RecoveryManager and its journal, incubate.checkpoint) ----
+
+ELASTIC_WORLD, ELASTIC_STEPS, ELASTIC_CKPT_EVERY = 2, 6, 2
+# rank 1 of the recovered launch dies at this step of its first
+# incarnation, with this exit code
+ELASTIC_KILL_RANK, ELASTIC_KILL_STEP, ELASTIC_KILLED = 1, 3, 9
+ELASTIC_RANK_SHAPE = (2, 1024, 16, 64)
+# the blocked rank must hear the abort in seconds (the group's own
+# deadline is FLAGS_collective_timeout, 300 s)
+ELASTIC_ABORT_S = 10.0
+ELASTIC_LAUNCH_TIMEOUT = 300
+# the first run of elastic_lenet crashes inside epoch 1 (0-based)
+ELASTIC_LENET = {"epochs": 3, "crash_after": 1, "batches": 8, "batch": 64}
+
+
+def elastic_stats(rank):
+    """fleet.metrics' inputs on each rank: AUC histograms, the counts
+    and errors (acc, rmse) and a vector (sum)."""
+    rng = np.random.RandomState(70 + rank)
+    return {"pos": rng.randint(0, 50, 64).astype("float64"),
+            "neg": rng.randint(0, 50, 64).astype("float64"),
+            "sqrerr": rng.rand(256), "n": np.array([256.0]),
+            "correct": np.array([float(rng.randint(100, 256))]),
+            "v": rng.randn(8)}
+
+
+def elastic_tools(torch, rank, out):
+    """The other ranks' tools over the 2 launched ranks: p2p's group
+    collectives on tensors from the card, fleet.metrics over both ranks'
+    statistics, then an abort: rank 1 fails inside an all_reduce through
+    an injected fault while rank 0 waits in the same all_reduce."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import p2p
+    from paddle_tpu_torch.distributed.fleet import metrics
+    from paddle_tpu_torch.resilience import faults
+    ranks = list(range(ELASTIC_WORLD))
+    x = torch.arange(12, dtype=torch.float32, device="cuda").reshape(3, 4) \
+        * (rank + 1)
+    t0 = time.perf_counter()
+    out["p2p"] = {
+        "all_reduce": p2p.group_all_reduce(x, ranks).tolist(),
+        "all_reduce_max": p2p.group_all_reduce(x, ranks, op="max").tolist(),
+        "all_gather": p2p.group_all_gather(x, ranks).tolist(),
+        "broadcast": p2p.group_broadcast(x, ranks, src=1).tolist()}
+    p2p.group_barrier(ranks)
+    out["p2p"]["seconds"] = time.perf_counter() - t0
+    s = elastic_stats(rank)
+    out["metrics"] = {
+        "acc": metrics.acc(torch.tensor(s["correct"], device="cuda"),
+                           s["n"]),
+        "auc": metrics.auc(torch.tensor(s["pos"], device="cuda"),
+                           s["neg"]),
+        "rmse": metrics.rmse(s["sqrerr"].sum(), s["n"]),
+        "sum": metrics.sum(s["v"]).tolist()}
+    t = torch.ones(1 << 20, device="cuda")
+    if rank == 1:
+        time.sleep(1.0)   # rank 0 waits in the all_reduce by now
+        faults.configure("collective.all_reduce:#1")
+    t_enter = time.time()
+    t0 = time.monotonic()
+    try:
+        dist.all_reduce(t)
+        out["abort"] = {"raised": None}
+    except BaseException as e:  # noqa: BLE001 - reported to the parent
+        out["abort"] = {"raised": type(e).__name__, "message": str(e)[:400],
+                        "src": getattr(e, "src", None),
+                        "section": getattr(e, "section", None),
+                        "t_enter": t_enter, "t_error": time.time(),
+                        "seconds": time.monotonic() - t0}
+
+
+def elastic_job_main(torch, args):
+    """One rank of the elastic group's launches (started by ``python -m
+    paddle_tpu_torch.distributed.launch``): GPT-medium bf16 under
+    DataParallel, this rank's 2 x 1024 of bench's 4 x 1024 stream,
+    AdamW(multi_precision), ELASTIC_STEPS steps under a RecoveryManager
+    with an ElasticManager on a FileStore in the job's directory, a
+    hybrid checkpoint after every second step. With ``--elastic-kill R``
+    rank R dies at ELASTIC_KILL_STEP through a fault site of its first
+    incarnation (PADDLE_TPU_GENERATION unset), by os._exit. Each step
+    records its global loss, ms, collective_wait, the generation and the
+    B1-B3 launches; with ``--elastic-tools`` the tools follow. Writes
+    ``rank<r>.inc<incarnation>.json`` in the job's directory."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import p2p
+    from paddle_tpu_torch.distributed.checkpoint import (
+        load_hybrid_checkpoint, save_hybrid_checkpoint)
+    from paddle_tpu_torch.distributed.fleet.elastic import (ElasticManager,
+                                                           FileStore)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import steptimer
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.resilience.recovery import (RECOVERABLE,
+                                                      RecoveryManager,
+                                                      current_generation)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.dump_traceback_later(RANK_STACK_DUMP_S, repeat=True)
+    job = args.elastic_job
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    incarnation = int(os.environ.get("PADDLE_TPU_GENERATION", "0") or 0)
+    pt.set_flags({"FLAGS_recovery_backoff_base": 0.0})
+    if rank == args.elastic_kill and incarnation == 0:
+        faults.configure(f"elastic.kill:#{ELASTIC_KILL_STEP + 1}")
+    t_start = time.time()
+    em = ElasticManager(FileStore(os.path.join(job, "store")), "elastic",
+                        np_min=ELASTIC_WORLD, np_max=ELASTIC_WORLD,
+                        rank=rank,
+                        endpoint=os.environ["PADDLE_CURRENT_ENDPOINT"])
+    em.register()
+    gen0, _ = em.rendezvous(timeout=ELASTIC_LAUNCH_TIMEOUT)
+    dist.init_parallel_env()
+    p2p.connect()
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=GPT_LAYERS, num_heads=16,
+                    max_position_embeddings=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(args.seed))
+    model.train()
+    dp = pt.DataParallel(model)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    per = TRAIN_BATCH // ELASTIC_WORLD
+    xs, ys = bench_stream(args.seed, ELASTIC_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    xs = torch.from_numpy(xs[:, rank * per:(rank + 1) * per]).cuda()
+    ys = torch.from_numpy(ys[:, rank * per:(rank + 1) * per]).cuda()
+    ckpt = os.path.join(job, "gpt.pdparams")
+    out = {"rank": rank, "incarnation": incarnation,
+           "ready_s": time.time() - t_start, "steps": {}, "saves": [],
+           "loads": [], "errors": []}
+
+    def restore(gen):
+        p2p.connect()
+        opt.clear_grad()   # a step cut short leaves its local gradients
+        if not os.path.exists(ckpt):
+            return {"step": 0}
+        t0 = time.perf_counter()
+        meta = load_hybrid_checkpoint(ckpt, dp, opt)
+        torch.cuda.synchronize()
+        out["loads"].append({"generation": gen, "step": meta["step"],
+                             "seconds": time.perf_counter() - t0,
+                             "bytes": os.path.getsize(ckpt),
+                             "t_done": time.time()})
+        return meta
+
+    def train(resume):
+        start = (resume or restore(gen0))["step"]
+        for step in range(start, ELASTIC_STEPS):
+            if faults.should_inject("elastic.kill"):
+                with open(os.path.join(job, "death.json"), "w") as f:
+                    json.dump({"rank": rank, "step": step,
+                               "t": time.time()}, f)
+                os._exit(ELASTIC_KILLED)
+            launch_counts.clear()
+            steptimer.reset_steptimer()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = dp(xs[step], labels=ys[step])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            g = loss.detach().float().reshape(1).clone()
+            glob = dist.all_reduce(g, op=dist.ReduceOp.AVG).item()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            out["steps"][str(step)] = {
+                "loss": glob, "ms": ms, "generation": current_generation(),
+                "collective_wait_ms": steptimer.get_steptimer().breakdown()[
+                    "phase_ms"].get("collective_wait", 0.0),
+                "launches": {k: launch_counts[k] for k in launch_counts
+                             if k.split(".")[0] in fa.KERNEL_NAMES},
+                "t_end": time.time()}
+            if (step + 1) % ELASTIC_CKPT_EVERY == 0:
+                t0 = time.perf_counter()
+                save_hybrid_checkpoint(ckpt, dp, opt, meta={"step": step + 1})
+                out["saves"].append({"step": step + 1,
+                                     "seconds": time.perf_counter() - t0,
+                                     "bytes": os.path.getsize(ckpt)})
+        return start
+
+    def watched(resume):
+        try:
+            return train(resume)
+        except RECOVERABLE as e:
+            out["errors"].append({"type": type(e).__name__,
+                                  "message": str(e)[:400],
+                                  "t": time.time()})
+            raise
+
+    rm = RecoveryManager(em, restore=restore, max_restarts=1,
+                         rendezvous_timeout=ELASTIC_LAUNCH_TIMEOUT)
+    out["start"] = rm.run(watched)
+    out["restarts"] = rm.restarts
+    out["generation"] = current_generation()
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    b, s, h, d = per, TRAIN_SEQ, cfg.num_heads, cfg.hidden_size \
+        // cfg.num_heads
+    dev = torch.device("cuda")
+    fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    out["tiles"] = {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                    fa.DQ_KERNEL: bwd[2]}
+    del model, dp, opt
+    free_cuda(torch)
+    if args.elastic_tools:
+        elastic_tools(torch, rank, out)
+    out["t_exit"] = time.time()
+    with open(os.path.join(job, f"rank{rank}.inc{incarnation}.json"),
+              "w") as f:
+        json.dump(out, f)
+    p2p.shutdown()
+    dist.env.teardown()
+
+
+def elastic_launch(seed, job, kill=-1, tools=False):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
+    --max_restarts 1 --log_dir <job>/logs`` over this script's
+    elastic_job_main, in a session of its own (so a timeout ends its
+    ranks too)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(job, exist_ok=True)
+    # the abort's connect budget to a peer that died: 2 s, not 5
+    env = {**os.environ, "PADDLE_TPU_ARTIFACTS_DIR":
+           os.path.join(job, "artifacts"), "PADDLE_JOB_ID": "elastic",
+           "PYTHONPATH": here, "PADDLE_TPU_P2P_CONNECT_TIMEOUT": "2"}
+    env.pop("PADDLE_TPU_WIRE_SECRET", None)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(ELASTIC_WORLD), "--max_restarts", "1",
+           "--log_dir", os.path.join(job, "logs"),
+           os.path.abspath(__file__), "--seed", str(seed),
+           "--elastic-job", job, "--elastic-kill", str(kill)]
+    if tools:
+        cmd.append("--elastic-tools")
+    t_start = time.time()
+    with open(os.path.join(job, "launcher.log"), "w") as log:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    with open(os.path.join(job, "t_start.json"), "w") as f:
+        json.dump(t_start, f)
+    return proc, time.perf_counter()
+
+
+def elastic_join(started, job):
+    """Wait for a launch; a failed one (the launcher ends the others when
+    a rank fails past its budget) or one past the time limit fails with
+    the tail of every workerlog. Returns the seconds it took."""
+    import signal
+    proc, t0 = started
+    try:
+        proc.wait(timeout=ELASTIC_LAUNCH_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tails = []
+        for name in ["launcher.log"] + sorted(
+                os.listdir(os.path.join(job, "logs"))
+                if os.path.isdir(os.path.join(job, "logs")) else []):
+            path = os.path.join(job, name) if name == "launcher.log" \
+                else os.path.join(job, "logs", name)
+            with open(path, errors="replace") as f:
+                tails.append((name, f.read()[-4000:]))
+        raise AssertionError(f"launch in {job} exited {proc.returncode} "
+                             f"after {seconds:.1f} s: {tails}")
+    return seconds
+
+
+def elastic_rank(job, rank, incarnation):
+    with open(os.path.join(job, f"rank{rank}.inc{incarnation}.json")) as f:
+        return json.load(f)
+
+
+def phase_elastic_lenet(torch, seed, root):
+    """incubate.checkpoint.train_epoch_range with LeNet on the card: a run
+    that crashes inside its second epoch, after the first epoch's
+    snapshot, and its relaunch (fresh objects, resuming at the second
+    epoch) against an uninterrupted run of 3 epochs, cuDNN deterministic:
+    the resumed weights must equal the uninterrupted ones."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.incubate import checkpoint as acp
+    from paddle_tpu_torch.vision.models import LeNet
+    cfg = ELASTIC_LENET
+    rng = np.random.RandomState(seed + 5)
+    xs = torch.from_numpy(rng.randn(cfg["epochs"], cfg["batches"],
+                                    cfg["batch"], 1, 28, 28)
+                          .astype("float32")).cuda()
+    ys = torch.from_numpy(rng.randint(0, 10, (cfg["epochs"], cfg["batches"],
+                                              cfg["batch"]))).cuda()
+
+    def make():
+        net = LeNet(device="cuda", generator=pt.make_generator(seed))
+        return net, pt.optimizer.Adam(learning_rate=1e-3,
+                                      parameters=net.parameters())
+
+    def epoch(net, opt, e):
+        for i in range(cfg["batches"]):
+            loss = pt.nn.functional.cross_entropy(net(xs[e, i]), ys[e, i])
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+
+    path = os.path.join(root, "lenet_ckpt")
+    t0 = time.perf_counter()
+    with cudnn_deterministic(torch):
+        whole, whole_opt = make()
+        for e in range(cfg["epochs"]):
+            epoch(whole, whole_opt, e)
+        net, opt = make()
+        acp.register(net, opt)
+        seen = []
+        try:
+            for e in acp.train_epoch_range(cfg["epochs"],
+                                           checkpoint_path=path,
+                                           name="lenet"):
+                epoch(net, opt, e)
+                seen.append(e)
+                if e == cfg["crash_after"]:
+                    raise RuntimeError("simulated crash")
+        except RuntimeError as err:
+            assert "simulated crash" in str(err), err
+        net, opt = make()
+        acp.register(net, opt)
+        resumed = []
+        for e in acp.train_epoch_range(cfg["epochs"], checkpoint_path=path,
+                                       name="lenet"):
+            epoch(net, opt, e)
+            resumed.append(e)
+        acp.register()
+    torch.cuda.synchronize()
+    gaps = {k: (v - whole.state_dict()[k]).abs().max().item()
+            for k, v in net.state_dict().items()}
+    row = {"phase": "elastic_lenet", "epochs": cfg["epochs"],
+           "batches_per_epoch": cfg["batches"], "batch": cfg["batch"],
+           "first_run_epochs": seen, "resumed_epochs": resumed,
+           "max_abs_gap_to_uninterrupted": max(gaps.values()),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    assert seen == list(range(cfg["crash_after"] + 1)), seen
+    assert resumed == list(range(cfg["crash_after"], cfg["epochs"])), resumed
+    assert all(g == 0.0 for g in gaps.values()), gaps
+    return row
+
+
+def phase_elastic(torch, seed, beside=None):
+    """The elastic group: the recovered launch (rank 1 killed at
+    ELASTIC_KILL_STEP) and the uninterrupted one (with the tools after its
+    steps) side by side, for the script's time (so each launch's step
+    times carry the other's load), while this process runs elastic_lenet
+    and then ``beside()`` (the vision group, whose captured replays share
+    the card with the launches' steps). Checks the losses, the journal,
+    the launches, the tools' results; records the times. Returns the
+    B1-B3 launches a step, the seconds and what ``beside`` returned."""
+    import shutil
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.resilience.recovery import RecoveryJournal
+    cache_dir = os.environ["PADDLE_TPU_AUTOTUNE_CACHE"]
+    root = os.path.join(cache_dir, "elastic")
+    seconds = {}
+    free_cuda(torch)
+    # the tiles of a rank's shape, searched once here: every rank of both
+    # launches then reads the same ones from the cache
+    b, s, h, d = ELASTIC_RANK_SHAPE
+    dev = torch.device("cuda")
+    fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    whole_dir = os.path.join(root, "whole")
+    rec_dir = os.path.join(root, "recover")
+    launches = [elastic_launch(seed, rec_dir, kill=ELASTIC_KILL_RANK),
+                elastic_launch(seed, whole_dir, tools=True)]
+    besides = None
+    try:
+        lenet = phase_elastic_lenet(torch, seed, root)
+        seconds["elastic_lenet"] = lenet["seconds"]
+        if beside is not None:
+            t0 = time.perf_counter()
+            besides = beside()
+            seconds["beside"] = time.perf_counter() - t0
+        seconds["recovered_launch"] = elastic_join(launches[0], rec_dir)
+        seconds["whole_launch"] = elastic_join(launches[1], whole_dir)
+    finally:
+        for proc, _ in launches:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+
+    kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    tc = fa.TC
+    whole = [elastic_rank(whole_dir, r, 0) for r in range(ELASTIC_WORLD)]
+    survivor = elastic_rank(rec_dir, 0, 0)
+    replacement = elastic_rank(rec_dir, ELASTIC_KILL_RANK, 1)
+    assert not os.path.exists(os.path.join(
+        rec_dir, f"rank{ELASTIC_KILL_RANK}.inc0.json"))
+    with open(os.path.join(rec_dir, "death.json")) as f:
+        death = json.load(f)
+    journal = RecoveryJournal(
+        "elastic", dir=os.path.join(rec_dir, "artifacts")).entries()
+    losses = [whole[0]["steps"][str(i)]["loss"]
+              for i in range(ELASTIC_STEPS)]
+    rec_losses = [survivor["steps"][str(i)]["loss"]
+                  for i in range(ELASTIC_STEPS)]
+    repl_losses = [replacement["steps"][str(i)]["loss"]
+                   for i in range(replacement["start"], ELASTIC_STEPS)]
+    restart = [e for e in journal if e["event"] == "restart"]
+    worker = [e for e in journal if e["event"] == "worker_restart"]
+    error = survivor["errors"][0] if survivor["errors"] else {}
+    after = [survivor["steps"][str(i)] for i in
+             range(replacement["start"], ELASTIC_STEPS)]
+    before = [survivor["steps"][str(i)] for i in range(replacement["start"])]
+    first_resumed = survivor["steps"][str(replacement["start"])]
+    # each launch's own wall: from its start to its last rank's exit
+    for name, job, res in (("recovered", rec_dir, [survivor, replacement]),
+                           ("whole", whole_dir, whole)):
+        with open(os.path.join(job, "t_start.json")) as f:
+            seconds[f"{name}_launch_wall"] = max(
+                r["t_exit"] for r in res) - json.load(f)
+    saves = [sv for sv in whole[0]["saves"]]
+    loads = survivor["loads"] + replacement["loads"]
+    row = {"phase": "elastic", "world": ELASTIC_WORLD,
+           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 bf16, "
+                     f"AdamW mp, DataParallel over 2 ranks on one card "
+                     f"(gloo), each under RecoveryManager with an "
+                     f"ElasticManager on a FileStore, started by python -m "
+                     f"paddle_tpu_torch.distributed.launch --nproc_per_node "
+                     f"2 --max_restarts 1",
+           "rank_batch": [TRAIN_BATCH // ELASTIC_WORLD, TRAIN_SEQ],
+           "steps": ELASTIC_STEPS, "checkpoint_every": ELASTIC_CKPT_EVERY,
+           "killed": {"rank": ELASTIC_KILL_RANK, "step": death["step"],
+                      "exit_code": ELASTIC_KILLED},
+           "losses_uninterrupted": losses, "losses_recovered": rec_losses,
+           "losses_replacement": repl_losses,
+           "generations": {"uninterrupted": whole[0]["generation"],
+                           "survivor": survivor["generation"],
+                           "replacement": replacement["generation"]},
+           "journal": [{k: e.get(k) for k in ("event", "rank", "code",
+                                              "generation", "cause", "np",
+                                              "restart", "flight_tail")}
+                       for e in journal],
+           "survivor_error": error,
+           "death_to_error_s": error.get("t", float("nan")) - death["t"],
+           "death_to_first_resumed_step_s": first_resumed["t_end"]
+           - death["t"],
+           "replacement_ready_s": replacement["ready_s"],
+           "checkpoint_bytes": saves[-1]["bytes"],
+           "save_s": [sv["seconds"] for sv in saves],
+           "load_s": [ld["seconds"] for ld in loads],
+           "step_ms_before": [st["ms"] for st in before],
+           "step_ms_after": [st["ms"] for st in after],
+           "replacement_step_ms": [replacement["steps"][str(i)]["ms"]
+                                   for i in range(replacement["start"],
+                                                  ELASTIC_STEPS)],
+           "uninterrupted_step_ms": [whole[0]["steps"][str(i)]["ms"]
+                                     for i in range(ELASTIC_STEPS)],
+           "collective_wait_ms_before": [st["collective_wait_ms"]
+                                         for st in before],
+           "collective_wait_ms_after": [st["collective_wait_ms"]
+                                        for st in after],
+           "peak_mem_bytes": [w["peak_mem_bytes"] for w in whole],
+           "tiles": whole[0]["tiles"], "seconds": seconds}
+    emit(row)
+    tools = {"p2p": [w["p2p"] for w in whole],
+             "metrics": [w["metrics"] for w in whole],
+             "abort": [w["abort"] for w in whole]}
+    # rank 1's fault fires as it enters the all_reduce
+    tools["abort_to_peer_error_s"] = tools["abort"][0]["t_error"] \
+        - tools["abort"][1]["t_enter"]
+    emit({"phase": "elastic_tools", **tools})
+
+    # the recovered run: the uninterrupted losses, to the bit
+    assert rec_losses == losses, (rec_losses, losses)
+    assert repl_losses == losses[replacement["start"]:], repl_losses
+    assert whole[1]["steps"]["0"]["loss"] == losses[0]
+    assert all(np.isfinite(losses)), losses
+    assert replacement["start"] == ELASTIC_CKPT_EVERY * (
+        ELASTIC_KILL_STEP // ELASTIC_CKPT_EVERY), replacement["start"]
+    assert death["step"] == ELASTIC_KILL_STEP, death
+    # the journal: the launcher's relaunch and the survivor's restart
+    assert len(worker) == 1 and worker[0]["rank"] == ELASTIC_KILL_RANK and \
+        worker[0]["code"] == ELASTIC_KILLED and worker[0]["generation"] == 1, \
+        journal
+    assert len(restart) == 1 and restart[0]["generation"] == 2 and \
+        restart[0]["np"] == ELASTIC_WORLD and \
+        restart[0]["cause"] in ("ConnectionError", "PeerAbort"), journal
+    assert whole[0]["generation"] == 1 and survivor["generation"] == \
+        replacement["generation"] == 2
+    assert survivor["restarts"] == 1 and whole[0]["restarts"] == 0
+    # B1-B3 once a layer a step on each rank, before and after the restart
+    for res in whole + [survivor, replacement]:
+        for st in res["steps"].values():
+            for kernel in kernels:
+                assert st["launches"].get(f"{kernel}.{tc}", 0) == \
+                    GPT_LAYERS, st["launches"]
+    # the tools: p2p and the metrics against numpy, the abort in seconds
+    xs = [np.arange(12, dtype="float32").reshape(3, 4) * (r + 1)
+          for r in range(ELASTIC_WORLD)]
+    for p in tools["p2p"]:
+        assert p["all_reduce"] == (xs[0] + xs[1]).tolist(), p
+        assert p["all_reduce_max"] == np.maximum(*xs).tolist(), p
+        assert p["all_gather"] == np.stack(xs).tolist(), p
+        assert p["broadcast"] == xs[1].tolist(), p
+    st = [elastic_stats(r) for r in range(ELASTIC_WORLD)]
+    tot = {k: sum(x[k] for x in st) for k in st[0]}
+    tp = tn = area = 0.0
+    for i in range(len(tot["pos"]) - 1, -1, -1):
+        area += tot["neg"][i] * (2 * tp + tot["pos"][i]) / 2.0
+        tp, tn = tp + tot["pos"][i], tn + tot["neg"][i]
+    want = {"acc": tot["correct"].sum() / tot["n"].sum(),
+            "auc": area / (tp * tn),
+            "rmse": float(np.sqrt(tot["sqrerr"].sum() / tot["n"].sum())),
+            "sum": tot["v"].tolist()}
+    for m in tools["metrics"]:
+        for k, v in want.items():
+            np.testing.assert_allclose(m[k], v, rtol=1e-12, err_msg=k)
+    assert tools["abort"][1]["raised"] == "FaultInjected", tools["abort"]
+    a0 = tools["abort"][0]
+    assert a0["raised"] == "PeerAbort" and a0["src"] == 1 and \
+        a0["section"] == "collective.all_reduce", a0
+    assert a0["seconds"] < ELASTIC_ABORT_S, a0
+    shutil.rmtree(root, ignore_errors=True)
+    last = str(ELASTIC_STEPS - 1)
+    return {"whole_per_step_rank0": whole[0]["steps"][last]["launches"],
+            "whole_per_step_rank1": whole[1]["steps"][last]["launches"],
+            "survivor_per_step_before_restart":
+                survivor["steps"]["0"]["launches"],
+            "survivor_per_step_after_restart":
+                survivor["steps"][last]["launches"],
+            "replacement_per_step": replacement["steps"][last]["launches"],
+            "elastic_tiles": whole[0]["tiles"], "seconds": seconds,
+            "beside": besides}
+
+
+def phase_optim(torch, seed):
+    """The optim group: optim_bert, then optim_sparse, tensor_api and
+    recompute_dropout, each with the launch counts reset just before it;
+    returns each lane's B1-B3 launches."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    t_group = time.perf_counter()
+    lanes = {}
+    launch_counts.clear()
+    lanes["optim_bert"] = phase_optim_bert(torch, seed)
+    for lane, fn in (("optim_sparse", phase_optim_sparse),
+                     ("tensor_api", lambda t, _: phase_tensor_api(t)),
+                     ("recompute_dropout", phase_recompute_dropout)):
+        launch_counts.clear()
+        fn(torch, seed)
+        lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                       if k.split(".")[0] in KERNEL_NAMES}
+        assert not any(lanes[lane].values()), (lane, lanes[lane])
+    emit({"phase": "optim", "seconds": time.perf_counter() - t_group})
+    return lanes
+
+
+def phase_surface(torch, seed):
+    """The surface group: nn_cases, mobilenet_train, mobile_nets_small,
+    mobilenet_eval and state_guard, each with the launch counts reset
+    just before it; returns each lane's B1-B3 launches (none)."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    t_group = time.perf_counter()
+    lanes, seconds, trained = {}, {}, []
+
+    def train(t, sd):
+        row, model = phase_mobilenet_train(t, sd)
+        trained.append(model)
+        return row
+
+    def evaluate(t, sd):
+        rows = phase_mobilenet_eval(t, sd, trained.pop())
+        gc.collect()
+        t.cuda.empty_cache()
+        return rows
+    for lane, fn in (("nn_cases", lambda t, _: phase_nn_cases(t)),
+                     ("mobilenet_train", train),
+                     ("mobile_nets_small", phase_mobile_nets_small),
+                     ("mobilenet_eval", evaluate),
+                     ("state_guard", phase_state_guard)):
+        launch_counts.clear()
+        t_lane = time.perf_counter()
+        fn(torch, seed)
+        seconds[lane] = time.perf_counter() - t_lane
+        lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                       if k.split(".")[0] in KERNEL_NAMES}
+        assert not any(lanes[lane].values()), (lane, lanes[lane])
+    emit({"phase": "surface", "seconds": time.perf_counter() - t_group,
+          "lane_seconds": seconds})
+    return lanes
+
+
+def run_beside(started, beside):
+    """``beside()`` on this process while the started rank processes run
+    (they are ended if it fails); returns its result and seconds."""
+    if beside is None:
+        return None, 0.0
+    t0 = time.perf_counter()
+    try:
+        return beside(), time.perf_counter() - t0
+    except BaseException:
+        for p in started[0]:
+            p.kill()
+            p.communicate()
+        raise
+
+
+def phase_bert(torch, seed):
+    """The bert group: bert_train, ernie_train and bert_flash; returns
+    bert_flash's B1-B3 launches."""
+    phase_cls_train(torch, seed, "bert")
+    phase_cls_train(torch, seed, "ernie")
+    return phase_bert_flash(torch, seed)
+
+
+def phase_vision(torch, seed):
+    """The vision group: vision_reference, resnet_train, resnet_fused,
+    resnet_eval and lenet_train; returns their B1-B3 launches (none)."""
+    phase_vision_reference(torch, seed)
+    resnet, trained = phase_resnet_train(torch, seed)
+    phase_resnet_fused(torch, seed)
+    _, eval_flash = phase_resnet_eval(torch, seed, trained)
+    del trained
+    lenet = phase_lenet_train(torch, seed)
+    return {"resnet50_train": resnet["flash_launches"],
+            "resnet50_eval": eval_flash,
+            "lenet_train": lenet["flash_launches"]}
+
+
+def elastic_entries(fa, entry, rows, bwd_rows, elastic, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 on the elastic
+    group's path: a rank's (2, 1024, 16, 64), causal, with the launches a
+    step on the recovered launch's survivor after its restart. Each
+    forward writes O in f32 too: its time and bound are those."""
+    tc = fa.TC
+
+    def at(found):
+        return next(r for r in found if r["shape"] == list(ELASTIC_RANK_SHAPE)
+                    and r["dtype"] == "bfloat16" and r["causal"])
+    counts = elastic["survivor_per_step_after_restart"]
+    main = ("GPT-medium bf16 under DataParallel at 2 ranks, launched and "
+            "recovered after a rank was killed, a rank's (2, 1024, 16, 64), "
+            "causal (elastic)")
+    fwd = at(rows)
+    out = [entry(f"{fa.KERNEL_NAME}.{tc}.elastic", "flash_attn_fwd_tc.cu",
+                 114, fwd, counts.get(f"{fa.KERNEL_NAME}.{tc}", 0),
+                 fwd["max_abs_err_o"], rel_l2=fwd["rel_l2_o"],
+                 main_path=main, ms=fwd["ms_with_f32_out"],
+                 bound_ms=fwd["bound_us_with_f32_out"] / 1e3,
+                 bound_by=fwd["bound_by_with_f32_out"],
+                 share_of_bound=fwd["bound_us_with_f32_out"] / 1e3
+                 / fwd["ms_with_f32_out"],
+                 factor_vs_library=fwd["ms_with_f32_out"]
+                 / fwd["library_ms"], ms_without_f32_out=fwd["ms"])]
+    for kernel, source, line, key in (
+            (fa.DKV_KERNEL, "flash_attn_dkv_tc.cu", 200, "dkv"),
+            (fa.DQ_KERNEL, "flash_attn_dq_tc.cu", 247, "dq")):
+        row = at(bwd_rows[key])
+        out.append(entry(f"{kernel}.{tc}.elastic", source, line, row,
+                         counts.get(f"{kernel}.{tc}", 0), row["max_abs_err"],
+                         rel_l2={o: g["rel_l2"] for o, g in
+                                 row["rel_l2_by_output"].items()},
+                         main_path=main, **scope))
+    return out
+
+
+# a group (key) whose parent waits on its rank processes hosts a guest
+# group on this process meanwhile: the guest's captured replays share the
+# card with the ranks' steps, and the host is little used by either
+GUESTS = {"elastic": ("vision", phase_vision),
+          "hybrid": ("surface", phase_surface),
+          "pipeline": ("bert", phase_bert),
+          "layouts": ("optim", phase_optim)}
+
+PHASE_GROUPS = ("build", "kernels", "auto_moe", "elastic", "reference",
+                "serve", "train", "to_static_grad", "bert", "vision",
+                "serving",
                 "hapi", "optim", "surface", "nn_rest", "zoo", "dist_tune",
                 "hybrid", "pipeline", "layouts")
 
@@ -9681,6 +10425,12 @@ def main():
     ap.add_argument("--dist-out", default=None, help=argparse.SUPPRESS)
     # one rank of the hybrid group's lanes, started by phase_hybrid
     ap.add_argument("--hybrid-lane", default=None, help=argparse.SUPPRESS)
+    # one rank of the elastic group's launches, started by the launcher
+    ap.add_argument("--elastic-job", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-kill", type=int, default=-1,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--elastic-tools", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     run = set(args.phases.split(","))
     unknown = run - set(PHASE_GROUPS)
@@ -9702,6 +10452,9 @@ def main():
         return
     if args.hybrid_lane is not None:
         hybrid_rank_main(torch, args)
+        return
+    if args.elastic_job is not None:
+        elastic_job_main(torch, args)
         return
     # a run still going near the time limit shows where it is
     faulthandler.dump_traceback_later(STACK_DUMP_S)
@@ -9725,11 +10478,35 @@ def main():
     out = {}
     group_seconds, last = {}, [t0]
 
+    def hosting(host, run_host):
+        """Group ``host`` through ``run_host(beside)``, with its guest
+        group (GUESTS) run on this process beside its rank processes when
+        both run; the guest's seconds are its own, the host's exclude
+        them (clock)."""
+        guest, fn = GUESTS[host]
+        t_group = time.perf_counter()
+        beside = functools.partial(fn, torch, args.seed) \
+            if guest in run else None
+        res = run_host(beside)
+        lanes = res.pop("seconds")
+        hosted = res.pop("beside")
+        if beside is not None:
+            out[guest] = hosted
+            group_seconds[guest] = lanes["beside"]
+            host_guest[host] = guest
+        emit({"phase": host, "seconds": time.perf_counter() - t_group,
+              "lane_seconds": lanes})
+        return res
+    host_guest = {}
+
     def clock(group):
-        """The seconds since the previous group ended, for ``group``."""
+        """The seconds since the previous group ended, for ``group``, less
+        those of the guest group it hosted (one that ran beside another is
+        counted already)."""
         now = time.perf_counter()
-        if group in run:
-            group_seconds[group] = now - last[0]
+        if group in run and group not in group_seconds:
+            group_seconds[group] = now - last[0] - group_seconds.get(
+                host_guest.get(group), 0.0)
         last[0] = now
     if "build" in run:
         phase_build()
@@ -9747,6 +10524,10 @@ def main():
               "lane_seconds": out["auto_moe"].pop("seconds")})
 
     clock("auto_moe")
+    if "elastic" in run:
+        out["elastic"] = hosting("elastic", lambda b: phase_elastic(
+            torch, args.seed, b))
+    clock("elastic")
     # every phase runs under the defaults: FLAGS_fusion_policy auto (the
     # measured table) and the tile search on
     if "reference" in run:
@@ -9765,21 +10546,11 @@ def main():
     if "to_static_grad" in run:
         phase_to_static_grad(torch, args.seed)
     clock("to_static_grad")
-    if "bert" in run:
-        phase_cls_train(torch, args.seed, "bert")
-        phase_cls_train(torch, args.seed, "ernie")
-        out["bert"] = phase_bert_flash(torch, args.seed)
+    if "bert" in run and "pipeline" not in run:
+        out["bert"] = phase_bert(torch, args.seed)
     clock("bert")
-    if "vision" in run:
-        phase_vision_reference(torch, args.seed)
-        resnet, trained = phase_resnet_train(torch, args.seed)
-        phase_resnet_fused(torch, args.seed)
-        _, eval_flash = phase_resnet_eval(torch, args.seed, trained)
-        del trained
-        lenet = phase_lenet_train(torch, args.seed)
-        out["vision"] = {"resnet50_train": resnet["flash_launches"],
-                         "resnet50_eval": eval_flash,
-                         "lenet_train": lenet["flash_launches"]}
+    if "vision" in run and "vision" not in out:
+        out["vision"] = phase_vision(torch, args.seed)
     clock("vision")
     if "serving" in run:
         bert_row, srv = phase_serving_bert(torch, args.seed)
@@ -9807,56 +10578,12 @@ def main():
             for r in (lenet_row, resnet_row, bert_row)}})
 
     clock("hapi")
-    if "optim" in run:
-        from paddle_tpu_torch.ops.cuda import launch_counts
-        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
-        t_group = time.perf_counter()
-        lanes = {}
-        launch_counts.clear()
-        lanes["optim_bert"] = phase_optim_bert(torch, args.seed)
-        for lane, fn in (("optim_sparse", phase_optim_sparse),
-                         ("tensor_api", lambda t, _: phase_tensor_api(t)),
-                         ("recompute_dropout", phase_recompute_dropout)):
-            launch_counts.clear()
-            fn(torch, args.seed)
-            lanes[lane] = {k: launch_counts[k] for k in launch_counts
-                           if k.split(".")[0] in KERNEL_NAMES}
-            assert not any(lanes[lane].values()), (lane, lanes[lane])
-        out["optim"] = lanes
-        emit({"phase": "optim", "seconds": time.perf_counter() - t_group})
+    if "optim" in run and "layouts" not in run:
+        out["optim"] = phase_optim(torch, args.seed)
 
     clock("optim")
-    if "surface" in run:
-        from paddle_tpu_torch.ops.cuda import launch_counts
-        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
-        t_group = time.perf_counter()
-        lanes, seconds, trained = {}, {}, []
-
-        def train(t, sd):
-            row, model = phase_mobilenet_train(t, sd)
-            trained.append(model)
-            return row
-
-        def evaluate(t, sd):
-            rows = phase_mobilenet_eval(t, sd, trained.pop())
-            gc.collect()
-            t.cuda.empty_cache()
-            return rows
-        for lane, fn in (("nn_cases", lambda t, _: phase_nn_cases(t)),
-                         ("mobilenet_train", train),
-                         ("mobile_nets_small", phase_mobile_nets_small),
-                         ("mobilenet_eval", evaluate),
-                         ("state_guard", phase_state_guard)):
-            launch_counts.clear()
-            t_lane = time.perf_counter()
-            fn(torch, args.seed)
-            seconds[lane] = time.perf_counter() - t_lane
-            lanes[lane] = {k: launch_counts[k] for k in launch_counts
-                           if k.split(".")[0] in KERNEL_NAMES}
-            assert not any(lanes[lane].values()), (lane, lanes[lane])
-        out["surface"] = lanes
-        emit({"phase": "surface", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": seconds})
+    if "surface" in run and "hybrid" not in run:
+        out["surface"] = phase_surface(torch, args.seed)
 
     clock("surface")
     if "nn_rest" in run:
@@ -9953,26 +10680,19 @@ def main():
     serial = None
     clock("dist_tune")
     if "hybrid" in run:
-        t_group = time.perf_counter()
-        out["hybrid"] = phase_hybrid(torch, args.seed)
+        out["hybrid"] = hosting("hybrid", lambda b: phase_hybrid(
+            torch, args.seed, b))
         serial = out["hybrid"].pop("serial")
-        emit({"phase": "hybrid", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": out["hybrid"].pop("seconds")})
 
     clock("hybrid")
     if "pipeline" in run:
         # pp_gpt and pp_compiled are held to the hybrid group's serial runs
-        t_group = time.perf_counter()
-        out["pipeline"] = phase_pipeline(torch, args.seed, serial)
-        emit({"phase": "pipeline", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": out["pipeline"].pop("seconds")})
-
+        out["pipeline"] = hosting("pipeline", lambda b: phase_pipeline(
+            torch, args.seed, serial, b))
     clock("pipeline")
     if "layouts" in run:
-        t_group = time.perf_counter()
-        out["layouts"] = phase_layouts(torch, args.seed)
-        emit({"phase": "layouts", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": out["layouts"].pop("seconds")})
+        out["layouts"] = hosting("layouts", lambda b: phase_layouts(
+            torch, args.seed, b))
 
     clock("layouts")
     if run == set(PHASE_GROUPS):
@@ -9982,7 +10702,8 @@ def main():
             out["compiled"], out["amp"], out["bert"], out["vision"],
             out["serving"], out["hapi"], out["optim"], out["surface"],
             out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"],
-            out["pipeline"], out["layouts"], out["auto_moe"])})
+            out["pipeline"], out["layouts"], out["auto_moe"],
+            out["elastic"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "group_seconds": group_seconds, "timing": TIMING})
     print(smi, flush=True)

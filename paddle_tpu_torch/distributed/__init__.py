@@ -16,16 +16,21 @@ pipeline; ``checkpoint`` the hybrid save and load with resharding;
 ``shard_params``, ``shard_batch``, ``shard_stacked_batch``,
 ``unshard``); ``auto_parallel`` the semi-automatic API (``ProcessMesh``,
 ``shard_tensor``, ``Engine`` with ZeRO and gradient merge); ``utils`` the
-expert-parallel token exchange of ``incubate.MoELayer``. The later parts
-of the reference's package (``launch``, ``ps``, ``p2p``, the wire codec,
-...) are absent until their ROADMAP A10 items.
+expert-parallel token exchange of ``incubate.MoELayer``; ``wire`` the
+framed codec and ``p2p`` the TCP channel beside the process group (the
+abort broadcast, the subgroup collectives); ``launch`` and
+``launch_utils`` the job launcher (``python -m
+paddle_tpu_torch.distributed.launch``) with the supervised relaunch of a
+failed rank. The parameter-server half of the reference's package
+(``ps``, ``transpiler``, ``fleet_executor``, the datasets) is absent
+until its ROADMAP A10 item.
 """
 from __future__ import annotations
 
 import os
 
-from . import (auto_parallel, checkpoint, fleet, spec_layout,  # noqa: F401
-               utils)
+from . import (auto_parallel, checkpoint, fleet, launch,  # noqa: F401
+               launch_utils, p2p, spec_layout, utils, wire)
 from .auto_parallel import (  # noqa: F401
     ProcessMesh, dtensor_from_fn, reshard, shard_op, shard_tensor)
 from .checkpoint import (  # noqa: F401
@@ -53,7 +58,8 @@ __all__ = [
     "load_hybrid_checkpoint", "reshard_model", "CorruptCheckpointError",
     "spec_layout", "SpecLayout", "shard_params", "shard_batch",
     "shard_stacked_batch", "unshard", "auto_parallel", "ProcessMesh",
-    "dtensor_from_fn", "reshard", "shard_op", "shard_tensor", "utils"]
+    "dtensor_from_fn", "reshard", "shard_op", "shard_tensor", "utils",
+    "launch", "launch_utils", "wire", "p2p"]
 
 
 def spawn(func, args=(), nprocs=-1, join=True, daemon=False,

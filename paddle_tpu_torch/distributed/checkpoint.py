@@ -42,15 +42,17 @@ checkpoint written at one sharding degree loads at another, or into the
 serial model.
 
 ``meta`` is stamped with the collective generation where it is not 0.
+A load that falls back to ``.old`` journals a ``corrupt_restore`` entry
+(``resilience.recovery.get_journal``), as the reference does.
 ``FLAGS_async_checkpoint`` raises (the background committer is ROADMAP
-A11's), and so the reference's ``corrupt_restore`` journal entry waits
-for A11's ``RecoveryJournal``: the port's recovery module holds only
-``current_generation``.
+A11's).
 """
 from __future__ import annotations
 
 import hashlib
 import os
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -68,34 +70,96 @@ class CorruptCheckpointError(RuntimeError):
     """A checkpoint file fails its sha256 sidecar or cannot be unpickled."""
 
 
-def _sha256_file(path):
-    h = hashlib.sha256()
-    with open(path, "rb") as f:
-        for chunk in iter(lambda: f.read(1 << 20), b""):
-            h.update(chunk)
-    return h.hexdigest()
+class _Stage(threading.Thread):
+    """One stage of the save's pipeline: ``fn`` applied to each chunk put
+    on its queue, on a thread of its own (a file's write and hashlib's
+    update release the GIL on large buffers)."""
+
+    def __init__(self, fn):
+        super().__init__(daemon=True)
+        self.fn = fn
+        self.q = queue.Queue(maxsize=8)
+        self.error = None
+        self.start()
+
+    def run(self):
+        while True:
+            chunk = self.q.get()
+            if chunk is None:
+                return
+            if self.error is None:
+                try:
+                    self.fn(chunk)
+                except BaseException as e:  # noqa: BLE001 - re-raised by close
+                    self.error = e
+
+    def close(self):
+        self.q.put(None)
+        self.join()
+        if self.error is not None:
+            raise self.error
+
+
+class _HashingWriter:
+    """The save's write(): pickle's copies, the file's writes and the
+    sha256 overlap, each on its thread (pickle hands write() a new bytes
+    object each time, which the stages share)."""
+
+    def __init__(self, f):
+        self.sha = hashlib.sha256()
+        self.stages = (_Stage(f.write), _Stage(self.sha.update))
+
+    def write(self, b):
+        b = b if isinstance(b, bytes) else bytes(b)
+        for st in self.stages:
+            st.q.put(b)
+        return len(b)
+
+    def close(self):
+        for st in self.stages:
+            st.close()
+        return self.sha.hexdigest()
+
+
+def _save_hashed(obj, path):
+    """``framework.io_utils.save`` of ``obj``; returns the file's sha256,
+    computed as the bytes are written."""
+    import pickle
+
+    from ..framework.io_utils import _PROTO, _to_serializable
+    with open(path, "wb") as f:
+        w = _HashingWriter(f)
+        try:
+            pickle.dump(_to_serializable(obj), w, protocol=_PROTO)
+        finally:
+            digest = w.close()
+    return digest
 
 
 def _load_verified(path):
     """Load one checkpoint file, verifying it against its ``.sha256``
     sidecar first when one exists (checkpoints predating the sidecar load
-    unverified). Any damage — digest mismatch, torn pickle — surfaces as
+    unverified); the file is read once, for the digest and the unpickling.
+    Any damage — digest mismatch, torn pickle — surfaces as
     :class:`CorruptCheckpointError` so the caller can fall back."""
-    from ..framework.io_utils import load as load_obj
+    import pickle
+
+    from ..framework.io_utils import _from_serializable
     want = None
     try:
         with open(path + ".sha256") as f:
             want = f.read().strip() or None
     except OSError:
         pass
-    if want is not None:
-        got = _sha256_file(path)
-        if got != want:
-            raise CorruptCheckpointError(
-                f"{path}: sha256 mismatch on restore "
-                f"(got {got[:12]}, recorded {want[:12]})")
+    with open(path, "rb") as f:
+        data = f.read()
+    got = hashlib.sha256(data).hexdigest() if want is not None else None
+    if got != want:
+        raise CorruptCheckpointError(
+            f"{path}: sha256 mismatch on restore "
+            f"(got {got[:12]}, recorded {want[:12]})")
     try:
-        return load_obj(path)
+        return _from_serializable(pickle.loads(data))
     except Exception as e:
         raise CorruptCheckpointError(
             f"{path}: unreadable checkpoint: {e}") from e
@@ -259,7 +323,6 @@ def save_hybrid_checkpoint(path, model, optimizer=None, meta=None):
     """Gather the whole state to rank 0 and save one artifact (module
     docstring). Every rank calls it; returns ``path``."""
     from ..framework.flags import get_flag
-    from ..framework.io_utils import save as save_obj
     from ..resilience.recovery import current_generation
     from ..resilience.snapshot import _ASYNC_LATER
     from .collective import barrier
@@ -278,8 +341,10 @@ def save_hybrid_checkpoint(path, model, optimizer=None, meta=None):
             if os.path.exists(path + ".sha256"):
                 os.replace(path + ".sha256", path + ".old.sha256")
             os.replace(path, path + ".old")
-        save_obj(blob, path)
-        digest = _sha256_file(path)
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        digest = _save_hashed(blob, path)
         tmp = f"{path}.sha256.tmp.{os.getpid()}"
         with open(tmp, "w") as f:
             f.write(digest + "\n")
@@ -407,10 +472,16 @@ def load_hybrid_checkpoint(path, model, optimizer=None):
         return meta
     try:
         blob = _load_verified(path)
-    except (CorruptCheckpointError, FileNotFoundError):
+    except (CorruptCheckpointError, FileNotFoundError) as e:
         old = path + ".old"
         if not os.path.exists(old):
             raise
+        try:
+            from ..resilience.recovery import get_journal
+            get_journal().record("corrupt_restore", path=path,
+                                 detail=str(e), fallback=old)
+        except Exception:
+            pass  # journaling is best effort on the failure path
         blob = _load_verified(old)
         blob.setdefault("meta", {})["restored_from_fallback"] = True
     return _apply_blob(blob, model, optimizer)

@@ -17,9 +17,17 @@ A rank outside a subgroup is left untouched by the group's collectives,
 as in the reference (its ``_eager_subgroup_call``). Each eager call runs
 inside ``_watched``: the ``step/collective_wait`` phase of the step
 timer, a watchdog deadline (``watch_section``) and a flight-recorder
-entry; a failure dumps the recorder. The reference also broadcasts an
-abort to the peers over its p2p channel, which comes with ROADMAP A10's
-``p2p.py``.
+entry. The backend's own failures get the reference's types: a timeout
+(the group's, ``FLAGS_collective_timeout``) is a ``TimeoutError``, which
+the section reports as ``DistributedTimeout``, and a lost connection a
+``ConnectionError``. On this rank's own failure (not a ``PeerAbort`` or a
+``StaleGeneration``) the recorder is dumped and an abort broadcast to
+the peers over the p2p channel (``p2p.py``), as in the reference. Gloo
+has no abort call, and a peer blocked in the same collective cannot be
+woken from its reader thread; so the failed rank then leaves its process
+group (``env.teardown``), which closes its sockets, and the blocked peer
+fails at once with a lost connection, which it reports as the
+``PeerAbort`` that arrived on its channel.
 """
 from __future__ import annotations
 
@@ -150,14 +158,41 @@ def _staged(g, *tensors):
         t.copy_(h)
 
 
+# seconds a collective whose transport failed waits for the abort of
+# the peer that failed (it is sent just before that peer's sockets close)
+_ABORT_GRACE = 2.0
+_CLOSED = ("closed by peer", "connection reset", "connection refused",
+           "broken pipe", "connection closed", "socket closed")
+
+
+def _backend_error(err):
+    """The reference's type for a backend failure of torch.distributed:
+    TimeoutError for the group's timeout, ConnectionError for a lost
+    peer; None for anything else (this package's own errors included)."""
+    from ..resilience.faults import FaultInjected
+    if not isinstance(err, RuntimeError) or isinstance(err, FaultInjected):
+        return None
+    msg = str(err)
+    low = msg.lower()
+    if "timed out" in low or "timeout" in low:
+        return TimeoutError(msg)
+    if any(k in low for k in _CLOSED) or \
+            type(err).__name__ == "DistBackendError":
+        return ConnectionError(msg)
+    return None
+
+
 @contextmanager
 def _watched(op, g, value=None):
     """Step-phase attribution, a watchdog deadline and a flight-recorder
-    entry around an eager collective; a failure dumps the recorder."""
+    entry around an eager collective; a failure is handled as the module
+    docstring says."""
     from ..profiler.steptimer import get_steptimer
     from ..resilience.recorder import describe, get_recorder
     from ..resilience.watchdog import (PeerAbort, StaleGeneration,
                                        watch_section)
+    from . import p2p
+    from .env import teardown
     rec = get_recorder()
     shapes, dtypes = describe(value)
     try:
@@ -165,10 +200,29 @@ def _watched(op, g, value=None):
             with watch_section(f"collective.{op}"):
                 with rec.record(op, group=g.axis, shapes=shapes,
                                 dtypes=dtypes):
-                    yield
+                    try:
+                        yield
+                    except RuntimeError as err:
+                        typed = _backend_error(err)
+                        if typed is None:
+                            raise
+                        raise typed from err
     except BaseException as err:
-        if not isinstance(err, (PeerAbort, StaleGeneration)):
-            rec.dump(reason=f"failure:collective.{op}")
+        if isinstance(err, StaleGeneration):
+            raise  # the group moved on without us: not ours to abort
+        peer = err if isinstance(err, PeerAbort) else None
+        if peer is None and isinstance(err, ConnectionError):
+            peer = p2p.peer_abort(wait=_ABORT_GRACE)
+        if peer is None:
+            # our own failure: tell the peers
+            try:
+                rec.dump(reason=f"failure:collective.{op}")
+                p2p.broadcast_abort(f"collective.{op}", reason=repr(err))
+            except Exception:
+                pass  # diagnostics must not mask the real error
+        teardown()
+        if peer is not None and peer is not err:
+            raise peer from err
         raise
 
 
@@ -201,11 +255,13 @@ def _all_reduce_start(tensor, op=ReduceOp.SUM, group=None):
 
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     """c_allreduce_{sum,max,min,prod,avg}, in place; returns the tensor."""
-    maybe_inject("collective.all_reduce")
     g = group or _default_group()
     if not _active(g):
+        maybe_inject("collective.all_reduce")
         return tensor
     with _watched("all_reduce", g, tensor):
+        # inside the watch: an injected failure is this rank's own
+        maybe_inject("collective.all_reduce")
         _all_reduce_start(tensor, op, g).wait()
     return tensor
 

@@ -21,16 +21,34 @@ and ``MASTER_PORT``. The port runs one process per rank, where the
 reference drives every local device from one process. The backend is an
 explicit choice (``backend()`` names it): NCCL when each rank has a card
 of its own, gloo on the CPU, and gloo over CUDA tensors when more ranks
-than cards share a host, since NCCL refuses two ranks on one device.
+than cards share a host, since NCCL refuses two ranks on one device. The
+group's own timeout is ``FLAGS_collective_timeout``, the deadline of the
+watchdog's sections (``resilience/watchdog.py``): a collective whose peer
+never comes fails at it, where gloo alone would wait 30 minutes.
+
+After an elastic rendezvous (``fleet.elastic.ElasticManager.rendezvous``
+over a ``FileStore``) the group forms on a ``torch.distributed.FileStore``
+in the elastic directory, one file a generation, so it outlives any one
+rank's process (a TCPStore lives in rank 0's). ``teardown`` leaves the
+group and drops the state tied to it (the mesh, the groups, the Reducers'
+pending buckets); ``init_parallel_env`` then forms it again, at the
+rendezvous' generation: the in-job recovery of
+``resilience.recovery.RecoveryManager``.
 """
 from __future__ import annotations
 
 import os
 
 __all__ = ["get_rank", "get_world_size", "init_parallel_env",
-           "is_initialized", "parallel_device_count", "backend", "device"]
+           "is_initialized", "parallel_device_count", "backend", "device",
+           "teardown"]
 
-_STATE = {"initialized": False, "backend": None, "device": None}
+_STATE = {"initialized": False, "backend": None, "device": None,
+          # (generation, directory) of the last elastic rendezvous
+          "rendezvous": None,
+          # a group of more than one rank was formed (teardown keeps it:
+          # the recovery forms one again)
+          "formed": False}
 
 
 def _env_int(names):
@@ -107,7 +125,7 @@ def init_parallel_env(strategy=None, backend=None):
         _STATE["device"] = _choose_backend(world)[1]
     elif world > 1:
         addr = _coordinator()
-        if addr is None:
+        if addr is None and _STATE["rendezvous"] is None:
             raise RuntimeError(
                 f"init_parallel_env at world size {world}: set "
                 f"PADDLE_COORDINATOR_ADDR (host:port of rank 0), or "
@@ -116,15 +134,60 @@ def init_parallel_env(strategy=None, backend=None):
         chosen = backend or chosen
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
-        dist.init_process_group(chosen, init_method=f"tcp://{addr}",
-                                world_size=world, rank=get_rank())
+        dist.init_process_group(chosen, world_size=world, rank=get_rank(),
+                                timeout=_timeout(), **_store(world, addr))
         _STATE["backend"], _STATE["device"] = chosen, dev
+        _STATE["formed"] = True
         # a killed rank leaves its flight-recorder dump behind
         from ..resilience.recorder import install_signal_dump
         install_signal_dump()
     from .mesh import build_mesh
     build_mesh()
     _STATE["initialized"] = True
+
+
+def _timeout():
+    import datetime
+
+    from ..framework.flags import get_flag
+    return datetime.timedelta(
+        seconds=float(get_flag("FLAGS_collective_timeout", 300.0)))
+
+
+def _store(world, addr):
+    """init_process_group's rendezvous: the generation's FileStore after
+    an elastic rendezvous, else the coordinator's TCPStore."""
+    if _STATE["rendezvous"] is None:
+        return {"init_method": f"tcp://{addr}"}
+    import torch.distributed as dist
+    gen, root = _STATE["rendezvous"]
+    os.makedirs(root, exist_ok=True)
+    return {"store": dist.FileStore(os.path.join(root, f"gen{gen}"), world)}
+
+
+def set_rendezvous(generation, directory):
+    """Form the next group on a FileStore in ``directory`` keyed by
+    ``generation`` (ElasticManager.rendezvous calls this)."""
+    _STATE["rendezvous"] = (int(generation), directory)
+
+
+def teardown():
+    """Leave the process group (if any) and drop what was tied to it: the
+    mesh and its groups, the Reducers' pending buckets. Every collective
+    afterwards needs ``init_parallel_env`` again. Idempotent."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        try:
+            dist.destroy_process_group()
+        except Exception:
+            pass  # a group whose peers are gone may not leave cleanly
+    from . import collective, mesh, reducer
+    _STATE.update(initialized=False, backend=None, device=None)
+    mesh._STATE["mesh"] = None
+    for gid in [k for k in collective._GROUPS if k != 0]:
+        del collective._GROUPS[gid]
+    for r in list(reducer._LIVE):
+        r.reset()
 
 
 def is_initialized():

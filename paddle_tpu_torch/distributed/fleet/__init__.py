@@ -8,18 +8,22 @@ topology (``base.py``), the tensor-parallel layers and wrappers
 (``sharding_optimizer.py``), gradient merge (``meta_optimizers.py``),
 ``utils.recompute``, the hybrid checkpoint's save and load
 (distributed/checkpoint.py), ring attention (``sequence_parallel.py``),
-the SPMD circular pipeline (``spmd_pipeline.py``), ``Role``,
-``UtilBase`` and the slot data generators.
+the SPMD circular pipeline (``spmd_pipeline.py``), elastic training
+(``elastic.py``: the FileStore and ElasticManager), the file systems
+(``fs.py``: ``LocalFS``, ``HDFSClient``), the global metrics
+(``metrics.py``), ``Role``, ``UtilBase`` and the slot data generators.
 
-The reference also exports elastic training, expert parallelism, ``fs``,
-``dataset`` and ``metrics``; each comes with its ROADMAP A10 item.
+The reference also exports expert parallelism's engine and ``dataset``;
+each comes with its ROADMAP item (A11, A10).
 """
 from __future__ import annotations
 
-from . import (meta_optimizers, meta_parallel, pipeline_engine,  # noqa: F401
-               sequence_parallel, sharding_optimizer, spmd_pipeline, utils)
+from . import (elastic, fs, meta_optimizers, meta_parallel,  # noqa: F401
+               metrics, pipeline_engine, sequence_parallel,
+               sharding_optimizer, spmd_pipeline, utils)
 from ..checkpoint import (  # noqa: F401
     load_hybrid_checkpoint, save_hybrid_checkpoint)
+from .fs import HDFSClient, LocalFS  # noqa: F401
 from .base import (  # noqa: F401
     CommunicateTopology, DistributedStrategy, Fleet, HybridCommunicateGroup,
     PaddleCloudRoleMaker, UserDefinedRoleMaker,

@@ -22,7 +22,11 @@ at the reference's defaults:
   (setting either reconfigures ``resilience.faults``), the watchdog's
   ``FLAGS_collective_timeout`` and ``FLAGS_watchdog_interval``, the flight
   recorder's size, ``FLAGS_preflight_checks``, the metrics exporter's
-  interval and the request tracer's switches.
+  interval and the request tracer's switches; the retry policy
+  (``FLAGS_retry_*``), in-job recovery (``FLAGS_recovery_*``: the restart
+  budget, the rendezvous wait, the backoff and the budget's refill),
+  ``FLAGS_quarantine_ttl`` and the recovery journal's rotation
+  (``FLAGS_journal_max_bytes``).
 - The kernel tier (``ops/autotune.py``): ``FLAGS_fusion_policy``
   (``auto``, ``always`` or ``never``; default ``auto``: each fused op and
   flash attention run the form that this card's measured table names for
@@ -76,6 +80,9 @@ _FLAGS: dict[str, Any] = {
     # resilience (resilience/): fault-injection spec and seed
     "FLAGS_fault_injection": "",
     "FLAGS_fault_injection_seed": 0,
+    # retry policy of FS transfers, the elastic heartbeat and staging
+    "FLAGS_retry_max_attempts": 3,
+    "FLAGS_retry_backoff_base": 0.5,
     # watchdog deadline of one blocking section, and how often its
     # monitor thread checks the deadlines
     "FLAGS_collective_timeout": 300.0,
@@ -84,6 +91,18 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_flight_recorder_size": 1024,
     # the known-answer test a restarted serving replica must pass
     "FLAGS_preflight_checks": True,
+    # in-job recovery (resilience/recovery.py): the restart budget, how
+    # long a re-rendezvous waits for replacements, the backoff base
+    # (doubling a restart), and the healthy steps that refill the budget
+    # (0: a budget for the job's lifetime)
+    "FLAGS_recovery_max_restarts": 3,
+    "FLAGS_recovery_rendezvous_timeout": 300.0,
+    "FLAGS_recovery_backoff_base": 1.0,
+    "FLAGS_recovery_restart_reset_steps": 100,
+    # how long a quarantined.<rank> marker keeps a rank out (seconds)
+    "FLAGS_quarantine_ttl": 3600.0,
+    # rotate the recovery journal past this size (two segments; 0: never)
+    "FLAGS_journal_max_bytes": 1 << 20,
     # observability (profiler/): seconds between metrics snapshots written
     # to the artifacts dir (0 disables the exporter), and request tracing
     "FLAGS_metrics_export_interval": 60.0,

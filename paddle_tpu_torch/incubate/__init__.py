@@ -1,17 +1,18 @@
 """paddle.incubate (port of paddle_tpu/incubate/__init__.py): the
 LookAhead and ModelAverage optimizers, the fused transformer layers
 (``nn``), the MoE layer with expert parallelism (``moe``) and the segment
-reductions. ``asp`` (the sparsity package) and ``checkpoint`` (over
-fleet's file systems) come with their ROADMAP items (A13, A10)."""
+reductions, and ``checkpoint`` (auto-checkpoint over fleet's file
+systems). ``asp`` (the sparsity package) comes with ROADMAP A13."""
 import torch
 
-from . import moe, nn, optimizer  # noqa: F401
+from . import checkpoint, moe, nn, optimizer  # noqa: F401
 from .moe import MoELayer  # noqa: F401
 from .nn import (softmax_mask_fuse,  # noqa: F401
                  softmax_mask_fuse_upper_triangle)
 from .optimizer import LookAhead, ModelAverage  # noqa: F401
 
-__all__ = ["LookAhead", "ModelAverage", "MoELayer", "nn", "segment_sum",
+__all__ = ["LookAhead", "ModelAverage", "MoELayer", "nn", "checkpoint",
+           "segment_sum",
            "segment_mean", "segment_max", "segment_min",
            "softmax_mask_fuse", "softmax_mask_fuse_upper_triangle"]
 

@@ -7,27 +7,38 @@
 - :mod:`.watchdog` — deadlines on blocking sections (every serving batch
   runs in one); expiry dumps the recorder and the thread stacks and
   raises :class:`DistributedTimeout`;
-- :mod:`.recovery` — the generation counter sections are fenced by;
-- :mod:`.health` — the preflight known-answer test of a restarted replica;
+- :mod:`.retry` — exponential-backoff retry shared by the FS transfer
+  paths, checkpoint staging and the elastic heartbeat;
+- :mod:`.recovery` — generation-fenced rendezvous, the in-job restart of
+  :class:`RecoveryManager` under a budget, and the recovery journal;
+- :mod:`.health` — the preflight known-answer test, and the quarantine
+  lifecycle (:class:`Quarantined`, exit code 117);
 - :mod:`.guard` — the StepGuard that skips a non-finite train step
   (``hapi.Model.fit`` under ``FLAGS_check_nan_inf``);
 - :mod:`.preempt` — SIGTERM to an emergency save and a resumable exit;
 - :mod:`.snapshot` — manifest-committed checkpoints with sha256 sidecars
   and exact resume (``hapi.Model.save``), synchronous only.
 
-Retry, integrity, the async checkpointer, recovery's restart manager and
-the rest wait for ROADMAP A11.
+Integrity, straggler detection, the async checkpointer and the rest wait
+for ROADMAP A11.
 """
 from . import (faults, guard, health, preempt, recorder,  # noqa: F401
-               recovery, snapshot, watchdog)
+               recovery, retry, snapshot, watchdog)
 from .faults import (  # noqa: F401
     FaultInjected, fault_point, maybe_inject, should_inject,
 )
 from .guard import BadStepError, StepGuard  # noqa: F401
-from .health import PreflightFailure, preflight_kat, serving_preflight  # noqa: F401
+from .health import (  # noqa: F401
+    QUARANTINE_EXIT_CODE, PreflightFailure, Quarantined, preflight_kat,
+    run_preflight, serving_preflight,
+)
 from .preempt import Preempted, PreemptionCallback, PreemptionHandler  # noqa: F401
 from .recorder import FlightRecorder, get_recorder  # noqa: F401
-from .recovery import current_generation  # noqa: F401
+from .recovery import (  # noqa: F401
+    MembershipChange, RecoveryExhausted, RecoveryJournal, RecoveryManager,
+    RendezvousTimeout, current_generation,
+)
+from .retry import retry_call  # noqa: F401
 from .watchdog import (  # noqa: F401
     DistributedError, DistributedTimeout, PeerAbort, StaleGeneration,
     Watchdog, watch_section,
@@ -41,4 +52,7 @@ __all__ = ["faults", "guard", "health", "preempt", "recorder", "recovery",
            "Watchdog", "watch_section", "DistributedError",
            "DistributedTimeout", "PeerAbort", "StaleGeneration",
            "current_generation", "PreflightFailure", "preflight_kat",
-           "serving_preflight"]
+           "serving_preflight", "retry", "retry_call", "RecoveryManager",
+           "RecoveryJournal", "RecoveryExhausted", "RendezvousTimeout",
+           "MembershipChange", "Quarantined", "QUARANTINE_EXIT_CODE",
+           "run_preflight"]

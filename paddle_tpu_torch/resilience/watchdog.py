@@ -1,9 +1,6 @@
 """Distributed watchdog: deadlines on blocking sections + hang diagnostics.
 
-Port of paddle_tpu/resilience/watchdog.py. The port has no p2p transport
-yet (ROADMAP A10), so an expiry does not broadcast an abort to peers (step
-4 below); ``resilience/recovery.py`` holds only the generation counter the
-sections are fenced by.
+Port of paddle_tpu/resilience/watchdog.py.
 
 A multi-host job's worst failure mode is the silent hang: one rank dies (or
 diverges) mid-collective and every survivor blocks forever in a recv. The
@@ -225,6 +222,15 @@ class Watchdog:
                 marker(sec.name)
             except Exception:
                 pass  # diagnostics must not mask the hang itself
+        # wake peers blocked on us: they get "rank N aborted in <section>"
+        # within seconds instead of idling out their own deadline
+        try:
+            from ..distributed import p2p
+            p2p.broadcast_abort(sec.name,
+                                reason=f"watchdog deadline "
+                                       f"({sec.timeout:.1f}s) exceeded")
+        except Exception:
+            pass
 
     def _dump_stacks(self, rank):
         base = self.artifacts or _recorder.artifacts_dir()

@@ -237,28 +237,22 @@ LATER = {
     ".vision.models": set(),
     ".vision.ops": set(),
     ".text": set(),
-    # ROADMAP A11: expert_parallel.py (beside the recovery journal and
-    # AsyncCheckpointer); A10: fleet/elastic.py; fleet/{dataset,fs,metrics}.py
+    # ROADMAP A11: expert_parallel.py (beside the AsyncCheckpointer); A10:
+    # fleet/dataset.py
     ".distributed.fleet": {
         "expert_parallel", "ExpertParallelEngine", "ExpertPlacement",
-        "elastic", "dataset", "fs", "HDFSClient", "LocalFS", "metrics"},
-    # ROADMAP A10: the host transport and launch code; fleet/dataset.py
+        "dataset"},
+    # ROADMAP A10: the parameter-server half; fleet/dataset.py
     ".distributed": {
-        "fleet_executor", "launch", "launch_utils", "ps", "transpiler",
-        "wire", "InMemoryDataset", "QueueDataset"},
-    # ROADMAP A13: the sparsity package; A10: fleet/fs.py's LocalFS, which
-    # incubate.checkpoint needs
-    ".incubate": {"asp", "checkpoint"},
-    # ROADMAP A11: retry.py, integrity.py, the rest of health.py and of
-    # recovery.py
+        "fleet_executor", "ps", "transpiler", "InMemoryDataset",
+        "QueueDataset"},
+    # ROADMAP A13: the sparsity package
+    ".incubate": {"asp"},
+    # ROADMAP A11: integrity.py and health.py's straggler detection
     ".resilience": {
-        "retry", "retry_call",
         "integrity", "ConsensusChecker", "IntegrityError",
         "StepReplayBuffer", "checksum_state", "classify_replay",
-        "QUARANTINE_EXIT_CODE", "Quarantined", "StragglerDetector",
-        "run_preflight",
-        "MembershipChange", "RecoveryExhausted", "RecoveryJournal",
-        "RecoveryManager", "RendezvousTimeout"},
+        "StragglerDetector"},
     # ROADMAP A11: the profiler's host API
     ".profiler": {
         "profiler", "Profiler", "ProfilerState", "ProfilerTarget",
@@ -316,10 +310,14 @@ RESILIENCE_NAMES = {
     "faults": ("FaultInjected", "fault_point", "maybe_inject",
                "should_inject"),
     "guard": ("StepGuard", "BadStepError"),
-    "health": ("PreflightFailure", "preflight_kat", "serving_preflight"),
+    "health": ("PreflightFailure", "preflight_kat", "serving_preflight",
+               "QUARANTINE_EXIT_CODE", "Quarantined", "run_preflight"),
     "preempt": ("Preempted", "PreemptionCallback", "PreemptionHandler"),
     "recorder": ("FlightRecorder", "get_recorder"),
-    "recovery": ("current_generation",),
+    "recovery": ("current_generation", "MembershipChange",
+                 "RecoveryExhausted", "RecoveryJournal", "RecoveryManager",
+                 "RendezvousTimeout"),
+    "retry": ("retry_call",),
     "watchdog": ("PeerAbort", "StaleGeneration", "Watchdog",
                  "watch_section"),
 }
