@@ -18,7 +18,9 @@ Phases, each printing JSON lines:
    rank's micro-batch (1 x 1024, 8 heads of 128, bf16, causal); the
    layouts' (a ring rank's 1 x 4096 causal and not, a micro-batch's 1 x
    1024, 16 heads of 128); B1, B2 and B3 at a moe_ep rank's (2 x 1024, 16
-   heads of 64, bf16, non-causal); B1 at translate's encoder
+   heads of 64, bf16, non-causal); B1, B2 and B3 at a ps trainer's (4 x
+   512, 12 heads of 64, bf16, non-causal) and B1 at the FleetExecutor's
+   micro-batch (2 x 512); B1 at translate's encoder
    shape (8 x 256, 8 heads of 64, bf16, non-causal); last B1, B2 and B3
    at BERT's shape (8 x 512, 12 heads of 64, bf16, non-causal, q, k and
    v three contiguous tensors). bf16 runs the tensor-core
@@ -373,8 +375,8 @@ them, and the kernels line says so.
 
 26. auto_moe (``--phases auto_moe``; it runs right after the kernels
    phase): auto_parallel and incubate, 2 rank processes on the one card
-   over gloo (one spawn; the serial Engines and incubate_cases on this
-   process meanwhile). (a) auto_engine: bench's
+   over gloo (one spawn; the serial Engines, incubate_cases and the hapi
+   group on this process meanwhile). (a) auto_engine: bench's
    GPT-3 1.3B slice in bf16, AdamW(multi_precision), through
    ``auto_parallel.Engine`` under ProcessMesh([0, 1], dim_names=["dp"])
    with amp (bf16, O1), gradient merge (k 2, avg) and sharding at stage 3,
@@ -405,11 +407,11 @@ them, and the kernels line says so.
 27. elastic (``--phases elastic``; it runs right after auto_moe, and the
    vision group's phases run on this process beside its launches: their
    captured replays share the card with the launches' steps): launch
-   and in-job recovery. GPT-medium bf16 (AdamW mp, 12 of its 24 layers)
+   and in-job recovery. GPT-medium bf16 (AdamW mp, 6 of its 24 layers)
    under DataParallel over 2 ranks on the card (gloo), each rank in a
    RecoveryManager with an ElasticManager on a FileStore, started by
    ``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2
-   --max_restarts 1``: 6 steps of 2 x 1024 a rank of bench's 4 x 1024
+   --max_restarts 1``: 4 steps of 2 x 1024 a rank of bench's 4 x 1024
    stream, a hybrid checkpoint after every second step. Two launches
    side by side (for the script's time; each one's step times carry the
    other's load): an uninterrupted one, with the other ranks' tools after
@@ -427,23 +429,56 @@ them, and the kernels line says so.
    by os._exit through a fault site of its first incarnation, the
    launcher relaunches it (PADDLE_TPU_GENERATION 1), the survivor tears
    its group down, both meet at generation 2 and restore the step-2
-   checkpoint: the 6 losses equal the uninterrupted launch's to the bit,
+   checkpoint: the 4 losses equal the uninterrupted launch's to the bit,
    the journal names the launcher's worker_restart (rank 1, exit 9,
    generation 1) and the survivor's restart (its cause, generation 2, np
-   2), B1, B2 and B3 run 12 times a step on every rank before and after
+   2), B1, B2 and B3 run 6 times a step on every rank before and after
    the restart (by wrapper). Recorded: the seconds from the death to the
    survivor's error and to its first resumed step, the checkpoint's
    bytes and its save and load seconds, step ms and collective_wait
    before and after the restart, the group's seconds.
 
-Four groups whose ranks keep this process waiting each host a group of
-this process's (GUESTS): vision beside elastic, surface beside hybrid,
-bert beside pipeline, optim beside layouts, when both run; the guests'
-captured replays share the card with the ranks' steps, so the times of
-both carry the other's load.
+28. ps (``--phases ps``; it runs right after elastic, alone): the
+   parameter server. (a) ps: BERT-base (bert_flash's configuration, f32
+   parameters under amp O1 bf16, its word embedding a sparse table)
+   through DistributeTranspiler over two PsServers, each a host process
+   of its own (the card hidden from it), and two trainer processes on the
+   card, each reading 4 x 512 of cls_stream's 8 x 512 batch through
+   InMemoryDataset.batches(worker_id, 2): the init step (rank 0 seeds the
+   dense tables) and 3 sync steps of TheOnePSRuntime with server SGD
+   (B1, B2 and B3 tc_bf16 non-causal at (4, 512, 12, 64), 12 times a step
+   on each trainer). Held to a serial BERT-base on this process with the
+   same weights, its word rows those of the tables' first pulls
+   (ROADMAP C-ref-29), doing the trainers' arithmetic: at each step the
+   gradients of both trainers' 4 x 512 halves at the same parameters,
+   then p -= lr * g with each half's in turn, as a pserver applies each
+   push (the word rows by their merged sparse gradients). The mean of
+   the trainers' losses at each step within the bf16 rule of the serial
+   bf16 run (2 x its relative gap to the serial f32 run + 1e-3), and
+   each dense table's update after the 3 steps (table - initial value)
+   within the same rule of the serial bf16 run's update. Then 2 async
+   steps through the Communicator leave every table on both pservers
+   moved (C-ref-28); the sparse rows are no more than the distinct ids
+   sent. Recorded: each step's ms split into pull, compute, push and
+   barriers, the bytes pulled and pushed, peak memory, the group's
+   seconds. (b) ps_fleet_executor, on this process while the trainers
+   start: BERT-base bf16 eval as a three-stage FleetExecutor in one
+   Carrier (the embeddings; layers 0-5; layers 6-11, the pooler and the
+   classifier), 4 micro-batches of 2 x 512 as CUDA tensors, buffer_size
+   2: each micro-batch's logits equal the whole model's to the bit, B1
+   12 times a micro-batch.
+
+Five groups whose ranks keep this process waiting each host groups of
+this process's (GUESTS), in turn: hapi beside auto_moe, vision beside
+elastic, surface and to_static_grad beside hybrid, bert beside pipeline,
+optim and nn_rest beside layouts, when both run; the guests' captured
+replays share the card with the ranks' steps, so the times of both carry
+the other's load. Some rank sets run
+side by side too: hybrid_geometry's beside tp_gpt's, pp_compiled's
+beside pp_gpt's once the bert group is done.
 
 ``--phases`` runs only the named phases (comma-separated: build,
-kernels, auto_moe, elastic, reference, serve, train, to_static_grad,
+kernels, auto_moe, elastic, ps, reference, serve, train, to_static_grad,
 bert, vision, serving, hapi, optim, surface, nn_rest, zoo, dist_tune,
 hybrid, pipeline, layouts); the kernels
 line needs every phase and is printed only when all run. Every phase
@@ -879,6 +914,8 @@ def phase_kernels(torch, seed):
              (*SP_RANK_SHAPE, torch.bfloat16, True),
              (*MOE_RANK_SHAPE, torch.bfloat16, False),
              (*ELASTIC_RANK_SHAPE, torch.bfloat16, True),
+             (*PS_RANK_SHAPE, torch.bfloat16, False),
+             (*FE_SHAPE, torch.bfloat16, False),
              (*TRANSLATE_FLASH_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = []
@@ -999,6 +1036,7 @@ def phase_kernels_bwd(torch, seed):
              (*SP_RANK_SHAPE, torch.bfloat16, True),
              (*MOE_RANK_SHAPE, torch.bfloat16, False),
              (*ELASTIC_RANK_SHAPE, torch.bfloat16, True),
+             (*PS_RANK_SHAPE, torch.bfloat16, False),
              (*BERT_FLASH_SHAPE, torch.bfloat16, False)]
     rows = {"dkv": [], "dq": [], "whole": []}
     for b, s, h, d, dtype, causal in cases:
@@ -1826,11 +1864,19 @@ def phase_amp_train(torch, seed):
         def run():
             return step.run_steps(xs[sl], ys[sl])
         if e == 1:
+            # tiny kernels lead into the window and absorb the records a
+            # profile loses at its start (a second process on one machine
+            # lost one B1 in all three tries without them, PR 21)
+            pad = torch.zeros(1, device="cuda")
+
+            def lead():
+                for _ in range(OPS_LEAD_KERNELS):
+                    pad.zero_()
             _, wall_s, out, prof = profiled(
                 torch, run, k_steps,
                 expect={"flash_attn_fwd": 2 * cfg.num_layers,
                         "flash_attn_bwd_dkv": cfg.num_layers,
-                        "flash_attn_bwd_dq": cfg.num_layers})
+                        "flash_attn_bwd_dq": cfg.num_layers}, lead=lead)
         else:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -6653,21 +6699,11 @@ def phase_dist(torch, seed, cache_dir):
     on the one card (gloo over CUDA tensors: NCCL refuses two ranks on one
     device), each running dist_rank_main, held to this process's serial
     runs; their tiles come from the autotune lane's cache, their fusion
-    decisions from the table."""
+    decisions from the table. The ranks start first, the serial runs
+    follow on this process while they run."""
     import paddle_tpu_torch as pt
-    here = os.path.dirname(os.path.abspath(__file__))
-    serial = serial_gpt_losses(torch, seed)
-    # one process's fit on the same global batches
     from paddle_tpu_torch.vision.datasets import MNIST
-    data = pt.io.Subset(MNIST(mode="train"),
-                        list(range(DP_FIT_BATCH * DP_FIT_STEPS)))
-    model = hapi_lenet_model(pt, seed, "cuda")
-    log = loss_log(pt)
-    with cudnn_deterministic(torch):
-        model.fit(data, batch_size=DP_FIT_BATCH, epochs=1, shuffle=False,
-                  verbose=0, callbacks=[log])
-    serial_fit = log.losses
-    del model
+    here = os.path.dirname(os.path.abspath(__file__))
     addr = f"localhost:{free_port()}"
     outs = [os.path.join(cache_dir, f"rank{r}.json")
             for r in range(DIST_WORLD)]
@@ -6679,20 +6715,40 @@ def phase_dist(torch, seed, cache_dir):
                    "PADDLE_TRAINERS_NUM": str(DIST_WORLD),
                    "PADDLE_COORDINATOR_ADDR": addr,
                    "PADDLE_TPU_AUTOTUNE_CACHE": cache_dir}
-            procs.append(subprocess.Popen(
-                [sys.executable, os.path.abspath(__file__), "--seed",
-                 str(seed), "--dist-rank", str(r), "--dist-out", outs[r]],
-                cwd=here, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-        logs = [p.communicate(timeout=600)[0] for p in procs]
+            with open(rank_log(outs[r]), "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--seed",
+                     str(seed), "--dist-rank", str(r), "--dist-out",
+                     outs[r]], cwd=here, env=env, stdout=f,
+                    stderr=subprocess.STDOUT, text=True))
+        # the serial runs on this process while the ranks run
+        serial = serial_gpt_losses(torch, seed)
+        # one process's fit on the same global batches
+        data = pt.io.Subset(MNIST(mode="train"),
+                            list(range(DP_FIT_BATCH * DP_FIT_STEPS)))
+        model = hapi_lenet_model(pt, seed, "cuda")
+        log = loss_log(pt)
+        with cudnn_deterministic(torch):
+            model.fit(data, batch_size=DP_FIT_BATCH, epochs=1,
+                      shuffle=False, verbose=0, callbacks=[log])
+        serial_fit = log.losses
+        del model
+        # a rank that fails ends the others (they would wait on it)
+        deadline = time.perf_counter() + 600
+        while any(p.poll() is None for p in procs) and \
+                not any(p.poll() for p in procs) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.2)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
     seconds = time.perf_counter() - t0
-    for r, (p, log_text) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, (r, log_text[-4000:])
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(rank_log(outs[r])) as f:
+                raise AssertionError((r, p.returncode, f.read()[-4000:]))
     ranks = []
     for path in outs:
         with open(path) as f:
@@ -7202,16 +7258,11 @@ def hybrid_rank_main(torch, args):
 RANK_STACK_DUMP_S, STACK_DUMP_S = 120, 1140
 
 
-def spawn_ranks(world, seed, lane, cache_dir, timeout=900):
-    """``world`` rank processes of this script on the card (gloo over
-    CUDA tensors), each running hybrid_rank_main's ``lane``; returns
-    their results and the seconds they took."""
-    return join_ranks(start_ranks(world, seed, lane, cache_dir), timeout)
-
-
 def start_ranks(world, seed, lane, cache_dir):
-    """spawn_ranks' first half: the processes started, not waited for,
-    each writing its output to a log file beside its result."""
+    """``world`` rank processes of this script on the card (gloo over
+    CUDA tensors), each running hybrid_rank_main's ``lane``: started, not
+    waited for (join_ranks), each writing its output to a log file beside
+    its result."""
     here = os.path.dirname(os.path.abspath(__file__))
     addr = f"localhost:{free_port()}"
     outs = [os.path.join(cache_dir, f"{lane}-rank{r}.json")
@@ -7242,8 +7293,33 @@ def rank_log(out_path):
     return out_path[:-len(".json")] + ".log"
 
 
+def end_ranks(*starts):
+    """Kill the processes of started rank sets that still run."""
+    for procs, _, _ in starts:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+
+
+def join_together(starts, timeout=900):
+    """join_ranks over rank sets started to run side by side, in turn; a
+    failure of one (or its timeout) ends the others too. Returns each
+    set's (results, seconds): a set's seconds run from its start to its
+    join, so a set that ends before the one joined first reads that
+    one's end."""
+    done = []
+    try:
+        for started in starts:
+            done.append(join_ranks(started, timeout))
+    except BaseException:
+        end_ranks(*starts)
+        raise
+    return done
+
+
 def join_ranks(started, timeout=900):
-    """spawn_ranks' second half: wait for the processes and read their
+    """start_ranks' second half: wait for the processes and read their
     results. A rank that fails ends the others at once (they would wait
     on it in a collective), as does the timeout; the failure names each
     rank's exit code and the tail of its log."""
@@ -7275,9 +7351,10 @@ def join_ranks(started, timeout=900):
 
 def phase_hybrid(torch, seed, beside=None):
     """tp_gpt, zero_gpt and hybrid_geometry: the serial runs on this
-    process, freed before the rank processes start (HYBRID_WORLD ranks
-    for tp_gpt then zero_gpt, with ``beside()`` (the surface group) on
-    this process while they run, GEOM_WORLD for hybrid_geometry)."""
+    process, freed before the rank processes start: HYBRID_WORLD ranks
+    for tp_gpt then zero_gpt and, beside them, GEOM_WORLD for
+    hybrid_geometry, with ``beside()`` (the surface group) on this
+    process while they run."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     seconds = {}
     t0 = time.perf_counter()
@@ -7287,10 +7364,11 @@ def phase_hybrid(torch, seed, beside=None):
     seconds["serial"] = time.perf_counter() - t0
     cache_dir = autotune_cache_dir()
     started = start_ranks(HYBRID_WORLD, seed, "tp_zero", cache_dir)
-    besides, seconds["beside"] = run_beside(started, beside)
-    ranks, seconds["tp_gpt_zero_gpt"] = join_ranks(started)
-    geometry, seconds["hybrid_geometry"] = spawn_ranks(GEOM_WORLD, seed,
-                                                       "geometry", cache_dir)
+    geo_started = start_ranks(GEOM_WORLD, seed, "geometry", cache_dir)
+    besides, seconds["beside"] = run_beside(beside, started, geo_started)
+    (ranks, seconds["tp_gpt_zero_gpt"]), \
+        (geometry, seconds["hybrid_geometry"]) = join_together(
+            [started, geo_started])
     tp = [r["tp_gpt"] for r in ranks]
     sb, sf = serial["tp"]["bfloat16"], serial["tp"]["float32"]
     gaps = [abs(a - b) / abs(b) for a, b in zip(tp[0]["losses"],
@@ -7755,8 +7833,9 @@ def phase_pipeline(torch, seed, serial=None, beside=None):
     """pp_gpt, pp_compiled and hybrid_ckpt: the serial runs (the hybrid
     group's, or run here first), then PP_WORLD rank processes for pp_gpt
     and then hybrid_ckpt, with ``beside()`` (the bert group) on this
-    process while they run, and PPC_WORLD for pp_compiled. Returns each
-    lane's B1-B3 launches a step and what ``beside`` returned."""
+    process while they run, and PPC_WORLD for pp_compiled, started when
+    ``beside()`` returns, beside them. Returns each lane's B1-B3 launches
+    a step and what ``beside`` returned."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     seconds = {}
     t0 = time.perf_counter()
@@ -7766,10 +7845,12 @@ def phase_pipeline(torch, seed, serial=None, beside=None):
         seconds["serial"] = time.perf_counter() - t0
     cache_dir = autotune_cache_dir()
     started = start_ranks(PP_WORLD, seed, "pp_ckpt", cache_dir)
-    besides, seconds["beside"] = run_beside(started, beside)
-    ranks, seconds["pp_gpt_hybrid_ckpt"] = join_ranks(started, timeout=600)
-    ppc, seconds["pp_compiled"] = spawn_ranks(PPC_WORLD, seed, "pp_compiled",
-                                              cache_dir, timeout=600)
+    besides, seconds["beside"] = run_beside(beside, started)
+    # pp_compiled's ranks start when the guest is done, beside pp_gpt's
+    ppc_started = start_ranks(PPC_WORLD, seed, "pp_compiled", cache_dir)
+    (ranks, seconds["pp_gpt_hybrid_ckpt"]), \
+        (ppc, seconds["pp_compiled"]) = join_together(
+            [started, ppc_started], timeout=600)
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
     # a stage's layers x PP_MICRO micro-batches, B1 twice (the recompute)
     per_layer = HYBRID_LAYERS // 2 * PP_MICRO
@@ -8435,7 +8516,7 @@ def phase_layouts(torch, seed, beside=None):
             p.kill()
             p.communicate()
         raise
-    besides, seconds["beside"] = run_beside(started, beside)
+    besides, seconds["beside"] = run_beside(beside, started)
     ranks, seconds["serial_and_ranks"] = join_ranks(started, timeout=600)
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
     tc = fa.TC
@@ -8627,7 +8708,8 @@ def layout_entries(fa, entry, rows, bwd_rows, layouts, scope):
 
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
-                   dist_tune, hybrid, pipeline, layouts, auto_moe, elastic):
+                   dist_tune, hybrid, pipeline, layouts, auto_moe, elastic,
+                   ps):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -8817,7 +8899,8 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
         *pp_entries(fa, entry, rows, bwd_rows, pipeline, scope),
         *layout_entries(fa, entry, rows, bwd_rows, layouts, scope),
         *auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope),
-        *elastic_entries(fa, entry, rows, bwd_rows, elastic, scope)]
+        *elastic_entries(fa, entry, rows, bwd_rows, elastic, scope),
+        *ps_entries(fa, entry, rows, bwd_rows, ps, scope)]
 
 
 def pp_entries(fa, entry, rows, bwd_rows, pipeline, scope):
@@ -9504,11 +9587,12 @@ def phase_incubate_cases(torch, seed):
     return out
 
 
-def phase_auto_moe(torch, seed):
+def phase_auto_moe(torch, seed, beside=None):
     """auto_engine, moe_ep and incubate_cases: the AUTO_WORLD rank
-    processes started, then the serial Engines and incubate_cases on this
-    process while they run. Returns each lane's B1-B3 launches and the
-    seconds."""
+    processes started, then the serial Engines, incubate_cases and
+    ``beside()`` (the hapi group) on this process while they run. Returns
+    each lane's B1-B3 launches, the seconds and what ``beside``
+    returned."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     cache_dir = os.environ["PADDLE_TPU_AUTOTUNE_CACHE"]
     seconds = {}
@@ -9526,10 +9610,9 @@ def phase_auto_moe(torch, seed):
         cases = phase_incubate_cases(torch, seed)
         seconds["incubate_cases"] = time.perf_counter() - t0
     except BaseException:
-        for p in started[0]:
-            p.kill()
-            p.communicate()
+        end_ranks(started)
         raise
+    besides, seconds["beside"] = run_beside(beside, started)
     ranks, seconds["serial_cases_and_ranks"] = join_ranks(started,
                                                           timeout=300)
     kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
@@ -9665,7 +9748,8 @@ def phase_auto_moe(torch, seed):
             "fused_encoder_f32": cases["f32_launches"],
             "auto_engine_tiles":
                 ranks[0]["auto_engine_stage3"]["tiles"],
-            "moe_ep_tiles": moe[0]["tiles"], "seconds": seconds}
+            "moe_ep_tiles": moe[0]["tiles"], "seconds": seconds,
+            "beside": besides}
 
 
 def auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope):
@@ -9728,7 +9812,12 @@ def auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope):
 # -- elastic: launch and in-job recovery (the launcher, the wire and p2p,
 # ElasticManager, RecoveryManager and its journal, incubate.checkpoint) ----
 
-ELASTIC_WORLD, ELASTIC_STEPS, ELASTIC_CKPT_EVERY = 2, 6, 2
+# 4 steps: rank 1 dies in the last, the run resumes from step 2's
+# checkpoint (6 before PR 21's cut for the script's time)
+ELASTIC_WORLD, ELASTIC_STEPS, ELASTIC_CKPT_EVERY = 2, 4, 2
+# GPT-medium's layers in the elastic launches: 6 of its 24 (12 before the
+# ps group came, cut for the script's time, PERF.md section 4)
+ELASTIC_LAYERS = 6
 # rank 1 of the recovered launch dies at this step of its first
 # incarnation, with this exit code
 ELASTIC_KILL_RANK, ELASTIC_KILL_STEP, ELASTIC_KILLED = 1, 3, 9
@@ -9843,7 +9932,7 @@ def elastic_job_main(torch, args):
     dist.init_parallel_env()
     p2p.connect()
     cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
-                    num_layers=GPT_LAYERS, num_heads=16,
+                    num_layers=ELASTIC_LAYERS, num_heads=16,
                     max_position_embeddings=1024, dropout=0.0)
     model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
                            generator=torch.Generator().manual_seed(args.seed))
@@ -10153,7 +10242,8 @@ def phase_elastic(torch, seed, beside=None):
     saves = [sv for sv in whole[0]["saves"]]
     loads = survivor["loads"] + replacement["loads"]
     row = {"phase": "elastic", "world": ELASTIC_WORLD,
-           "config": f"GPT-medium v32000 h1024 L{GPT_LAYERS} a16 d64 bf16, "
+           "config": f"GPT-medium v32000 h1024 L{ELASTIC_LAYERS} a16 d64 "
+                     f"bf16, "
                      f"AdamW mp, DataParallel over 2 ranks on one card "
                      f"(gloo), each under RecoveryManager with an "
                      f"ElasticManager on a FileStore, started by python -m "
@@ -10225,7 +10315,7 @@ def phase_elastic(torch, seed, beside=None):
         for st in res["steps"].values():
             for kernel in kernels:
                 assert st["launches"].get(f"{kernel}.{tc}", 0) == \
-                    GPT_LAYERS, st["launches"]
+                    ELASTIC_LAYERS, st["launches"]
     # the tools: p2p and the metrics against numpy, the abort in seconds
     xs = [np.arange(12, dtype="float32").reshape(3, 4) * (r + 1)
           for r in range(ELASTIC_WORLD)]
@@ -10263,6 +10353,642 @@ def phase_elastic(torch, seed, beside=None):
             "replacement_per_step": replacement["steps"][last]["launches"],
             "elastic_tiles": whole[0]["tiles"], "seconds": seconds,
             "beside": besides}
+
+
+# -- ps: the parameter server (ps tables, service, communicator,
+# TheOnePSRuntime, DistributeTranspiler, fleet datasets, FleetExecutor) ----
+
+# BERT-base (bert_flash's configuration) through two pservers: two trainer
+# processes on the card, each reading 4 x 512 of cls_stream's 8 x 512
+# batch through InMemoryDataset.batches(worker_id, 2); 1 init step
+# (rank 0 seeds the dense tables) and PS_STEPS sync steps, then PS_ASYNC
+# steps through the Communicator; server SGD at PS_LR (at 1e-2 SGD
+# overshoots from BERT-base's random draw: the loss 0.77 -> 3.20 in one
+# step, PERF.md section 6)
+PS_SERVERS, PS_TRAINERS, PS_STEPS, PS_ASYNC, PS_LR = 2, 2, 3, 2, 1e-3
+PS_RANK_SHAPE = (4, 512, 12, 64)
+# FleetExecutor: a three-stage forward of BERT-base, 4 micro-batches of
+# 2 x 512, buffer_size 2
+FE_MICRO, FE_SHAPE, FE_BUFFER = 4, (2, 512, 12, 64), 2
+# the sync gate on the dense tables: each table's update after the sync
+# steps, (table - initial value), against the serial bf16 run's (which
+# does the trainers' arithmetic: ps_serial) by relative L2, within the
+# bf16 rule of the training checks: no further than twice the serial bf16
+# run's own update from the serial f32 run's + BF16_GRAD_SLACK
+# (bf16_bounds; PERF.md section 6)
+# BERT-base's dense tables: its 201 parameters but the word embedding
+PS_DENSE_TABLES = 200
+PS_TIMEOUT = 300
+
+
+def ps_job_env(job):
+    with open(os.path.join(job, "endpoints.json")) as f:
+        return json.load(f)
+
+
+def ps_bert_cfg():
+    from paddle_tpu_torch.text.models import BertConfig
+    cfg = BertConfig.base()
+    cfg.dropout = 0.0
+    return cfg
+
+
+def ps_wait_servers(job, deadline_s=PS_TIMEOUT):
+    t0 = time.perf_counter()
+    while not all(os.path.exists(os.path.join(job, f"server{i}.ready"))
+                  for i in range(PS_SERVERS)):
+        if time.perf_counter() - t0 > deadline_s:
+            raise TimeoutError(f"pservers not ready in {deadline_s} s")
+        time.sleep(0.1)
+
+
+def ps_server_main(args):
+    """One pserver (a host process; the card is hidden from it): the
+    DistributeTranspiler's tables for its endpoint, from BERT-base's
+    layout on the meta device, served until the parent's stop file."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.text.models import BertForSequenceClassification
+    faulthandler.dump_traceback_later(RANK_STACK_DUMP_S, repeat=True)
+    job, index = args.ps_job, args.ps_index
+    eps = ps_job_env(job)
+    model = BertForSequenceClassification(ps_bert_cfg(), num_classes=2,
+                                          device="meta")
+    model.bert.embeddings.word_embeddings._sparse = True
+    t = dist.transpiler.DistributeTranspiler()
+    t.transpile(trainer_id=0, pservers=",".join(eps), trainers=PS_TRAINERS,
+                model=model)
+    tables = t.get_pserver_program(eps[index], lr=PS_LR)
+    host, port = eps[index].rsplit(":", 1)
+    srv = dist.ps.PsServer(tables, host=host, port=int(port)).start()
+    with open(os.path.join(job, f"server{index}.ready"), "w") as f:
+        json.dump({"tables": [tb.table_id for tb in tables]}, f)
+    parent, t0 = os.getppid(), time.perf_counter()
+    try:
+        while not os.path.exists(os.path.join(job, "stop")):
+            if os.getppid() != parent or \
+                    time.perf_counter() - t0 > 2 * PS_TIMEOUT:
+                sys.exit("pserver: the parent is gone or the job outlived "
+                         "its limit")
+            time.sleep(0.1)
+    finally:
+        srv.stop()
+
+
+def ps_feeds(seed, cfg):
+    """cls_stream's 8 x 512 batches of the sync steps as a sample list."""
+    (ids, labels), = cls_stream(seed + 21, 1, PS_STEPS, 2 * PS_RANK_SHAPE[0],
+                                PS_RANK_SHAPE[1], cfg.vocab_size)
+    return ids, labels, [(ids[t, i], labels[t, i])
+                         for t in range(PS_STEPS) for i in range(ids.shape[1])]
+
+
+def ps_trainer_main(torch, args):
+    """One trainer of the ps group on the card: BERT-base f32 under amp O1
+    bf16, its word embedding a sparse table, through the
+    DistributeTranspiler's TheOnePSRuntime over both pservers: the init
+    step, PS_STEPS sync steps (each step's time split into pull, compute,
+    push and barriers, its bytes, B1-B3 launches, and the rows of its
+    first pull); then PS_ASYNC steps through the Communicator, rank 0
+    holding each table before them (saving the dense ones: the sync
+    steps' result) and after."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.dump_traceback_later(RANK_STACK_DUMP_S, repeat=True)
+    job, rank = args.ps_job, int(os.environ["PADDLE_TRAINER_ID"])
+    t_start = time.time()
+    cfg = ps_bert_cfg()
+    model = bert_model(torch, cfg, args.seed).train()
+    assert next(model.parameters()).is_cuda, "a trainer runs on the card"
+    word = model.bert.embeddings.word_embeddings
+    word._sparse = True
+    eps = ps_job_env(job)
+    ps_wait_servers(job)
+    t = dist.transpiler.DistributeTranspiler()
+    t.transpile(trainer_id=rank, pservers=",".join(eps),
+                trainers=PS_TRAINERS, model=model)
+    rt = t.get_trainer_program(lr=PS_LR)
+    ds = dist.InMemoryDataset()
+    ds.set_batch_size(PS_RANK_SHAPE[0])
+    ds.set_use_var(["ids", "labels"])
+    ds.set_sample_list(ps_feeds(args.seed, cfg)[2])
+    feeds = list(ds.batches(rank, PS_TRAINERS))
+    assert len(feeds) == PS_STEPS, len(feeds)
+    out = {"rank": rank, "ready_s": time.time() - t_start, "steps": []}
+    t0 = time.perf_counter()
+    rt.init_params()
+    out["init_s"] = time.perf_counter() - t0
+    rows = {}
+
+    def step(rt, feed, record):
+        ids = torch.from_numpy(feed["ids"]).cuda()
+        labels = torch.from_numpy(feed["labels"]).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rt.step_begin(sparse_ids={"word_embeddings": feed["ids"]})
+        if record is not None:
+            uniq = np.unique(feed["ids"])
+            record[f"ids{len(record) // 2}"] = uniq
+            record[f"rows{len(record) // 2}"] = word.weight.detach()[
+                torch.from_numpy(uniq).cuda()].cpu().numpy()
+        launch_counts.clear()
+        t1 = time.perf_counter()
+        with pt.amp.auto_cast(dtype="bfloat16"):
+            loss = model(ids, labels=labels)
+        loss.backward()
+        value = loss.item()
+        t2 = time.perf_counter()
+        launches = {k: launch_counts[k] for k in launch_counts
+                    if k.split(".")[0] in fa.KERNEL_NAMES}
+        rt.step_end()
+        for p in model.parameters():
+            p.grad = None
+        t3 = time.perf_counter()
+        part = rt.last_step
+        return {"loss": value, "ms": (t3 - t0) * 1e3,
+                "pull_ms": part["pull_s"] * 1e3,
+                "compute_ms": (t2 - t1) * 1e3,
+                "push_ms": part["push_s"] * 1e3,
+                "barrier_ms": (part["pull_barrier_s"]
+                               + part["push_barrier_s"]) * 1e3,
+                "pulled_bytes": part["pulled_bytes"],
+                "pushed_bytes": part["pushed_bytes"], "launches": launches}
+
+    for feed in feeds:
+        out["steps"].append(step(rt, feed, rows))
+    np.savez(os.path.join(job, f"rows{rank}.npz"), **rows)
+    out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    b, s, h, d = PS_RANK_SHAPE
+    dev = torch.device("cuda")
+    fwd = fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, False, dev)
+    bwd = fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, False, dev)
+    out["tiles"] = {fa.KERNEL_NAME: fwd[0], fa.DKV_KERNEL: bwd[1],
+                    fa.DQ_KERNEL: bwd[2]}
+    # async: the Communicator pushes in the background, each table to its
+    # own pserver (C-ref-28)
+    art = t.get_trainer_program(lr=PS_LR, mode="async")
+    sparse_id = art._sparse[0][0]
+    async_ids = np.unique(np.concatenate(
+        [f["ids"].ravel() for f in feeds[:PS_ASYNC]]))
+
+    def snapshot():
+        snap = {tid: art.client.pull_dense(tid, server=art._server(tid))
+                for tid, _ in art._dense}
+        snap[sparse_id] = art.client.pull_sparse(
+            sparse_id, async_ids, server=art._server(sparse_id))
+        return snap
+    # every trainer has pushed its last sync step (the step barrier)
+    art.client.barrier("async_begin", PS_TRAINERS)
+    before = None
+    if rank == 0:
+        before = snapshot()     # the tables after the sync steps
+        names = [n for n, p in model.named_parameters()
+                 if p is not word.weight]
+        np.savez(os.path.join(job, "tables.npz"),
+                 **{n: before[tid] for n, (tid, _) in zip(names, art._dense)})
+    art.client.barrier("async_snapshot", PS_TRAINERS)
+    t0 = time.perf_counter()
+    out["async_steps"] = [step(art, feed, None) for feed in
+                          feeds[:PS_ASYNC]]
+    art.flush()
+    out["async_s"] = time.perf_counter() - t0
+    art.client.barrier("async_done", PS_TRAINERS)
+    if rank == 0:
+        after = snapshot()
+        out["async_moved"] = {tid: not np.array_equal(after[tid], v)
+                              for tid, v in before.items()}
+        out["async_servers"] = sorted(set(art._assignment.values()))
+        del before, after
+    out["stat_after_async"] = [art.client.stat(server=i)
+                               for i in range(PS_SERVERS)]
+    art.stop()
+    art.client.close()
+    rt.client.close()
+    with open(os.path.join(job, f"trainer{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ps_start(seed, job):
+    """The pserver processes (the card hidden from them) and the trainer
+    processes of this script, each logging beside its result."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    eps = [f"127.0.0.1:{free_port()}" for _ in range(PS_SERVERS)]
+    with open(os.path.join(job, "endpoints.json"), "w") as f:
+        json.dump(eps, f)
+    procs = {}
+    try:
+        for i in range(PS_SERVERS):
+            env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+            with open(os.path.join(job, f"server{i}.log"), "w") as log:
+                procs[f"server{i}"] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--seed",
+                     str(seed), "--ps-role", "server", "--ps-index", str(i),
+                     "--ps-job", job], cwd=here, env=env, stdout=log,
+                    stderr=subprocess.STDOUT)
+        for r in range(PS_TRAINERS):
+            env = {**os.environ, "PADDLE_TRAINER_ID": str(r),
+                   "PADDLE_TRAINERS_NUM": str(PS_TRAINERS),
+                   "PADDLE_PSERVERS_IP_PORT_LIST": ",".join(eps)}
+            with open(os.path.join(job, f"trainer{r}.log"), "w") as log:
+                procs[f"trainer{r}"] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--seed",
+                     str(seed), "--ps-role", "trainer", "--ps-job", job],
+                    cwd=here, env=env, stdout=log, stderr=subprocess.STDOUT)
+    except BaseException:
+        ps_stop(procs, job)
+        raise
+    return procs, time.perf_counter()
+
+
+def ps_stop(procs, job):
+    with open(os.path.join(job, "stop"), "w"):
+        pass
+    deadline = time.perf_counter() + 10
+    for p in procs.values():
+        try:
+            p.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def ps_join(started, job):
+    """Wait for the trainers; a trainer or a pserver that dies (or the
+    time limit) ends every process and fails with each log's tail. The
+    pservers are then stopped. Returns the trainers' results and the
+    seconds."""
+    procs, t0 = started
+    deadline = t0 + PS_TIMEOUT
+    trainers = [procs[f"trainer{r}"] for r in range(PS_TRAINERS)]
+    try:
+        while any(p.poll() is None for p in trainers) and \
+                not any(p.poll() for p in procs.values()) and \
+                not any(procs[f"server{i}"].poll() is not None
+                        for i in range(PS_SERVERS)) and \
+                time.perf_counter() < deadline:
+            time.sleep(0.2)
+        seconds = time.perf_counter() - t0
+        failed = [name for name, p in procs.items()
+                  if (p.poll() is not None and p.returncode != 0)
+                  or (name.startswith("server") and p.poll() is not None)
+                  or (name.startswith("trainer") and p.poll() is None)]
+    finally:
+        ps_stop(procs, job)
+    if failed:
+        tails = []
+        for name in sorted(procs):
+            with open(os.path.join(job, f"{name}.log"), errors="replace") as f:
+                tails.append((name, procs[name].returncode, f.read()[-4000:]))
+        raise AssertionError(f"ps: {failed} failed or outlived "
+                             f"{PS_TIMEOUT} s: {tails}")
+    res = []
+    for r in range(PS_TRAINERS):
+        with open(os.path.join(job, f"trainer{r}.json")) as f:
+            res.append(json.load(f))
+    return res, seconds
+
+
+def ps_fleet_executor(torch, seed):
+    """BERT-base bf16 in eval as a three-stage FleetExecutor in one
+    Carrier (the embeddings; layers 0-5; layers 6-11, the pooler and the
+    classifier), FE_MICRO micro-batches of 2 x 512 as CUDA tensors,
+    buffer_size FE_BUFFER: each micro-batch's logits equal the whole
+    model's to the bit, B1 12 times a micro-batch."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.distributed.fleet_executor import (FleetExecutor,
+                                                             TaskNode)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    cfg = ps_bert_cfg()
+    model = bert_model(torch, cfg, seed).to(dtype=torch.bfloat16).eval()
+    layers = model.bert.encoder.layers
+    half = len(layers) // 2
+    b, s = FE_SHAPE[:2]
+    (ids, _), = cls_stream(seed + 22, 1, 1, FE_MICRO * b, s, cfg.vocab_size)
+    micro = list(torch.from_numpy(ids[0]).cuda().split(b))
+
+    def embed(x):
+        with torch.no_grad():
+            return model.bert.embeddings(x)
+
+    def encode(lo, hi):
+        def run(h):
+            with torch.no_grad():
+                for layer in layers[lo:hi]:
+                    h = layer(h, None)
+                return h
+        return run
+
+    def head(h):
+        with torch.no_grad():
+            h = encode(half, len(layers))(h)
+            pooled = F.tanh(model.bert.pooler(h[:, 0]))
+            return model.classifier(model.dropout(pooled))
+    with torch.no_grad():
+        model(micro[0])     # the tile search, on this thread
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = [model(x) for x in micro]
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t0) * 1e3
+    nodes = [TaskNode("embeddings", fn=embed, buffer_size=FE_BUFFER),
+             TaskNode("layers0_5", fn=encode(0, half), buffer_size=FE_BUFFER),
+             TaskNode("layers6_11_head", fn=head, buffer_size=FE_BUFFER)]
+    for a, c in zip(nodes, nodes[1:]):
+        a.add_downstream_task(c.task_id)
+        c.add_upstream_task(a.task_id)
+    fe = FleetExecutor(nodes)
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    got = fe.run(micro, timeout=120)
+    torch.cuda.synchronize()
+    fe_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: launch_counts[k] for k in launch_counts
+                if k.split(".")[0] in fa.KERNEL_NAMES}
+    equal = [bool(torch.equal(g, w)) for g, w in zip(got, whole)]
+    row = {"phase": "ps_fleet_executor",
+           "config": f"BERT-base v30522 h768 L12 a12 d64 bf16 eval, 3 "
+                     f"stages (embeddings; layers 0-{half - 1}; layers "
+                     f"{half}-{len(layers) - 1} + pooler + classifier) in "
+                     f"one Carrier, buffer_size {FE_BUFFER}",
+           "micro_batches": FE_MICRO, "micro_batch": [b, s],
+           "outputs": len(got), "equal_to_whole_model": equal,
+           "max_abs_logit": max(w.float().abs().max().item() for w in whole),
+           "launches": launches, "executor_ms": fe_ms,
+           "whole_model_ms": whole_ms}
+    emit(row)
+    assert len(got) == FE_MICRO and all(equal), row
+    assert launches.get(f"{fa.KERNEL_NAME}.{fa.TC}", 0) == \
+        cfg.num_layers * FE_MICRO, launches
+    del model, whole, got
+    free_cuda(torch)
+    return row
+
+
+def ps_serial(torch, seed, cfg, rows, ids, labels):
+    """Serial BERT-base doing the two sync trainers' arithmetic in plain
+    PyTorch: at each step each trainer's 4 rows of the 8 x 512 batch (the
+    batches InMemoryDataset deals them) through forward and backward at
+    the same parameters, then each half's gradient applied in turn,
+    ``p -= PS_LR * g``, as a pserver's SGD applies each push; the word
+    embedding's gradient sparse, merged (coalesce) and applied to its rows
+    likewise. Its word rows start from the tables' first pulls
+    (C-ref-29). In f32 and under amp O1 bf16: each run's losses (the
+    halves' mean) and final parameters, and for the bf16 run the part of
+    each dense parameter's update that the second half's pushes made."""
+    import paddle_tpu_torch as pt
+    model = bert_model(torch, cfg, seed).train()
+    word = model.bert.embeddings.word_embeddings
+    word._sparse = True
+    with torch.no_grad():
+        word.weight[torch.from_numpy(rows[0]).cuda()] = torch.from_numpy(
+            rows[1]).cuda()
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    dense = [(n, p) for n, p in model.named_parameters()
+             if p is not word.weight]
+    xs, ys = torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda()
+    half = PS_RANK_SHAPE[0]
+    out = {"init": init}
+    for dtype in ("float32", "bfloat16"):
+        model.set_state_dict(init)
+        second = {n: torch.zeros_like(p) for n, p in dense}
+        losses = []
+        t0 = time.perf_counter()
+        for t in range(PS_STEPS):
+            pushes, halves = [], []
+            for r in range(PS_TRAINERS):
+                rows_r = slice(r * half, (r + 1) * half)
+                with pt.amp.auto_cast(enable=dtype == "bfloat16",
+                                      dtype="bfloat16"):
+                    loss = model(xs[t, rows_r], labels=ys[t, rows_r])
+                loss.backward()
+                halves.append(loss.item())
+                g = word.weight.grad.coalesce()
+                pushes.append(([p.grad for _, p in dense], g.indices()[0],
+                               g.values()))
+                for p in model.parameters():
+                    p.grad = None
+            with torch.no_grad():
+                for r, (grads, wid, wgrad) in enumerate(pushes):
+                    for (n, p), g in zip(dense, grads):
+                        upd = PS_LR * g
+                        p.sub_(upd)
+                        if r == PS_TRAINERS - 1:
+                            second[n].add_(upd)
+                    word.weight.index_copy_(
+                        0, wid, word.weight[wid] - PS_LR * wgrad)
+            del pushes
+            losses.append(float(np.mean(halves)))
+        out[dtype] = {"losses": losses,
+                      "seconds": time.perf_counter() - t0,
+                      "params": {n: p.detach().float().cpu().numpy()
+                                 for n, p in dense},
+                      "second": {n: v.cpu().numpy()
+                                 for n, v in second.items()}}
+        del second
+    del model
+    free_cuda(torch)
+    return out
+
+
+def ps_first_rows(job):
+    """Each id's row at its first pull (the earliest step it appears in,
+    pulled by either trainer before any push of that step): (ids, rows)."""
+    first = {}
+    for step in range(PS_STEPS):
+        for r in range(PS_TRAINERS):
+            with np.load(os.path.join(job, f"rows{r}.npz")) as z:
+                for i, row in zip(z[f"ids{step}"], z[f"rows{step}"]):
+                    i = int(i)
+                    if i not in first:
+                        first[i] = (step, row)
+                    elif first[i][0] == step:
+                        assert np.array_equal(first[i][1], row), i
+    ids = np.array(sorted(first), dtype=np.int64)
+    return ids, np.stack([first[i][1] for i in ids])
+
+
+def phase_ps(torch, seed):
+    """The ps group: the pservers and the trainers started (the
+    FleetExecutor forward on this process meanwhile), then the serial
+    runs held against the trainers' sync steps, the async run's tables and
+    the sparse rows. Returns B1-B3's launches a step (rank 0) and in the
+    executor's run, and the seconds."""
+    import shutil
+
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    cache_dir = os.environ["PADDLE_TPU_AUTOTUNE_CACHE"]
+    job = os.path.join(cache_dir, "ps")
+    shutil.rmtree(job, ignore_errors=True)
+    os.makedirs(job)
+    seconds = {}
+    free_cuda(torch)
+    # the tiles of a trainer's shape, searched once here: both trainers
+    # then read them from the cache
+    b, s, h, d = PS_RANK_SHAPE
+    dev = torch.device("cuda")
+    fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, False, dev)
+    fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, False, dev)
+    cfg = ps_bert_cfg()
+    ids, labels, _ = ps_feeds(seed, cfg)
+    started = ps_start(seed, job)
+    try:
+        t0 = time.perf_counter()
+        fe = ps_fleet_executor(torch, seed)
+        seconds["fleet_executor"] = time.perf_counter() - t0
+    except BaseException:
+        ps_stop(started[0], job)
+        raise
+    ranks, seconds["servers_and_trainers"] = ps_join(started, job)
+    # the serial run takes each trainer's rows as InMemoryDataset dealt them
+    half = PS_RANK_SHAPE[0]
+    for r in range(PS_TRAINERS):
+        with np.load(os.path.join(job, f"rows{r}.npz")) as z:
+            for t in range(PS_STEPS):
+                assert np.array_equal(z[f"ids{t}"], np.unique(
+                    ids[t, r * half:(r + 1) * half])), (r, t)
+    t0 = time.perf_counter()
+    first = ps_first_rows(job)
+    serial = ps_serial(torch, seed, cfg, first, ids, labels)
+    seconds["serial"] = time.perf_counter() - t0
+    sb, sf = serial["bfloat16"], serial["float32"]
+    mean = [float(np.mean([r["steps"][t]["loss"] for r in ranks]))
+            for t in range(PS_STEPS)]
+    gaps, bounds = bf16_bounds(mean, sb["losses"], sf["losses"])
+    init = {n: v.float().cpu().numpy().astype(np.float64)
+            for n, v in serial["init"].items()}
+    # each table's update: (gap to the serial bf16 run's, the bf16 rule's
+    # bound, what the gap would read had the second trainer's pushes been
+    # dropped); a dropped push of every trainer reads 1
+    updates = {}
+    with np.load(os.path.join(job, "tables.npz")) as z:
+        for n in z.files:
+            got, want, truth = (v.astype(np.float64) - init[n] for v in (
+                z[n], sb["params"][n], sf["params"][n]))
+            updates[n] = (rel_l2_np(got, want),
+                          BF16_GRAD_FACTOR * rel_l2_np(want, truth)
+                          + BF16_GRAD_SLACK,
+                          rel_l2_np(want - sb["second"][n], want))
+    worst = sorted(updates.items(), key=lambda kv: -kv[1][0] / kv[1][1])
+    sent = np.unique(ids)
+    stat = ranks[0]["stat_after_async"]
+    sparse_rows = sum(v for st in stat for v in st.values() if v is not None)
+    kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    tc = fa.TC
+    steps = [r["steps"] for r in ranks]
+    row = {"phase": "ps", "servers": PS_SERVERS, "trainers": PS_TRAINERS,
+           "config": f"BERT-base v30522 h768 L12 a12 d64 f32 under amp O1 "
+                     f"bf16, the word embedding a sparse table, "
+                     f"DistributeTranspiler over {PS_SERVERS} pservers "
+                     f"(host processes), sync, server SGD lr {PS_LR}",
+           "rank_batch": list(PS_RANK_SHAPE[:2]), "steps": PS_STEPS,
+           "losses": [[st["loss"] for st in r] for r in steps],
+           "mean_losses": mean, "serial_bf16_losses": sb["losses"],
+           "serial_f32_losses": sf["losses"], "loss_rel_gaps": gaps,
+           "loss_bounds": bounds,
+           "update_rel_l2_worst": worst[:3],
+           "update_rel_l2_median": float(np.median(
+               [g for g, _, _ in updates.values()])),
+           "update_bound_median": float(np.median(
+               [b for _, b, _ in updates.values()])),
+           "tables_catching_dropped_pushes": sum(
+               b < 1.0 for _, b, _ in updates.values()),
+           "tables_catching_dropped_second_trainer": sum(
+               b < d for _, b, d in updates.values()),
+           "dropped_second_trainer_min_reading": min(
+               d for _, _, d in updates.values()),
+           "tables_bound_at_least_1": sorted(
+               n for n, (_, b, _) in updates.items() if b >= 1.0),
+           "step_ms": [[st["ms"] for st in r] for r in steps],
+           "pull_ms": [[st["pull_ms"] for st in r] for r in steps],
+           "compute_ms": [[st["compute_ms"] for st in r] for r in steps],
+           "push_ms": [[st["push_ms"] for st in r] for r in steps],
+           "barrier_ms": [[st["barrier_ms"] for st in r] for r in steps],
+           "pulled_bytes_per_step": [r[-1]["pulled_bytes"] for r in steps],
+           "pushed_bytes_per_step": [r[-1]["pushed_bytes"] for r in steps],
+           "init_s": [r["init_s"] for r in ranks],
+           "ready_s": [r["ready_s"] for r in ranks],
+           "sparse_rows": sparse_rows, "distinct_ids_sent": int(sent.size),
+           "async_steps": PS_ASYNC, "async_s": [r["async_s"] for r in ranks],
+           "async_losses": [[st["loss"] for st in r["async_steps"]]
+                            for r in ranks],
+           "async_moved": sum(ranks[0]["async_moved"].values()),
+           "async_tables": len(ranks[0]["async_moved"]),
+           "async_servers": ranks[0]["async_servers"],
+           "peak_mem_bytes": [r["peak_mem_bytes"] for r in ranks],
+           "tiles": ranks[0]["tiles"], "serial_s": [sf["seconds"],
+                                                    sb["seconds"]],
+           "seconds": seconds}
+    emit(row)
+    # the sync gate: the trainers' arithmetic done serially
+    assert all(np.isfinite(mean)), mean
+    assert all(g <= bd for g, bd in zip(gaps, bounds)), (gaps, bounds)
+    assert len(updates) == PS_DENSE_TABLES and \
+        worst[0][1][0] <= worst[0][1][1], worst[:3]
+    # the async run moved every table, on both pservers (C-ref-28)
+    assert all(ranks[0]["async_moved"].values()), ranks[0]["async_moved"]
+    assert ranks[0]["async_servers"] == list(range(PS_SERVERS))
+    # the sparse rows: no more than the distinct ids sent
+    assert sparse_rows <= sent.size, (sparse_rows, sent.size)
+    # B1-B3 once a layer a step on each trainer, sync and async
+    for r in ranks:
+        for st in r["steps"] + r["async_steps"]:
+            for kernel in kernels:
+                assert st["launches"].get(f"{kernel}.{tc}", 0) == \
+                    cfg.num_layers, st["launches"]
+    shutil.rmtree(job, ignore_errors=True)
+    return {"per_step_rank0": ranks[0]["steps"][-1]["launches"],
+            "per_step_rank1": ranks[1]["steps"][-1]["launches"],
+            "fleet_executor": fe["launches"], "tiles": ranks[0]["tiles"],
+            "seconds": seconds}
+
+
+def ps_entries(fa, entry, rows, bwd_rows, ps, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 on the ps group's
+    path: a trainer's (4, 512, 12, 64), non-causal, with the launches a
+    step on trainer 0 (each forward writes O in f32 too: its time and
+    bound are those); and B1 at the FleetExecutor's micro-batch (2, 512,
+    12, 64), with its launches over the executor's run."""
+    tc = fa.TC
+
+    def at(found, shape):
+        return next(r for r in found if r["shape"] == list(shape)
+                    and r["dtype"] == "bfloat16" and not r["causal"])
+    counts = ps["per_step_rank0"]
+    main = ("BERT-base f32 under amp bf16 through 2 pservers, a sync "
+            "trainer's (4, 512, 12, 64), non-causal (ps)")
+    fwd = at(rows, PS_RANK_SHAPE)
+    out = [entry(f"{fa.KERNEL_NAME}.{tc}.ps", "flash_attn_fwd_tc.cu", 114,
+                 fwd, counts.get(f"{fa.KERNEL_NAME}.{tc}", 0),
+                 fwd["max_abs_err_o"], rel_l2=fwd["rel_l2_o"],
+                 main_path=main, ms=fwd["ms_with_f32_out"],
+                 bound_ms=fwd["bound_us_with_f32_out"] / 1e3,
+                 bound_by=fwd["bound_by_with_f32_out"],
+                 share_of_bound=fwd["bound_us_with_f32_out"] / 1e3
+                 / fwd["ms_with_f32_out"],
+                 factor_vs_library=fwd["ms_with_f32_out"]
+                 / fwd["library_ms"], ms_without_f32_out=fwd["ms"])]
+    for kernel, source, line, key in (
+            (fa.DKV_KERNEL, "flash_attn_dkv_tc.cu", 200, "dkv"),
+            (fa.DQ_KERNEL, "flash_attn_dq_tc.cu", 247, "dq")):
+        row = at(bwd_rows[key], PS_RANK_SHAPE)
+        out.append(entry(f"{kernel}.{tc}.ps", source, line, row,
+                         counts.get(f"{kernel}.{tc}", 0), row["max_abs_err"],
+                         rel_l2={o: g["rel_l2"] for o, g in
+                                 row["rel_l2_by_output"].items()},
+                         main_path=main, **scope))
+    fe = at(rows, FE_SHAPE)
+    out.append(entry(f"{fa.KERNEL_NAME}.{tc}.fleet_executor",
+                     "flash_attn_fwd_tc.cu", 114, fe,
+                     ps["fleet_executor"].get(f"{fa.KERNEL_NAME}.{tc}", 0),
+                     fe["max_abs_err_o"], rel_l2=fe["rel_l2_o"],
+                     main_path="BERT-base bf16 eval as a three-stage "
+                               "FleetExecutor, 4 micro-batches of 2 x 512, "
+                               "non-causal (ps)"))
+    return out
 
 
 def phase_optim(torch, seed):
@@ -10323,18 +11049,16 @@ def phase_surface(torch, seed):
     return lanes
 
 
-def run_beside(started, beside):
-    """``beside()`` on this process while the started rank processes run
-    (they are ended if it fails); returns its result and seconds."""
+def run_beside(beside, *starts):
+    """``beside()`` on this process while the started rank sets run (they
+    are ended if it fails); returns its result and seconds."""
     if beside is None:
         return None, 0.0
     t0 = time.perf_counter()
     try:
         return beside(), time.perf_counter() - t0
     except BaseException:
-        for p in started[0]:
-            p.kill()
-            p.communicate()
+        end_ranks(*starts)
         raise
 
 
@@ -10344,6 +11068,50 @@ def phase_bert(torch, seed):
     phase_cls_train(torch, seed, "bert")
     phase_cls_train(torch, seed, "ernie")
     return phase_bert_flash(torch, seed)
+
+
+def phase_nn_rest(torch, seed):
+    """The nn_rest group: nn_rest_cases, rnn_small, translate and lstm_lm;
+    returns each lane's B1-B3 launches (translate's over its encode and
+    beam search, the others' over the lane, none)."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    t_group = time.perf_counter()
+    lanes, seconds = {}, {}
+    for lane, fn in (
+            ("nn_rest_cases", lambda t, _: phase_nn_rest_cases(t)),
+            ("rnn_small", phase_rnn_small),
+            ("translate", phase_translate),
+            ("lstm_lm", phase_lstm_lm)):
+        launch_counts.clear()
+        t_lane = time.perf_counter()
+        row = fn(torch, seed)
+        seconds[lane] = time.perf_counter() - t_lane
+        if lane == "translate":
+            # the path's own window: the counts reset just before its
+            # encode and beam search and read just after
+            lanes[lane] = row["flash_launch_counts"]
+        else:
+            lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                           if k.split(".")[0] in KERNEL_NAMES}
+            assert not any(lanes[lane].values()), (lane, lanes[lane])
+    emit({"phase": "nn_rest", "seconds": time.perf_counter() - t_group,
+          "lane_seconds": seconds})
+    return lanes
+
+
+def phase_hapi(torch, seed):
+    """The hapi group: hapi_lenet (under cudnn_deterministic),
+    hapi_resnet50 and hapi_bert; returns their B1-B3 launches."""
+    with cudnn_deterministic(torch):
+        lenet_row = phase_hapi_lenet(torch, seed)
+    resnet_row = phase_hapi_resnet50(torch, seed)
+    bert_row = phase_hapi_bert(torch, seed)
+    emit({"phase": "hapi", "seconds": {
+        r["phase"]: r["seconds"] for r in (lenet_row, resnet_row, bert_row)}})
+    return {"hapi_lenet": lenet_row["flash_launches"],
+            "hapi_resnet50": resnet_row["flash_launches"],
+            "hapi_bert": bert_row["launches_per_step"]}
 
 
 def phase_vision(torch, seed):
@@ -10400,12 +11168,15 @@ def elastic_entries(fa, entry, rows, bwd_rows, elastic, scope):
 # a group (key) whose parent waits on its rank processes hosts a guest
 # group on this process meanwhile: the guest's captured replays share the
 # card with the ranks' steps, and the host is little used by either
-GUESTS = {"elastic": ("vision", phase_vision),
-          "hybrid": ("surface", phase_surface),
-          "pipeline": ("bert", phase_bert),
-          "layouts": ("optim", phase_optim)}
+GUESTS = {"auto_moe": (("hapi", phase_hapi),),
+          "elastic": (("vision", phase_vision),),
+          "hybrid": (("surface", phase_surface),
+                     ("to_static_grad", phase_to_static_grad)),
+          "pipeline": (("bert", phase_bert),),
+          "layouts": (("optim", phase_optim), ("nn_rest", phase_nn_rest))}
 
-PHASE_GROUPS = ("build", "kernels", "auto_moe", "elastic", "reference",
+PHASE_GROUPS = ("build", "kernels", "auto_moe", "elastic", "ps",
+                "reference",
                 "serve", "train", "to_static_grad", "bert", "vision",
                 "serving",
                 "hapi", "optim", "surface", "nn_rest", "zoo", "dist_tune",
@@ -10431,6 +11202,12 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument("--elastic-tools", action="store_true",
                     help=argparse.SUPPRESS)
+    # a pserver or a trainer of the ps group, started by phase_ps
+    ap.add_argument("--ps-role", choices=("server", "trainer"), default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ps-index", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ps-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     run = set(args.phases.split(","))
     unknown = run - set(PHASE_GROUPS)
@@ -10439,6 +11216,11 @@ def main():
                  f"{PHASE_GROUPS}")
 
     import torch
+    if args.ps_role == "server":
+        # a host process: the card is hidden from it
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        ps_server_main(args)
+        return
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible; this script runs the "
                  "port on the card and has no host fallback")
@@ -10455,6 +11237,9 @@ def main():
         return
     if args.elastic_job is not None:
         elastic_job_main(torch, args)
+        return
+    if args.ps_role == "trainer":
+        ps_trainer_main(torch, args)
         return
     # a run still going near the time limit shows where it is
     faulthandler.dump_traceback_later(STACK_DUMP_S)
@@ -10480,33 +11265,37 @@ def main():
 
     def hosting(host, run_host):
         """Group ``host`` through ``run_host(beside)``, with its guest
-        group (GUESTS) run on this process beside its rank processes when
-        both run; the guest's seconds are its own, the host's exclude
+        groups (GUESTS) that run, in turn, on this process beside its rank
+        processes; each guest's seconds are its own, the host's exclude
         them (clock)."""
-        guest, fn = GUESTS[host]
+        guests = [(g, fn) for g, fn in GUESTS[host] if g in run]
         t_group = time.perf_counter()
-        beside = functools.partial(fn, torch, args.seed) \
-            if guest in run else None
-        res = run_host(beside)
+
+        def beside():
+            done = {}
+            for g, fn in guests:
+                t0 = time.perf_counter()
+                done[g] = (fn(torch, args.seed), time.perf_counter() - t0)
+            return done
+        res = run_host(beside if guests else None)
         lanes = res.pop("seconds")
         hosted = res.pop("beside")
-        if beside is not None:
-            out[guest] = hosted
-            group_seconds[guest] = lanes["beside"]
-            host_guest[host] = guest
+        for g, _ in guests:
+            out[g], group_seconds[g] = hosted[g]
+        host_guests[host] = [g for g, _ in guests]
         emit({"phase": host, "seconds": time.perf_counter() - t_group,
               "lane_seconds": lanes})
         return res
-    host_guest = {}
+    host_guests = {}
 
     def clock(group):
         """The seconds since the previous group ended, for ``group``, less
-        those of the guest group it hosted (one that ran beside another is
-        counted already)."""
+        those of the guest groups it hosted (one that ran beside another
+        is counted already)."""
         now = time.perf_counter()
         if group in run and group not in group_seconds:
-            group_seconds[group] = now - last[0] - group_seconds.get(
-                host_guest.get(group), 0.0)
+            group_seconds[group] = now - last[0] - sum(
+                group_seconds[g] for g in host_guests.get(group, ()))
         last[0] = now
     if "build" in run:
         phase_build()
@@ -10516,18 +11305,22 @@ def main():
         out["bwd_rows"] = phase_kernels_bwd(torch, args.seed)
     clock("kernels")
     # auto_parallel and incubate run early, in a process that has driven
-    # little else yet, while the card and the host are quiet
+    # little else yet; the hapi group follows them beside the ranks
     if "auto_moe" in run:
-        t_group = time.perf_counter()
-        out["auto_moe"] = phase_auto_moe(torch, args.seed)
-        emit({"phase": "auto_moe", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": out["auto_moe"].pop("seconds")})
+        out["auto_moe"] = hosting("auto_moe", lambda b: phase_auto_moe(
+            torch, args.seed, b))
 
     clock("auto_moe")
     if "elastic" in run:
         out["elastic"] = hosting("elastic", lambda b: phase_elastic(
             torch, args.seed, b))
     clock("elastic")
+    if "ps" in run:
+        t_group = time.perf_counter()
+        out["ps"] = phase_ps(torch, args.seed)
+        emit({"phase": "ps", "seconds": time.perf_counter() - t_group,
+              "lane_seconds": out["ps"].pop("seconds")})
+    clock("ps")
     # every phase runs under the defaults: FLAGS_fusion_policy auto (the
     # measured table) and the tile search on
     if "reference" in run:
@@ -10543,7 +11336,7 @@ def main():
                                                out["train"])
         out["amp"] = phase_amp_train(torch, args.seed)
     clock("train")
-    if "to_static_grad" in run:
+    if "to_static_grad" in run and "hybrid" not in run:
         phase_to_static_grad(torch, args.seed)
     clock("to_static_grad")
     if "bert" in run and "pipeline" not in run:
@@ -10565,18 +11358,8 @@ def main():
             "resnet_server": resnet_row["flash_launches"],
             "decode": decode_row["flash_launches"]}
     clock("serving")
-    if "hapi" in run:
-        with cudnn_deterministic(torch):
-            lenet_row = phase_hapi_lenet(torch, args.seed)
-        resnet_row = phase_hapi_resnet50(torch, args.seed)
-        bert_row = phase_hapi_bert(torch, args.seed)
-        out["hapi"] = {"hapi_lenet": lenet_row["flash_launches"],
-                       "hapi_resnet50": resnet_row["flash_launches"],
-                       "hapi_bert": bert_row["launches_per_step"]}
-        emit({"phase": "hapi", "seconds": {
-            r["phase"]: r["seconds"]
-            for r in (lenet_row, resnet_row, bert_row)}})
-
+    if "hapi" in run and "auto_moe" not in run:
+        out["hapi"] = phase_hapi(torch, args.seed)
     clock("hapi")
     if "optim" in run and "layouts" not in run:
         out["optim"] = phase_optim(torch, args.seed)
@@ -10586,31 +11369,8 @@ def main():
         out["surface"] = phase_surface(torch, args.seed)
 
     clock("surface")
-    if "nn_rest" in run:
-        from paddle_tpu_torch.ops.cuda import launch_counts
-        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
-        t_group = time.perf_counter()
-        lanes, seconds = {}, {}
-        for lane, fn in (
-                ("nn_rest_cases", lambda t, _: phase_nn_rest_cases(t)),
-                ("rnn_small", phase_rnn_small),
-                ("translate", phase_translate),
-                ("lstm_lm", phase_lstm_lm)):
-            launch_counts.clear()
-            t_lane = time.perf_counter()
-            row = fn(torch, args.seed)
-            seconds[lane] = time.perf_counter() - t_lane
-            if lane == "translate":
-                # the path's own window: the counts reset just before its
-                # encode and beam search and read just after
-                lanes[lane] = row["flash_launch_counts"]
-            else:
-                lanes[lane] = {k: launch_counts[k] for k in launch_counts
-                               if k.split(".")[0] in KERNEL_NAMES}
-                assert not any(lanes[lane].values()), (lane, lanes[lane])
-        out["nn_rest"] = lanes
-        emit({"phase": "nn_rest", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": seconds})
+    if "nn_rest" in run and "layouts" not in run:
+        out["nn_rest"] = phase_nn_rest(torch, args.seed)
 
     clock("nn_rest")
     if "zoo" in run:
@@ -10703,7 +11463,7 @@ def main():
             out["serving"], out["hapi"], out["optim"], out["surface"],
             out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"],
             out["pipeline"], out["layouts"], out["auto_moe"],
-            out["elastic"])})
+            out["elastic"], out["ps"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "group_seconds": group_seconds, "timing": TIMING})
     print(smi, flush=True)

@@ -21,16 +21,19 @@ framed codec and ``p2p`` the TCP channel beside the process group (the
 abort broadcast, the subgroup collectives); ``launch`` and
 ``launch_utils`` the job launcher (``python -m
 paddle_tpu_torch.distributed.launch``) with the supervised relaunch of a
-failed rank. The parameter-server half of the reference's package
-(``ps``, ``transpiler``, ``fleet_executor``, the datasets) is absent
-until its ROADMAP A10 item.
+failed rank. The parameter-server half: ``ps`` (the tables, the server
+and client, the asynchronous communicator, ``TheOnePSRuntime``),
+``transpiler`` (``DistributeTranspiler`` over two or more pservers),
+``fleet_executor`` (the actor runtime) and the datasets
+(``InMemoryDataset``, ``QueueDataset``, fleet/dataset.py).
 """
 from __future__ import annotations
 
 import os
 
-from . import (auto_parallel, checkpoint, fleet, launch,  # noqa: F401
-               launch_utils, p2p, spec_layout, utils, wire)
+from . import (auto_parallel, checkpoint, fleet,  # noqa: F401
+               fleet_executor, launch, launch_utils, p2p, ps, spec_layout,
+               transpiler, utils, wire)
 from .auto_parallel import (  # noqa: F401
     ProcessMesh, dtensor_from_fn, reshard, shard_op, shard_tensor)
 from .checkpoint import (  # noqa: F401
@@ -39,6 +42,7 @@ from .checkpoint import (  # noqa: F401
 from .collective import (  # noqa: F401
     Group, ReduceOp, all_gather, all_reduce, alltoall, barrier, broadcast,
     get_group, new_group, recv, reduce, reduce_scatter, scatter, send, split)
+from .fleet.dataset import InMemoryDataset, QueueDataset  # noqa: F401
 from .env import (  # noqa: F401
     get_rank, get_world_size, init_parallel_env, is_initialized,
     parallel_device_count)

@@ -124,13 +124,11 @@ class _HashingWriter:
 def _save_hashed(obj, path):
     """``framework.io_utils.save`` of ``obj``; returns the file's sha256,
     computed as the bytes are written."""
-    import pickle
-
-    from ..framework.io_utils import _PROTO, _to_serializable
+    from ..framework.io_utils import _to_serializable, dump
     with open(path, "wb") as f:
         w = _HashingWriter(f)
         try:
-            pickle.dump(_to_serializable(obj), w, protocol=_PROTO)
+            dump(_to_serializable(obj), w)
         finally:
             digest = w.close()
     return digest
@@ -142,9 +140,7 @@ def _load_verified(path):
     unverified); the file is read once, for the digest and the unpickling.
     Any damage — digest mismatch, torn pickle — surfaces as
     :class:`CorruptCheckpointError` so the caller can fall back."""
-    import pickle
-
-    from ..framework.io_utils import _from_serializable
+    from ..framework.io_utils import _from_serializable, loads
     want = None
     try:
         with open(path + ".sha256") as f:
@@ -159,7 +155,7 @@ def _load_verified(path):
             f"{path}: sha256 mismatch on restore "
             f"(got {got[:12]}, recorded {want[:12]})")
     try:
-        return _from_serializable(pickle.loads(data))
+        return _from_serializable(loads(data))
     except Exception as e:
         raise CorruptCheckpointError(
             f"{path}: unreadable checkpoint: {e}") from e

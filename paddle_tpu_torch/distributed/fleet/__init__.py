@@ -11,15 +11,16 @@ topology (``base.py``), the tensor-parallel layers and wrappers
 the SPMD circular pipeline (``spmd_pipeline.py``), elastic training
 (``elastic.py``: the FileStore and ElasticManager), the file systems
 (``fs.py``: ``LocalFS``, ``HDFSClient``), the global metrics
-(``metrics.py``), ``Role``, ``UtilBase`` and the slot data generators.
+(``metrics.py``), the datasets (``dataset.py``), ``Role``, ``UtilBase``
+and the slot data generators.
 
-The reference also exports expert parallelism's engine and ``dataset``;
-each comes with its ROADMAP item (A11, A10).
+The reference also exports expert parallelism's engine; it comes with
+its ROADMAP item (A11).
 """
 from __future__ import annotations
 
-from . import (elastic, fs, meta_optimizers, meta_parallel,  # noqa: F401
-               metrics, pipeline_engine, sequence_parallel,
+from . import (dataset, elastic, fs, meta_optimizers,  # noqa: F401
+               meta_parallel, metrics, pipeline_engine, sequence_parallel,
                sharding_optimizer, spmd_pipeline, utils)
 from ..checkpoint import (  # noqa: F401
     load_hybrid_checkpoint, save_hybrid_checkpoint)

@@ -9,8 +9,13 @@ beside the process group. It carries:
     plain data, arrays and tensors (a tensor on the card is copied to the
     host; bf16 travels as its 16-bit words);
   * the ``group_*`` collectives over a SUBSET of ranks, gathered to the
-    subset's first rank over the wire and computed there in numpy (they
-    return ndarrays; a bf16 tensor is reduced in f32);
+    subset's first rank over the wire and computed there in numpy. They
+    return ndarrays of the input's dtype (float16 included); for a bf16
+    or fp8 tensor, which numpy lacks, a host tensor of its dtype, as the
+    reference returns an ml_dtypes array of it. Such an input is reduced
+    in f32 and rounded once, where the reference's ml_dtypes sum rounds
+    after each addition, so beyond two members a sum may differ from the
+    reference's by an ulp;
   * ``broadcast_abort``: a rank that fails tells every peer, whose
     blocked ``recv`` then fails in seconds with ``PeerAbort``.
 
@@ -432,15 +437,27 @@ def _next_seq(key):
 
 
 def _host(value):
-    """A tensor as a host ndarray (bf16 and fp8 widened to f32, which
-    numpy holds); anything else through np.asarray."""
+    """A tensor as a host ndarray of its dtype (bf16 and fp8, which numpy
+    lacks, widened to f32); anything else through np.asarray."""
     if isinstance(value, torch.Tensor):
         t = value.detach().cpu()
-        if t.dtype in (torch.bfloat16, torch.float16) or \
-                t.dtype.itemsize == 1 and t.is_floating_point():
+        if _widened(t):
             t = t.float()
         return t.numpy()
     return np.asarray(value)
+
+
+def _widened(value):
+    return isinstance(value, torch.Tensor) and value.is_floating_point() \
+        and (value.dtype == torch.bfloat16 or value.element_size() == 1)
+
+
+def _narrowed(out, value):
+    """A collective's result in the input's dtype: a widened bf16 or fp8
+    input comes back as a host tensor of its dtype."""
+    if _widened(value):
+        return torch.from_numpy(np.ascontiguousarray(out)).to(value.dtype)
+    return out
 
 
 # -- p2p API -----------------------------------------------------------------
@@ -525,7 +542,8 @@ def group_all_reduce(value, ranks, op="sum"):
     def compute(vals):
         red = _REDUCE_NP[op](np.stack(vals))
         return [red.astype(np.asarray(vals[0]).dtype)] * len(vals)
-    return _root_exchange(_host(value), list(ranks), f"ar.{op}", compute)
+    return _narrowed(_root_exchange(_host(value), list(ranks), f"ar.{op}",
+                                    compute), value)
 
 
 def group_broadcast(value, ranks, src):
@@ -538,7 +556,8 @@ def group_broadcast(value, ranks, src):
 
     def compute(vals):
         return [vals[0]] * len(vals)
-    return _root_exchange(_host(value), order, "bc", compute)
+    return _narrowed(_root_exchange(_host(value), order, "bc", compute),
+                     value)
 
 
 def group_all_gather(value, ranks):
@@ -547,7 +566,8 @@ def group_all_gather(value, ranks):
     def compute(vals):
         stacked = np.stack([np.asarray(v) for v in vals])
         return [stacked] * len(vals)
-    return _root_exchange(_host(value), ranks, "ag", compute)
+    return _narrowed(_root_exchange(_host(value), ranks, "ag", compute),
+                     value)
 
 
 def group_reduce_scatter(value, ranks, op="sum"):
@@ -565,7 +585,7 @@ def group_reduce_scatter(value, ranks, op="sum"):
         red = _REDUCE_NP[op](np.stack(vals))
         chunk = red.shape[0] // n
         return [red[i * chunk:(i + 1) * chunk] for i in range(n)]
-    return _root_exchange(v, ranks, f"rs.{op}", compute)
+    return _narrowed(_root_exchange(v, ranks, f"rs.{op}", compute), value)
 
 
 def group_alltoall(value, ranks):
@@ -580,7 +600,7 @@ def group_alltoall(value, ranks):
     if v.shape[0] != n:
         raise ValueError(
             f"alltoall needs {n} chunks, got leading dim {v.shape[0]}")
-    return _root_exchange(v, ranks, "a2a", compute)
+    return _narrowed(_root_exchange(v, ranks, "a2a", compute), value)
 
 
 def group_barrier(ranks):

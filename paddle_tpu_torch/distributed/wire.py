@@ -5,7 +5,12 @@ The reference's brpc/protobuf frames become a tiny tag-based binary codec
 that can only construct plain data (None/bool/int/float/str/bytes/list/
 tuple/dict/array): decoding a peer's bytes never runs code. The port
 writes the same bytes as the reference for the same objects, so each
-package reads the other's frames.
+package reads the other's frames. ``send_frame`` writes a frame in
+pieces, a large array's bytes straight from the array, and
+``recv_frame`` reads it into one buffer: the codec copies an array's
+bytes once (into the decoded array), where joining the pieces copied them
+six times (a parameter server moves a BERT-base's 344 MB of tables a
+step each way).
 
 A ``torch.Tensor`` travels as its ndarray. The accelerator dtypes numpy
 lacks travel by name with their raw words (a bf16 tensor as
@@ -82,11 +87,20 @@ _NAME_OF_TORCH = {dt: name for name, (dt, _) in _TORCH_NAMED.items()}
 
 # -- codec -------------------------------------------------------------------
 
+def _raw(arr):
+    """A C-contiguous array's bytes as a flat uint8 view (no copy; a frame
+    is written before its caller gets control back)."""
+    return arr.reshape(-1).view(np.uint8)
+
+
 def _enc_raw(dt, shape, raw, out):
+    # the payload stays its own piece: a large one is never copied into
+    # its header (``send_frame`` writes the pieces)
     out.append(b"a" + struct.pack("<B", len(dt)) + dt
                + struct.pack("<B", len(shape))
                + struct.pack(f"<{len(shape)}q", *shape)
-               + struct.pack("<Q", len(raw)) + raw)
+               + struct.pack("<Q", len(raw)))
+    out.append(raw)
 
 
 def _enc_tensor(t, out, depth):
@@ -94,7 +108,7 @@ def _enc_tensor(t, out, depth):
     name = _NAME_OF_TORCH.get(t.dtype)
     if name is not None:
         words = t.view(_TORCH_NAMED[name][1]).numpy()
-        _enc_raw(name.encode(), tuple(t.shape), words.tobytes(), out)
+        _enc_raw(name.encode(), tuple(t.shape), _raw(words), out)
         return
     try:
         arr = t.numpy()
@@ -150,7 +164,7 @@ def _enc(obj, out, depth=0):
         else:
             raise FrameError(f"unsupported array dtype {obj.dtype}")
         arr = np.ascontiguousarray(obj)
-        _enc_raw(dt, arr.shape, arr.tobytes(), out)
+        _enc_raw(dt, arr.shape, _raw(arr), out)
     elif isinstance(obj, torch.Tensor):
         _enc_tensor(obj, out, depth)
     else:
@@ -273,12 +287,21 @@ def decode(buf):
 
 # -- framed socket IO --------------------------------------------------------
 
+# a frame's buffer starts at most this large and grows as its bytes
+# arrive: a header announcing a huge frame reserves no more by itself
+_FIRST_BUFFER = 1 << 26
+
+
 def _recv_exact(sock, n, idle_ok=False):
-    chunks = []
+    """``n`` bytes from ``sock``, read into one buffer (a bytearray)."""
+    buf = bytearray(min(n, _FIRST_BUFFER))
     got = 0
     while got < n:
+        if got == len(buf):
+            buf.extend(bytes(min(len(buf), n - got)))
+        view = memoryview(buf)[got:got + min(len(buf) - got, 1 << 20)]
         try:
-            c = sock.recv(min(n - got, 1 << 20))
+            k = sock.recv_into(view)
         except TimeoutError:
             if idle_ok and got == 0:
                 raise IdleTimeout("no frame within socket timeout") from None
@@ -286,17 +309,26 @@ def _recv_exact(sock, n, idle_ok=False):
             # only safe recovery is dropping the connection
             raise FrameError(
                 f"socket timed out mid-frame ({got}/{n} bytes)") from None
-        if not c:
+        finally:
+            view.release()
+        if not k:
             raise ConnectionError("peer closed")
-        chunks.append(c)
-        got += len(c)
-    return b"".join(chunks)
+        got += k
+    return buf
 
 
-def _mac(payload):
+def _mac(pieces):
     secret = _secret()
-    return hmac.new(secret, payload, hashlib.sha256).digest() if secret \
-        else b""
+    if not secret:
+        return b""
+    h = hmac.new(secret, digestmod=hashlib.sha256)
+    for piece in pieces:
+        h.update(piece)
+    return h.digest()
+
+
+# pieces of a frame shorter than this are joined before they are written
+_SMALL_PIECE = 1 << 16
 
 
 def _verified(mac, payload):
@@ -318,9 +350,19 @@ def send_frame(sock, obj, timeout=...):
         timeout = _io_timeout()
     if timeout is not None:
         sock.settimeout(timeout)
-    payload = encode(obj)
-    mac = _mac(payload)
-    sock.sendall(struct.pack("<QB", len(payload), len(mac)) + mac + payload)
+    pieces = []
+    _enc(obj, pieces)
+    mac = _mac(pieces)
+    small = [struct.pack("<QB", sum(len(p) for p in pieces), len(mac)), mac]
+    for piece in pieces:
+        if len(piece) < _SMALL_PIECE:
+            small.append(piece)
+            continue
+        sock.sendall(b"".join(small))
+        small = []
+        sock.sendall(piece)
+    if small:
+        sock.sendall(b"".join(small))
 
 
 def recv_frame(sock, timeout=..., idle_ok=False):

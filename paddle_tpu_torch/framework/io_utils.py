@@ -4,8 +4,11 @@ across of numpy weights into a module.
 Port of paddle_tpu/framework/io_utils.py: nested dicts/lists whose tensors
 are stored as ``{"__tensor__": True, "data": ndarray, "stop_gradient",
 "name"}``. A file written by either package loads in the other. bfloat16
-payloads are ml_dtypes arrays, as JAX writes them; saving one needs
-ml_dtypes, which is imported only then.
+payloads are ml_dtypes arrays, as JAX writes them. The port needs no
+ml_dtypes for them: ``dump`` writes a bf16 tensor's 16-bit words under the
+array's own pickle opcodes (the global ``ml_dtypes.bfloat16`` written by
+hand, since pickling that global the usual way imports its module), and
+``loads`` reads such an array back as a bf16 tensor.
 
 A tensor-parallel model (distributed/fleet/meta_parallel.py) takes the
 reference's full arrays by name, each rank its shard
@@ -18,6 +21,7 @@ state dict of a ZeRO-3 module gathers them.
 """
 from __future__ import annotations
 
+import io
 import os
 import pickle
 import threading
@@ -70,6 +74,10 @@ def local_state_dict(module):
 def tensor_from_numpy(arr):
     """CPU tensor with the array's dtype, shape (0-d included) and values
     (bfloat16 included)."""
+    if isinstance(arr, torch.Tensor):
+        return arr
+    if isinstance(arr, _Bf16Words):
+        return arr.tensor()
     shape = np.shape(arr)
     arr = np.ascontiguousarray(arr)
     if arr.dtype.name == "bfloat16":
@@ -78,12 +86,148 @@ def tensor_from_numpy(arr):
     return torch.from_numpy(arr.copy()).reshape(shape)
 
 
+class _Bf16Words:
+    """A bf16 tensor's 16-bit words on their way into a pickle, where
+    ``dump`` writes them as the reference's ml_dtypes bfloat16 ndarray.
+    As an array (``np.asarray``) it is the int16 words."""
+
+    __slots__ = ("words",)
+
+    def __init__(self, words):
+        self.words = np.ascontiguousarray(words, dtype="<i2")
+
+    @property
+    def shape(self):
+        return self.words.shape
+
+    def __array__(self, dtype=None, copy=None):
+        return self.words if dtype is None else self.words.astype(dtype)
+
+    def tensor(self):
+        return torch.from_numpy(self.words.copy()).view(torch.bfloat16)
+
+
 def _numpy_from_tensor(t):
+    """A tensor as what a checkpoint pickles: its ndarray, or for bf16 its
+    words (``_Bf16Words``)."""
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
-        import ml_dtypes
-        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return _Bf16Words(t.view(torch.int16).numpy())
     return t.numpy()
+
+
+class _Global:
+    """A global written by name, without importing its module."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+
+
+# ml_dtypes' bfloat16 dtype as numpy pickles it:
+# numpy.dtype(ml_dtypes.bfloat16, False, True) with this state
+_BF16_DTYPE_STATE = (3, "<", None, None, None, 2, 2, 64)
+_ND_RECONSTRUCT = np.ndarray.__reduce__(np.zeros(0))[0]
+
+
+class _Bf16Dtype:
+    """Stands for numpy's bfloat16 dtype, in a pickle either way."""
+
+    def __setstate__(self, state):
+        pass
+
+
+class _Pickler(pickle._Pickler):
+    """pickle's Python pickler with bf16 words written as an ml_dtypes
+    bfloat16 ndarray: ``_reconstruct(ndarray, (0,), b'b')``, then its
+    state (1, shape, dtype, False, raw bytes), the dtype being
+    ``numpy.dtype(ml_dtypes.bfloat16, False, True)``."""
+
+    dispatch = dict(pickle._Pickler.dispatch)
+
+    def _save_global_name(self, obj):
+        if self.proto >= 4:
+            self.save(obj.module)
+            self.save(obj.name)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{obj.module}\n{obj.name}\n"
+                       .encode("utf-8"))
+
+    def _save_bf16_dtype(self, obj):
+        self.save_reduce(np.dtype, (_Global("ml_dtypes", "bfloat16"), False,
+                                    True), state=_BF16_DTYPE_STATE)
+
+    def _save_bf16(self, obj):
+        w = obj.words
+        self.save_reduce(_ND_RECONSTRUCT, (np.ndarray, (0,), b"b"),
+                         state=(1, w.shape, _Bf16Dtype(), False,
+                                w.tobytes()), obj=obj)
+
+    dispatch[_Global] = _save_global_name
+    dispatch[_Bf16Dtype] = _save_bf16_dtype
+    dispatch[_Bf16Words] = _save_bf16
+
+
+def dump(obj, file, protocol=_PROTO):
+    """``pickle.dump`` that writes ``_Bf16Words`` as ml_dtypes arrays."""
+    _Pickler(file, protocol=protocol).dump(obj)
+
+
+class _BF16:
+    """Stands for the global ml_dtypes.bfloat16 while unpickling."""
+
+
+class _ArraySlot:
+    """An ndarray being unpickled: ``_reconstruct`` makes it, pickle's
+    BUILD hands it its state; a bf16 one becomes a bf16 tensor."""
+
+    __slots__ = ("args", "value")
+
+    def __init__(self, *args):
+        self.args, self.value = args, None
+
+    def __setstate__(self, state):
+        if isinstance(state[2], _Bf16Dtype):
+            words = np.frombuffer(state[4], dtype="<i2").reshape(state[1])
+            self.value = torch.from_numpy(words.copy()).view(torch.bfloat16)
+        else:
+            a = _ND_RECONSTRUCT(*self.args)
+            a.__setstate__(state)
+            self.value = a
+
+
+def _dtype(*args):
+    if args and args[0] is _BF16:
+        return _Bf16Dtype()
+    return np.dtype(*args)
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) == ("ml_dtypes", "bfloat16"):
+            return _BF16
+        if (module, name) == ("numpy", "dtype"):
+            return _dtype
+        if name == "_reconstruct" and module in ("numpy.core.multiarray",
+                                                 "numpy._core.multiarray"):
+            return _ArraySlot
+        return super().find_class(module, name)
+
+
+def _resolve(obj):
+    if isinstance(obj, _ArraySlot):
+        return obj.value
+    if isinstance(obj, dict):
+        return {k: _resolve(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_resolve(v) for v in obj)
+    return obj
+
+
+def loads(data):
+    """``pickle.loads`` reading an ml_dtypes bfloat16 array as a bf16
+    tensor (every other array as its ndarray), without ml_dtypes."""
+    return _resolve(_Unpickler(io.BytesIO(data)).load())
 
 
 def _to_serializable(obj):
@@ -112,13 +256,13 @@ def save(obj, path, protocol=_PROTO):
     if d:
         os.makedirs(d, exist_ok=True)
     with open(path, "wb") as f:
-        pickle.dump(_to_serializable(obj), f, protocol=protocol)
+        dump(_to_serializable(obj), f, protocol=protocol)
 
 
 def load(path):
     """Tensors come back as CPU torch tensors with the stored dtypes."""
     with open(path, "rb") as f:
-        return _from_serializable(pickle.load(f))
+        return _from_serializable(loads(f.read()))
 
 
 def _shard(full, split):

@@ -23,7 +23,7 @@ import threading
 import numpy as np
 import torch
 
-from ..framework.io_utils import tensor_from_numpy
+from ..framework.io_utils import _Bf16Words, tensor_from_numpy
 
 __all__ = ["Dataset", "IterableDataset", "TensorDataset", "ComposeDataset",
            "ChainDataset", "Subset", "random_split", "Sampler",
@@ -273,6 +273,9 @@ def default_collate_fn(batch):
         return torch.from_numpy(stacked)
     if isinstance(sample, torch.Tensor):
         return torch.stack(batch)
+    if isinstance(sample, _Bf16Words):
+        # a bf16 tensor from a spawned worker, as its 16-bit words
+        return torch.stack([b.tensor() for b in batch])
     if isinstance(sample, (int, np.integer)):
         return torch.from_numpy(np.asarray(batch, dtype=np.int64))
     if isinstance(sample, float):

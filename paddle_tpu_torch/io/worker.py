@@ -92,7 +92,8 @@ def discard(obj):
 
 
 def _to_numpy(s):
-    """Tensors cross the process boundary as numpy arrays."""
+    """Tensors cross the process boundary as numpy arrays (a bf16 one as
+    its 16-bit words, ``io_utils._Bf16Words``)."""
     torch = sys.modules.get("torch")
     if torch is not None and isinstance(s, torch.Tensor):
         from ..framework.io_utils import _numpy_from_tensor

@@ -342,13 +342,17 @@ def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5, margin3=0.0,
     whose backward is the identity (each member's copy of the loss
     differentiates its own shard), and every member's loss is
     -(target logit - max - log(denominator)). A mesh axis name (the
-    reference's SPMD form) raises: ``shard_map`` comes with a later
-    ROADMAP A10 item."""
+    reference's SPMD form) is this rank's group on that axis of the
+    global mesh (``distributed.mesh``), whose member r holds the r-th
+    shard of the classes."""
     if isinstance(group, str):
-        raise NotImplementedError(
-            f"margin_cross_entropy(group={group!r}): a mesh axis name is the "
-            f"reference's shard_map form, which comes with a later ROADMAP "
-            f"A10 item; pass a distributed.Group")
+        from ...distributed.mesh import get_mesh
+        mesh = get_mesh()
+        if group not in mesh.axis_names:
+            raise ValueError(
+                f"margin_cross_entropy(group={group!r}): the global mesh has "
+                f"no axis {group!r} (its axes: {mesh.axis_names})")
+        group = mesh.group(group)
     x = logits.float()
     n_cls = x.shape[-1]
     lb = label.long()

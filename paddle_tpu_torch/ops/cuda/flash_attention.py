@@ -38,7 +38,7 @@ import functools
 import torch
 
 from .. import autotune
-from . import launch_counts
+from . import count_lock, launch_counts
 from ._build import CSRC, kernel_resources, library
 
 __all__ = ["supports", "flash_attention", "flash_attention_fwd",
@@ -251,8 +251,9 @@ def tc_operand(t):
 
 
 def _count(kernel, kind):
-    launch_counts[kernel] += 1
-    launch_counts[f"{kernel}.{kind}"] += 1
+    with count_lock:
+        launch_counts[kernel] += 1
+        launch_counts[f"{kernel}.{kind}"] += 1
 
 
 @functools.lru_cache(maxsize=None)

@@ -33,7 +33,6 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import pickle
 import re
 import shutil
 import time
@@ -41,7 +40,7 @@ import time
 import numpy as np
 import torch
 
-from ..framework.io_utils import _to_serializable
+from ..framework.io_utils import _to_serializable, dump
 from ..framework.io_utils import load as _load_obj
 from ..framework.io_utils import load_numpy_state_dict
 from .faults import maybe_inject
@@ -97,7 +96,7 @@ def serialize_file(payload, path):
         os.makedirs(d, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
     with open(tmp, "wb") as f:
-        pickle.dump(payload, f, protocol=4)
+        dump(payload, f, protocol=4)
         f.flush()
         os.fsync(f.fileno())
     digest = _sha256_file(tmp)

@@ -199,6 +199,64 @@ def test_pdparams_round_trip_between_packages(tmp_path):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+_BF16_WITHOUT_ML_DTYPES = """
+import sys
+sys.modules["ml_dtypes"] = None        # the import raises from here on
+import numpy as np
+import torch
+import paddle_tpu_torch as pt
+from paddle_tpu_torch.text.models import (BertConfig,
+                                          BertForSequenceClassification)
+port = BertForSequenceClassification(BertConfig(**{cfg}), device="cpu",
+                                     generator=pt.make_generator(3))
+port.to(dtype="bfloat16")
+state = port.state_dict()
+pt.save(state, {port_path!r})
+np.savez({words!r}, **{{k: v.view(torch.int16).numpy()
+                        for k, v in state.items()}})
+back = pt.load({ref_path!r})
+np.savez({back!r}, **{{k: v.view(torch.int16).numpy()
+                       for k, v in back.items()}})
+print(" ".join(sorted({{str(v.dtype) for v in back.values()}})))
+"""
+
+
+def test_bf16_state_dict_crosses_without_ml_dtypes(tmp_path):
+    """ROADMAP C8: the port writes a bf16 state dict as the reference's
+    ml_dtypes arrays, and reads the reference's, with ml_dtypes
+    unimportable; the reference's load reads the port's file, and the
+    port the reference's, bit for bit."""
+    import os
+    import subprocess
+    import sys
+    ref, _ = _pair("bert", SMALL)
+    ref.to(dtype="bfloat16")
+    paths = {k: str(tmp_path / f"{k}.{ext}") for k, ext in
+             (("ref_path", "pdparams"), ("port_path", "pdparams"),
+              ("words", "npz"), ("back", "npz"))}
+    paddle.save(ref.state_dict(), paths["ref_path"])
+    code = _BF16_WITHOUT_ML_DTYPES.format(cfg=SMALL, **paths)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300,
+                         env={**os.environ, "PYTHONPATH": repo})
+    assert run.returncode == 0, run.stderr[-3000:]
+    assert run.stdout.split() == ["torch.bfloat16"]
+    # the reference reads the port's file: its words, bit for bit
+    words = np.load(paths["words"])
+    got = paddle.load(paths["port_path"])
+    assert sorted(got) == sorted(words.files)
+    for name in words.files:
+        arr = np.asarray(got[name]._val)
+        assert arr.dtype.name == "bfloat16", name
+        np.testing.assert_array_equal(arr.view(np.int16), words[name])
+    # the port read the reference's file: the reference's words
+    back = np.load(paths["back"])
+    for name, v in ref.state_dict().items():
+        np.testing.assert_array_equal(back[name],
+                                      np.asarray(v._val).view(np.int16))
+
+
 def test_reference_init_draws_from_the_generator():
     """N(0, initializer_range) into every Linear and Embedding weight from
     the model's generator: the same seed gives the same weights, another

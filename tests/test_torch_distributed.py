@@ -294,6 +294,19 @@ def _margin_ce(rank, world, out):
     out["mce_loss"] = loss.item()
     out["mce_grad"] = mine.grad.tolist()
     out["mce_softmax"] = soft.tolist()
+    # ROADMAP C9: the reference's form, a mesh axis name, on {"model": 2}
+    from paddle_tpu_torch.distributed import mesh as dmesh
+    prev = dmesh.get_mesh()
+    dmesh.build_mesh({"model": world})
+    try:
+        mine = torch.tensor(logits[:, rank * c:(rank + 1) * c],
+                            requires_grad=True)
+        loss, soft = F.margin_cross_entropy(
+            mine, torch.tensor(labels), group="model", return_softmax=True)
+        loss.backward()
+    finally:
+        dmesh.set_mesh(prev)
+    out["mce_axis"] = [loss.item(), mine.grad.tolist(), soft.tolist()]
 
 
 def _sync_bn(rank, world, out, arrays):
@@ -705,6 +718,26 @@ def test_margin_cross_entropy_class_sharded(two):
                                        :, r * c:(r + 1) * c], **F32)
         np.testing.assert_allclose(res[r]["mce_grad"],
                                    x.grad[:, r * c:(r + 1) * c], **F32)
+
+
+def test_margin_cross_entropy_by_mesh_axis_name(two):
+    """ROADMAP C9: group="model" on a {"model": 2} mesh is the Group form
+    (equal to the bit) and the reference's single-process result."""
+    import paddle_tpu as paddle
+    import paddle_tpu.nn.functional as RF
+    res, _ = two
+    logits, labels = _mce_inputs()
+    ref_loss, ref_soft = RF.margin_cross_entropy(
+        paddle.to_tensor(logits), paddle.to_tensor(labels),
+        return_softmax=True)
+    c = MCE_CLASSES // 2
+    for r in range(2):
+        loss, grad, soft = res[r]["mce_axis"]
+        assert [loss, grad, soft] == [res[r]["mce_loss"], res[r]["mce_grad"],
+                                      res[r]["mce_softmax"]]
+        np.testing.assert_allclose(loss, float(ref_loss), **F32)
+        np.testing.assert_allclose(soft, np.asarray(ref_soft._val)[
+            :, r * c:(r + 1) * c], **F32)
 
 
 def test_sync_batchnorm_normalises_by_the_global_batch(two):

@@ -275,3 +275,15 @@ def test_distributed_sampler_cursor_restores_the_epoch_order():
     ref.batch_sampler.set_epoch(1)
     expected = list(ref)
     _same(head + tail, expected)
+
+
+def test_bf16_samples_from_workers_collate_to_bf16():
+    """A spawned worker sends a bf16 tensor as its 16-bit words (no
+    ml_dtypes, ROADMAP C8); collation gives back the bf16 batch."""
+    from paddle_tpu_torch.framework.io_utils import _numpy_from_tensor
+    from paddle_tpu_torch.io import default_collate_fn
+    samples = [torch.tensor([i + 0.5, -2.25], dtype=torch.bfloat16)
+               for i in range(3)]
+    got = default_collate_fn([_numpy_from_tensor(s) for s in samples])
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.stack(samples))

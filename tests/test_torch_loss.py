@@ -228,7 +228,9 @@ def test_margin_cross_entropy_matches_reference():
                                     return_softmax=ret)
         for a, b in zip(p if ret else [p], r if ret else [r]):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **VALUE_TOL)
-    with pytest.raises(NotImplementedError, match="A10"):
+    # a mesh axis name resolves to this rank's group on the global mesh's
+    # axis (ROADMAP C9); the one-rank default mesh has no "mp" axis
+    with pytest.raises(ValueError, match="no axis 'mp'"):
         PF.margin_cross_entropy(torch.tensor(x), torch.tensor(y),
                                 group="mp")
 

@@ -237,15 +237,10 @@ LATER = {
     ".vision.models": set(),
     ".vision.ops": set(),
     ".text": set(),
-    # ROADMAP A11: expert_parallel.py (beside the AsyncCheckpointer); A10:
-    # fleet/dataset.py
+    # ROADMAP A11: expert_parallel.py (beside the AsyncCheckpointer)
     ".distributed.fleet": {
-        "expert_parallel", "ExpertParallelEngine", "ExpertPlacement",
-        "dataset"},
-    # ROADMAP A10: the parameter-server half; fleet/dataset.py
-    ".distributed": {
-        "fleet_executor", "ps", "transpiler", "InMemoryDataset",
-        "QueueDataset"},
+        "expert_parallel", "ExpertParallelEngine", "ExpertPlacement"},
+    ".distributed": set(),
     # ROADMAP A13: the sparsity package
     ".incubate": {"asp"},
     # ROADMAP A11: integrity.py and health.py's straggler detection

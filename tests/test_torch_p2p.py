@@ -4,7 +4,8 @@ deadline, over real rank processes (this file run as ``--worker``):
 - three ranks: ``send_obj``/``recv_obj`` and ``send_array``/
   ``recv_array`` round trips (a bf16 tensor included), every ``group_*``
   collective over a subset of the ranks against numpy, the other rank
-  left alone; ``fleet.metrics`` over the ranks' statistics against numpy
+  left alone, float16 and bf16 inputs reduced in their own dtype (ROADMAP
+  C10); ``fleet.metrics`` over the ranks' statistics against numpy
   on their sum;
 - the abort: rank 1 fails inside an ``all_reduce`` through an injected
   fault while ranks 0 and 2 wait in the same ``all_reduce``. Gloo has no
@@ -55,6 +56,17 @@ def _channel_checks(rank, out):
         out["got_bf16"] = [str(t.dtype), t.float().tolist()]
     sub = [0, 2]
     if rank in sub:
+        # ROADMAP C10: float16 stays float16; bf16 comes back as bf16
+        h = torch.from_numpy(_half(rank))
+        r16 = p2p.group_all_reduce(h, sub)
+        b = h.to(torch.bfloat16)
+        rb = p2p.group_all_reduce(b, sub)
+        gb = p2p.group_all_gather(b, sub)
+        out["half"] = {"f16": [str(r16.dtype), r16.tolist()],
+                       "bf16": [str(rb.dtype), rb.float().tolist()],
+                       "bf16_gather": [str(gb.dtype), gb.float().tolist()],
+                       "f16_max": p2p.group_all_reduce(h, sub, op="max"
+                                                       ).tolist()}
         out["ar_sum"] = p2p.group_all_reduce(_arr(rank), sub).tolist()
         out["ar_max"] = p2p.group_all_reduce(
             torch.from_numpy(_arr(rank)), sub, op="max").tolist()
@@ -69,6 +81,11 @@ def _channel_checks(rank, out):
         np.stack([np.full(2, 10 * rank + j, "float32") for j in world]),
         world).tolist()
     p2p.group_barrier(world)
+
+
+def _half(rank):
+    return (np.array([[1.5, -2.25, 3.0], [1e-3, 7.0, -0.3]])
+            * (rank + 1.7)).astype("float16")
 
 
 def _stats(rank):
@@ -223,6 +240,29 @@ def test_group_collectives_over_subsets_match_numpy(ranks):
         assert chan[r]["ag"] == np.stack([_arr(i) for i in range(3)]
                                          ).tolist()
         assert chan[r]["a2a"] == [[10.0 * j + r] * 2 for j in range(3)]
+
+
+def test_group_collectives_keep_half_precision(ranks):
+    """ROADMAP C10: a float16 input's group_all_reduce returns float16 (it
+    returned float32); a bf16 input's returns a bf16 tensor, as the
+    reference returns an ml_dtypes bfloat16 array: both equal the
+    reference's reduction over ranks 0 and 2."""
+    import ml_dtypes
+
+    from paddle_tpu.distributed.p2p import _REDUCE_NP
+    chan, _ = ranks
+    f16 = [_half(0), _half(2)]
+    bf16 = [a.astype(ml_dtypes.bfloat16) for a in f16]
+    want16 = _REDUCE_NP["sum"](np.stack(f16)).astype(np.float16)
+    wantb = _REDUCE_NP["sum"](np.stack(bf16)).astype(ml_dtypes.bfloat16)
+    for r in (0, 2):
+        half = chan[r]["half"]
+        assert half["f16"] == ["float16", want16.tolist()]
+        assert half["f16_max"] == np.maximum(*f16).tolist()
+        assert half["bf16"] == ["torch.bfloat16",
+                                wantb.astype(np.float32).tolist()]
+        assert half["bf16_gather"] == [
+            "torch.bfloat16", np.stack(bf16).astype(np.float32).tolist()]
 
 
 def _np_metrics(stats):

@@ -164,6 +164,60 @@ def test_framed_bytes_and_hmac_match_the_reference(secret, monkeypatch):
     assert _equal(_recv(ref, raw_pt), ref.decode(ref.encode(obj)))
 
 
+def _threaded_frames(codec, obj, monkeypatch, secret):
+    """_frames for a frame larger than the socket's buffer: the sender
+    writes from a thread while this one reads."""
+    import threading
+    if secret is None:
+        monkeypatch.delenv("PADDLE_TPU_WIRE_SECRET", raising=False)
+    else:
+        monkeypatch.setenv("PADDLE_TPU_WIRE_SECRET", secret)
+    a, b = socket.socketpair()
+
+    def send():
+        codec.send_frame(a, obj, timeout=30)
+        a.shutdown(socket.SHUT_WR)
+    t = threading.Thread(target=send)
+    t.start()
+    chunks = []
+    try:
+        while True:
+            c = b.recv(1 << 20)
+            if not c:
+                return b"".join(chunks)
+            chunks.append(c)
+    finally:
+        t.join(30)
+        a.close()
+        b.close()
+
+
+@pytest.mark.parametrize("secret", [None, "s3cret"])
+def test_large_frames_written_in_pieces_match_the_reference(secret,
+                                                            monkeypatch):
+    """The port writes a frame's large arrays as pieces of their own (no
+    copy into the frame) and reads a frame into one buffer: the bytes on
+    the socket, the HMAC and the decoded values are the reference's."""
+    big = {"w": RNG.randn(300, 500).astype("float32"), "ids": I64,
+           "blob": b"x" * 70000, "small": [1, "two", F32]}
+    raw_pt = _threaded_frames(pt, _port_value(big), monkeypatch, secret)
+    raw_ref = _threaded_frames(ref, big, monkeypatch, secret)
+    assert len(raw_pt) > 600000 and raw_pt == raw_ref
+    import threading
+    for codec, raw in ((pt, raw_ref), (ref, raw_pt)):
+        a, b = socket.socketpair()
+        t = threading.Thread(target=lambda: (a.sendall(raw),
+                                             a.shutdown(socket.SHUT_WR)))
+        t.start()
+        try:
+            got = codec.recv_frame(b, timeout=30)
+        finally:
+            t.join(30)
+            a.close()
+            b.close()
+        assert _equal(got, ref.decode(ref.encode(big)))
+
+
 def test_a_tampered_frame_is_refused_by_both(monkeypatch):
     raw = bytearray(_frames(pt, {"x": 1, "y": "payload"}, monkeypatch,
                             "k1"))
