@@ -468,19 +468,50 @@ them, and the kernels line says so.
    2: each micro-batch's logits equal the whole model's to the bit, B1
    12 times a micro-batch.
 
-Five groups whose ranks keep this process waiting each host groups of
+29. integrity (``--phases integrity``; it runs right after ps, the zoo
+   group on this process meanwhile): silent-data-corruption defence and
+   zero-stall checkpoints. GPT-medium (ELASTIC_LAYERS layers at full
+   width) bf16 with AdamW(multi_precision) under DataParallel at 3 ranks
+   (gloo), each 2 x 1024 of a 6 x 1024 stream, started by ``python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 3 --max_restarts
+   1``; each rank in a RecoveryManager(preflight=run_preflight) with an
+   ElasticManager (np 2-3) on a FileStore, a ConsensusChecker (interval
+   2) over the model and optimizer with a StepReplayBuffer, a
+   StragglerDetector and FLAGS_async_checkpoint=1 with a hybrid
+   checkpoint after every second step; RecordEvent spans around the step
+   phases. Rank 1 sleeps 1 s on the host in steps 1 and 2: every rank's
+   detector, fed its own time (the step less collective_wait), names
+   rank 1 alone. Rank 0 profiles steps 1 and 2 (Profiler(targets=[CPU,
+   GPU], scheduler=(1, 0, 2, 1)), led in by tiny kernels): its
+   trace_rank0.json holds the step-phase spans and integrity.check_ms
+   counters, its torch.profiler window B1, B2 and B3 6 times a step by
+   kernel name. Rank 2's second digest is flipped (device.bitflip:#2):
+   every rank raises IntegrityError naming rank 2 at the check after
+   step 3, rank 2 quarantines itself, dumps its replay ring, replays its
+   flagged step on the host (classification recorded as it comes) and
+   exits 117, not relaunched; ranks 0 and 1 journal sdc, flush the
+   commit in flight, re-rendezvous at np 2, restore the newest manifest
+   (step 4) and train to step 8, every later check unanimous. A golden
+   2-rank launch from a copy of that manifest gives the same losses and
+   digests to the bit. Recorded: step ms, the check's ms and bytes and
+   its share at intervals 2 and 100, each async save's foreground s
+   against a synchronous save of the same state, the commits' s, step ms
+   with and without a commit in flight, detection -> error -> resumed
+   step s.
+
+Six groups whose ranks keep this process waiting each host groups of
 this process's (GUESTS), in turn: hapi beside auto_moe, vision beside
-elastic, surface and to_static_grad beside hybrid, bert beside pipeline,
-optim and nn_rest beside layouts, when both run; the guests' captured
+elastic, zoo beside integrity, surface and to_static_grad beside hybrid,
+bert beside pipeline, optim and nn_rest beside layouts, when both run; the guests' captured
 replays share the card with the ranks' steps, so the times of both carry
 the other's load. Some rank sets run
 side by side too: hybrid_geometry's beside tp_gpt's, pp_compiled's
 beside pp_gpt's once the bert group is done.
 
 ``--phases`` runs only the named phases (comma-separated: build,
-kernels, auto_moe, elastic, ps, reference, serve, train, to_static_grad,
-bert, vision, serving, hapi, optim, surface, nn_rest, zoo, dist_tune,
-hybrid, pipeline, layouts); the kernels
+kernels, auto_moe, elastic, ps, integrity, reference, serve, train,
+to_static_grad, bert, vision, serving, hapi, optim, surface, nn_rest,
+zoo, dist_tune, hybrid, pipeline, layouts); the kernels
 line needs every phase and is printed only when all run. Every phase
 runs under the defaults: FLAGS_fusion_policy=auto (the table this card
 measured, which keeps flash attention, fused conv + BN and the fused
@@ -8709,7 +8740,7 @@ def layout_entries(fa, entry, rows, bwd_rows, layouts, scope):
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
                    dist_tune, hybrid, pipeline, layouts, auto_moe, elastic,
-                   ps):
+                   ps, integrity):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -8763,7 +8794,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     rows of their own at a ring rank's (1, 4096, 16, 128), causal (its
     diagonal block) and not (the block below it), at zero3_gpt's (2,
     1024, 16, 128) and at spmd_pipe's micro-batch (1, 1024, 16, 128)
-    (``layout_entries``)."""
+    (``layout_entries``). And on the integrity group's
+    (``launches_integrity``): per step on ranks 0 and 2 before the fault,
+    on each survivor after the restore, on the golden launch's rank 0, and
+    by kernel name in rank 0's profiled window; B1, B2 and B3 tc_bf16 have
+    rows of their own at a rank's (2, 1024, 16, 64), causal
+    (``rank_entries``, as the elastic group's)."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -8836,6 +8872,9 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                        if not lane.endswith("_tiles")},
                     "elastic_tile": elastic["elastic_tiles"][kernel]
                     if variant.endswith(fa.TC) else None},
+                "launches_integrity": {
+                    lane: counts.get(variant, 0)
+                    for lane, counts in integrity.items()},
                 **extra}
     fwd_tc, fwd_train, fwd_simt = rows[0], rows[2], rows[6]
     dkv_tc, dkv_simt = bwd_rows["dkv"][0], bwd_rows["dkv"][4]
@@ -8899,8 +8938,18 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
         *pp_entries(fa, entry, rows, bwd_rows, pipeline, scope),
         *layout_entries(fa, entry, rows, bwd_rows, layouts, scope),
         *auto_moe_entries(fa, entry, rows, bwd_rows, auto_moe, scope),
-        *elastic_entries(fa, entry, rows, bwd_rows, elastic, scope),
-        *ps_entries(fa, entry, rows, bwd_rows, ps, scope)]
+        *rank_entries(fa, entry, rows, bwd_rows,
+                      elastic["survivor_per_step_after_restart"], "elastic",
+                      "GPT-medium bf16 under DataParallel at 2 ranks, "
+                      "launched and recovered after a rank was killed, a "
+                      "rank's (2, 1024, 16, 64), causal (elastic)", scope),
+        *ps_entries(fa, entry, rows, bwd_rows, ps, scope),
+        *rank_entries(fa, entry, rows, bwd_rows,
+                      integrity["per_step_rank0_after_restore"], "integrity",
+                      "GPT-medium bf16 under DataParallel at 3 ranks, a "
+                      "flipped rank quarantined by checksum consensus, the "
+                      "survivors restored at 2 ranks, a rank's (2, 1024, 16, "
+                      "64), causal (integrity)", scope)]
 
 
 def pp_entries(fa, entry, rows, bwd_rows, pipeline, scope):
@@ -10991,6 +11040,716 @@ def ps_entries(fa, entry, rows, bwd_rows, ps, scope):
     return out
 
 
+# -- integrity: silent-data-corruption defence and zero-stall checkpoints ------
+
+# GPT-medium (ELASTIC_LAYERS layers, the elastic group's rank shape) under
+# DataParallel at 3 ranks, each 2 x 1024 of a 6 x 1024 stream; a
+# consensus check and an async hybrid checkpoint every second step
+INTEGRITY_WORLD, INTEGRITY_STEPS, INTEGRITY_EVERY = 3, 8, 2
+INTEGRITY_PER = 2
+# rank 2's second digest evaluation is flipped: its second check (after
+# step 3) names it; the commit of that step is in flight then
+INTEGRITY_FLIP_RANK, INTEGRITY_FLIP = 2, 2
+# rank 1 sleeps this long on the host at the start of each step of the
+# straggler window (steps 1 and 2), before the fault
+INTEGRITY_SLOW_RANK, INTEGRITY_SLOW_STEPS, INTEGRITY_SLOW_S = 1, (1, 2), 1.0
+INTEGRITY_THRESHOLD = 3.0
+# the survivors wait this long for the quarantined rank before scaling in
+INTEGRITY_RDZV_S = 8.0
+INTEGRITY_TIMEOUT = 420
+# rank 0's profiler: skip step 0, record steps 1 and 2, once
+INTEGRITY_SCHEDULE = (1, 0, 2, 1)
+INTEGRITY_LEAD_KERNELS = 256
+# after the compared steps: steps with no commit pending, then as many
+# while one commit runs on rank 0's committer
+INTEGRITY_GIL_STEPS = 3
+
+
+def integrity_copy_manifest(mpath, dst):
+    """A manifest and the files it references into the root ``dst``."""
+    from paddle_tpu_torch.resilience import snapshot
+    root = os.path.dirname(mpath)
+    for rel in snapshot.read_manifest(mpath)["files"]:
+        os.makedirs(os.path.join(dst, os.path.dirname(rel)), exist_ok=True)
+        for suffix in ("", ".sha256"):
+            shutil.copyfile(os.path.join(root, rel) + suffix,
+                            os.path.join(dst, rel) + suffix)
+    shutil.copyfile(mpath, os.path.join(dst, os.path.basename(mpath)))
+
+
+def integrity_replay(torch, job, res, err, replay, cfg, seed):
+    """The accused rank's replay of its flagged check on the host: the
+    committed manifest of the check before it (the state that check found
+    unanimous) into a CPU model and optimizer, its digest held to that
+    check's, then the ring's steps up to the flagged one, the digest
+    classified against the majority's and this rank's."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.checkpoint import _apply_blob
+    from paddle_tpu_torch.resilience import snapshot
+    from paddle_tpu_torch.resilience.integrity import checksum_state
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM
+    t0 = time.perf_counter()
+    step = err.step
+    start = step + 1 - INTEGRITY_EVERY          # the state the replay needs
+    root = os.path.join(job, "ckpt")
+    mpath = None
+    deadline = time.monotonic() + 120
+    while mpath is None and time.monotonic() < deadline:
+        mpath = next((mp for _, mp in snapshot.list_manifests(root)
+                      if snapshot.read_manifest(mp)["step"] == start), None)
+        if mpath is None:
+            time.sleep(0.5)
+    assert mpath is not None, ("no committed manifest of step", start)
+    torch.set_num_threads(6)
+    model = GPTForCausalLM(cfg, device="cpu", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(seed))
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    _apply_blob(snapshot.load_manifest_blob(mpath), model, opt)
+    before = [c for c in res["checks"] if c["step"] == start - 1]
+    loaded = checksum_state([model, opt])
+    majority = [d for r, d in err.digests.items()
+                if r not in err.culprits][0]
+    observed = err.digests[res["rank"]]
+
+    def replay_fn(entry):
+        for s in range(start, entry["step"] + 1):
+            x, y = (torch.from_numpy(a) for a in replay.get(s)["inputs"])
+            model(x, labels=y).backward()
+            opt.step()
+            opt.clear_grad()
+        return [model, opt]
+    verdict = replay.replay(step, replay_fn, expected_digest=majority,
+                            observed_digest=observed)
+    return {"from_manifest": os.path.basename(mpath), "from_step": start,
+            "loaded_digest_equals_check": bool(before) and
+            loaded == before[0]["digest"],
+            "steps_replayed": list(range(start, step + 1)),
+            "classification": verdict["classification"],
+            "digest": verdict["digest"], "majority": majority,
+            "observed": observed,
+            "seconds": time.perf_counter() - t0}
+
+
+def integrity_job_main(torch, args):
+    """One rank of the integrity group's launches (``python -m
+    paddle_tpu_torch.distributed.launch``). ``recovered``: GPT-medium bf16
+    under DataParallel at 3 ranks, AdamW(multi_precision), each rank in a
+    RecoveryManager(preflight=run_preflight) with an ElasticManager (np 2
+    to 3) on a FileStore, a ConsensusChecker(interval 2) over the model
+    and optimizer with a StepReplayBuffer, a StragglerDetector (window 2)
+    fed the rank's own time (its step less the Reducer's and the loss
+    all-reduce's collective_wait), FLAGS_async_checkpoint on and a hybrid
+    checkpoint after every second step; RecordEvent spans around the step
+    phases; rank 0 under Profiler(targets=[CPU, GPU], scheduler=(1, 0, 2,
+    1)), exporting trace_rank0.json. Rank 2's second digest is flipped
+    (device.bitflip): every rank raises IntegrityError at that check,
+    rank 2 quarantines itself, replays its flagged step on the host and
+    exits 117; the survivors journal sdc, flush their commits,
+    re-rendezvous at np 2, restore the newest manifest (a copy goes to
+    the golden launch) and train to the end, then time a synchronous
+    save of the same state. ``golden``: 2 ranks wait for that copy,
+    restore it and run the same steps on the same rows. Each rank writes
+    ``<mode>.rank<r>.json`` in the job's directory."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed.checkpoint import (
+        load_hybrid_checkpoint, save_hybrid_checkpoint)
+    from paddle_tpu_torch.distributed.fleet.elastic import (ElasticManager,
+                                                           FileStore)
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.profiler import metrics, steptimer
+    from paddle_tpu_torch.resilience import faults, snapshot
+    from paddle_tpu_torch.resilience.health import (Quarantined,
+                                                    StragglerDetector,
+                                                    run_preflight)
+    from paddle_tpu_torch.resilience.integrity import (ConsensusChecker,
+                                                       IntegrityError,
+                                                       StepReplayBuffer,
+                                                       state_bytes)
+    from paddle_tpu_torch.resilience.recovery import (RecoveryManager,
+                                                      current_generation)
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    faulthandler.dump_traceback_later(RANK_STACK_DUMP_S, repeat=True)
+    job, mode = args.integrity_job, args.integrity_mode
+    recovered = mode == "recovered"
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    world = int(os.environ["PADDLE_TRAINERS_NUM"])
+    pt.set_flags({"FLAGS_recovery_backoff_base": 0.0,
+                  "FLAGS_async_checkpoint": True})
+    if recovered and rank == INTEGRITY_FLIP_RANK:
+        faults.configure(f"device.bitflip:#{INTEGRITY_FLIP}")
+    t_start = time.time()
+    em = ElasticManager(FileStore(os.path.join(job, "store"), ttl=3600.0),
+                        "integrity", np_min=2, np_max=world, rank=rank,
+                        endpoint=os.environ["PADDLE_CURRENT_ENDPOINT"])
+    em.register()
+    gen0, _ = em.rendezvous(timeout=INTEGRITY_TIMEOUT)
+    dist.init_parallel_env()
+    cfg = GPTConfig(vocab_size=32000, hidden_size=1024,
+                    num_layers=ELASTIC_LAYERS, num_heads=16,
+                    max_position_embeddings=1024, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(args.seed))
+    model.train()
+    dp = pt.DataParallel(model)
+    opt = pt.optimizer.AdamW(learning_rate=1e-4, multi_precision=True,
+                             parameters=model.parameters())
+    xs, ys = bench_stream(args.seed, INTEGRITY_STEPS,
+                          INTEGRITY_WORLD * INTEGRITY_PER, TRAIN_SEQ)
+    xs, ys = torch.from_numpy(xs).cuda(), torch.from_numpy(ys).cuda()
+    root = os.path.join(job, "ckpt")
+    res = {"rank": rank, "mode": mode, "ready_s": time.time() - t_start,
+           "steps": {}, "checks": [], "saves": [], "errors": []}
+    replay = StepReplayBuffer(size=4)
+    checker = ConsensusChecker(em, [model, opt], interval=INTEGRITY_EVERY,
+                               timeout=120.0, replay=replay)
+    detector = StragglerDetector(em, window=len(INTEGRITY_SLOW_STEPS),
+                                 threshold=INTEGRITY_THRESHOLD)
+    prof = None
+    if recovered and rank == 0:
+        def ready(p):
+            events = p.torch_profiler.events()
+            spins = [e for e in events if is_kernel(e)
+                     and "spin_kernel" in e.name]
+            after = spins[0].time_range.end if spins else None
+            res["profile"] = {
+                "spin_marks": len(spins),
+                "flash_launches_per_step": {
+                    n: sum(1 for e in events if is_kernel(e) and k in e.name
+                           and (after is None or e.time_range.start >= after))
+                    / INTEGRITY_SCHEDULE[2]
+                    for n, k in TC_KERNEL_NAMES.items()},
+                "record_events": sorted({e.name for e in events
+                                         if e.name.startswith("integrity.")}),
+                "device_trace_bytes": os.path.getsize(p.device_trace_path)}
+            res["trace"] = profiler.export_rank_trace()
+        prof = profiler.Profiler(
+            targets=[profiler.ProfilerTarget.CPU,
+                     profiler.ProfilerTarget.GPU],
+            scheduler=INTEGRITY_SCHEDULE, on_trace_ready=ready)
+        prof.start()
+    ck = snapshot.checkpointer_for(root, background=True) if rank == 0 \
+        else None
+
+    def restore(gen):
+        opt.clear_grad()   # a step cut short leaves its local gradients
+        t0 = time.perf_counter()
+        dist.barrier()     # every committer flushed before anyone reads
+        newest = snapshot.list_manifests(root)[0][1]
+        meta = load_hybrid_checkpoint(root, dp, opt)
+        torch.cuda.synchronize()
+        res["restored"] = {
+            "step": meta["step"], "generation": gen,
+            "manifest": os.path.basename(meta["restored_from"]),
+            "newest": os.path.basename(newest),
+            "pending_before_read": ck.pending if ck is not None else 0,
+            "seconds": time.perf_counter() - t0, "t_done": time.time()}
+        if rank == 0 and recovered:
+            integrity_copy_manifest(meta["restored_from"],
+                                    os.path.join(job, "golden", "ckpt"))
+            with open(os.path.join(job, "golden", "ready.json"), "w") as f:
+                json.dump(res["restored"], f)
+        return meta
+
+    def lead_in():
+        for _ in range(INTEGRITY_LEAD_KERNELS):
+            torch.ones(1, device="cuda").add_(1)
+        torch.cuda._sleep(1 << 20)
+        torch.cuda.synchronize()
+
+    def run_step(x, y, slow=False):
+        """One timed training step: the global loss, the step's ms and its
+        collective_wait ms (the steptimer reset by the caller)."""
+        st = steptimer.get_steptimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if slow:
+            with profiler.RecordEvent("integrity.straggle"):
+                time.sleep(INTEGRITY_SLOW_S)
+        with st.phase("step/compute"):
+            with profiler.RecordEvent("integrity.forward"):
+                loss = dp(x, labels=y)
+            with profiler.RecordEvent("integrity.backward"):
+                loss.backward()
+            with profiler.RecordEvent("integrity.optimizer"):
+                opt.step()
+                opt.clear_grad()
+        with profiler.RecordEvent("integrity.loss_all_reduce"):
+            g = loss.detach().float().reshape(1).clone()
+            glob = dist.all_reduce(g, op=dist.ReduceOp.AVG).item()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return glob, ms, st.breakdown()["phase_ms"].get("collective_wait",
+                                                        0.0)
+
+    def gil_steps():
+        """The committer's cost to the loop, paired in one run: steps with
+        no commit pending, then steps while one commit runs (past the
+        compared steps, on the last step's rows)."""
+        r = dist.get_rank()
+        sl = slice(r * INTEGRITY_PER, (r + 1) * INTEGRITY_PER)
+        x, y = xs[-1, sl], ys[-1, sl]
+        snapshot.flush_all(timeout=300)
+        out = {"no_commit_ms": [], "commit_ms": [], "pending": []}
+        for i in range(2 * INTEGRITY_GIL_STEPS):
+            if i == INTEGRITY_GIL_STEPS:
+                save_hybrid_checkpoint(os.path.join(root, "gpt.pdparams"),
+                                       dp, opt,
+                                       meta={"step": INTEGRITY_STEPS + 1})
+            steptimer.reset_steptimer()
+            pending = ck.pending if ck is not None else 0
+            ms = run_step(x, y)[1]
+            out["pending"].append([pending,
+                                   ck.pending if ck is not None else 0])
+            out["commit_ms" if i >= INTEGRITY_GIL_STEPS
+                else "no_commit_ms"].append(ms)
+        return out
+
+    def train(resume):
+        start = resume["step"] if resume else 0
+        for step in range(start, INTEGRITY_STEPS):
+            if prof is not None and prof.phase == "active" and \
+                    "lead" not in res:
+                res["lead"] = step
+                lead_in()
+            launch_counts.clear()
+            steptimer.reset_steptimer()
+            st = steptimer.get_steptimer()
+            r = dist.get_rank()
+            sl = slice(r * INTEGRITY_PER, (r + 1) * INTEGRITY_PER)
+            x, y = xs[step, sl], ys[step, sl]
+            pending = ck.pending if ck is not None else 0
+            slow = recovered and rank == INTEGRITY_SLOW_RANK and \
+                step in INTEGRITY_SLOW_STEPS
+            glob, ms, wait = run_step(x, y, slow)
+            rec = {"loss": glob, "ms": ms, "collective_wait_ms": wait,
+                   "own_ms": ms - wait, "generation": current_generation(),
+                   "commit_in_flight": [pending,
+                                        ck.pending if ck is not None else 0],
+                   "launches": {k: launch_counts[k] for k in launch_counts
+                                if k.split(".")[0] in fa.KERNEL_NAMES}}
+            res["steps"][str(step)] = rec
+            if recovered and current_generation() == gen0:
+                detector.note_step((ms - wait) / 1e3)
+                if step == INTEGRITY_SLOW_STEPS[-1]:
+                    dist.barrier()   # every rank's window published
+                    res["stragglers"] = detector.check()
+                    res["ratios"] = {str(k): v for k, v in
+                                     detector.last_ratios.items()}
+            if (step + 1) % INTEGRITY_EVERY == 0:
+                t1 = time.perf_counter()
+                with st.phase("step/ckpt_io"), \
+                        profiler.RecordEvent("integrity.checkpoint"):
+                    save_hybrid_checkpoint(os.path.join(root, "gpt.pdparams"),
+                                           dp, opt, meta={"step": step + 1})
+                res["saves"].append({"step": step + 1,
+                                     "foreground_s": time.perf_counter() - t1,
+                                     "pending_after": ck.pending
+                                     if ck is not None else 0})
+            em.heartbeat()
+            rec["t_check"] = time.time()
+            try:
+                with profiler.RecordEvent("integrity.check"):
+                    digest = checker.after_step(step, inputs=[x, y])
+            except IntegrityError as e:
+                res["errors"].append({
+                    "step": e.step, "culprits": e.culprits, "kind": e.kind,
+                    "digests": {str(k): v for k, v in e.digests.items()},
+                    "t_error": time.time()})
+                res["error_obj"] = e
+                raise
+            rec["t_end"] = time.time()
+            if digest is not None:
+                # what the check hashed (the accumulators exist by now)
+                res.setdefault("state_bytes", state_bytes([model, opt]))
+                res["checks"].append({
+                    "step": step, "digest": digest,
+                    "generation": current_generation(),
+                    "check_ms": profiler.counter_samples(
+                        "integrity.check_ms")[-1][2]})
+            if prof is not None:
+                prof.step()
+        return start
+
+    def write():
+        err = res.pop("error_obj", None)
+        res["generation"] = current_generation()
+        res["t_exit"] = time.time()
+        reg = metrics.get_registry()
+        res["commit_ms"] = reg.histogram_summary("ckpt.commit_ms")
+        res["snapshot_ms"] = reg.histogram_summary("ckpt.snapshot_ms")
+        res["commit_failures"] = reg.snapshot()["counters"].get(
+            "ckpt.commit_failures_total", 0)
+        res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        with open(os.path.join(job, f"{mode}.rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+        return err
+
+    if not recovered:
+        # the recovered launch's rank 0 copies what it restored here
+        ready = os.path.join(job, "ready.json")
+        deadline = time.monotonic() + INTEGRITY_TIMEOUT
+        while not os.path.exists(ready):
+            assert time.monotonic() < deadline, "no manifest to start from"
+            time.sleep(0.5)
+        meta = load_hybrid_checkpoint(root, dp, opt)
+        train(meta)
+    else:
+        rm = RecoveryManager(em, restore=restore, max_restarts=1,
+                             rendezvous_timeout=INTEGRITY_RDZV_S,
+                             preflight=lambda gen: run_preflight(elastic=em))
+        try:
+            rm.run(train)
+        except Quarantined as q:
+            em.exit()   # the survivors count the live ranks at each check
+            err = write()
+            res["replay"] = integrity_replay(torch, job, res, err, replay,
+                                             cfg, args.seed)
+            res["quarantine_reason"] = q.reason
+            write()
+            raise
+        res["restarts"] = rm.restarts
+        res["gil"] = gil_steps()
+        # the same state saved synchronously, against the async saves
+        pt.set_flags({"FLAGS_async_checkpoint": False})
+        t1 = time.perf_counter()
+        save_hybrid_checkpoint(os.path.join(job, "sync", "gpt.pdparams"), dp,
+                               opt, meta={"step": INTEGRITY_STEPS})
+        res["sync_save_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    res["final_flush"] = [str(e) for _, e in snapshot.flush_all(timeout=300)]
+    res["final_flush_s"] = time.perf_counter() - t1
+    write()
+    dist.barrier()
+    dist.env.teardown()
+
+
+def integrity_launch(seed, job, mode, nproc):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node N
+    --max_restarts 1`` over this script's integrity_job_main, in a session
+    of its own. A quarantined rank (exit 117) is left down by the
+    supervisor without a restart charged; at ``--max_restarts 0`` the
+    plain watcher would end the job at the first nonzero exit."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(job, exist_ok=True)
+    env = {**os.environ, "PADDLE_TPU_ARTIFACTS_DIR":
+           os.path.join(job, f"artifacts_{mode}"),
+           "PADDLE_JOB_ID": "integrity", "PYTHONPATH": here}
+    env.pop("PADDLE_TPU_WIRE_SECRET", None)
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(nproc), "--max_restarts", "1",
+           "--log_dir", os.path.join(job, f"logs_{mode}"),
+           os.path.abspath(__file__), "--seed", str(seed),
+           "--integrity-job", job, "--integrity-mode", mode]
+    with open(os.path.join(job, f"launcher_{mode}.log"), "w") as log:
+        proc = subprocess.Popen(cmd, cwd=here, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    return proc, time.perf_counter()
+
+
+def integrity_join(started, job, mode):
+    """Wait for a launch; one that failed or ran past the limit fails with
+    the tail of its launcher log and of every workerlog."""
+    import signal
+    proc, t0 = started
+    try:
+        proc.wait(timeout=INTEGRITY_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tails = []
+        logs = os.path.join(job, f"logs_{mode}")
+        for path in [os.path.join(job, f"launcher_{mode}.log")] + [
+                os.path.join(logs, n) for n in sorted(os.listdir(logs))
+                if os.path.isdir(logs)]:
+            with open(path, errors="replace") as f:
+                tails.append((os.path.basename(path), f.read()[-4000:]))
+        raise AssertionError(f"{mode} launch in {job} exited "
+                             f"{proc.returncode} after {seconds:.1f} s: "
+                             f"{tails}")
+    return seconds
+
+
+def verify_replay_dump(path):
+    """The dump's own checks, as tools/replay_step.py's list mode makes
+    them: every entry's arrays against its recorded input checksum."""
+    from paddle_tpu_torch.resilience.integrity import _arrays_digest
+    with open(path) as f:
+        meta = json.load(f)
+    out = []
+    with np.load(os.path.join(os.path.dirname(path), meta["arrays"])) as z:
+        for e in meta["entries"]:
+            ok = _arrays_digest([z[n] for n in e["inputs"]]) == \
+                e["input_checksum"]
+            out.append({"step": e["step"], "ok": ok})
+    return meta, out
+
+
+def phase_integrity(torch, seed, beside=None):
+    """The integrity group: the recovered launch (3 ranks, rank 2's digest
+    flipped) and the golden one (2 ranks, from a copy of the manifest the
+    survivors restored) side by side, while this process runs
+    ``beside()``. Checks the detection, the quarantine, the journal, the
+    commits, the survivors' losses against the golden's to the bit, the
+    straggler verdicts, the replay dump, the profiler's traces; records
+    the group's numbers. Returns the B1-B3 launches a step, the seconds
+    and what ``beside`` returned."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.resilience.health import QUARANTINE_EXIT_CODE
+    from paddle_tpu_torch.resilience.recovery import RecoveryJournal
+    cache_dir = os.environ["PADDLE_TPU_AUTOTUNE_CACHE"]
+    job = os.path.join(cache_dir, "integrity")
+    shutil.rmtree(job, ignore_errors=True)
+    os.makedirs(os.path.join(job, "golden"))
+    seconds = {}
+    free_cuda(torch)
+    # the rank shape's tiles, searched once here: every rank reads them
+    b, s, h, d = ELASTIC_RANK_SHAPE
+    dev = torch.device("cuda")
+    fa._tuned_fwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    fa._tuned_bwd_blocks(b * h, s, s, d, torch.bfloat16, True, dev)
+    launches = [integrity_launch(seed, job, "recovered", INTEGRITY_WORLD),
+                integrity_launch(seed, os.path.join(job, "golden"), "golden",
+                                 INTEGRITY_WORLD - 1)]
+    besides = None
+    try:
+        if beside is not None:
+            t0 = time.perf_counter()
+            besides = beside()
+            seconds["beside"] = time.perf_counter() - t0
+        seconds["recovered_launch"] = integrity_join(launches[0], job,
+                                                     "recovered")
+        seconds["golden_launch"] = integrity_join(
+            launches[1], os.path.join(job, "golden"), "golden")
+    finally:
+        for proc, _ in launches:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+
+    def load(d, name):
+        with open(os.path.join(d, name)) as f:
+            return json.load(f)
+    rec = {r: load(job, f"recovered.rank{r}.json")
+           for r in range(INTEGRITY_WORLD)}
+    gold = {r: load(os.path.join(job, "golden"), f"golden.rank{r}.json")
+            for r in range(INTEGRITY_WORLD - 1)}
+    journal = RecoveryJournal(
+        "integrity", dir=os.path.join(job, "artifacts_recovered")).entries()
+    restarts = [e for e in journal if e["event"] == "restart"]
+    quarantined = [e for e in journal if e["event"] == "quarantined"]
+    fault_step = INTEGRITY_EVERY * INTEGRITY_FLIP - 1
+    restored = INTEGRITY_EVERY * INTEGRITY_FLIP
+    survivors = [rec[0], rec[1]]
+    culprit = rec[INTEGRITY_FLIP_RANK]
+    dump, dump_checks = verify_replay_dump(os.path.join(
+        job, "artifacts_recovered",
+        f"step_replay_rank{INTEGRITY_FLIP_RANK}.json"))
+    trace = load(os.path.join(job, "artifacts_recovered"),
+                 "trace_rank0.json")
+    trace_spans = {}
+    for e in trace["traceEvents"]:
+        if e["ph"] == "X":
+            trace_spans.setdefault(e["cat"], set()).add(e["name"])
+    trace_counters = [e["args"]["value"] for e in trace["traceEvents"]
+                      if e["ph"] == "C" and e["name"] == "integrity.check_ms"]
+    r0 = rec[0]
+    before = [r0["steps"][str(i)] for i in range(fault_step + 1)]
+    after = [r0["steps"][str(i)]
+             for i in range(restored, INTEGRITY_STEPS)]
+    # steps outside the straggler window, the warm-up and the first
+    # resumed step: the step time a check is held to
+    plain = [st for i, st in enumerate(before) if i and
+             i not in INTEGRITY_SLOW_STEPS] + after[1:]
+    median_ms = float(np.median([st["ms"] for st in plain]))
+    check_ms = [c["check_ms"] for c in r0["checks"]]
+    err0 = r0["errors"][0]
+    first_resumed = r0["steps"][str(restored)]
+    commit = r0["commit_ms"] or {}
+    kernels = (fa.KERNEL_NAME, fa.DKV_KERNEL, fa.DQ_KERNEL)
+    row = {"phase": "integrity", "world": INTEGRITY_WORLD,
+           "config": f"GPT-medium v32000 h1024 L{ELASTIC_LAYERS} a16 d64 "
+                     f"bf16, AdamW mp, DataParallel over "
+                     f"{INTEGRITY_WORLD} ranks on one card (gloo), each "
+                     f"under RecoveryManager(preflight=run_preflight) with "
+                     f"an ElasticManager (np 2-3) on a FileStore, "
+                     f"ConsensusChecker(interval={INTEGRITY_EVERY}), "
+                     f"StragglerDetector, FLAGS_async_checkpoint=1, a "
+                     f"hybrid checkpoint every {INTEGRITY_EVERY} steps; "
+                     f"python -m paddle_tpu_torch.distributed.launch "
+                     f"--nproc_per_node {INTEGRITY_WORLD} --max_restarts 1",
+           "rank_batch": [INTEGRITY_PER, TRAIN_SEQ],
+           "steps": INTEGRITY_STEPS,
+           "flip": {"rank": INTEGRITY_FLIP_RANK,
+                    "evaluation": INTEGRITY_FLIP, "caught_at_step":
+                    err0["step"], "culprits": [e["culprits"] for r in rec
+                                               for e in rec[r]["errors"]],
+                    "exit_code": quarantined[0]["code"]
+                    if quarantined else None},
+           "checks": {r: [(c["step"], c["generation"], c["digest"][:12])
+                          for c in rec[r]["checks"]] for r in rec},
+           "journal": [{k: e.get(k) for k in ("event", "rank", "code",
+                                              "generation", "cause", "np",
+                                              "culprits")}
+                       for e in journal],
+           "restored": [sv["restored"] for sv in survivors],
+           "losses_recovered": [r0["steps"][str(i)]["loss"]
+                                for i in range(INTEGRITY_STEPS)],
+           "losses_golden": [gold[0]["steps"][str(i)]["loss"]
+                             for i in range(restored, INTEGRITY_STEPS)],
+           "stragglers": {r: rec[r].get("stragglers") for r in rec},
+           "straggler_ratios": {r: rec[r].get("ratios") for r in rec},
+           "own_ms_window": {r: [rec[r]["steps"][str(i)]["own_ms"]
+                                 for i in INTEGRITY_SLOW_STEPS]
+                             for r in rec},
+           "replay": culprit.get("replay"),
+           "replay_dump": {"entries": dump_checks,
+                           "reason": dump["reason"],
+                           "generation": dump["generation"]},
+           "profile_rank0": r0.get("profile"),
+           "trace_rank0": {"step_phase_spans": sorted(
+               trace_spans.get("step_phase", ())),
+               "host_spans": sorted(trace_spans.get("host", ())),
+               "integrity_check_ms_counters": trace_counters},
+           "step_ms_rank0": [r0["steps"][str(i)]["ms"]
+                             for i in range(INTEGRITY_STEPS)
+                             if str(i) in r0["steps"]],
+           "collective_wait_ms_rank0": [
+               r0["steps"][str(i)]["collective_wait_ms"]
+               for i in range(INTEGRITY_STEPS) if str(i) in r0["steps"]],
+           "step_ms_median": median_ms,
+           "check_ms_rank0": check_ms,
+           "state_bytes_hashed": r0["state_bytes"],
+           "check_share_at_interval": {
+               str(k): [c / (k * median_ms) for c in check_ms]
+               for k in (INTEGRITY_EVERY, 100)},
+           "async_save_foreground_s": {r: [sv["foreground_s"]
+                                           for sv in rec[r]["saves"]]
+                                       for r in (0, 1)},
+           "sync_save_s": {r: rec[r]["sync_save_s"] for r in (0, 1)},
+           "snapshot_ms_rank0": r0["snapshot_ms"],
+           "commit_s_rank0": {"count": commit.get("count"),
+                              "mean": commit["sum"] / commit["count"] / 1e3
+                              if commit.get("count") else None},
+           "commit_failures": [r["commit_failures"] for r in survivors],
+           "step_ms_commit_in_flight": r0["gil"]["commit_ms"],
+           "step_ms_no_commit": r0["gil"]["no_commit_ms"],
+           "gil_pending": r0["gil"]["pending"],
+           "steps_with_commit_pending": sum(
+               1 for st in plain if max(st["commit_in_flight"]) > 0),
+           "steps_timed": len(plain),
+           "detect_to_error_s": err0["t_error"]
+           - r0["steps"][str(fault_step)]["t_check"],
+           "error_to_resumed_step_s": first_resumed["t_end"]
+           - err0["t_error"],
+           "restore_s": [sv["restored"]["seconds"] for sv in survivors],
+           "peak_mem_bytes": [rec[r]["peak_mem_bytes"] for r in rec],
+           "seconds": seconds}
+    emit(row)
+
+    # detection: every unarmed check unanimous, the flip caught at the
+    # first check at or after it, rank 2 named on every rank
+    for r in rec:
+        unarmed = [c for c in rec[r]["checks"]]
+        assert all(c["step"] != fault_step for c in unarmed), unarmed
+        (e,) = rec[r]["errors"]
+        assert e["step"] == fault_step and e["culprits"] == \
+            [INTEGRITY_FLIP_RANK] and e["kind"] == "sdc", e
+    for step in range(INTEGRITY_EVERY - 1, INTEGRITY_STEPS,
+                      INTEGRITY_EVERY):
+        if step == fault_step:
+            continue
+        seen = {c["digest"] for r in rec for c in rec[r]["checks"]
+                if c["step"] == step}
+        assert len(seen) == 1, (step, seen)
+    # the quarantine: rank 2 exits 117, not relaunched
+    assert [(e["rank"], e["code"]) for e in quarantined] == \
+        [(INTEGRITY_FLIP_RANK, QUARANTINE_EXIT_CODE)], journal
+    assert not [e for e in journal if e["event"] in ("worker_restart",
+                                                    "ckpt_commit_failed")]
+    assert culprit["generation"] == 1
+    # the survivors: sdc journaled with the culprit, generation + 1, np 2
+    assert len(restarts) == 2 and all(
+        e["cause"] == "sdc" and e["culprits"] == [INTEGRITY_FLIP_RANK] and
+        e["generation"] == 2 and e["np"] == 2 for e in restarts), journal
+    # no commit lost or failed: the newest manifest, committed before the
+    # restore read it, of the step whose commit was in flight at the fault
+    for sv in survivors:
+        assert sv["restored"]["step"] == restored, sv["restored"]
+        assert sv["restored"]["manifest"] == sv["restored"]["newest"]
+        assert sv["restored"]["pending_before_read"] == 0
+        assert sv["commit_failures"] == 0 and sv["final_flush"] == []
+        assert sv["restarts"] == 1 and sv["generation"] == 2
+    # the paired steps: none pending before the save, one after it
+    assert all(p == [0, 0] for p in r0["gil"]["pending"][
+        :INTEGRITY_GIL_STEPS]), r0["gil"]
+    assert r0["gil"]["pending"][INTEGRITY_GIL_STEPS][0] == 1, r0["gil"]
+    # the survivors' losses equal the golden's to the bit
+    for sv in survivors:
+        assert [sv["steps"][str(i)]["loss"]
+                for i in range(restored, INTEGRITY_STEPS)] == \
+            row["losses_golden"], (sv["steps"], row["losses_golden"])
+    assert [gold[1]["steps"][str(i)]["loss"]
+            for i in range(restored, INTEGRITY_STEPS)] == row["losses_golden"]
+    # and the same state: the golden's checks find the survivors' digests
+    assert [(c["step"], c["digest"]) for c in gold[0]["checks"]] == \
+        [(c["step"], c["digest"]) for c in r0["checks"]
+         if c["generation"] == 2], (gold[0]["checks"], r0["checks"])
+    assert all(np.isfinite(row["losses_recovered"]))
+    # the straggler: rank 1 alone, on every rank's detector
+    for r in rec:
+        assert rec[r]["stragglers"] == [INTEGRITY_SLOW_RANK], \
+            (r, rec[r]["stragglers"], rec[r]["ratios"])
+    # the replay dump verifies its own checksums; its classification is
+    # recorded as it came
+    assert dump_checks and all(c["ok"] for c in dump_checks), dump_checks
+    assert culprit["replay"]["loaded_digest_equals_check"], culprit["replay"]
+    assert culprit["replay"]["classification"] in (
+        "hardware_sdc", "software_bug", "inconclusive"), culprit["replay"]
+    # the profiler: step-phase spans and check counters in trace_rank0.json,
+    # B1-B3 by kernel name in the device window
+    assert {"step/compute", "step/collective_wait", "step/integrity"} <= \
+        trace_spans.get("step_phase", set()), trace_spans
+    assert {"integrity.forward", "integrity.backward",
+            "integrity.check"} <= trace_spans.get("host", set())
+    assert trace_counters, trace_counters
+    prof = r0["profile"]
+    assert prof["spin_marks"] == 1, prof
+    assert prof["flash_launches_per_step"] == {
+        k: ELASTIC_LAYERS for k in TC_KERNEL_NAMES}, prof
+    assert {"integrity.forward", "integrity.backward"} <= \
+        set(prof["record_events"]), prof
+    # B1-B3 once a layer a step on every rank, each generation
+    for res in list(rec.values()) + list(gold.values()):
+        for st in res["steps"].values():
+            for kernel in kernels:
+                assert st["launches"].get(f"{kernel}.{fa.TC}", 0) == \
+                    ELASTIC_LAYERS, st["launches"]
+    shutil.rmtree(job, ignore_errors=True)
+    last = str(INTEGRITY_STEPS - 1)
+    return {"per_step_rank0_before_fault": r0["steps"]["0"]["launches"],
+            "per_step_rank2_before_fault": culprit["steps"]["0"]["launches"],
+            "per_step_rank0_after_restore": r0["steps"][last]["launches"],
+            "per_step_rank1_after_restore":
+                rec[1]["steps"][last]["launches"],
+            "per_step_golden_rank0": gold[0]["steps"][last]["launches"],
+            "profiled_per_step_rank0": {
+                f"{k}.{fa.TC}": v
+                for k, v in prof["flash_launches_per_step"].items()},
+            "seconds": seconds, "beside": besides}
+
+
 def phase_optim(torch, seed):
     """The optim group: optim_bert, then optim_sparse, tensor_api and
     recompute_dropout, each with the launch counts reset just before it;
@@ -11128,22 +11887,50 @@ def phase_vision(torch, seed):
             "lenet_train": lenet["flash_launches"]}
 
 
-def elastic_entries(fa, entry, rows, bwd_rows, elastic, scope):
-    """The kernels line's rows of B1, B2 and B3 tc_bf16 on the elastic
-    group's path: a rank's (2, 1024, 16, 64), causal, with the launches a
-    step on the recovered launch's survivor after its restart. Each
-    forward writes O in f32 too: its time and bound are those."""
+def phase_zoo(torch, seed):
+    """The zoo group: vision_zoo_small, densenet_train, zoo_eval,
+    vision_ops and tokenize_bert; returns each lane's B1-B3 launches (the
+    wrappers' counts over each vision lane, all 0; tokenize_bert's by
+    kernel name in a replay of its graph)."""
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    t_group = time.perf_counter()
+    lanes, seconds = {}, {}
+    for lane, fn in (("vision_zoo_small", phase_vision_zoo_small),
+                     ("densenet_train", phase_densenet_train),
+                     ("zoo_eval", phase_zoo_eval),
+                     ("vision_ops", phase_vision_ops),
+                     ("tokenize_bert", phase_tokenize_bert)):
+        launch_counts.clear()
+        t_lane = time.perf_counter()
+        row = fn(torch, seed)
+        seconds[lane] = time.perf_counter() - t_lane
+        if lane == "tokenize_bert":
+            # a batch is one graph replay: its launches by kernel name
+            lanes[lane] = row["replay"]["flash_variant_launches"]
+            lanes["tokenize_bert_masked"] = row["masked"]["replay"][
+                "flash_variant_launches"]
+        else:
+            lanes[lane] = {k: launch_counts[k] for k in launch_counts
+                           if k.split(".")[0] in KERNEL_NAMES}
+            assert not any(lanes[lane].values()), (lane, lanes[lane])
+    emit({"phase": "zoo", "seconds": time.perf_counter() - t_group,
+          "lane_seconds": seconds})
+    return lanes
+
+
+def rank_entries(fa, entry, rows, bwd_rows, counts, suffix, main, scope):
+    """The kernels line's rows of B1, B2 and B3 tc_bf16 on a data-parallel
+    group's path: a rank's (2, 1024, 16, 64), causal, with ``counts`` the
+    launches a step there. Each forward writes O in f32 too: its time and
+    bound are those."""
     tc = fa.TC
 
     def at(found):
         return next(r for r in found if r["shape"] == list(ELASTIC_RANK_SHAPE)
                     and r["dtype"] == "bfloat16" and r["causal"])
-    counts = elastic["survivor_per_step_after_restart"]
-    main = ("GPT-medium bf16 under DataParallel at 2 ranks, launched and "
-            "recovered after a rank was killed, a rank's (2, 1024, 16, 64), "
-            "causal (elastic)")
     fwd = at(rows)
-    out = [entry(f"{fa.KERNEL_NAME}.{tc}.elastic", "flash_attn_fwd_tc.cu",
+    out = [entry(f"{fa.KERNEL_NAME}.{tc}.{suffix}", "flash_attn_fwd_tc.cu",
                  114, fwd, counts.get(f"{fa.KERNEL_NAME}.{tc}", 0),
                  fwd["max_abs_err_o"], rel_l2=fwd["rel_l2_o"],
                  main_path=main, ms=fwd["ms_with_f32_out"],
@@ -11157,7 +11944,7 @@ def elastic_entries(fa, entry, rows, bwd_rows, elastic, scope):
             (fa.DKV_KERNEL, "flash_attn_dkv_tc.cu", 200, "dkv"),
             (fa.DQ_KERNEL, "flash_attn_dq_tc.cu", 247, "dq")):
         row = at(bwd_rows[key])
-        out.append(entry(f"{kernel}.{tc}.elastic", source, line, row,
+        out.append(entry(f"{kernel}.{tc}.{suffix}", source, line, row,
                          counts.get(f"{kernel}.{tc}", 0), row["max_abs_err"],
                          rel_l2={o: g["rel_l2"] for o, g in
                                  row["rel_l2_by_output"].items()},
@@ -11170,12 +11957,14 @@ def elastic_entries(fa, entry, rows, bwd_rows, elastic, scope):
 # card with the ranks' steps, and the host is little used by either
 GUESTS = {"auto_moe": (("hapi", phase_hapi),),
           "elastic": (("vision", phase_vision),),
+          "integrity": (("zoo", phase_zoo),),
           "hybrid": (("surface", phase_surface),
                      ("to_static_grad", phase_to_static_grad)),
           "pipeline": (("bert", phase_bert),),
           "layouts": (("optim", phase_optim), ("nn_rest", phase_nn_rest))}
 
 PHASE_GROUPS = ("build", "kernels", "auto_moe", "elastic", "ps",
+                "integrity",
                 "reference",
                 "serve", "train", "to_static_grad", "bert", "vision",
                 "serving",
@@ -11202,6 +11991,10 @@ def main():
                     help=argparse.SUPPRESS)
     ap.add_argument("--elastic-tools", action="store_true",
                     help=argparse.SUPPRESS)
+    # one rank of the integrity group's launches, started by the launcher
+    ap.add_argument("--integrity-job", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--integrity-mode", choices=("recovered", "golden"),
+                    default="recovered", help=argparse.SUPPRESS)
     # a pserver or a trainer of the ps group, started by phase_ps
     ap.add_argument("--ps-role", choices=("server", "trainer"), default=None,
                     help=argparse.SUPPRESS)
@@ -11240,6 +12033,9 @@ def main():
         return
     if args.ps_role == "trainer":
         ps_trainer_main(torch, args)
+        return
+    if args.integrity_job is not None:
+        integrity_job_main(torch, args)
         return
     # a run still going near the time limit shows where it is
     faulthandler.dump_traceback_later(STACK_DUMP_S)
@@ -11321,6 +12117,11 @@ def main():
         emit({"phase": "ps", "seconds": time.perf_counter() - t_group,
               "lane_seconds": out["ps"].pop("seconds")})
     clock("ps")
+    # the integrity group's ranks run beside the zoo group on this process
+    if "integrity" in run:
+        out["integrity"] = hosting("integrity", lambda b: phase_integrity(
+            torch, args.seed, b))
+    clock("integrity")
     # every phase runs under the defaults: FLAGS_fusion_policy auto (the
     # measured table) and the tile search on
     if "reference" in run:
@@ -11373,32 +12174,8 @@ def main():
         out["nn_rest"] = phase_nn_rest(torch, args.seed)
 
     clock("nn_rest")
-    if "zoo" in run:
-        from paddle_tpu_torch.ops.cuda import launch_counts
-        from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
-        t_group = time.perf_counter()
-        lanes, seconds = {}, {}
-        for lane, fn in (("vision_zoo_small", phase_vision_zoo_small),
-                         ("densenet_train", phase_densenet_train),
-                         ("zoo_eval", phase_zoo_eval),
-                         ("vision_ops", phase_vision_ops),
-                         ("tokenize_bert", phase_tokenize_bert)):
-            launch_counts.clear()
-            t_lane = time.perf_counter()
-            row = fn(torch, args.seed)
-            seconds[lane] = time.perf_counter() - t_lane
-            if lane == "tokenize_bert":
-                # a batch is one graph replay: its launches by kernel name
-                lanes[lane] = row["replay"]["flash_variant_launches"]
-                lanes["tokenize_bert_masked"] = row["masked"]["replay"][
-                    "flash_variant_launches"]
-            else:
-                lanes[lane] = {k: launch_counts[k] for k in launch_counts
-                               if k.split(".")[0] in KERNEL_NAMES}
-                assert not any(lanes[lane].values()), (lane, lanes[lane])
-        out["zoo"] = lanes
-        emit({"phase": "zoo", "seconds": time.perf_counter() - t_group,
-              "lane_seconds": seconds})
+    if "zoo" in run and "integrity" not in run:
+        out["zoo"] = phase_zoo(torch, args.seed)
 
     clock("zoo")
     if "dist_tune" in run:
@@ -11463,7 +12240,7 @@ def main():
             out["serving"], out["hapi"], out["optim"], out["surface"],
             out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"],
             out["pipeline"], out["layouts"], out["auto_moe"],
-            out["elastic"], out["ps"])})
+            out["elastic"], out["ps"], out["integrity"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "group_seconds": group_seconds, "timing": TIMING})
     print(smi, flush=True)

@@ -44,11 +44,16 @@ serial model.
 ``meta`` is stamped with the collective generation where it is not 0.
 A load that falls back to ``.old`` journals a ``corrupt_restore`` entry
 (``resilience.recovery.get_journal``), as the reference does.
-``FLAGS_async_checkpoint`` raises (the background committer is ROADMAP
-A11's).
+Under ``FLAGS_async_checkpoint`` rank 0 hands the gathered blob to the
+background committer of the file's directory
+(``resilience.snapshot.checkpointer_for``) as one ``kind="blob"`` file of
+a manifest: the gather and the copy to the host are the save's whole
+foreground cost, and a load of the directory finds the blob through the
+newest committed manifest.
 """
 from __future__ import annotations
 
+import copy
 import hashlib
 import os
 import queue
@@ -320,10 +325,7 @@ def save_hybrid_checkpoint(path, model, optimizer=None, meta=None):
     docstring). Every rank calls it; returns ``path``."""
     from ..framework.flags import get_flag
     from ..resilience.recovery import current_generation
-    from ..resilience.snapshot import _ASYNC_LATER
     from .collective import barrier
-    if get_flag("FLAGS_async_checkpoint", False):
-        raise NotImplementedError(_ASYNC_LATER)
     state = gather_hybrid_state(model, optimizer)
     if state is not None:
         meta = dict(meta or {})
@@ -333,6 +335,23 @@ def save_hybrid_checkpoint(path, model, optimizer=None, meta=None):
         blob = {"model": state[0], "meta": meta}
         if optimizer is not None:
             blob["optimizer"] = state[1]
+        if get_flag("FLAGS_async_checkpoint", False):
+            # the zero-stall path: serialisation, the sha256 and the
+            # manifest commit run on the background committer
+            from ..resilience import snapshot as _snapshot
+            if not any(p.is_cuda for p in
+                       _unwrap_model(model).parameters()):
+                # a host tensor's array shares its memory: the committer
+                # must not read what the next step writes
+                blob = copy.deepcopy(blob)
+            ck = _snapshot.checkpointer_for(
+                os.path.dirname(os.path.abspath(path)) or ".",
+                background=True)
+            ck.save({os.path.basename(path): (blob, "blob")},
+                    step=meta.get("step"),
+                    meta={"tag": os.path.basename(path)})
+            barrier()
+            return path
         if os.path.exists(path):
             if os.path.exists(path + ".sha256"):
                 os.replace(path + ".sha256", path + ".old.sha256")

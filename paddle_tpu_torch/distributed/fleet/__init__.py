@@ -11,17 +11,16 @@ topology (``base.py``), the tensor-parallel layers and wrappers
 the SPMD circular pipeline (``spmd_pipeline.py``), elastic training
 (``elastic.py``: the FileStore and ElasticManager), the file systems
 (``fs.py``: ``LocalFS``, ``HDFSClient``), the global metrics
-(``metrics.py``), the datasets (``dataset.py``), ``Role``, ``UtilBase``
-and the slot data generators.
-
-The reference also exports expert parallelism's engine; it comes with
-its ROADMAP item (A11).
+(``metrics.py``), the datasets (``dataset.py``), the elastic
+expert-parallel engine (``expert_parallel.py``: ``ExpertPlacement``,
+``ExpertParallelEngine``), ``Role``, ``UtilBase`` and the slot data
+generators.
 """
 from __future__ import annotations
 
-from . import (dataset, elastic, fs, meta_optimizers,  # noqa: F401
-               meta_parallel, metrics, pipeline_engine, sequence_parallel,
-               sharding_optimizer, spmd_pipeline, utils)
+from . import (dataset, elastic, expert_parallel, fs,  # noqa: F401
+               meta_optimizers, meta_parallel, metrics, pipeline_engine,
+               sequence_parallel, sharding_optimizer, spmd_pipeline, utils)
 from ..checkpoint import (  # noqa: F401
     load_hybrid_checkpoint, save_hybrid_checkpoint)
 from .fs import HDFSClient, LocalFS  # noqa: F401
@@ -29,6 +28,8 @@ from .base import (  # noqa: F401
     CommunicateTopology, DistributedStrategy, Fleet, HybridCommunicateGroup,
     PaddleCloudRoleMaker, UserDefinedRoleMaker,
 )
+from .expert_parallel import (  # noqa: F401
+    ExpertParallelEngine, ExpertPlacement)
 from .meta_parallel import PipelineParallel  # noqa: F401
 from .utils import recompute  # noqa: F401
 
@@ -128,4 +129,5 @@ __all__ = ["Role", "UtilBase", "MultiSlotDataGenerator",
            "recompute", "utils", "meta_parallel", "meta_optimizers",
            "sharding_optimizer", "pipeline_engine", "PipelineParallel",
            "sequence_parallel", "spmd_pipeline",
-           "save_hybrid_checkpoint", "load_hybrid_checkpoint"]
+           "save_hybrid_checkpoint", "load_hybrid_checkpoint",
+           "expert_parallel", "ExpertParallelEngine", "ExpertPlacement"]

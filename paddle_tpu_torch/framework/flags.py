@@ -14,9 +14,11 @@ at the reference's defaults:
 - The training API (``hapi``): ``FLAGS_check_nan_inf`` (off: on, fit
   guards every step with ``resilience.guard.StepGuard``) and
   ``FLAGS_guard_max_bad_steps`` (3), ``FLAGS_input_prefetch`` (on),
-  ``FLAGS_async_checkpoint`` (off; a set value raises in
-  ``resilience.snapshot.save_model``: the background committer is ROADMAP
-  A11), ``FLAGS_ckpt_keep`` (3), ``FLAGS_steptimer`` (on) and
+  ``FLAGS_async_checkpoint`` (off; on, ``Model.save``, ``ModelCheckpoint``
+  and ``save_hybrid_checkpoint`` commit on the background committer of
+  ``resilience.snapshot``), ``FLAGS_ckpt_keep`` (3),
+  ``FLAGS_ckpt_flush_timeout`` (60 s: the wait for pending commits at a
+  preemption or a recovery's restore), ``FLAGS_steptimer`` (on) and
   ``FLAGS_steptimer_sync_interval`` (16).
 - Resilience and observability: ``FLAGS_fault_injection`` and its seed
   (setting either reconfigures ``resilience.faults``), the watchdog's
@@ -26,7 +28,12 @@ at the reference's defaults:
   (``FLAGS_retry_*``), in-job recovery (``FLAGS_recovery_*``: the restart
   budget, the rendezvous wait, the backoff and the budget's refill),
   ``FLAGS_quarantine_ttl`` and the recovery journal's rotation
-  (``FLAGS_journal_max_bytes``).
+  (``FLAGS_journal_max_bytes``); silent-data-corruption defence
+  (``FLAGS_integrity_check_interval``, 100 steps between consensus checks,
+  0 off; ``FLAGS_integrity_consensus_timeout``, 30 s;
+  ``FLAGS_replay_buffer_size``, 8 steps) and straggler detection
+  (``FLAGS_straggler_window``, 50 steps; ``FLAGS_straggler_threshold``, 3 x
+  the group median; ``FLAGS_straggler_quarantine``, off).
 - The kernel tier (``ops/autotune.py``): ``FLAGS_fusion_policy``
   (``auto``, ``always`` or ``never``; default ``auto``: each fused op and
   flash attention run the form that this card's measured table names for
@@ -67,12 +74,14 @@ _FLAGS: dict[str, Any] = {
     # the training API (hapi/): the step guard of Model.fit, which skips
     # a non-finite step and rolls back after this many in a row; the
     # fit loop's input prefetch thread; the background checkpoint
-    # committer (not ported: a set value raises in save_model)
+    # committer, keep-last-K retention, and the bound on waiting for
+    # pending commits at a preemption or a recovery's restore (seconds)
     "FLAGS_check_nan_inf": False,
     "FLAGS_guard_max_bad_steps": 3,
     "FLAGS_input_prefetch": True,
     "FLAGS_async_checkpoint": False,
     "FLAGS_ckpt_keep": 3,
+    "FLAGS_ckpt_flush_timeout": 60.0,
     # step-phase attribution (profiler/steptimer.py), and how often it
     # waits for the card's work to time a step
     "FLAGS_steptimer": True,
@@ -101,6 +110,18 @@ _FLAGS: dict[str, Any] = {
     "FLAGS_recovery_restart_reset_steps": 100,
     # how long a quarantined.<rank> marker keeps a rank out (seconds)
     "FLAGS_quarantine_ttl": 3600.0,
+    # silent-data-corruption defence (resilience/integrity.py): steps
+    # between checksum consensus rounds (0 disables), how long one round
+    # waits for the peers' digests, and the steps the replay ring keeps
+    "FLAGS_integrity_check_interval": 100,
+    "FLAGS_integrity_consensus_timeout": 30.0,
+    "FLAGS_replay_buffer_size": 8,
+    # straggler detection (resilience/health.py): rolling window (steps),
+    # the threshold as a multiple of the group median, and the opt-in
+    # quarantine of a rank that finds itself straggling
+    "FLAGS_straggler_window": 50,
+    "FLAGS_straggler_threshold": 3.0,
+    "FLAGS_straggler_quarantine": False,
     # rotate the recovery journal past this size (two segments; 0: never)
     "FLAGS_journal_max_bytes": 1 << 20,
     # observability (profiler/): seconds between metrics snapshots written

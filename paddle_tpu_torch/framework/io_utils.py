@@ -107,6 +107,31 @@ class _Bf16Words:
         return torch.from_numpy(self.words.copy()).view(torch.bfloat16)
 
 
+def host_bytes(tensors, copy=False):
+    """Each tensor's raw bytes on the host, as a flat uint8 array, in
+    order. The card's tensors are packed into one buffer per device and
+    cross in one copy; the host's are read in place (``copy=True`` copies
+    them, for a reader that must not see later writes)."""
+    out = [None] * len(tensors)
+    by_device = {}
+    for i, t in enumerate(tensors):
+        t = t.detach()
+        if t.is_cuda:
+            by_device.setdefault(t.device, []).append(
+                (i, t.contiguous().reshape(-1).view(torch.uint8)))
+        else:
+            a = (t.view(torch.int16) if t.dtype == torch.bfloat16
+                 else t).contiguous().numpy().reshape(-1).view(np.uint8)
+            out[i] = a.copy() if copy else a
+    for parts in by_device.values():
+        host = torch.cat([p for _, p in parts]).cpu().numpy()
+        ofs = 0
+        for i, p in parts:
+            out[i] = host[ofs:ofs + p.numel()]
+            ofs += p.numel()
+    return out
+
+
 def _numpy_from_tensor(t):
     """A tensor as what a checkpoint pickles: its ndarray, or for bf16 its
     words (``_Bf16Words``)."""

@@ -14,7 +14,8 @@ card (jit/to_static.py), and counts its lifecycle:
   (``serving/decode/compiled_decode.py``) counts into the same pair.
 - A retrace-storm guard counts the distinct signatures one step builds
   and, past ``FLAGS_compiled_step_max_retraces``, warns once through
-  ``warnings``.
+  ``warnings`` and leaves a ``compiled_step.retrace_storm`` entry (status
+  ``warn``) in the flight recorder.
 - A call whose program is not built yet (a discovery pass, or the
   capture) runs under the StepTimer's ``step/compile`` phase
   (profiler/steptimer.py).
@@ -28,9 +29,6 @@ forward with the loss, the recompute backward): a CUDA graph per input
 signature, the same counters, builds under ``step/compile``. The engine
 decides whether a stage is captured, so a stage program captures
 whatever ``FLAGS_compiled_step`` says.
-
-Not ported yet: the flight-recorder entry of a retrace storm comes with
-the observability modules (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -107,6 +105,15 @@ class CompiledTrainStep:
         self._storm_warned = True
         with _stats_lock:
             _STATS["retrace_warnings"] += 1
+        try:
+            from ..resilience.recorder import get_recorder
+            rec = get_recorder()
+            entry = rec.start(
+                "compiled_step.retrace_storm", group=self._label,
+                seq=len(self._seen_sigs), shapes=[str(key[0])[:200]])
+            rec.finish(entry, status="warn")
+        except Exception:
+            pass  # observability must not turn a retrace into a crash
         warnings.warn(
             f"compiled_step[{self._label}]: {len(self._seen_sigs)} distinct "
             f"input signatures built (> FLAGS_compiled_step_max_retraces="

@@ -28,9 +28,9 @@ others keep pipelining. A device error raised by that wait reaches the
 caller: the reference's sync swallowed every exception.
 
 Everything lands in the metrics registry (``steptimer.<phase>_ms``
-histograms). The reference's chrome spans (``cat="step_phase"``) need the
-host recorder, which comes with ROADMAP A11; timelines on the card come
-from ``torch.profiler``.
+histograms) and, while the profiler's host recorder records, as chrome
+spans (``cat="step_phase"`` for a phase, ``cat="step"`` for a step), so
+``tools/trace_merge.py`` can name the slowest rank per phase.
 """
 from __future__ import annotations
 
@@ -152,6 +152,7 @@ class StepTimer:
                         self._global_phase_s.get(name, 0.0) + self_s
                 self._registry.observe(
                     f"steptimer.{_short(name)}_ms", self_s * 1e3)
+            _chrome_span(name, frame[1], dur, "step_phase")
             self._overhead_s += self._clock() - t1
 
     def current_phase(self):
@@ -188,6 +189,7 @@ class StepTimer:
             with self._lock:
                 self._steps.append(rec)
                 self._step_count += n
+            _chrome_span("step", step["t0"], wall, "step")
             items = [("steptimer.step_ms", wall / n * 1e3)]
             items.extend((f"steptimer.{_short(k)}_ms", v / n * 1e3)
                          for k, v in step["phase_s"].items())
@@ -277,6 +279,25 @@ class StepTimer:
 
 _timer = None
 _timer_lock = threading.Lock()
+
+
+_rec_ref = None
+
+
+def _chrome_span(name, start_s, dur_s, cat):
+    """A host-recorder span in the timer's clock domain (perf_counter by
+    default, as RecordEvent's timestamps are). The recorder is looked up
+    once and its switch read here, before the call: this runs at every
+    phase exit, so while nothing records it costs two attribute loads."""
+    global _rec_ref
+    rec = _rec_ref
+    if rec is None:
+        from . import _recorder
+        rec = _rec_ref = _recorder
+    if not rec.enabled:
+        return
+    rec.record(name, start_s * 1e6, dur_s * 1e6,
+               threading.get_ident(), cat)
 
 
 def get_steptimer():

@@ -1,36 +1,47 @@
-"""Resilience (port of paddle_tpu/resilience/, the part serving runs on).
+"""Resilience (port of paddle_tpu/resilience/).
 
 - :mod:`.faults` — the deterministic, flag-driven fault-injection registry
-  (``maybe_inject("<domain>.<op>")`` at every serving and decode site);
+  (``maybe_inject("<domain>.<op>")`` at every storage, collective,
+  checkpoint and serving site);
 - :mod:`.recorder` — the flight recorder, a bounded ring of operations
   dumped as JSON to the artifacts dir;
-- :mod:`.watchdog` — deadlines on blocking sections (every serving batch
-  runs in one); expiry dumps the recorder and the thread stacks and
-  raises :class:`DistributedTimeout`;
+- :mod:`.watchdog` — deadlines on blocking sections; expiry dumps the
+  recorder and the thread stacks and raises :class:`DistributedTimeout`;
 - :mod:`.retry` — exponential-backoff retry shared by the FS transfer
   paths, checkpoint staging and the elastic heartbeat;
 - :mod:`.recovery` — generation-fenced rendezvous, the in-job restart of
   :class:`RecoveryManager` under a budget, and the recovery journal;
-- :mod:`.health` — the preflight known-answer test, and the quarantine
-  lifecycle (:class:`Quarantined`, exit code 117);
+- :mod:`.integrity` — silent-data-corruption defence: bitwise state
+  checksums majority-voted across data-parallel replicas
+  (:class:`ConsensusChecker`), and a bounded step-replay ring that
+  re-executes an accused step on the host to classify hardware against
+  software;
+- :mod:`.health` — the preflight known-answer test, the quarantine
+  lifecycle (:class:`Quarantined`, exit code 117) and k x median
+  straggler detection (:class:`StragglerDetector`);
 - :mod:`.guard` — the StepGuard that skips a non-finite train step
   (``hapi.Model.fit`` under ``FLAGS_check_nan_inf``);
 - :mod:`.preempt` — SIGTERM to an emergency save and a resumable exit;
-- :mod:`.snapshot` — manifest-committed checkpoints with sha256 sidecars
-  and exact resume (``hapi.Model.save``), synchronous only.
+- :mod:`.snapshot` — zero-stall checkpoints: the background committer
+  (:class:`~.snapshot.AsyncCheckpointer`), manifest commits with sha256
+  sidecars, and exact resume.
 
-Integrity, straggler detection, the async checkpointer and the rest wait
-for ROADMAP A11.
+The reference's chaos campaign (``campaign.py``) waits for the serving
+rollout it drives (ROADMAP A12).
 """
-from . import (faults, guard, health, preempt, recorder,  # noqa: F401
-               recovery, retry, snapshot, watchdog)
+from . import (faults, guard, health, integrity,  # noqa: F401
+               preempt, recorder, recovery, retry, snapshot, watchdog)
 from .faults import (  # noqa: F401
     FaultInjected, fault_point, maybe_inject, should_inject,
 )
 from .guard import BadStepError, StepGuard  # noqa: F401
 from .health import (  # noqa: F401
-    QUARANTINE_EXIT_CODE, PreflightFailure, Quarantined, preflight_kat,
-    run_preflight, serving_preflight,
+    QUARANTINE_EXIT_CODE, PreflightFailure, Quarantined, StragglerDetector,
+    preflight_kat, run_preflight, serving_preflight,
+)
+from .integrity import (  # noqa: F401
+    ConsensusChecker, IntegrityError, StepReplayBuffer, checksum_state,
+    classify_replay,
 )
 from .preempt import Preempted, PreemptionCallback, PreemptionHandler  # noqa: F401
 from .recorder import FlightRecorder, get_recorder  # noqa: F401
@@ -44,15 +55,16 @@ from .watchdog import (  # noqa: F401
     Watchdog, watch_section,
 )
 
-__all__ = ["faults", "guard", "health", "preempt", "recorder", "recovery",
-           "snapshot", "watchdog",
+__all__ = ["faults", "retry", "guard", "preempt", "recorder", "recovery",
+           "watchdog", "integrity", "health", "snapshot",
            "maybe_inject", "should_inject", "fault_point", "FaultInjected",
            "StepGuard", "BadStepError", "Preempted", "PreemptionHandler",
-           "PreemptionCallback", "FlightRecorder", "get_recorder",
-           "Watchdog", "watch_section", "DistributedError",
+           "PreemptionCallback", "retry_call", "FlightRecorder",
+           "get_recorder", "Watchdog", "watch_section", "DistributedError",
            "DistributedTimeout", "PeerAbort", "StaleGeneration",
-           "current_generation", "PreflightFailure", "preflight_kat",
-           "serving_preflight", "retry", "retry_call", "RecoveryManager",
-           "RecoveryJournal", "RecoveryExhausted", "RendezvousTimeout",
-           "MembershipChange", "Quarantined", "QUARANTINE_EXIT_CODE",
-           "run_preflight"]
+           "RecoveryManager", "RecoveryJournal", "RecoveryExhausted",
+           "RendezvousTimeout", "MembershipChange", "current_generation",
+           "IntegrityError", "ConsensusChecker", "StepReplayBuffer",
+           "checksum_state", "classify_replay", "Quarantined",
+           "PreflightFailure", "preflight_kat", "run_preflight",
+           "serving_preflight", "StragglerDetector", "QUARANTINE_EXIT_CODE"]

@@ -19,8 +19,9 @@ when ``FLAGS_check_nan_inf`` is set.
 The snapshot is a copy of every tensor of the objects' state dicts on
 the tensor's own device (the reference copies to the host), and the
 restore copies back in place, keeping the addresses a captured step
-holds. The reference's step-replay dump (``replay=``) waits for the
-integrity module (ROADMAP A11).
+holds. With a ``replay`` ring (``integrity.StepReplayBuffer``) a
+rollback dumps the recorded steps, the evidence that tells a numerically
+unstable schedule from a card producing garbage.
 """
 from __future__ import annotations
 
@@ -93,7 +94,7 @@ class StepGuard:
     """
 
     def __init__(self, objs, scaler=None, max_bad_steps=None, saver=None,
-                 on_rollback=None, check_state=True):
+                 on_rollback=None, check_state=True, replay=None):
         from ..framework.flags import get_flag
         self.objs = [o for o in objs if o is not None]
         self.scaler = scaler
@@ -103,6 +104,8 @@ class StepGuard:
         self.saver = saver
         self.on_rollback = on_rollback
         self.check_state = check_state
+        # a rollback means K bad steps in a row: dump the recorded steps
+        self.replay = replay
         self.bad_steps = 0       # consecutive
         self.steps = 0           # total steps observed
         self.skipped = 0         # total skipped
@@ -177,6 +180,13 @@ class StepGuard:
         (or run the on_rollback hook); resets the consecutive count."""
         self.bad_steps = 0
         self.rollbacks += 1
+        if self.replay is not None:
+            try:
+                self.replay.dump(
+                    reason=f"guard rollback #{self.rollbacks}: "
+                           f"{self.max_bad_steps} consecutive bad steps")
+            except Exception:
+                pass  # evidence capture must not mask the rollback itself
         if self.on_rollback is not None:
             self.on_rollback(self)
             return

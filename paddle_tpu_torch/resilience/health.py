@@ -1,7 +1,5 @@
-"""Preflight known-answer test and the quarantine lifecycle (port of
-``PreflightFailure``, ``preflight_kat``, ``serving_preflight``,
-``Quarantined``, ``QUARANTINE_EXIT_CODE`` and ``run_preflight`` of
-paddle_tpu/resilience/health.py).
+"""Hardware health: the preflight known-answer test, quarantine and
+stragglers (port of paddle_tpu/resilience/health.py).
 
 - :func:`preflight_kat`, a seeded matmul + reduction known-answer test on
   a device, run when a serving replica restarts and, through
@@ -12,24 +10,30 @@ paddle_tpu/resilience/health.py).
   survives re-rendezvous until ``FLAGS_quarantine_ttl``, and raises
   :class:`Quarantined`, a ``SystemExit`` with code
   :data:`QUARANTINE_EXIT_CODE`, which the launcher does not relaunch.
-
-Straggler detection comes with the rest of the resilience slice (ROADMAP
-A11).
+- :class:`StragglerDetector`: per-rank rolling-mean step times published
+  as store heartbeats; ranks above ``FLAGS_straggler_threshold`` x the
+  group median over ``FLAGS_straggler_window`` steps are flagged into
+  profiler counters and the flight recorder and, opt-in through
+  ``FLAGS_straggler_quarantine``, fed to the same quarantine path.
 """
 from __future__ import annotations
 
+import collections
 import hashlib
 import math
+import statistics
+import time
 
 import numpy as np
 import torch
 
 from ..framework.flags import get_flag
 from .faults import maybe_inject
-from .watchdog import DistributedError
+from .integrity import IntegrityError, _flag
 
 __all__ = ["QUARANTINE_EXIT_CODE", "Quarantined", "PreflightFailure",
-           "preflight_kat", "run_preflight", "serving_preflight"]
+           "preflight_kat", "run_preflight", "serving_preflight",
+           "StragglerDetector"]
 
 # Distinct from Preempted's 128+signum codes: the launcher must not
 # confuse "this host is sick, leave it out" with "this host was preempted,
@@ -37,12 +41,12 @@ __all__ = ["QUARANTINE_EXIT_CODE", "Quarantined", "PreflightFailure",
 QUARANTINE_EXIT_CODE = 117
 
 
-class PreflightFailure(DistributedError):
+class PreflightFailure(IntegrityError):
     """The known-answer test failed on this device."""
 
-    def __init__(self, message, kind="preflight"):
-        super().__init__(message)
-        self.kind = kind
+    def __init__(self, message, **kw):
+        kw.setdefault("kind", "preflight")
+        super().__init__(message, **kw)
 
 
 class Quarantined(SystemExit):
@@ -168,3 +172,109 @@ def serving_preflight(predictor=None):
         return None
     return preflight_kat(seed=0,
                          device=getattr(predictor, "device", None) or "cpu")
+
+
+# -- straggler detection ----------------------------------------------------
+
+class StragglerDetector:
+    """k x median straggler detector over per-rank step-time heartbeats.
+
+    Each rank feeds :meth:`note_step` (or brackets the step with
+    :meth:`begin_step` / :meth:`end_step`) with its step time; the rolling
+    mean over the last ``window`` steps is published to
+    ``<job>/steptime.<rank>`` and emitted as a ``steptime.rank<N>_ms``
+    profiler counter. :meth:`check` gathers every rank's published mean
+    and flags ranks above ``threshold`` x the group median: slow relative
+    to the group, which is robust to the whole job slowing down.
+
+    Under a synchronous all-reduce every rank's wall step is the slowest
+    one's, so a caller feeds what the rank itself spent (its step less the
+    time it waited in collectives) for the detector to tell ranks apart.
+
+    Detection only observes by default. With ``quarantine=True``
+    (``FLAGS_straggler_quarantine``) a rank that finds itself flagged
+    takes the quarantine exit: opt-in, because a straggler is often the
+    network's fault, not the host's.
+    """
+
+    def __init__(self, elastic, window=None, threshold=None, clock=None,
+                 recorder=None, quarantine=None):
+        self.elastic = elastic
+        self.window = int(_flag("FLAGS_straggler_window", 50)
+                          if window is None else window)
+        self.threshold = float(_flag("FLAGS_straggler_threshold", 3.0)
+                               if threshold is None else threshold)
+        self.quarantine = bool(_flag("FLAGS_straggler_quarantine", False)
+                               if quarantine is None else quarantine)
+        self._clock = clock
+        self.recorder = recorder
+        self._times = collections.deque(maxlen=max(1, self.window))
+        self._t0 = None
+        self.last_ratios = {}
+
+    def _now(self):
+        return self._clock() if self._clock is not None else time.monotonic()
+
+    def begin_step(self):
+        self._t0 = self._now()
+
+    def end_step(self):
+        """Close the bracket opened by :meth:`begin_step`; returns the
+        measured duration (None if the bracket was never opened)."""
+        if self._t0 is None:
+            return None
+        dt = self._now() - self._t0
+        self._t0 = None
+        self.note_step(dt)
+        return dt
+
+    def note_step(self, duration):
+        """Record one step's time; publishes the rolling mean as this
+        rank's step-time heartbeat. Returns the mean."""
+        from ..profiler import record_counter
+        self._times.append(float(duration))
+        mean = sum(self._times) / len(self._times)
+        rank = self.elastic.rank
+        try:
+            self.elastic.store.put(
+                f"{self.elastic.job_id}/steptime.{rank}",
+                {"rank": rank, "mean": mean, "n": len(self._times)})
+        except Exception:
+            pass  # a store hiccup must not fail the training step
+        record_counter(f"steptime.rank{rank}_ms", mean * 1e3)
+        return mean
+
+    def check(self):
+        """One detection round: returns the sorted straggler ranks (may
+        include self). ``last_ratios`` holds every rank's mean / median
+        ratio from this round."""
+        from ..profiler import record_counter
+        vals = self.elastic.store.alive_values(
+            f"{self.elastic.job_id}/steptime.")
+        by_rank = {int(v["rank"]): float(v["mean"])
+                   for v in vals if v.get("n", 0) > 0}
+        if len(by_rank) < 2:
+            self.last_ratios = {}
+            return []  # a group of one has no peers to lag behind
+        median = statistics.median(by_rank.values())
+        if median <= 0:
+            self.last_ratios = {}
+            return []
+        self.last_ratios = {r: m / median for r, m in by_rank.items()}
+        stragglers = sorted(r for r, ratio in self.last_ratios.items()
+                            if ratio > self.threshold)
+        for r in stragglers:
+            record_counter(f"straggler.rank{r}", self.last_ratios[r])
+            if self.recorder is not None:
+                entry = self.recorder.start("health.straggler", peer=r)
+                entry["ratio"] = self.last_ratios[r]
+                self.recorder.finish(entry, status="detected")
+        if self.quarantine and self.elastic.rank in stragglers:
+            ratio = self.last_ratios[self.elastic.rank]
+            reason = f"straggler: {ratio:.2f}x group median step time"
+            try:
+                self.elastic.mark_quarantined(reason=reason)
+            except Exception:
+                pass
+            raise Quarantined(self.elastic.rank, reason=reason)
+        return stragglers

@@ -8,10 +8,10 @@ epoch boundaries, run the registered emergency actions once (typically a
 checkpoint save with a ``preempted`` meta flag), and raise
 :class:`Preempted`, a SystemExit with the conventional 128+signum exit
 code, so that the process dies resumable. ``hapi.Model.fit`` adds a
-:class:`PreemptionCallback` when a handler is installed. The reference's
-drain first flushes pending background checkpoint commits; the port's
-checkpoints commit synchronously (resilience/snapshot.py), so there is
-nothing pending to flush.
+:class:`PreemptionCallback` when a handler is installed. The drain first
+lands the pending background checkpoint commits
+(``snapshot.flush_all``, bounded by ``FLAGS_ckpt_flush_timeout``), so the
+emergency save never races or orphans one.
 """
 from __future__ import annotations
 
@@ -95,6 +95,16 @@ class PreemptionHandler:
                 return []
             self._drained = True
             failures = []
+            # a background commit in flight lands BEFORE the emergency
+            # save: the grace-window save never races or orphans it
+            try:
+                from ..framework.flags import get_flag
+                from . import snapshot as _snapshot
+                for mpath, err in _snapshot.flush_all(
+                        timeout=get_flag("FLAGS_ckpt_flush_timeout", 60.0)):
+                    failures.append((f"ckpt_flush:{mpath}", err))
+            except Exception as e:  # noqa: BLE001 — exit path must survive
+                failures.append(("ckpt_flush", e))
             for name, fn in self._actions:
                 try:
                     fn()
@@ -176,6 +186,13 @@ class PreemptionCallback:
             return
         self.triggered = True
         if self.save_path is not None and self.model is not None:
+            try:
+                # older pending commits land before the emergency save, so
+                # the manifest sequence stays ordered under preemption
+                from . import snapshot as _snapshot
+                _snapshot.flush_all()
+            except Exception:
+                pass
             self.model.save(self.save_path)
         h.drain()
         if self.model is not None:

@@ -359,19 +359,26 @@ class RecoveryManager:
            group proceeds scaled-in), PADDLE_TRAINER_ENDPOINTS rewritten
            to the group, and the process group formed again at the new
            generation where one was formed before;
-        5. the preflight, the restore from the last good checkpoint and
-           the journal entry.
+        5. the preflight, the flush of this process's pending background
+           checkpoint commits (``snapshot.flush_all``, bounded by
+           ``FLAGS_ckpt_flush_timeout``), the restore from the last good
+           checkpoint and the journal entry.
+
+        A rank's restore reads what every rank's committer wrote: where a
+        peer holds the committer, the hook meets it (a barrier of the
+        re-formed group) before it reads, so the peer's flush came first.
         """
         maybe_inject("recovery.restart", ConnectionError)
-        from .health import PreflightFailure
+        from .integrity import IntegrityError
         cause_name = type(cause).__name__ if cause is not None else \
             "requested"
         culprits = []
-        if isinstance(cause, PreflightFailure):
-            # journal the verdict ("preflight", ...), not the class name,
-            # and make sure an accused rank is marked
+        if isinstance(cause, IntegrityError):
+            # journal the typed verdict ("sdc", "preflight", ...), not the
+            # class name, and make sure an accused rank is marked even if
+            # its own consensus-side mark was lost to a store hiccup
             cause_name = cause.kind
-            culprits = list(getattr(cause, "culprits", ()) or ())
+            culprits = list(cause.culprits)
             if self.elastic.rank in culprits:
                 try:
                     self.elastic.mark_quarantined(
@@ -408,6 +415,16 @@ class RecoveryManager:
         self._reform(endpoints)
         if self.preflight is not None:
             self.preflight(gen)
+        # the restore discovers the newest COMMITTED manifest, so a commit
+        # still in flight on this process's background committer lands (or
+        # fails into the journal) before the hook looks
+        try:
+            from ..framework.flags import get_flag
+            from . import snapshot as _snapshot
+            _snapshot.flush_all(
+                timeout=get_flag("FLAGS_ckpt_flush_timeout", 60.0))
+        except Exception:
+            pass  # a wedged committer must not block recovery
         resume = self.restore(gen) if self.restore is not None else None
         record = dict(restart=self.restarts, cause=cause_name,
                       detail=str(cause or ""), generation=gen,

@@ -6,10 +6,11 @@ Counters are plain monotonic ints behind one lock (queue pressure is the
 bottleneck long before this lock is), mirrored into the always-on registry
 (``profiler.metrics``). Latencies go into a bounded reservoir so p50/p99
 stay O(1) memory under sustained load. :meth:`snapshot` is a plain dict
-(the server's ``stats()`` and the chaos assertions all read it). The
-reference's ``export_to_profiler`` (chrome-trace counter events in its
-profiler's host recorder) waits for the port of ``profiler/`` (ROADMAP
-A11).
+(the server's ``stats()`` and the chaos assertions all read it);
+:meth:`export_to_profiler` emits each counter as a chrome-trace counter
+event (``"ph": "C"``) into the profiler's host recorder, so
+``export_chrome_tracing`` renders queue depth, shed count and batch
+occupancy on the timeline of the spans.
 
 The clock is injectable (fake-clock chaos tests record deterministic
 latencies with no real sleeps).
@@ -288,3 +289,14 @@ class ServingMetrics:
             except Exception:
                 out[name] = None
         return out
+
+    # -- profiler export -------------------------------------------------
+    def export_to_profiler(self, prefix="serving"):
+        """Emit the current snapshot as chrome-trace counter events into
+        the profiler's host recorder (visible while profiling)."""
+        from .. import profiler
+        snap = self.snapshot()
+        for k, v in snap.items():
+            if isinstance(v, (int, float)):
+                profiler.record_counter(f"{prefix}.{k}", v)
+        return snap

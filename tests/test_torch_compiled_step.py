@@ -129,6 +129,31 @@ def test_retrace_storm_warning(flag_guard):
     assert compile_stats()["retrace_warnings"] == 1
 
 
+@pytest.mark.allow_retrace
+def test_retrace_storm_leaves_one_flight_recorder_entry(flag_guard):
+    """Past the bound the storm is a ``compiled_step.retrace_storm`` entry
+    of the flight recorder (status ``warn``), once per step object, as
+    the reference leaves it."""
+    from paddle_tpu_torch.resilience import recorder
+    recorder.reset()
+    pt.set_flags({"FLAGS_compiled_step_max_retraces": 2})
+    rng = np.random.RandomState(0)
+    for label in ("test.storm_a", "test.storm_b"):
+        _, step = _compiled(label=label)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for batch in (4, 5, 6, 7, 8):
+                x = torch.from_numpy(rng.randn(batch, 8).astype("float32"))
+                y = torch.from_numpy(rng.randint(0, 4, (batch,)))
+                step(x, y)
+    storms = [e for e in recorder.get_recorder().entries()
+              if e["op"] == "compiled_step.retrace_storm"]
+    assert [(e["group"], e["seq"], e["status"]) for e in storms] == [
+        ("test.storm_a", 3, "warn"), ("test.storm_b", 3, "warn")]
+    assert all(len(e["shapes"]) == 1 for e in storms)
+    recorder.reset()
+
+
 @pytest.mark.parametrize("switch", ["flag", "enable_to_static"])
 def test_disabled_wrapper_is_pure_eager(flag_guard, switch):
     if switch == "flag":

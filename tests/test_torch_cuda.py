@@ -2435,6 +2435,94 @@ def test_auto_engine_at_one_rank_captures_its_merged_step_on_card(card):
     assert eager == 12 and captured == 8, (captured, eager)
 
 
+
+# -- integrity, the async checkpointer and the profiler on the card -----------
+
+def _card_gpt_state():
+    """A 2-layer bf16 GPT on the card after one AdamW (multi-precision)
+    step, with its optimizer."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_layers=2,
+                    num_heads=2, max_position_embeddings=128, dropout=0.0)
+    model = GPTForCausalLM(cfg, device="cuda", dtype=torch.bfloat16,
+                           generator=torch.Generator().manual_seed(0))
+    opt = pt.optimizer.AdamW(learning_rate=1e-3, multi_precision=True,
+                             parameters=model.parameters())
+    ids = torch.randint(0, 256, (2, 64), device="cuda",
+                        generator=torch.Generator(device="cuda")
+                        .manual_seed(1))
+    model(ids, labels=ids).backward()
+    opt.step()
+    opt.clear_grad()
+    return model, opt
+
+
+def _host_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu()
+    if isinstance(x, dict):
+        return {k: _host_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_host_tree(v) for v in x)
+    return x
+
+
+def test_checksum_of_a_card_model_equals_its_host_copy(card):
+    from paddle_tpu_torch.resilience.integrity import (checksum_state,
+                                                       state_bytes)
+    model, opt = _card_gpt_state()
+    host = [_host_tree(model.state_dict()), _host_tree(opt.state_dict())]
+    assert checksum_state([model, opt]) == checksum_state(host)
+    assert state_bytes([model, opt]) == state_bytes(host) > 0
+    with torch.no_grad():   # one flipped bit on the card shows
+        p = next(model.parameters())
+        p.view(torch.int16).view(-1)[7] ^= 1
+    assert checksum_state([model, opt]) != checksum_state(host)
+
+
+def test_async_snapshot_of_card_tensors_reloads_equal_on_the_host(
+        card, tmp_path):
+    from paddle_tpu_torch.resilience.snapshot import (AsyncCheckpointer,
+                                                      load_blob)
+    model, opt = _card_gpt_state()
+    want = _host_tree(model.state_dict())
+    ck = AsyncCheckpointer(str(tmp_path / "ck"))
+    ck.save({"m.pdparams": (model.state_dict(), "model"),
+             "m.pdopt": (opt.state_dict(), "optimizer")}, step=1)
+    with torch.no_grad():   # the next step writes: the snapshot holds
+        for p in model.parameters():
+            p.add_(1.0)
+    assert ck.flush(timeout=120.0) == []
+    blob, _ = load_blob(ck.root)
+    assert set(blob["model"]) == set(want)
+    for k, v in want.items():
+        got = blob["model"][k]
+        got = got if isinstance(got, torch.Tensor) else torch.as_tensor(got)
+        assert got.dtype == v.dtype and torch.equal(got, v), k
+    for k, v in _host_tree(opt.state_dict()).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(torch.as_tensor(blob["optimizer"][k]), v), k
+    ck.close()
+
+
+def test_record_event_and_b1_share_one_profiler_window(card):
+    from paddle_tpu_torch import profiler
+    q, k, v = _qkv(1, 256, 2, 64, torch.bfloat16, 5)
+    prof = profiler.Profiler(targets=[profiler.ProfilerTarget.CPU,
+                                      profiler.ProfilerTarget.GPU])
+    with prof:
+        torch.ones(1, device="cuda").add_(1)     # lead the window in
+        torch.cuda.synchronize()
+        with profiler.RecordEvent("card.attention"):
+            fa.flash_attention_fwd(q, k, v, True, 0.125)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.torch_profiler.events()]
+    assert "card.attention" in names
+    # a kernel's name is demangled: "void (anonymous namespace)::..."
+    assert any("flash_fwd_tc_kernel" in n for n in names), \
+        sorted(set(names))
+    assert "card.attention" in profiler._recorder.aggregate()
+    profiler.reset_profiler()
+
 if __name__ == "__main__":
     import sys
     if sys.argv[1:2] == ["--tp-worker"]:

@@ -16,8 +16,8 @@ result:
   runs each action once, and ``fit`` stopping resumable;
 - checkpoints (resilience/snapshot.py): ``Model.save``'s manifest and
   sidecars, ``ModelCheckpoint``'s tags, restore by manifest discovery
-  past a damaged newest manifest, keep-K retention, the unported
-  ``FLAGS_async_checkpoint`` raising, a manifest of either package
+  past a damaged newest manifest, keep-K retention,
+  ``FLAGS_async_checkpoint``'s background commit, a manifest of either package
   verifying and restoring in the other, and exact resume of a
   DataLoader's cursor.
 """
@@ -435,12 +435,22 @@ def test_keep_k_retention(tmp_path):
         == ["data-0000000003", "data-0000000004"]
 
 
-def test_async_checkpoint_flag_raises():
+def test_async_checkpoint_flag_commits_in_the_background(tmp_path):
     model = _hapi_model()
+    model.fit(_hapi_data(), batch_size=8, epochs=1, verbose=0)
     pt.set_flags({"FLAGS_async_checkpoint": True})
-    with pytest.raises(NotImplementedError, match="A11"):
-        model.save("unused/m")
-    assert not os.path.exists("unused")
+    model.save(str(tmp_path / "m"))
+    ck = snap.checkpointer_for(str(tmp_path))
+    assert ck.background
+    assert snap.flush_all(timeout=30.0) == [] and ck.pending == 0
+    man = snap.verify_manifest(snap.list_manifests(str(tmp_path))[0][1])
+    assert {os.path.basename(r) for r in man["files"]} == \
+        {"m.pdparams", "m.pdopt", "m.pdstate"}
+    model2 = _hapi_model(seed=1)
+    ck.restore(model2.network, model2._optimizer)
+    for a, b in zip(model.network.parameters(), model2.network.parameters()):
+        assert torch.equal(a, b)
+    ck.close()
 
 
 @pytest.mark.parametrize("writer", ["port", "ref"])

@@ -199,7 +199,8 @@ print(json.dumps({
 # serving, resilience, profiler), the training API slice (io, hapi,
 # metric, losses, vision data) and the script surface (ParamAttr, the
 # regularizers, sparse rows, devices, the tensor API), the autotuner
-# and data parallelism, and fleet with its pipeline and checkpoint
+# and data parallelism, fleet with its pipeline and checkpoint, and the
+# integrity, async checkpoint, profiler and expert-parallel modules
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -285,6 +286,10 @@ PORT_MODULES = {
     "paddle_tpu_torch.distributed.utils",
     "paddle_tpu_torch.incubate", "paddle_tpu_torch.incubate.moe",
     "paddle_tpu_torch.incubate.nn", "paddle_tpu_torch.incubate.optimizer",
+    # silent-data-corruption defence, zero-stall checkpoints, the
+    # profiler's host API and the elastic expert-parallel engine
+    "paddle_tpu_torch.resilience.integrity", "paddle_tpu_torch.profiler",
+    "paddle_tpu_torch.distributed.fleet.expert_parallel",
 }
 
 

@@ -237,23 +237,12 @@ LATER = {
     ".vision.models": set(),
     ".vision.ops": set(),
     ".text": set(),
-    # ROADMAP A11: expert_parallel.py (beside the AsyncCheckpointer)
-    ".distributed.fleet": {
-        "expert_parallel", "ExpertParallelEngine", "ExpertPlacement"},
+    ".distributed.fleet": set(),
     ".distributed": set(),
     # ROADMAP A13: the sparsity package
     ".incubate": {"asp"},
-    # ROADMAP A11: integrity.py and health.py's straggler detection
-    ".resilience": {
-        "integrity", "ConsensusChecker", "IntegrityError",
-        "StepReplayBuffer", "checksum_state", "classify_replay",
-        "StragglerDetector"},
-    # ROADMAP A11: the profiler's host API
-    ".profiler": {
-        "profiler", "Profiler", "ProfilerState", "ProfilerTarget",
-        "RecordEvent", "counter_samples", "export_chrome_tracing",
-        "export_rank_trace", "record_counter", "reset_profiler",
-        "start_profiler", "stop_profiler", "summary"},
+    ".resilience": set(),
+    ".profiler": set(),
     # ROADMAP A12: client.py, SocketFrontend, rollout.py, autoscaler.py;
     # the quantized decode model
     ".serving": {
@@ -306,7 +295,10 @@ RESILIENCE_NAMES = {
                "should_inject"),
     "guard": ("StepGuard", "BadStepError"),
     "health": ("PreflightFailure", "preflight_kat", "serving_preflight",
-               "QUARANTINE_EXIT_CODE", "Quarantined", "run_preflight"),
+               "QUARANTINE_EXIT_CODE", "Quarantined", "run_preflight",
+               "StragglerDetector"),
+    "integrity": ("IntegrityError", "ConsensusChecker", "StepReplayBuffer",
+                  "checksum_state", "classify_replay"),
     "preempt": ("Preempted", "PreemptionCallback", "PreemptionHandler"),
     "recorder": ("FlightRecorder", "get_recorder"),
     "recovery": ("current_generation", "MembershipChange",
