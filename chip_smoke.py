@@ -127,9 +127,30 @@ them, and the kernels line says so.
    hedges. (b) The decode engine attached to that server: 8 prompts, the
    known stream of [1, 2, 3, 4, 5], identical prompts identical, compiles
    within the backend's buckets, the KV pool back to full, TTFT and TPOT.
-   (c) ResNet-50 eval (NHWC, space-to-depth stem, fused) in bf16 behind
-   the same server, 16 requests of one 224 x 224 f32 image (cast to bf16
-   per call): replies held as (a), no B1.
+   (c) socket_rollout: (a)'s BERT-base launched from manifest 1 (an
+   AsyncCheckpointer commit of the seed's weights, loaded by the
+   rollout's loader) behind SocketFrontend, with the autoscaler (2..3
+   replicas) and live rollout (two golden rows) attached: a burst of
+   queued requests grows the fleet to 3 and quiet shrinks it to 2; 4
+   InferenceClient threads send rows while version 2 (noise on version
+   1) rolls and version 3 (an FFN weight NaN) is refused at the canary
+   with GoldenMismatch. Every reply stamped 1 or 2 and within (a)'s rule
+   of its version's eager forwards, off the other version's; no shed or
+   failure; every replica built compiled one graph per bucket before
+   traffic and none after; drained replicas' predictors freed; B1 12
+   times (tc_bf16) and no softmax in a profiled bucket-8 replay of a
+   version-2 replica; latency before, during and after the roll, the
+   commit-to-complete and grow seconds. (d) disagg_stream: 16 streams
+   over InferenceClient.generate through disaggregated prefill/decode (1
+   prefill, 2 decode replicas of the toy stepper), prompts of 8 and 256
+   tokens, 16 new tokens each, the third handoff's kv.transfer faulted:
+   every stream equal to a colocated engine's, none lost, no leaked KV
+   block, the journal's four phases for every handoff and the abort for
+   the faulted one, one fallback prefill; TTFT and TPOT. (e) campaign:
+   run_campaign(episodes=2, seed=0) on the card, zero invariant
+   violations. (f) ResNet-50 eval (NHWC, space-to-depth stem, fused) in
+   bf16 behind the same kind of server, 16 requests of one 224 x 224 f32
+   image (cast to bf16 per call): replies held as (a), no B1.
 
 17. hapi (``--phases hapi``): the high-level training API through its
    entry points (``io.DataLoader`` or a dataset handed to ``fit``, then
@@ -451,8 +472,10 @@ them, and the kernels line says so.
    same weights, its word rows those of the tables' first pulls
    (ROADMAP C-ref-29), doing the trainers' arithmetic: at each step the
    gradients of both trainers' 4 x 512 halves at the same parameters,
-   then p -= lr * g with each half's in turn, as a pserver applies each
-   push (the word rows by their merged sparse gradients). The mean of
+   then p -= lr * g with each half's in turn, in the order the table's
+   pserver applied the two trainers' pushes (each pserver logs its
+   pushes' keys; ROADMAP C15), as a pserver applies each push (the word
+   rows by their merged sparse gradients). The mean of
    the trainers' losses at each step within the bf16 rule of the serial
    bf16 run (2 x its relative gap to the serial f32 run + 1e-3), and
    each dense table's update after the 3 steps (table - initial value)
@@ -619,6 +642,27 @@ LENET_BATCH, LENET_SPE, LENET_FLOOR, LENET_WINDOW = 256, 32, 1.80, 32
 SERVE_BATCH, SERVE_SEQ, SERVE_REPLICAS, SERVE_CLIENTS = 8, 512, 2, 4
 SERVE_REQUESTS, SERVE_RESNET_REQUESTS = 64, 16
 SERVE_TOL, SERVE_FACTOR = 2 ** -7, 2.0
+# the serving lanes over the wire. socket_rollout: BERT-base behind
+# SocketFrontend, ROLL_CLIENTS InferenceClient threads cycling a pool of
+# ROLL_ROWS 512-token rows (the first two the rollout's goldens); the
+# autoscaler (2..3) grows on a burst of ROLL_BURST queued requests and
+# shrinks when quiet; version 2 (version 1 plus Gaussian noise of the
+# smallest of ROLL_NOISE x each parameter's std that puts every row's
+# logits more than ROLL_MARGIN x SERVE_TOL apart, within ROLL_MAX_DRIFT of
+# the golden gate's relative drift) rolls under ROLL_WINDOW_S of traffic
+# before and after; version 3 (version 2 with an FFN weight NaN) is refused
+# at the canary. A replica's captures hold the serving thread for seconds,
+# which the AIMD limiter would read as congestion at the default 100 ms
+# target: the lane's target is ROLL_TARGET_MS. disagg_stream: DISAGG_STREAMS
+# generation streams over InferenceClient.generate, prompts of
+# DISAGG_PROMPT_LENS tokens alternating, DISAGG_NEW tokens each, the third
+# handoff's transfer faulted. campaign: run_campaign(CAMPAIGN_EPISODES,
+# seed 0), one training and one serving episode
+ROLL_CLIENTS, ROLL_ROWS, ROLL_BURST, ROLL_WINDOW_S = 4, 32, 96, 3.0
+ROLL_NOISE, ROLL_MARGIN, ROLL_MAX_DRIFT = (0.02, 0.05, 0.1, 0.2), 4.0, 0.5
+ROLL_TARGET_MS, ROLL_LIMIT_S, ROLL_MEM_SLACK = 60000.0, 300.0, 64 << 20
+DISAGG_STREAMS, DISAGG_PROMPT_LENS, DISAGG_NEW = 16, (8, 256), 16
+CAMPAIGN_EPISODES = 2
 # the decode lane: 8 prompts through the continuous-batching engine; the
 # verify skill's known stream (the toy stepper at max_new_tokens=6)
 DECODE_PROMPTS = 8
@@ -3190,6 +3234,575 @@ def phase_serving_decode(torch, srv):
     assert 1 <= backend.step.compile_count <= len(backend.buckets), row
     assert row["graphs_captured"] == backend.step.compile_count, row
     assert stats["kv_blocks_free"] == eng.pool.num_blocks, row
+    assert all(c == 0 for c in flash.values()), row
+    return row
+
+
+def roll_versions(torch, pt, model, rows):
+    """Version 1 (``model``'s f32 weights as host arrays) and version 2:
+    version 1 plus Gaussian noise of the smallest ROLL_NOISE fraction of
+    each parameter's std that puts every row's f32 eager logits more than
+    ROLL_MARGIN x SERVE_TOL (relative L2) from version 1's, within
+    ROLL_MAX_DRIFT of the golden gate's drift (max |a - b| / max |b|).
+    Returns (v1, v2, the fraction, the gaps), with version 2's model."""
+    import copy
+    v1 = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        base = model(torch.from_numpy(rows).cuda()).float().cpu().numpy()
+    twin = copy.deepcopy(model)
+    for frac in ROLL_NOISE:
+        rng = np.random.RandomState(12345)
+        v2 = {k: (a + frac * float(a.std()) * rng.randn(*a.shape)
+                  ).astype(a.dtype) if a.dtype.kind == "f" else a
+              for k, a in v1.items()}
+        pt.load_numpy_state_dict(twin, v2)
+        with torch.no_grad():
+            out = twin(torch.from_numpy(rows).cuda()).float().cpu().numpy()
+        gaps = row_gaps(out, base)
+        drift = float(np.max(np.abs(out - base)) / np.max(np.abs(base)))
+        if gaps.min() > ROLL_MARGIN * SERVE_TOL and drift < ROLL_MAX_DRIFT:
+            return v1, v2, frac, {"min_rel_l2": float(gaps.min()),
+                                  "median_rel_l2": float(np.median(gaps)),
+                                  "golden_drift": drift}, twin
+    raise AssertionError(f"no noise fraction in {ROLL_NOISE} separates "
+                         f"the versions (last gaps {gaps}, drift {drift})")
+
+
+def bucket_forwards(torch, model, rows, buckets):
+    """``rows``' f32 eager logits (batches of SERVE_BATCH) and those of a
+    bf16 copy of ``model`` at each bucket size, rows taken ``b`` at a
+    time: a served row's bf16 arithmetic depends on the batch's shape
+    (the GEMMs' algorithms), not on the other rows in it, so its reply is
+    the bf16 forward at the bucket that served it."""
+    import copy
+    twin = copy.deepcopy(model).bfloat16().eval()
+    out = {"f32": [], "bf16": {b: [] for b in buckets}}
+    x = torch.from_numpy(rows).cuda()
+    with torch.no_grad():
+        for i in range(0, len(rows), SERVE_BATCH):
+            out["f32"].append(model(x[i:i + SERVE_BATCH]).float().cpu())
+        for b in buckets:
+            for i in range(0, len(rows), b):
+                out["bf16"][b].append(twin(x[i:i + b]).float().cpu())
+    del twin
+    return {"f32": torch.cat(out["f32"]).numpy(),
+            "bf16": {b: torch.cat(v).numpy() for b, v in out["bf16"].items()}}
+
+
+def bucket_reply_gaps(outs, idx, eager, other):
+    """Each reply's relative L2 gap to its version's bf16 forward at the
+    bucket that matches it best (and that bucket's own gap to f32), its
+    gap to the f32 forward, and its least gap to the other version's bf16
+    forward at any bucket."""
+    gaps = np.stack([row_gaps(outs, eager["bf16"][b][idx])
+                     for b in eager["bf16"]])
+    best = np.argmin(gaps, axis=0)
+    own = np.stack([row_gaps(eager["bf16"][b][idx], eager["f32"][idx])
+                    for b in eager["bf16"]])
+    to_other = np.min([row_gaps(outs, other["bf16"][b][idx])
+                       for b in other["bf16"]], axis=0)
+    cols = np.arange(len(idx))
+    return (gaps[best, cols], own[best, cols],
+            row_gaps(outs, eager["f32"][idx]), to_other)
+
+
+def latency_summary(recs):
+    """p50/p99 latency (ms, send to reply on the host clock) and
+    requests/s of the replies in ``recs`` (row, logits, version, t0, t1)."""
+    if not recs:
+        return {"requests": 0}
+    lat = np.array([r[4] - r[3] for r in recs]) * 1e3
+    span = max(r[4] for r in recs) - min(r[3] for r in recs)
+    return {"requests": len(recs),
+            "latency_p50_ms": float(np.percentile(lat, 50)),
+            "latency_p99_ms": float(np.percentile(lat, 99)),
+            "requests_per_s": len(recs) / span if span > 0 else None}
+
+
+def wait_for(cond, limit_s, what):
+    t0 = time.monotonic()
+    while not cond():
+        assert time.monotonic() - t0 < limit_s, f"timed out: {what}"
+        time.sleep(0.02)
+    return time.monotonic() - t0
+
+
+def phase_serving_rollout(torch, seed):
+    """socket_rollout: BERT-base (bert_server's model and configuration)
+    served over the wire while the autoscaler resizes the fleet and live
+    rollout swaps its weights. Version 1, the seed's weights, is committed
+    with AsyncCheckpointer as manifest 1, and the server is launched from
+    it through the rollout's loader (``load_manifest_blob(path)["model"]``
+    into a BERT-base on the card, served in bf16 through
+    ``inference.Config().set_layer``): a restart of the serving job, whose
+    recovery journal records manifest 1 as its completed version, so the
+    controller resumes from it. ``SocketFrontend`` on 127.0.0.1;
+    ``attach_autoscaler(AutoscalerConfig(min_replicas=2,
+    max_replicas=3))`` and ``attach_rollout`` (two golden rows). A burst
+    of ROLL_BURST queued requests from 4 client threads grows the fleet to
+    3, quiet shrinks it to 2; then ROLL_CLIENTS InferenceClient threads
+    send rows while version 2 is committed and rolled, and version 3 (an
+    FFN weight NaN) is committed and refused at the canary. Gates: every
+    reply stamped 1 or 2, within the bf16 reply rule (reply_check) of its
+    version's eager forwards and farther than SERVE_TOL from the other
+    version's bf16 forward; no shed and no failure; 3 replicas reached and
+    2 again; every replica built compiled one graph per bucket before it
+    took traffic and none after; a drained replica's predictor freed and
+    the memory allocated after the roll that before it, within
+    ROLL_MEM_SLACK; the
+    canary of version 3 failed with GoldenMismatch and version 2 serves;
+    a profiled bucket-8 replay on a version-2 replica shows B1 12 times
+    (tc_bf16) and no softmax. Returns its row."""
+    import tempfile
+    import threading
+    import weakref
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.profiler.metrics import reset_registry
+    from paddle_tpu_torch.resilience.recovery import RecoveryJournal
+    from paddle_tpu_torch.resilience.snapshot import (AsyncCheckpointer,
+                                                      load_manifest_blob)
+    from paddle_tpu_torch.serving import (AutoscalerConfig, InferenceClient,
+                                          InferenceServer, RolloutConfig,
+                                          ServingConfig, SocketFrontend)
+    from paddle_tpu_torch.text.models import (BertConfig,
+                                              BertForSequenceClassification)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = BertConfig.base()
+    model = bert_model(torch, cfg, seed).eval()
+    rng = np.random.RandomState(seed + 23)
+    rows = rng.randint(0, cfg.vocab_size, (ROLL_ROWS, SERVE_SEQ)).astype(
+        "int64")
+    burst = rng.randint(0, cfg.vocab_size, (ROLL_BURST, SERVE_SEQ)).astype(
+        "int64")
+    v1, v2, frac, separation, model2 = roll_versions(torch, pt, model, rows)
+    buckets = ServingConfig(max_batch_size=SERVE_BATCH).buckets
+    eager = {1: bucket_forwards(torch, model, rows, buckets),
+             2: bucket_forwards(torch, model2, rows, buckets)}
+    del model2
+    ffn = next(k for k in v2 if k.endswith("linear1.weight"))
+    v3 = dict(v2)
+    v3[ffn] = v2[ffn].copy()
+    v3[ffn][0, 0] = np.nan
+
+    builds, preds = [], []
+
+    def loader(path, idx):
+        t0 = time.perf_counter()
+        m = BertForSequenceClassification(cfg, num_classes=2, device="cuda")
+        pt.load_numpy_state_dict(m, load_manifest_blob(path)["model"])
+        icfg = infer.Config()
+        icfg.set_layer(m.eval())
+        icfg.enable_low_precision(infer.DataType.BFLOAT16)
+        pred = infer.create_predictor(icfg)
+        builds.append({"manifest": os.path.basename(path), "replica": idx,
+                       "load_s": time.perf_counter() - t0})
+        preds.append((idx, weakref.ref(pred)))
+        return pred
+
+    tmp = tempfile.TemporaryDirectory(prefix="socket_rollout_")
+    root = os.path.join(tmp.name, "ckpt")
+    ckpt = AsyncCheckpointer(root, keep=3, background=False)
+    t0 = time.perf_counter()
+    path1 = ckpt.save({"model.pdparams": (v1, "model")}, blocking=True)
+    commit_s = {1: time.perf_counter() - t0}
+    journal = RecoveryJournal(job_id="socket-rollout",
+                              dir=os.path.join(tmp.name, "journal"))
+    journal.record("rollout_completed", version=1, prior=None,
+                   replicas=SERVE_REPLICAS)
+    reset_registry()
+    launch_counts.clear()
+    srv = InferenceServer(
+        lambda idx: loader(path1, idx),
+        ServingConfig(max_batch_size=SERVE_BATCH, replicas=SERVE_REPLICAS,
+                      warmup_signatures=[(((SERVE_SEQ,), "int64"),)],
+                      admission_target_ms=ROLL_TARGET_MS))
+    asc = srv.attach_autoscaler(AutoscalerConfig(min_replicas=2,
+                                                 max_replicas=3))
+    rc = srv.attach_rollout(root, loader,
+                            goldens=[[rows[0:1]], [rows[1:2]]],
+                            config=RolloutConfig(poll_interval=0.5,
+                                                 drain_timeout=60.0),
+                            journal=journal)
+    assert rc.version == 1 and all(r.version == 1
+                                   for r in srv.scheduler.replicas), \
+        rc.describe()
+    grows = []
+    scale_up = asc.scale_up
+
+    def timed_scale_up(now=None):
+        t = time.perf_counter()
+        try:
+            return scale_up(now)
+        finally:
+            grows.append(time.perf_counter() - t)
+    asc.scale_up = timed_scale_up
+
+    # every replica the lane sees: its compile count when first seen (it
+    # is admitted only once warm) and last seen, its batches, its version
+    seen, peak = {}, [0]
+    stop_poll = threading.Event()
+
+    def poll():
+        while not stop_poll.is_set():
+            live = list(srv.scheduler.replicas)
+            peak[0] = max(peak[0], sum(1 for r in live if r.healthy
+                                       and not r.draining))
+            for r in live:
+                e = seen.setdefault(r.idx, {"first": r.compile_count,
+                                            "version": r.version})
+                e["last"], e["batches"] = r.compile_count, r.completed
+            time.sleep(0.02)
+    poller = threading.Thread(target=poll, daemon=True)
+    srv.start()
+    fe = SocketFrontend(srv)
+    poller.start()
+    records, errors = [], []
+    stop = threading.Event()
+    clients = []
+    try:
+        # the autoscaler: a burst grows the fleet, quiet shrinks it
+        t_burst = time.monotonic()
+        reqs, burst_lat, burst_wall = serve_burst(torch, srv, burst,
+                                                  SERVE_CLIENTS)
+        grown = peak[0]
+        shrink_s = wait_for(lambda: asc.replica_count() == 2
+                            and not asc.describe()["draining"], 60.0,
+                            "the autoscaler's shrink")
+        burst_ok = all(r is not None and r.error is None for r in reqs)
+
+        def client(k):
+            try:
+                with InferenceClient(fe.address) as cli:
+                    i = k
+                    while not stop.is_set():
+                        j = i % ROLL_ROWS
+                        t_send = time.monotonic()
+                        [out] = cli.infer([rows[j:j + 1]], timeout=120.0)
+                        records.append((j, np.asarray(out, np.float32)[0],
+                                        cli.last_model_version, t_send,
+                                        time.monotonic()))
+                        i += ROLL_CLIENTS
+            except Exception as e:     # reported below, never swallowed
+                errors.append(repr(e))
+        clients = [threading.Thread(target=client, args=(k,), daemon=True)
+                   for k in range(ROLL_CLIENTS)]
+        for t in clients:
+            t.start()
+        time.sleep(ROLL_WINDOW_S)
+        gc.collect()
+        mem_before = torch.cuda.memory_allocated()
+        # version 2 under traffic
+        t_commit = time.monotonic()
+        t0 = time.perf_counter()
+        ckpt.save({"model.pdparams": (v2, "model")}, blocking=True)
+        commit_s[2] = time.perf_counter() - t0
+        roll_s = wait_for(lambda: rc.version == 2 and not rc.active(),
+                          ROLL_LIMIT_S, "the roll to version 2")
+        t_done = time.monotonic()
+        time.sleep(ROLL_WINDOW_S)
+        t_after = time.monotonic()
+        # version 3 (NaN) under traffic: refused at the canary
+        t0 = time.perf_counter()
+        ckpt.save({"model.pdparams": (v3, "model")}, blocking=True)
+        commit_s[3] = time.perf_counter() - t0
+        refuse_s = wait_for(
+            lambda: 3 in rc.describe()["rejected"] and not rc.active(),
+            ROLL_LIMIT_S, "version 3's canary refusal")
+        time.sleep(0.5)
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(timeout=180)
+        stop_poll.set()
+        poller.join(timeout=10)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    stats = srv.stats()
+    v2_rep = next(r for r in srv.scheduler.replicas if r.version == 2)
+    prog = v2_rep.executor.predictor._jit_cache[
+        (((SERVE_BATCH, SERVE_SEQ), "int64"),)]
+    per, softmax = replay_profile(torch, prog.graph)
+    fe.close()
+    srv.stop()
+    events = [e["event"] for e in journal.entries()]
+    failed = [e for e in journal.entries()
+              if e["event"] == "rollout_canary_failed"]
+    live_idx = {r.idx for r in srv.scheduler.replicas}
+    freed = {idx: ref() is None for idx, ref in preds
+             if idx not in live_idx}
+    # replies against their versions' eager forwards
+    by_version = {}
+    for j, out, ver, _, _ in records:
+        by_version.setdefault(ver, []).append((j, out))
+    replies = {}
+    replies_ok = set(by_version) <= {1, 2} and by_version.get(2)
+    for ver, got in by_version.items():
+        if ver not in eager:
+            continue
+        idx = np.array([j for j, _ in got])
+        outs = np.stack([o for _, o in got])
+        to_bf16, own, to_f32, to_other = bucket_reply_gaps(
+            outs, idx, eager[ver], eager[3 - ver])
+        ok = bool(np.all(to_bf16 <= SERVE_TOL)
+                  and np.all(to_f32 <= SERVE_FACTOR * own + SERVE_TOL)
+                  and np.all(to_other > SERVE_TOL))
+        replies_ok = replies_ok and ok
+        replies[f"version_{ver}"] = {
+            "replies": len(got),
+            "to_bf16_eager_at_bucket_worst": float(to_bf16.max()),
+            "equal_to_the_bit": int(np.sum(to_bf16 == 0)),
+            "to_f32_eager_worst": float(to_f32.max()),
+            "to_other_version_bf16_min": float(to_other.min()), "ok": ok}
+    before = [r for r in records if r[4] < t_commit]
+    during = [r for r in records if r[3] >= t_commit and r[4] <= t_done]
+    after = [r for r in records if t_done < r[3] and r[4] <= t_after]
+    row = {"phase": "serving", "lane": "socket_rollout",
+           "config": f"BERT-base v30522 h768 L12 a12 d64 bf16 over "
+                     f"SocketFrontend, requests of 1 x {SERVE_SEQ} ids, "
+                     f"buckets {srv.config.buckets}, 2..3 replicas, "
+                     f"{ROLL_CLIENTS} InferenceClient threads",
+           "noise_fraction": frac, "version_separation": separation,
+           "ffn_nan": ffn, "commit_s": commit_s,
+           "autoscaler": {"burst_requests": ROLL_BURST,
+                          "burst_wall_s": burst_wall,
+                          "burst_latency_p50_ms": float(
+                              np.percentile(burst_lat, 50)) * 1e3,
+                          "burst_latency_p99_ms": float(
+                              np.percentile(burst_lat, 99)) * 1e3,
+                          "peak_replicas": grown, "grow_s": grows,
+                          "shrink_s": shrink_s, "burst_ok": burst_ok},
+           "seconds_commit_to_roll_complete": roll_s,
+           "seconds_commit_to_canary_refused": refuse_s,
+           "latency_before_roll": latency_summary(before),
+           "latency_during_roll": latency_summary(during),
+           "latency_after_roll": latency_summary(after),
+           "replica_builds": builds, "replicas_seen": seen,
+           "drained_predictors_freed": freed,
+           "memory_allocated_before_roll": mem_before,
+           "memory_allocated_after_roll": mem_after,
+           "journal_events": events,
+           "canary_failure": failed[-1]["error"] if failed else None,
+           "rollout": rc.describe(), "client_errors": errors[:5],
+           "shed": stats["shed"], "failed": stats["failed"],
+           "hedges": stats["hedges"], "retries": stats["retries"],
+           "bucket8_replay_version2": per, "softmax_kernels": softmax,
+           "replies": replies, "seconds_from_burst": time.monotonic()
+           - t_burst}
+    emit(row)
+    tmp.cleanup()
+    n = cfg.num_layers
+    assert replies_ok and not errors, row
+    assert burst_ok and not stats["shed"] and not stats["failed"], row
+    assert grown == 3 and grows, row
+    assert events.count("rollout_completed") == 2 and failed, row
+    assert "GoldenMismatch" in failed[-1]["error"], row
+    assert rc.version == 2 and 3 in rc.describe()["rejected"], row
+    assert all(e["first"] == e["last"] == len(buckets)
+               for e in seen.values()), row
+    assert freed and all(freed.values()), row
+    # the same two replicas' worth of graphs and weights before and after:
+    # what a roll leaves behind is leaked (ROADMAP C14), 64 MiB of slack
+    assert mem_after <= mem_before + ROLL_MEM_SLACK, row
+    tc = f"{KERNEL_NAMES[0]}.tc_bf16"
+    assert per["flash_launches"] == {KERNEL_NAMES[0]: n, KERNEL_NAMES[1]: 0,
+                                     KERNEL_NAMES[2]: 0}, row
+    assert per["flash_variant_launches"][tc] == n, row
+    assert not softmax, row
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def colocated_tokens(torch, prompt, n):
+    """The tokens a colocated DecodeEngine (CompiledDecodeBackend on the
+    card) streams for ``prompt``: the disagg lane's reference."""
+    from paddle_tpu_torch.serving.decode import (CompiledDecodeBackend,
+                                                 DecodeConfig, DecodeEngine)
+    eng = DecodeEngine(CompiledDecodeBackend(),
+                       DecodeConfig(max_new_tokens=n))
+    s = eng.join(list(prompt))
+    for _ in range(10 * n + 100):
+        if s.done:
+            break
+        eng.step()
+    assert s.done and s.error is None, s.describe()
+    return list(s.tokens)
+
+
+def phase_serving_disagg(torch, seed):
+    """disagg_stream: disaggregated prefill/decode behind SocketFrontend.
+    A server with ``attach_disagg(DisaggConfig(prefill_replicas=1,
+    decode_replicas=2, max_new_tokens=DISAGG_NEW))`` (the port's
+    CompiledDecodeBackend on the card in every prefill worker and decode
+    engine) and no colocated engine, so a generate frame goes through the
+    prefill class, the KV handoff and the decode class. DISAGG_STREAMS
+    client threads each stream one prompt over InferenceClient.generate,
+    8 and 256 tokens alternating; after the first two handoffs a
+    ``kv.transfer`` fault is armed for the next frame, so the third
+    handoff aborts and falls back to a decode-side prefill. Gates: every
+    stream's tokens equal a colocated DecodeEngine's for its prompt, none
+    lost, ``leaked_blocks() == 0``, the journal holds export, ack, adopt
+    and release for the others and the abort at transfer for the faulted
+    one, one fallback prefill; no B1-B3 launch. Returns its row."""
+    import threading
+
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.resilience import faults
+    from paddle_tpu_torch.serving import (InferenceClient, InferenceServer,
+                                          ServingConfig, SocketFrontend)
+    from paddle_tpu_torch.serving.disagg import DisaggConfig
+    rng = np.random.RandomState(seed + 29)
+    prompts = [[int(t) for t in rng.randint(
+        1, 50000, DISAGG_PROMPT_LENS[i % 2])] for i in range(DISAGG_STREAMS)]
+    want = [colocated_tokens(torch, p, DISAGG_NEW) for p in prompts]
+
+    class NoBatches:
+        def run(self, arrays):
+            return [np.asarray(arrays[0])]
+
+    launch_counts.clear()
+    srv = InferenceServer(lambda i: NoBatches(),
+                          ServingConfig(max_batch_size=2, replicas=1))
+    ctl = srv.attach_disagg(config=DisaggConfig(
+        prefill_replicas=1, decode_replicas=2, max_new_tokens=DISAGG_NEW,
+        max_inflight=DISAGG_STREAMS))
+    srv.start()
+    fe = SocketFrontend(srv)
+    got, ttft, wall, errors = {}, {}, {}, []
+
+    def stream(i):
+        try:
+            with InferenceClient(fe.address) as cli:
+                t0 = time.monotonic()
+                toks = []
+                for tok in cli.generate(prompts[i], timeout=120.0,
+                                        request_id=f"stream-{i}"):
+                    if not toks:
+                        ttft[i] = time.monotonic() - t0
+                    toks.append(tok)
+                wall[i] = time.monotonic() - t0
+                got[i] = toks
+        except Exception as e:     # reported below, never swallowed
+            errors.append(f"stream {i}: {e!r}")
+
+    t_lane = time.monotonic()
+    try:
+        threads = []
+        for i in range(2):
+            threads.append(threading.Thread(target=stream, args=(i,)))
+            threads[-1].start()
+        wait_for(lambda: ctl.stats()["migrations"] == 2, 120.0,
+                 "the first two handoffs")
+        faults.configure("kv.transfer:#1")
+        for i in range(2, DISAGG_STREAMS):
+            threads.append(threading.Thread(target=stream, args=(i,)))
+            threads[-1].start()
+            if i == 2:
+                wait_for(lambda: ctl.stats()["migration_aborts"] == 1,
+                         120.0, "the third handoff's abort")
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        faults.reset()
+        fe.close()
+        srv.stop()
+    wall_s = time.monotonic() - t_lane
+    stats = ctl.stats()
+    journal = list(ctl.journal.entries())
+    by_stream = {}
+    for e in journal:
+        if e["event"].startswith("migration"):
+            by_stream.setdefault(e["stream"], []).append(
+                (e["event"], e.get("phase")))
+    flash = {k: launch_counts[k] for k in KERNEL_NAMES}
+    tpot = [(wall[i] - ttft[i]) / (len(got[i]) - 1) * 1e3 for i in got
+            if len(got[i]) > 1]
+    row = {"phase": "serving", "lane": "disagg_stream",
+           "config": f"CompiledDecodeBackend toy stepper on the card, 1 "
+                     f"prefill + 2 decode replicas, {DISAGG_STREAMS} "
+                     f"streams of {DISAGG_NEW} tokens over InferenceClient."
+                     f"generate, prompts of {DISAGG_PROMPT_LENS} tokens",
+           "wall_s": wall_s, "errors": errors,
+           "streams_equal_colocated": sum(got.get(i) == want[i]
+                                          for i in range(DISAGG_STREAMS)),
+           "client_ttft_ms": {"p50": float(np.percentile(
+               list(ttft.values()), 50)) * 1e3 if ttft else None,
+               "p99": float(np.percentile(list(ttft.values()), 99)) * 1e3
+               if ttft else None},
+           "client_tpot_ms": {"p50": float(np.percentile(tpot, 50))
+                              if tpot else None,
+                              "p99": float(np.percentile(tpot, 99))
+                              if tpot else None},
+           **{k: stats[k] for k in (
+               "migrations", "migration_aborts", "fallback_prefills",
+               "refusals", "route_failures", "ttft_p50_ms", "ttft_p99_ms",
+               "tpot_p50_ms", "tpot_p99_ms", "decode_engines",
+               "prefill_replicas")},
+           "leaked_blocks": ctl.leaked_blocks(),
+           "faulted_stream_journal": by_stream.get("stream-2"),
+           "flash_launches": flash}
+    emit(row)
+    assert not errors and len(got) == DISAGG_STREAMS, row
+    assert all(got[i] == want[i] for i in range(DISAGG_STREAMS)), row
+    assert row["leaked_blocks"] == 0, row
+    assert stats["migration_aborts"] == 1 and \
+        stats["fallback_prefills"] == 1, row
+    assert stats["migrations"] == DISAGG_STREAMS - 1, row
+    assert by_stream["stream-2"] == [("migration_export", None),
+                                     ("migration_aborted", "transfer")], row
+    full = [("migration_export", None), ("migration_ack", None),
+            ("migration_adopt", None), ("migration_release", None)]
+    assert all(by_stream[f"stream-{i}"] == full
+               for i in range(DISAGG_STREAMS) if i != 2), row
+    assert all(c == 0 for c in flash.values()), row
+    return row
+
+
+def phase_serving_campaign(torch, seed):
+    """campaign: ``resilience.campaign.run_campaign(episodes=
+    CAMPAIGN_EPISODES, seed=0)`` on the card (the training scenario's
+    Linear and checkpoints, and the serving scenario's decode backends,
+    at the default device), retries without backoff sleeps as the
+    campaign's command line runs them. Gate: zero invariant violations.
+    Returns its row."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework.flags import get_flag
+    from paddle_tpu_torch.ops.cuda import launch_counts
+    from paddle_tpu_torch.ops.cuda.flash_attention import KERNEL_NAMES
+    from paddle_tpu_torch.resilience.campaign import run_campaign
+    backoff = get_flag("FLAGS_retry_backoff_base", 0.5)
+    pt.set_flags({"FLAGS_retry_backoff_base": 0.0})
+    launch_counts.clear()
+    t0 = time.perf_counter()
+    try:
+        report = run_campaign(episodes=CAMPAIGN_EPISODES, seed=0)
+    finally:
+        pt.set_flags({"FLAGS_retry_backoff_base": backoff})
+    seconds = time.perf_counter() - t0
+    flash = {k: launch_counts[k] for k in KERNEL_NAMES}
+    row = {"phase": "serving", "lane": "campaign",
+           "config": f"run_campaign(episodes={CAMPAIGN_EPISODES}, seed=0) "
+                     "on the card, both scenarios",
+           "seconds": seconds,
+           "violations_total": report["violations_total"],
+           "episodes": [{k: e[k] for k in ("scenario", "spec", "outcome",
+                                           "typed_faults", "violations")}
+                        for e in report["episodes"]],
+           "coverage": {k: report["coverage"][k]
+                        for k in ("manifest_sites", "covered", "ratio")},
+           "flash_launches": flash}
+    emit(row)
+    assert report["violations_total"] == 0, row
+    assert {e["scenario"] for e in report["episodes"]} == {"training",
+                                                           "serving"}, row
     assert all(c == 0 for c in flash.values()), row
     return row
 
@@ -8740,7 +9353,7 @@ def layout_entries(fa, entry, rows, bwd_rows, layouts, scope):
 def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                    vision, serving, hapi, optim, surface, nn_rest, zoo,
                    dist_tune, hybrid, pipeline, layouts, auto_moe, elastic,
-                   ps, integrity):
+                   ps, integrity, socket_rollout):
     """The kernels line: each kernel variant at the shape of the main path
     that runs it, with its launches on that path. bf16 (tensor cores):
     B1 at the prefill shape (and its training-shape time), B2 and B3 at
@@ -8799,7 +9412,12 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
     on each survivor after the restore, on the golden launch's rank 0, and
     by kernel name in rank 0's profiled window; B1, B2 and B3 tc_bf16 have
     rows of their own at a rank's (2, 1024, 16, 64), causal
-    (``rank_entries``, as the elastic group's)."""
+    (``rank_entries``, as the elastic group's). And on the serving
+    group's lanes over the wire: B1 tc_bf16 has a row of its own at
+    BERT's shape (8, 512, 12, 64), non-causal, with its launches in a
+    profiled bucket-8 replay of a rolled version-2 replica of
+    socket_rollout (``*.socket_rollout``); disagg_stream and the campaign
+    launch none of B1-B3 (``launches_serving``)."""
     src = "paddle_tpu_torch/csrc/"
     ref = "paddle_tpu/ops/pallas/flash_attention.py:"
     keys = ("ms", "wall_ms", "plain_ms", "library_ms", "library_wall_ms",
@@ -8949,7 +9567,18 @@ def kernel_entries(fa, rows, bwd_rows, serve, train, compiled, amp, bert,
                       "GPT-medium bf16 under DataParallel at 3 ranks, a "
                       "flipped rank quarantined by checksum consensus, the "
                       "survivors restored at 2 ranks, a rank's (2, 1024, 16, "
-                      "64), causal (integrity)", scope)]
+                      "64), causal (integrity)", scope),
+        entry(f"{fa.KERNEL_NAME}.{tc}.socket_rollout",
+              "flash_attn_fwd_tc.cu", 114, rows[-1],
+              socket_rollout["bucket8_replay_version2"][
+                  "flash_variant_launches"][f"{fa.KERNEL_NAME}.{tc}"],
+              rows[-1]["max_abs_err_o"], rel_l2=rows[-1]["rel_l2_o"],
+              main_path="BERT-base bf16 served over SocketFrontend, a "
+                        "rolled version-2 replica's bucket-8 replay, (8, "
+                        "512, 12, 64), non-causal, per replay "
+                        "(socket_rollout)",
+              replay_device_ms=socket_rollout["bucket8_replay_version2"].get(
+                  "device_ms"))]
 
 
 def pp_entries(fa, entry, rows, bwd_rows, pipeline, scope):
@@ -10467,6 +11096,9 @@ def ps_server_main(args):
     t.transpile(trainer_id=0, pservers=",".join(eps), trainers=PS_TRAINERS,
                 model=model)
     tables = t.get_pserver_program(eps[index], lr=PS_LR)
+    pushes = []
+    for tb in tables:
+        tb.push = ps_logged_push(tb, pushes)
     host, port = eps[index].rsplit(":", 1)
     srv = dist.ps.PsServer(tables, host=host, port=int(port)).start()
     with open(os.path.join(job, f"server{index}.ready"), "w") as f:
@@ -10481,6 +11113,45 @@ def ps_server_main(args):
             time.sleep(0.1)
     finally:
         srv.stop()
+        with open(os.path.join(job, f"pushes{index}.json"), "w") as f:
+            json.dump(pushes, f)
+
+
+def push_digest(payload):
+    """A push's key: sha1 of a dense push's f32 gradient bytes, or of a
+    sparse push's ids (sorted, unique, int64), which tell the trainers
+    apart."""
+    import hashlib
+    a = np.asarray(payload)
+    if a.dtype.kind in "iu":
+        a = np.unique(a.astype(np.int64))
+    return hashlib.sha1(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def ps_logged_push(table, log):
+    """``table.push`` that first appends (table id, the push's key) to
+    ``log``, under a lock of the table's own so that the log's order is
+    the order the table applies its pushes in: a sync step's two pushes
+    land in whichever order they arrive, and the serial run replays it
+    (ps_serial)."""
+    import threading
+    push, lock = table.push, threading.Lock()
+
+    def logged(*payload):
+        with lock:
+            log.append([str(table.table_id), push_digest(payload[0])])
+            return push(*payload)
+    return logged
+
+
+def ps_push_orders(job):
+    """Each table's push keys, in the order its pserver applied them."""
+    orders = {}
+    for i in range(PS_SERVERS):
+        with open(os.path.join(job, f"pushes{i}.json")) as f:
+            for tid, key in json.load(f):
+                orders.setdefault(tid, []).append(key)
+    return orders
 
 
 def ps_feeds(seed, cfg):
@@ -10598,6 +11269,10 @@ def ps_trainer_main(torch, args):
                  if p is not word.weight]
         np.savez(os.path.join(job, "tables.npz"),
                  **{n: before[tid] for n, (tid, _) in zip(names, art._dense)})
+        with open(os.path.join(job, "table_ids.json"), "w") as f:
+            json.dump({"dense": {n: str(tid) for n, (tid, _) in
+                                 zip(names, art._dense)},
+                       "sparse": str(sparse_id)}, f)
     art.client.barrier("async_snapshot", PS_TRAINERS)
     t0 = time.perf_counter()
     out["async_steps"] = [step(art, feed, None) for feed in
@@ -10777,7 +11452,7 @@ def ps_fleet_executor(torch, seed):
     return row
 
 
-def ps_serial(torch, seed, cfg, rows, ids, labels):
+def ps_serial(torch, seed, cfg, rows, ids, labels, orders, table_ids):
     """Serial BERT-base doing the two sync trainers' arithmetic in plain
     PyTorch: at each step each trainer's 4 rows of the 8 x 512 batch (the
     batches InMemoryDataset deals them) through forward and backward at
@@ -10785,10 +11460,19 @@ def ps_serial(torch, seed, cfg, rows, ids, labels):
     ``p -= PS_LR * g``, as a pserver's SGD applies each push; the word
     embedding's gradient sparse, merged (coalesce) and applied to its rows
     likewise. Its word rows start from the tables' first pulls
-    (C-ref-29). In f32 and under amp O1 bf16: each run's losses (the
-    halves' mean) and final parameters, and for the bf16 run the part of
-    each dense parameter's update that the second half's pushes made."""
+    (C-ref-29). Each table takes the two halves in the order its pserver
+    applied the trainers' pushes (``orders``, keys by ``push_digest``): a
+    pserver applies a push as it arrives, and the other order rounds
+    elsewhere, which bf16 carries into every later step. The bf16 run
+    finds each order by its own halves' keys (equal to the trainers' when
+    its arithmetic is theirs), the f32 run takes the same orders. In
+    bf16 and f32 (under amp O1 bf16 and without): each run's losses (the
+    halves' mean) and final parameters, for the bf16 run the part of
+    each dense parameter's update that the second half's pushes made, and
+    how many (step, table) orders were found, were the second trainer's
+    push first, and were not found (taken as the first trainer's first)."""
     import paddle_tpu_torch as pt
+    from paddle_tpu_torch.distributed.ps.runtime import _host_f32
     model = bert_model(torch, cfg, seed).train()
     word = model.bert.embeddings.word_embeddings
     word._sparse = True
@@ -10798,10 +11482,13 @@ def ps_serial(torch, seed, cfg, rows, ids, labels):
     init = {k: v.detach().clone() for k, v in model.state_dict().items()}
     dense = [(n, p) for n, p in model.named_parameters()
              if p is not word.weight]
+    tids = [table_ids["dense"][n] for n, _ in dense] + [table_ids["sparse"]]
     xs, ys = torch.from_numpy(ids).cuda(), torch.from_numpy(labels).cuda()
     half = PS_RANK_SHAPE[0]
     out = {"init": init}
-    for dtype in ("float32", "bfloat16"):
+    order = {}      # (step, table) -> the trainers in the pserver's order
+    found = {"found": 0, "second_first": 0, "not_found": 0}
+    for dtype in ("bfloat16", "float32"):
         model.set_state_dict(init)
         second = {n: torch.zeros_like(p) for n, p in dense}
         losses = []
@@ -10816,17 +11503,34 @@ def ps_serial(torch, seed, cfg, rows, ids, labels):
                 loss.backward()
                 halves.append(loss.item())
                 g = word.weight.grad.coalesce()
-                pushes.append(([p.grad for _, p in dense], g.indices()[0],
-                               g.values()))
+                pushes.append(([p.grad for _, p in dense]
+                               + [g.values()], g.indices()[0]))
                 for p in model.parameters():
                     p.grad = None
+            if dtype == "bfloat16":
+                keys = [[push_digest(_host_f32(g)) for g in grads[:-1]]
+                        + [push_digest(wid.cpu().numpy())]
+                        for grads, wid in pushes]
+                for k, tid in enumerate(tids):
+                    logged = orders.get(tid, [])[
+                        PS_TRAINERS * t:PS_TRAINERS * (t + 1)]
+                    mine = [keys[r][k] for r in range(PS_TRAINERS)]
+                    if sorted(logged) == sorted(mine):
+                        order[t, k] = [mine.index(key) for key in logged]
+                        found["found"] += 1
+                        found["second_first"] += order[t, k][0] != 0
+                    else:
+                        order[t, k] = list(range(PS_TRAINERS))
+                        found["not_found"] += 1
             with torch.no_grad():
-                for r, (grads, wid, wgrad) in enumerate(pushes):
-                    for (n, p), g in zip(dense, grads):
-                        upd = PS_LR * g
+                for k, (n, p) in enumerate(dense):
+                    for r in order[t, k]:
+                        upd = PS_LR * pushes[r][0][k]
                         p.sub_(upd)
                         if r == PS_TRAINERS - 1:
                             second[n].add_(upd)
+                for r in order[t, len(dense)]:
+                    wid, wgrad = pushes[r][1], pushes[r][0][-1]
                     word.weight.index_copy_(
                         0, wid, word.weight[wid] - PS_LR * wgrad)
             del pushes
@@ -10838,6 +11542,7 @@ def ps_serial(torch, seed, cfg, rows, ids, labels):
                       "second": {n: v.cpu().numpy()
                                  for n, v in second.items()}}
         del second
+    out["push_orders"] = found
     del model
     free_cuda(torch)
     return out
@@ -10901,7 +11606,10 @@ def phase_ps(torch, seed):
                     ids[t, r * half:(r + 1) * half])), (r, t)
     t0 = time.perf_counter()
     first = ps_first_rows(job)
-    serial = ps_serial(torch, seed, cfg, first, ids, labels)
+    with open(os.path.join(job, "table_ids.json")) as f:
+        table_ids = json.load(f)
+    serial = ps_serial(torch, seed, cfg, first, ids, labels,
+                       ps_push_orders(job), table_ids)
     seconds["serial"] = time.perf_counter() - t0
     sb, sf = serial["bfloat16"], serial["float32"]
     mean = [float(np.mean([r["steps"][t]["loss"] for r in ranks]))
@@ -10939,6 +11647,7 @@ def phase_ps(torch, seed):
            "serial_f32_losses": sf["losses"], "loss_rel_gaps": gaps,
            "loss_bounds": bounds,
            "update_rel_l2_worst": worst[:3],
+           "push_orders": serial["push_orders"],
            "update_rel_l2_median": float(np.median(
                [g for g, _, _ in updates.values()])),
            "update_bound_median": float(np.median(
@@ -12147,9 +12856,18 @@ def main():
         out["vision"] = phase_vision(torch, args.seed)
     clock("vision")
     if "serving" in run:
+        t_lanes = {}
         bert_row, srv = phase_serving_bert(torch, args.seed)
         decode_row = phase_serving_decode(torch, srv)
         del srv
+        for lane, fn in (("socket_rollout", phase_serving_rollout),
+                         ("disagg_stream", phase_serving_disagg),
+                         ("campaign", phase_serving_campaign)):
+            t_lane = time.perf_counter()
+            out[lane] = fn(torch, args.seed)
+            t_lanes[lane] = time.perf_counter() - t_lane
+        emit({"phase": "serving", "new_lane_seconds": t_lanes,
+              "new_lanes_total_s": sum(t_lanes.values())})
         resnet_row = phase_serving_resnet(torch, args.seed)
         out["serving"] = {
             "bert_server_per_batch": bert_row["bucket8_replay"][
@@ -12157,7 +12875,11 @@ def main():
             "bert_server_warmup_and_capture": bert_row[
                 "flash_variant_launches_warmup_and_capture"],
             "resnet_server": resnet_row["flash_launches"],
-            "decode": decode_row["flash_launches"]}
+            "decode": decode_row["flash_launches"],
+            "socket_rollout_per_batch": out["socket_rollout"][
+                "bucket8_replay_version2"]["flash_variant_launches"],
+            "disagg_stream": out["disagg_stream"]["flash_launches"],
+            "campaign": out["campaign"]["flash_launches"]}
     clock("serving")
     if "hapi" in run and "auto_moe" not in run:
         out["hapi"] = phase_hapi(torch, args.seed)
@@ -12240,7 +12962,8 @@ def main():
             out["serving"], out["hapi"], out["optim"], out["surface"],
             out["nn_rest"], out["zoo"], out["dist_tune"], out["hybrid"],
             out["pipeline"], out["layouts"], out["auto_moe"],
-            out["elastic"], out["ps"], out["integrity"])})
+            out["elastic"], out["ps"], out["integrity"],
+            out["socket_rollout"])})
     emit({"phase": "done", "seconds": time.perf_counter() - t0,
           "group_seconds": group_seconds, "timing": TIMING})
     print(smi, flush=True)

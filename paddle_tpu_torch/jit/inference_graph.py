@@ -10,7 +10,11 @@ and workspaces), then captures ``fn`` on that stream under
 ``torch.inference_mode``, in a memory pool of its own, so dropping the
 object frees the graph and its pool. ``capture_error_mode="thread_local"``
 lets other threads launch work (another graph's replay, a host copy) while
-one thread captures.
+one thread captures. The side stream is the capturing thread's own, one a
+device, reused by every graph that thread builds: cuBLAS keeps a
+workspace for each stream it runs on for the life of the process, so a
+stream a graph would leave one behind for every graph a server ever built
+(a replica added by a rollout or an autoscaler builds one a bucket).
 
 ``run(inputs)`` copies the inputs into the static buffers (casting to
 their dtypes: a float32 host array into a bfloat16 buffer is the per-call
@@ -29,6 +33,20 @@ from .to_static import _flatten_tensors
 
 __all__ = ["InferenceGraph"]
 
+_THREAD = threading.local()
+
+
+def _side_stream(device):
+    """This thread's capture stream on ``device`` (made on first use)."""
+    streams = getattr(_THREAD, "streams", None)
+    if streams is None:
+        streams = _THREAD.streams = {}
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in streams:
+        streams[index] = torch.cuda.Stream(device)
+    return streams[index]
+
 
 class InferenceGraph:
     def __init__(self, fn, example, name="inference"):
@@ -40,7 +58,7 @@ class InferenceGraph:
                                           device=device) for t in example]
             for dst, src in zip(self.static_in, example):
                 dst.copy_(src)
-        side = torch.cuda.Stream(device)
+        side = _side_stream(device)
         current = torch.cuda.current_stream(device)
         side.wait_stream(current)
         graph = torch.cuda.CUDAGraph()

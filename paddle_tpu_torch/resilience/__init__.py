@@ -26,8 +26,10 @@
   (:class:`~.snapshot.AsyncCheckpointer`), manifest commits with sha256
   sidecars, and exact resume.
 
-The reference's chaos campaign (``campaign.py``) waits for the serving
-rollout it drives (ROADMAP A12).
+- :mod:`.campaign` — the chaos campaign: seeded multi-site fault
+  schedules over the manifest of :mod:`.injection_sites`, driven through a
+  training and a serving scenario on a fake clock, with global invariants
+  and a shrinker (imported on its own, as in the reference).
 """
 from . import (faults, guard, health, integrity,  # noqa: F401
                preempt, recorder, recovery, retry, snapshot, watchdog)

@@ -20,16 +20,25 @@ Quickstart::
     out = server.infer([x], timeout=0.2)  # sheds with ServerOverloaded
     server.stop()
 
-Not ported yet (ROADMAP A12): the socket frontend and its client
-(``SocketFrontend``, ``client.py``, ``distributed/wire.py``), KV
-migration, disaggregated prefill/decode, live rollout and the autoscaler.
+Remote frontends: ``serving.SocketFrontend(server)`` +
+``serving.InferenceClient(frontend.address)`` over the hardened wire codec
+(the reference's frames, so either package's client and frontend pair).
+Live rollout (``server.attach_rollout``), the autoscaler
+(``attach_autoscaler``) and disaggregated prefill/decode with KV migration
+(``attach_disagg``, ``serving/disagg.py``) attach to a server.
 """
 from .batcher import (  # noqa: F401
     Batch, BatchQueue, BucketedExecutor, DeadlineExceeded, Request,
     ServerOverloaded, bucket_for, pow2_buckets, signature_of,
 )
+from .autoscaler import Autoscaler, AutoscalerConfig  # noqa: F401
+from .client import InferenceClient, RemoteInferenceError  # noqa: F401
 from .metrics import ServingMetrics  # noqa: F401
 from .overload import AdmissionController, CircuitBreaker  # noqa: F401
+from .rollout import (  # noqa: F401
+    GoldenMismatch, ManifestWatcher, RolloutConfig, RolloutController,
+    RolloutError,
+)
 from .scheduler import (  # noqa: F401
     Replica, ReplicaDead, ReplicaRetired, Scheduler,
 )
@@ -37,14 +46,16 @@ from .decode import (  # noqa: F401
     CompiledDecodeBackend, CompiledDecodeStep, DecodeConfig, DecodeEngine,
     DecodeStream, KVBlockPool, KVCacheExhausted,
 )
-from .server import InferenceServer, ServingConfig  # noqa: F401
+from .server import InferenceServer, ServingConfig, SocketFrontend  # noqa: F401
 
 __all__ = [
-    "InferenceServer", "ServingConfig",
+    "InferenceServer", "ServingConfig", "SocketFrontend", "InferenceClient",
     "ServingMetrics", "ServerOverloaded", "DeadlineExceeded", "Request",
     "Batch", "BatchQueue", "BucketedExecutor", "Scheduler", "Replica",
-    "ReplicaDead", "ReplicaRetired",
-    "AdmissionController", "CircuitBreaker",
+    "ReplicaDead", "ReplicaRetired", "RemoteInferenceError",
+    "AdmissionController", "CircuitBreaker", "Autoscaler",
+    "AutoscalerConfig", "RolloutController", "RolloutConfig",
+    "ManifestWatcher", "RolloutError", "GoldenMismatch",
     "DecodeEngine", "DecodeConfig", "DecodeStream", "KVBlockPool",
     "KVCacheExhausted", "CompiledDecodeStep", "CompiledDecodeBackend",
     "bucket_for", "pow2_buckets", "signature_of",

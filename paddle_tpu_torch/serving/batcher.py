@@ -32,6 +32,7 @@ import itertools
 import threading
 
 import numpy as np
+import torch
 
 from ..framework.errors import ResourceExhaustedError
 from ..resilience.faults import maybe_inject
@@ -201,11 +202,14 @@ class Batch:
 
     def scatter_outputs(self, outputs):
         """Slice the (bucket-row) outputs back to per-request results and
-        complete every request. Output row dim must equal the bucket."""
+        complete every request. Output row dim must equal the bucket. A
+        tensor output is sliced as a tensor, on its device (the socket
+        frontend copies it to the host when it frames the reply)."""
+        outputs = [o if isinstance(o, torch.Tensor) else np.asarray(o)
+                   for o in outputs]
         off = 0
         for req in self.requests:
-            req.set_result([np.asarray(o)[off:off + req.rows]
-                            for o in outputs])
+            req.set_result([o[off:off + req.rows] for o in outputs])
             off += req.rows
 
     def fail(self, exc):

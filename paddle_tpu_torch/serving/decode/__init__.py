@@ -14,11 +14,12 @@ Layered under :class:`paddle_tpu_torch.serving.server.InferenceServer`:
   index over the pool with refcounts, copy-on-write forks, and
   refcount-then-LRU eviction (warm prompts skip prefill);
 - :mod:`.specdecode` — speculative decoding: draft-K proposals verified
-  in one batched target step, token-identical to greedy decode.
+  in one batched target step, token-identical to greedy decode;
+- :mod:`.kv_migrate` — the two-phase prefill→decode KV handoff of
+  disaggregated serving (``serving/disagg.py``), over the wire codec.
 
 The reference's ``load_decode_model`` (weight-only int8 decode replicas)
-needs ``slim.ptq`` and is not ported; KV migration (``kv_migrate``) comes
-with disaggregated serving (ROADMAP A12).
+needs ``slim.ptq`` and is not ported (ROADMAP A12).
 """
 from __future__ import annotations
 

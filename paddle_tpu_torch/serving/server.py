@@ -1,4 +1,5 @@
-"""In-process inference server (port of paddle_tpu/serving/server.py).
+"""In-process inference server + framed-socket frontend (port of
+paddle_tpu/serving/server.py).
 
 :class:`InferenceServer` ties the layer together: a bounded
 :class:`~.batcher.BatchQueue` feeds a batching loop that assembles
@@ -28,16 +29,20 @@ Resilience integration:
   the failed batch.
 
 Each batch runs under a ``torch.profiler.record_function`` range named
-``serving.batch.bucket<N>`` (the reference's ``RecordEvent``). Not ported
-yet (ROADMAP A12): the socket frontend (``SocketFrontend`` over
-``distributed/wire.py``), and the autoscaler, live rollout and
-disaggregated prefill/decode, whose ``attach_*`` methods raise
-``NotImplementedError``.
+``serving.batch.bucket<N>`` (the reference's ``RecordEvent``).
+
+The socket frontend (:class:`SocketFrontend`) reuses the hardened
+``distributed/wire.py`` codec (non-executable frames, HMAC option,
+IdleTimeout/FrameError split), whose frames are the reference's byte for
+byte, so either package's client talks to it. A result that is a tensor
+on the card is copied to the host before it is framed.
 """
 from __future__ import annotations
 
+import socket
 import threading
 
+import numpy as np
 import torch
 
 from ..framework.errors import FatalError, PreconditionNotMetError
@@ -52,8 +57,8 @@ from .metrics import SLO, ServingMetrics
 from .overload import AdmissionController
 from .scheduler import ReplicaDead, Scheduler
 
-__all__ = ["ServingConfig", "InferenceServer", "ServerOverloaded",
-           "DeadlineExceeded"]
+__all__ = ["ServingConfig", "InferenceServer", "SocketFrontend",
+           "ServerOverloaded", "DeadlineExceeded"]
 
 
 def _flag(name, default):
@@ -144,7 +149,10 @@ class InferenceServer:
         self._worker = None
         self._stop = threading.Event()
         self._crashed = None
+        self._autoscaler = None
+        self._rollout = None
         self._decode = None
+        self._disagg = None
         # default SLO: end-to-end request latency vs the AIMD target, a 1%
         # error budget; burn rates tick from the pump loop
         self.metrics.add_slo(SLO(
@@ -272,13 +280,20 @@ class InferenceServer:
         """Run up to ``max_batches`` assemble→dispatch→reply rounds on the
         calling thread. Returns the number of batches processed. Between
         rounds the scheduler housekeeps (dead-replica restarts, breaker
-        half-open probes) and the decode engine, if attached, steps."""
+        half-open probes), the autoscaler and the rollout, if attached, get
+        a tick, and the decode engine and the disagg controller step."""
         done = 0
         self.metrics.slo_tick(now=self._now())
         for _ in range(max_batches):
             self.scheduler.maintain()
+            if self._autoscaler is not None:
+                self._autoscaler.tick()
+            if self._rollout is not None:
+                self._rollout.tick()
             if self._decode is not None:
                 self._decode.step()
+            if self._disagg is not None:
+                self._disagg.step(self._now())
             t_asm = self._now()
             batch = self.queue.assemble(self.config.buckets,
                                         max_rows=self.config.max_batch_size)
@@ -415,17 +430,26 @@ class InferenceServer:
 
     def attach_autoscaler(self, config=None, journal=None,
                           job_id="serving-autoscale"):
-        """Elastic replica scaling: not ported yet (ROADMAP A12)."""
-        raise NotImplementedError(
-            "attach_autoscaler: serving/autoscaler.py is not ported yet "
-            "(ROADMAP A12)")
+        """Enable elastic replica scaling: the pump/threaded loop ticks the
+        controller once per batching round. Returns the Autoscaler."""
+        from .autoscaler import Autoscaler
+        self._autoscaler = Autoscaler(self, config=config, journal=journal,
+                                      clock=self._clock, job_id=job_id)
+        return self._autoscaler
 
     def attach_rollout(self, root, loader, goldens=(), config=None,
                        journal=None, job_id="serving-rollout"):
-        """Live model rollout: not ported yet (ROADMAP A12)."""
-        raise NotImplementedError(
-            "attach_rollout: serving/rollout.py is not ported yet "
-            "(ROADMAP A12)")
+        """Enable live model rollout: watch ``root`` for newly committed
+        checkpoints and hot-swap the fleet through canary → roll, with
+        instant rollback (docs/serving.md "Live rollout"). ``loader(path,
+        idx)`` builds a predictor from one exact manifest. Returns the
+        RolloutController (ticked once per batching round, like the
+        autoscaler)."""
+        from .rollout import RolloutController
+        self._rollout = RolloutController(
+            self, root, loader, goldens=goldens, config=config,
+            journal=journal, clock=self._clock, job_id=job_id)
+        return self._rollout
 
     def attach_decode(self, backend, config=None):
         """Enable continuous-batching autoregressive decode (serving/decode/,
@@ -448,11 +472,19 @@ class InferenceServer:
 
     def attach_disagg(self, config=None, journal=None, journal_dir=None,
                       job_id="disagg"):
-        """Disaggregated prefill/decode serving: not ported yet (ROADMAP
-        A12)."""
-        raise NotImplementedError(
-            "attach_disagg: serving/disagg.py is not ported yet "
-            "(ROADMAP A12)")
+        """Enable disaggregated prefill/decode serving (serving/disagg.py,
+        docs/serving.md "Disaggregated prefill/decode"). The controller
+        runs its own prefill-class Scheduler and decode-engine fleet but
+        shares this server's clock and metrics registry, and is stepped
+        once per batching round like the decode engine. Generation
+        requests go to :meth:`DisaggController.submit`; the two-phase KV
+        handoffs it performs are journaled under ``job_id``. Returns the
+        DisaggController."""
+        from .disagg import DisaggController
+        self._disagg = DisaggController(
+            config=config, clock=self._clock, journal=journal,
+            metrics=self.metrics, job_id=job_id, journal_dir=journal_dir)
+        return self._disagg
 
     def submit_generate(self, prompt, max_new_tokens=None, timeout=None,
                         priority=0, on_token=None, request_id=None,
@@ -460,7 +492,19 @@ class InferenceServer:
         """Admit one generation request (non-blocking). Token-level results
         arrive via ``on_token(stream, token, seq)`` on the engine thread;
         call ``stream.wait()`` for termination. Raises
-        :class:`ServerOverloaded` (with ``retry_after``) when shedding."""
+        :class:`ServerOverloaded` (with ``retry_after``) when shedding.
+
+        With no decode engine but a disagg controller attached, the request
+        goes to :meth:`DisaggController.submit` (prefill class, KV handoff,
+        decode class) and the returned :class:`~.disagg.Handoff` has the
+        stream's surface, so :class:`SocketFrontend` streams disaggregated
+        generation too; the reference raises here instead."""
+        if self._decode is None and self._disagg is not None:
+            if timeout is None:
+                timeout = self.config.default_deadline
+            return self._disagg.submit(
+                prompt, max_new_tokens=max_new_tokens, timeout=timeout,
+                priority=priority, on_token=on_token, request_id=request_id)
         if self._decode is None:
             raise PreconditionNotMetError(
                 "no decode engine: call attach_decode() before "
@@ -471,6 +515,11 @@ class InferenceServer:
                                  timeout=timeout, priority=priority,
                                  on_token=on_token, request_id=request_id,
                                  trace_ctx=trace_ctx)
+
+    def rollout_active(self):
+        """True while a rollout/rollback is converging the fleet — the
+        autoscaler suspends resizes so the roll's capacity math holds."""
+        return self._rollout is not None and self._rollout.active()
 
     def _retry_allowed(self, batch):
         now = self._now()
@@ -550,8 +599,14 @@ class InferenceServer:
             while not self._stop.is_set():
                 if not self.queue.wait_nonempty(self.config.batch_wait):
                     self.scheduler.maintain()
+                    if self._autoscaler is not None:
+                        self._autoscaler.tick()
+                    if self._rollout is not None:
+                        self._rollout.tick()
                     if self._decode is not None:
                         self._decode.step()
+                    if self._disagg is not None:
+                        self._disagg.step(self._now())
                     continue
                 # brief accumulation window lets concurrent submitters fill
                 # the bucket (classic batching-delay/throughput tradeoff)
@@ -574,6 +629,8 @@ class InferenceServer:
             self.metrics.inc("shed", n)
         if self._decode is not None:
             self._decode.drain(ServerOverloaded("server stopped"))
+        if self._disagg is not None:
+            self._disagg.drain(ServerOverloaded("server stopped"))
         return self
 
     def __enter__(self):
@@ -589,10 +646,210 @@ class InferenceServer:
         snap["replicas"] = self.scheduler.describe()
         snap["admission"] = self.admission.snapshot()
         snap["hedging"] = self.scheduler.hedge_stats()
+        if self._autoscaler is not None:
+            snap["autoscaler"] = self._autoscaler.describe()
+        if self._rollout is not None:
+            snap["rollout"] = self._rollout.describe()
         if self._decode is not None:
             snap["decode"] = self._decode.stats()
+        if self._disagg is not None:
+            snap["disagg"] = self._disagg.stats()
         snap["compiles"] = sum(r.compile_count
                                for r in self.scheduler.replicas)
         snap["crashed"] = repr(self._crashed) if self._crashed else None
         return snap
 
+
+def _host_result(o):
+    """One reply output as a host value the codec frames: a tensor is
+    copied off its device (one of a dtype numpy lacks, bf16, stays a CPU
+    tensor, which the codec carries by name), anything else becomes an
+    ndarray. The copy runs on this thread's current stream, torch's
+    default stream, on which the serving thread replays too, so it
+    follows the replay that wrote ``o``."""
+    if isinstance(o, torch.Tensor):
+        o = o.detach().cpu()
+        try:
+            return o.numpy()
+        except TypeError:
+            return o
+    return np.asarray(o)
+
+
+class SocketFrontend:
+    """Framed-TCP frontend over ``distributed/wire.py``.
+
+    Protocol: one frame per request —
+    ``{"id", "inputs": [ndarray...], "timeout": seconds|None}`` — answered by
+    ``{"id", "outputs": [...]}`` or ``{"id", "error", "error_type"}``. The
+    non-executable codec means a hostile client can cause FrameError, never
+    code execution; with PADDLE_TPU_WIRE_SECRET set, frames are HMAC-checked.
+    Connection handler threads block in the server's request wait, so the
+    server must be started (threaded mode). A result tensor on the card is
+    copied to the host (``_host_result``) before its reply is framed.
+    """
+
+    def __init__(self, server, host="127.0.0.1", port=0):
+        self._server = server
+        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        self._listener.bind((host, int(port)))
+        self._listener.listen(64)
+        self.address = self._listener.getsockname()
+        self._threads = []
+        self._closing = False
+        self._accept = threading.Thread(target=self._accept_loop, daemon=True,
+                                        name="serving-accept")
+        self._accept.start()
+
+    def _accept_loop(self):
+        while not self._closing:
+            try:
+                conn, _ = self._listener.accept()
+            except OSError:
+                return
+            t = threading.Thread(target=self._handle, args=(conn,),
+                                 daemon=True, name="serving-conn")
+            t.start()
+            self._threads.append(t)
+
+    def _handle(self, conn):
+        from ..distributed import wire
+        try:
+            while not self._closing:
+                try:
+                    msg = wire.recv_frame(conn, idle_ok=True)
+                except wire.IdleTimeout:
+                    continue          # stream still framed; keep waiting
+                except (wire.FrameError, ConnectionError):
+                    return            # desynced or closed: drop connection
+                if isinstance(msg, dict) and msg.get("op") == "generate":
+                    if not self._serve_stream(conn, msg):
+                        return
+                    continue
+                reply = self._serve_one(msg)
+                try:
+                    wire.send_frame(conn, reply)
+                except (wire.FrameError, ConnectionError, OSError):
+                    return
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _serve_stream(self, conn, msg):
+        """One streaming generation over this connection: every emitted
+        token rides its own seq-stamped frame (sent from the engine thread,
+        serialized by a per-stream lock) and the terminal frame — the full
+        token list on success, a typed error otherwise — carries the
+        end-of-stream marker. Returns False when the connection is torn
+        (caller drops it)."""
+        from ..distributed import wire
+        rid = msg.get("id")
+        lock = threading.Lock()
+        state = {"alive": True, "sent": 0}
+
+        def send(frame):
+            try:
+                wire.send_frame(conn, frame)
+                return True
+            except (wire.FrameError, ConnectionError, OSError):
+                state["alive"] = False
+                return False
+
+        def on_token(stream, token, seq):
+            with lock:
+                # raising here tells the engine the consumer is gone; it
+                # evicts the stream instead of decoding into the void
+                if not state["alive"]:
+                    raise ConnectionError("stream consumer gone")
+                if not send(wire.stamp_stream(
+                        {"id": stream.id, "token": int(token)}, seq)):
+                    raise ConnectionError("stream send failed")
+                state["sent"] = seq + 1
+
+        def error_frame(exc, seq):
+            frame = {"id": rid, "error": str(exc),
+                     "error_type": type(exc).__name__}
+            hint = getattr(exc, "retry_after", None)
+            if hint is not None:
+                frame["retry_after"] = float(hint)
+            return wire.stamp_stream(frame, seq, end=True)
+
+        try:
+            if "prompt" not in msg:
+                raise ValueError("generate frame must carry 'prompt'")
+            prompt = [int(t) for t in np.asarray(msg["prompt"]).reshape(-1)]
+            stream = self._server.submit_generate(
+                prompt, max_new_tokens=msg.get("max_new_tokens"),
+                timeout=msg.get("timeout"),
+                priority=int(msg.get("priority", 0)),
+                on_token=on_token, request_id=rid,
+                trace_ctx=wire.frame_trace(msg))
+        except BaseException as e:
+            with lock:
+                return send(error_frame(e, 0))
+        timeout = msg.get("timeout")
+        finished = stream.wait(timeout + 5.0 if timeout is not None
+                               else None)
+        with lock:
+            if not state["alive"]:
+                return False
+            if not finished:
+                state["alive"] = False   # further on_token calls evict
+                return send(error_frame(
+                    DeadlineExceeded(f"{stream.id}: stream wait timed out"),
+                    state["sent"]))
+            if stream.error is not None:
+                return send(error_frame(stream.error, state["sent"]))
+            return send(wire.stamp_stream(
+                {"id": stream.id, "tokens": [int(t) for t in stream.tokens]},
+                state["sent"], end=True))
+
+    def _serve_one(self, msg):
+        from ..distributed import wire
+        rid = msg.get("id") if isinstance(msg, dict) else None
+        try:
+            if not isinstance(msg, dict) or "inputs" not in msg:
+                raise ValueError("frame must be {'id', 'inputs', ...}")
+            # a bf16 input decodes to a torch tensor (numpy has no bf16)
+            inputs = [a if isinstance(a, torch.Tensor) else np.asarray(a)
+                      for a in msg["inputs"]]
+            req = self._server.submit(inputs, timeout=msg.get("timeout"),
+                                      request_id=rid,
+                                      priority=int(msg.get("priority", 0)),
+                                      trace_ctx=wire.frame_trace(msg))
+            req.wait(msg.get("timeout"))
+            if req.error is not None:
+                raise req.error
+            reply = {"id": req.id, "outputs": [_host_result(o)
+                                               for o in req.result]}
+            # absent key = unstamped (pre-rollout server / launch weights):
+            # same tolerant-reader contract as the generation stamp
+            return wire.stamp_model_version(
+                reply, getattr(req, "version", None))
+        except BaseException as e:
+            reply = {"id": rid, "error": str(e),
+                     "error_type": type(e).__name__}
+            # overload sheds carry the server's backoff hint to the client
+            hint = getattr(e, "retry_after", None)
+            if hint is not None:
+                reply["retry_after"] = float(hint)
+            return reply
+
+    def close(self):
+        self._closing = True
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        for t in self._threads:
+            t.join(timeout=5)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False

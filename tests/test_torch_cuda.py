@@ -47,6 +47,13 @@ CompiledStagePrograms, each captured on its second call, replay the
 eager bodies' outputs and add the same gradients into the stage's
 accumulators (chip_smoke.py's pipeline group runs the engine itself).
 
+Serving over the wire: a replica added with a predictor of its own while
+four client threads keep the others busy captures one graph per bucket
+before it takes traffic, replays B1 by kernel name and answers within
+f32 summation order of the eager forward; a reply over SocketFrontend
+from the card equals the eager forward, and CUDA-tensor results are
+copied to the host before they are framed.
+
 The layouts slice: ring attention's block entry points (B1's f32 O and
 LSE; B2 and B3 under a given LSE and D) against their plain versions,
 the math block off the kernels' contract, the LSE merge against
@@ -2522,6 +2529,166 @@ def test_record_event_and_b1_share_one_profiler_window(card):
         sorted(set(names))
     assert "card.attention" in profiler._recorder.aggregate()
     profiler.reset_profiler()
+
+# -- serving over the wire, live rollout ----------------------------------------
+
+def _replay_kernel_names(graph, replays=3):
+    """The kernel names of ``replays`` replays of an InferenceGraph under
+    torch.profiler (led in by one replay, whose records a window may lose;
+    taken again up to three times if the window lost kernels)."""
+    from collections import Counter
+    counts = Counter()
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            with graph.lock:
+                graph.graph.replay()
+                torch.cuda.synchronize()
+                for _ in range(replays):
+                    graph.graph.replay()
+                torch.cuda.synchronize()
+        counts = Counter(e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA)
+        if sum(c for n, c in counts.items() if "flash_fwd" in n) \
+                >= (replays + 1) * 2:
+            break
+    return counts
+
+
+def test_replica_added_under_traffic_replays_b1_and_matches_eager(card):
+    """A replica added (with a predictor of its own, as a rollout's canary
+    or an autoscaler's grow is) while four client threads keep two
+    replicas busy: it captures one graph per warm bucket before it takes
+    traffic and none after, its bucket graph replays B1 by kernel name
+    once a layer (the SIMT variant, f32), and every reply is within f32
+    summation order of the eager forward."""
+    import copy
+
+    import numpy as np
+
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.serving import InferenceServer, ServingConfig
+    pred, model = _bert_predictor(card)
+    cfg = infer.Config()
+    cfg.set_layer(model)
+    srv = InferenceServer(cfg, ServingConfig(
+        max_batch_size=4, replicas=2,
+        warmup_signatures=[(((256,), "int64"),)]))
+    srv.start()
+    rng = np.random.RandomState(4)
+    rows = rng.randint(0, 120, (48, 256)).astype("int64")
+    got, errors = {}, []
+
+    def client(k):
+        try:
+            for i in range(k, 48, 4):
+                got[i] = srv.infer([rows[i:i + 1]], timeout=120.0)[0]
+        except Exception as e:     # reported below
+            errors.append(repr(e))
+
+    twin = copy.deepcopy(model)
+    tcfg = infer.Config()
+    tcfg.set_layer(twin)
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+    for t in threads:
+        t.start()
+    idx = srv.scheduler.add_replica(
+        factory=lambda i: infer.create_predictor(tcfg))
+    new = srv.scheduler.find_replica(idx)
+    warm = new.compile_count
+    for t in threads:
+        t.join(timeout=300)
+    for i in range(8):          # traffic after the add, on 3 replicas
+        got[48 + i] = srv.infer([rows[i:i + 1]], timeout=120.0)[0]
+    srv.stop()
+    assert not errors and not any(t.is_alive() for t in threads), errors
+    assert warm == len(srv.config.buckets) == new.compile_count
+    graph = new.executor.predictor._jit_cache[(((4, 256), "int64"),)].graph
+    counts = _replay_kernel_names(graph)
+    b1 = sum(c for n, c in counts.items() if "flash_fwd_kernel" in n)
+    assert b1 == 4 * 2, counts           # 4 replays, 2 layers each
+    assert not any("softmax" in n.lower() for n in counts), counts
+    with torch.no_grad():
+        eager = model(torch.tensor(rows, device=card)).cpu().numpy()
+    for i, out in got.items():
+        np.testing.assert_allclose(out, eager[i % 48][None], rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_building_and_dropping_predictors_returns_their_memory(card):
+    """ROADMAP C14: a predictor's graphs, built and dropped again and
+    again on one thread (as a rollout's canaries and an autoscaler's
+    grows are), give back all the memory they took. Each graph used to
+    capture on a stream of its own, and cuBLAS keeps a workspace for every
+    stream it runs on for the life of the process."""
+    import gc
+
+    import numpy as np
+
+    from paddle_tpu_torch.serving import BucketedExecutor
+    ids = np.random.RandomState(7).randint(0, 120, (4, 256)).astype("int64")
+
+    def build_and_drop():
+        pred, model = _bert_predictor(card, bf16=True)
+        ex = BucketedExecutor(pred)
+        ex.warmup((((256,), "int64"),), [1, 2, 4])
+        ex.run([ids])
+        del ex, pred, model
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    base = build_and_drop()      # this thread's stream and workspace made
+    after = [build_and_drop() for _ in range(3)]
+    assert all(abs(a - base) <= 1 << 20 for a in after), (base, after)
+
+
+def test_socket_reply_from_the_card_equals_eager(card):
+    """A BERT predictor on the card behind SocketFrontend: each reply an
+    InferenceClient gets equals the eager forward of its row (f32
+    summation order); a predictor that returns CUDA tensors has them
+    copied to the host before they are framed (bf16 stays bf16)."""
+    import numpy as np
+
+    import paddle_tpu_torch.inference as infer
+    from paddle_tpu_torch.serving import (InferenceClient, InferenceServer,
+                                          ServingConfig, SocketFrontend)
+    pred, model = _bert_predictor(card)
+    cfg = infer.Config()
+    cfg.set_layer(model)
+    rows = np.random.RandomState(6).randint(0, 120, (6, 256)).astype("int64")
+
+    class OnCard:
+        def run(self, arrays):
+            with torch.no_grad():
+                x = model(torch.tensor(np.asarray(arrays[0]), device=card))
+            return [x, x.to(torch.bfloat16)]
+
+    got = {}
+    for name, src in (("predictor", cfg), ("tensors", lambda i: OnCard())):
+        srv = InferenceServer(src, ServingConfig(max_batch_size=2,
+                                                 replicas=1))
+        srv.start()
+        try:
+            with SocketFrontend(srv) as fe, \
+                    InferenceClient(fe.address) as cli:
+                got[name] = [cli.infer([r[None]], timeout=60.0)
+                             for r in rows]
+        finally:
+            srv.stop()
+    with torch.no_grad():
+        eager = model(torch.tensor(rows, device=card)).cpu()
+    for i in range(len(rows)):
+        np.testing.assert_allclose(got["predictor"][i][0],
+                                   eager[i:i + 1].numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        f32, bf16 = got["tensors"][i]
+        assert isinstance(f32, np.ndarray)
+        np.testing.assert_allclose(f32, eager[i:i + 1].numpy(), rtol=1e-4,
+                                   atol=1e-5)
+        assert bf16.dtype == torch.bfloat16 and bf16.device.type == "cpu"
+        assert torch.equal(bf16, torch.from_numpy(f32).to(torch.bfloat16))
+
 
 if __name__ == "__main__":
     import sys

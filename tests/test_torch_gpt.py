@@ -200,7 +200,9 @@ print(json.dumps({
 # metric, losses, vision data) and the script surface (ParamAttr, the
 # regularizers, sparse rows, devices, the tensor API), the autotuner
 # and data parallelism, fleet with its pipeline and checkpoint, and the
-# integrity, async checkpoint, profiler and expert-parallel modules
+# integrity, async checkpoint, profiler and expert-parallel modules, and
+# serving over the wire with live rollout, the autoscaler, disaggregated
+# prefill/decode and the chaos campaign
 PORT_MODULES = {
     "paddle_tpu_torch.amp.auto_cast", "paddle_tpu_torch.amp.grad_scaler",
     "paddle_tpu_torch.optimizer.lr", "paddle_tpu_torch.optimizer.optimizer",
@@ -290,6 +292,13 @@ PORT_MODULES = {
     # profiler's host API and the elastic expert-parallel engine
     "paddle_tpu_torch.resilience.integrity", "paddle_tpu_torch.profiler",
     "paddle_tpu_torch.distributed.fleet.expert_parallel",
+    # serving over the wire, live rollout, the autoscaler, disaggregated
+    # prefill/decode and the chaos campaign
+    "paddle_tpu_torch.serving.client", "paddle_tpu_torch.serving.rollout",
+    "paddle_tpu_torch.serving.autoscaler", "paddle_tpu_torch.serving.disagg",
+    "paddle_tpu_torch.serving.decode.kv_migrate",
+    "paddle_tpu_torch.resilience.campaign",
+    "paddle_tpu_torch.resilience.injection_sites",
 }
 
 

@@ -243,14 +243,8 @@ LATER = {
     ".incubate": {"asp"},
     ".resilience": set(),
     ".profiler": set(),
-    # ROADMAP A12: client.py, SocketFrontend, rollout.py, autoscaler.py;
-    # the quantized decode model
-    ".serving": {
-        "client", "InferenceClient", "RemoteInferenceError",
-        "SocketFrontend",
-        "rollout", "GoldenMismatch", "ManifestWatcher", "RolloutConfig",
-        "RolloutController", "RolloutError",
-        "autoscaler", "Autoscaler", "AutoscalerConfig"},
+    ".serving": set(),
+    # ROADMAP A12: the quantized decode model
     ".serving.decode": {"load_decode_model"},
     # ROADMAP A13: ast_transform.py and convert_operators.py; A12: the
     # serialized program's functionalized_call
@@ -323,6 +317,41 @@ def test_resilience_binds_its_submodules_names(name):
     assert getattr(res, name) is getattr(sub, name)
     assert name in res.__all__
     assert hasattr(ref_res, name)
+
+
+# the names the serving package binds from the modules that the socket
+# frontend, live rollout and the autoscaler brought (given up by LATER)
+SERVING_NAMES = {
+    "client": ("InferenceClient", "RemoteInferenceError"),
+    "server": ("SocketFrontend",),
+    "rollout": ("GoldenMismatch", "ManifestWatcher", "RolloutConfig",
+                "RolloutController", "RolloutError"),
+    "autoscaler": ("Autoscaler", "AutoscalerConfig"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(
+    n for names in SERVING_NAMES.values() for n in names))
+def test_serving_binds_its_submodules_names(name):
+    import importlib
+
+    import paddle_tpu.serving as ref_serving
+    import paddle_tpu_torch.serving as serving
+    module = next(m for m, names in SERVING_NAMES.items() if name in names)
+    sub = importlib.import_module(f"paddle_tpu_torch.serving.{module}")
+    assert getattr(serving, name) is getattr(sub, name)
+    assert name in serving.__all__
+    assert name in ref_serving.__all__
+    assert getattr(ref_serving, name).__name__ == name
+
+
+@pytest.mark.parametrize("module", sorted(SERVING_NAMES) + ["disagg"])
+def test_serving_submodules_are_bound_like_the_references(module, fresh_names):
+    """``serving.client``, ``.rollout``, ``.autoscaler`` and ``.server``
+    are bound on a fresh import of either package; ``disagg`` on neither
+    (it is imported by ``attach_disagg``)."""
+    ref_names, port_names = fresh_names[".serving"]
+    assert (module in port_names) == (module in ref_names)
 
 
 # -- the nn.Layer API (step 2.1) ---------------------------------------------------

@@ -633,13 +633,27 @@ def test_chaos_retries_absorb_both_faults():
     assert {"ReplicaDead", "DistributedTimeout"} <= set(got["recorder"])
 
 
-def test_not_ported_attachments_raise():
+def test_not_ported_attachments_raise(tmp_path):
+    """The attachments that raised until the autoscaler, the rollout and
+    disagg were ported now attach, and the server ticks and reports each."""
+    from paddle_tpu_torch.core import device as port_device
+    from paddle_tpu_torch.serving.disagg import DisaggController
     srv, _ = make_server(PKGS[1])
-    for attach in (lambda: srv.attach_autoscaler(),
-                   lambda: srv.attach_rollout("root", None),
-                   lambda: srv.attach_disagg()):
-        with pytest.raises(NotImplementedError, match="A12"):
-            attach()
+    before = port_device._current
+    pt.set_device("cpu")
+    try:
+        asc = srv.attach_autoscaler()
+        rc = srv.attach_rollout(str(tmp_path / "root"), None)
+        ctl = srv.attach_disagg()
+    finally:
+        port_device._current = before
+    assert isinstance(asc, port_serving.Autoscaler)
+    assert isinstance(rc, port_serving.RolloutController)
+    assert isinstance(ctl, DisaggController)
+    srv.pump(1)
+    stats = srv.stats()
+    assert {"autoscaler", "rollout", "disagg"} <= set(stats)
+    assert stats["rollout"]["state"] == "IDLE" and not srv.rollout_active()
 
 
 def test_threaded_server_serves_concurrent_clients():
